@@ -1,0 +1,123 @@
+"""Sampler output structures: fixed-shape tensors padded with -1.
+
+Counterpart of ``cugraph_gnn_tpu/sampler/output.py`` (the COO/CSC
+conversions come with a later slice).  Layout ("multihop ELL"):
+
+- ``levels[0]`` are the seeds; ``levels[l+1]`` holds the targets of hop l
+  (``levels[l]``, as a prefix) and then the nodes sampled from them.
+- ``hops[l]`` connects the targets in ``levels[l]`` to their sampled
+  neighbors, as local indices into ``levels[l+1]``, in a (S_l, k_l) block.
+
+A 2-layer GNN then runs input-side first:
+``h_1 = conv(x[levels[2]], hops[1])``, ``h_0 = conv(h_1, hops[0])``.
+Slots that are -1 carry garbage rows downstream; consumers mask with
+``HopBlock.mask``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, NamedTuple
+
+import torch
+
+
+class HopBlock(NamedTuple):
+    """Fixed-fanout bipartite block between level l (targets) and level
+    l+1 (sources)."""
+
+    neigh_local: torch.Tensor   # (S_l, k_l) int32 index into levels[l+1], -1 pad
+    neigh_global: torch.Tensor  # (S_l, k_l) int32 global node ids, -1 pad
+    edge_ids: torch.Tensor      # (S_l, k_l) int32 global edge ids, -1 pad
+
+    @property
+    def mask(self):
+        return self.neigh_local >= 0
+
+
+@dataclass
+class MultihopBatch:
+    """A sampled mini-batch with L hops.
+
+    levels: list of (S_l,) int32 global node ids, -1 padded.
+    level_counts: list of () int32 valid node counts per level.
+    hops: list of L HopBlocks, hops[l] between levels[l] and levels[l+1].
+    seed_count: () int32 number of valid seeds.
+    static_layout: True when levels[l+1] = [targets | neighbors row-major]
+      (the dedup=False layout), so neighbor activations are a free
+      slice + reshape instead of a row gather.
+    num_shards: blocks per level from a sharded sampler (1 here).
+
+    The batched sampler returns every tensor with a leading step axis (S,
+    ...); :meth:`step` takes one step's batch out of it.
+    """
+
+    levels: List[torch.Tensor]
+    level_counts: List[torch.Tensor]
+    hops: List[HopBlock]
+    seed_count: torch.Tensor
+    static_layout: bool = False
+    num_shards: int = 1
+
+    @property
+    def num_hops(self) -> int:
+        return len(self.hops)
+
+    @property
+    def input_nodes(self):
+        """Deepest level: the nodes whose features must be gathered."""
+        return self.levels[-1]
+
+    def step(self, i: int) -> "MultihopBatch":
+        """Step ``i`` of a batch with a leading step axis (the batched
+        sampler's output): index every tensor with ``[i]``."""
+        return MultihopBatch(
+            levels=[a[i] for a in self.levels],
+            level_counts=[a[i] for a in self.level_counts],
+            hops=[HopBlock(*(a[i] for a in hop)) for hop in self.hops],
+            seed_count=self.seed_count[i],
+            static_layout=self.static_layout,
+            num_shards=self.num_shards)
+
+    def dst_activations(self, h, hop_index: int):
+        """The level-l target rows of ``h``, the level-(l+1) activations."""
+        s_l = self.hops[hop_index].neigh_local.shape[0]
+        return shard_prefix(h, s_l, self.num_shards)
+
+    def gather_neighbors(self, h, hop_index: int):
+        """Neighbor activations (S_l, k, F) of hop l from the level-(l+1)
+        activations ``h``; -1 slots carry garbage rows (mask with
+        hops[l].mask).  A free slice + reshape in the static layout."""
+        hop = self.hops[hop_index]
+        s_l, k = hop.neigh_local.shape
+        w = self.num_shards
+        if self.static_layout and h.shape[0] == s_l * (k + 1):
+            t_l, t_next = s_l // w, h.shape[0] // w
+            body = h.reshape(w, t_next, h.shape[-1])[:, t_l:]
+            return body.reshape(s_l, k, h.shape[-1])
+        return shard_gather(h, hop.neigh_local, w)
+
+
+def shard_prefix(h, s_l: int, num_shards: int = 1):
+    """First s_l / W rows of each of W equal blocks of ``h`` (h[:s_l] when
+    W == 1): per-shard levels put targets first."""
+    if num_shards == 1:
+        return h[:s_l]
+    t_next = h.shape[0] // num_shards
+    t_l = s_l // num_shards
+    return h.reshape(num_shards, t_next, *h.shape[1:])[:, :t_l].reshape(
+        s_l, *h.shape[1:])
+
+
+def shard_gather(h, neigh_local, num_shards: int = 1):
+    """h[neigh_local] with shard-relative indices: row i of neigh_local
+    belongs to shard i // (S_l / W) and indexes that shard's block of ``h``.
+    -1 indices read row 0 of the shard (callers mask)."""
+    safe = neigh_local.clamp(min=0).long()
+    if num_shards == 1:
+        return h[safe]
+    s_l = neigh_local.shape[0]
+    t_next = h.shape[0] // num_shards
+    t_l = s_l // num_shards
+    off = (torch.arange(s_l, device=h.device) // t_l) * t_next
+    return h[safe + off[:, None]]

@@ -1,0 +1,116 @@
+"""Port parity: multi-hop uniform sampling in the static (dedup=False)
+layout, PyTorch port against the JAX package, replaying the JAX draws
+(one ``fold_in(key, h)`` stream per hop).  Exact equality."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cugraph_gnn_tpu.ops.window_gather import (
+    hub_fraction,
+    hub_fraction_edgewise,
+    pad_to_lines,
+)
+from cugraph_gnn_tpu.sampler import neighbor_sampler as jax_ns
+from cugraph_gnn_tpu_torch.sampler import neighbor_sampler as port_ns
+
+FANOUTS = (4, 3)
+S, B = 3, 12
+
+
+def _graph(seed=0, n=250):
+    """Rows of degree 0, <= fanout, and above 128."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 30, n)
+    deg[::11] = 0
+    deg[1::9] = rng.integers(1, 4, deg[1::9].shape[0])
+    deg[2::71] = 200
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    indices = rng.integers(0, n, int(indptr[-1])).astype(np.int32)
+    return indptr, indices
+
+
+def _seeds(shape, n, seed=1):
+    seeds = np.random.default_rng(seed).integers(0, n, shape).astype(np.int32)
+    seeds.reshape(-1)[::5] = -1
+    return seeds
+
+
+def _replayed_draws(key, batch, fanouts):
+    """The uniforms the JAX sampler draws for hop h: fold_in(key, h) over
+    the flattened frontier of that hop."""
+    us, t = [], batch
+    for h, k in enumerate(fanouts):
+        us.append(np.array(jax.random.uniform(jax.random.fold_in(key, h),
+                                              (t, k))))
+        t *= k + 1
+    return us
+
+
+def _assert_same(port, ref):
+    assert port.static_layout and ref.static_layout
+    for a, b in zip(port.levels, ref.levels):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for a, b in zip(port.level_counts, ref.level_counts):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(port.seed_count.numpy(),
+                                  np.asarray(ref.seed_count))
+    for hp, hr in zip(port.hops, ref.hops):
+        for name in ("neigh_local", "neigh_global", "edge_ids"):
+            np.testing.assert_array_equal(getattr(hp, name).numpy(),
+                                          np.asarray(getattr(hr, name)))
+        np.testing.assert_array_equal(hp.mask.numpy(), np.asarray(hr.mask))
+
+
+@pytest.mark.parametrize("path", ["plain", "window"])
+def test_multihop_batched_matches_jax(path):
+    indptr, indices = _graph()
+    n = indptr.shape[0] - 1
+    seeds = _seeds((S, B), n)
+    key = jax.random.PRNGKey(11)
+    if path == "plain":
+        jax_indices, kw = jnp.asarray(indices), {}
+    else:
+        # bench.py's call: line view, static max degree, hub fractions
+        jax_indices = jnp.asarray(pad_to_lines(indices))
+        deg = indptr[1:] - indptr[:-1]
+        kw = dict(indices2d=jax_indices.reshape(-1, 128),
+                  max_degree=int(deg.max()),
+                  hub_frac=(hub_fraction(indptr), hub_fraction_edgewise(indptr)))
+    ref = jax_ns.multihop_uniform_batched(key, jnp.asarray(indptr), jax_indices,
+                                          jnp.asarray(seeds), FANOUTS, **kw)
+    port = port_ns.multihop_uniform_batched(
+        indptr, indices, seeds, FANOUTS,
+        u=_replayed_draws(key, S * B, FANOUTS), device="cpu")
+    _assert_same(port, ref)
+    for s in range(S):
+        _assert_same(port.step(s), jax.tree_util.tree_map(lambda a: a[s], ref))
+
+
+def test_multihop_single_matches_jax():
+    indptr, indices = _graph(2)
+    seeds = _seeds((B,), indptr.shape[0] - 1, seed=3)
+    key = jax.random.PRNGKey(5)
+    ref = jax_ns.multihop_uniform(key, jnp.asarray(indptr), jnp.asarray(indices),
+                                  jnp.asarray(seeds), FANOUTS, dedup=False)
+    port = port_ns.multihop_uniform(indptr, indices, seeds, FANOUTS, dedup=False,
+                                    u=_replayed_draws(key, B, FANOUTS),
+                                    device="cpu")
+    _assert_same(port, ref)
+    assert port_ns.level_capacities(B, FANOUTS) == jax_ns.level_capacities(
+        B, FANOUTS)
+
+
+def test_multihop_dedup_waits_and_generator_draws():
+    indptr, indices = _graph(4)
+    seeds = _seeds((B,), indptr.shape[0] - 1)
+    with pytest.raises(NotImplementedError, match="append_unique"):
+        port_ns.multihop_uniform(indptr, indices, seeds, FANOUTS, device="cpu")
+    # without u, the draws come from the generator: same seed, same sample
+    a, b = (port_ns.multihop_uniform(
+        indptr, indices, seeds, FANOUTS, dedup=False, device="cpu",
+        generator=torch.Generator().manual_seed(9)) for _ in range(2))
+    for x, y in zip(a.levels, b.levels):
+        assert torch.equal(x, y)
