@@ -1,11 +1,13 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
-``_build/lib<name>-<digest>.so``, where the digest covers the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.  Sources
+``_build/lib<name>-<digest>.so``, where the digest covers the source, the
+shared ``csrc/*.cuh`` headers and the flags, so an edited source is rebuilt
+and an unchanged one is reused.  Sources
 are compiled at first use; :func:`build` starts one nvcc per source, all at
 once.  ``torch.utils.cpp_extension`` is not used: a source that includes
 PyTorch's headers takes minutes to compile, a plain C one seconds.
+:func:`host_library` builds host C++ (``cpp/``) the same way, with g++.
 """
 
 from __future__ import annotations
@@ -54,11 +56,40 @@ def nvcc() -> str:
     return found
 
 
+def _digest(sources: Sequence[Path], flags: Sequence[str]) -> str:
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(src.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    # the digest covers the shared headers too, so editing one rebuilds
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    return BUILD_DIR / f"lib{name}-{_digest(sources, NVCC_FLAGS)}.so"
+
+
+def host_library(name: str, sources: Sequence[Path], flags: Sequence[str]) -> Path:
+    """``_build/lib<name>-<digest>.so`` compiled from the C++ ``sources`` by
+    the host compiler (g++) with ``flags``, reused while sources and flags
+    are unchanged.  Raises FileNotFoundError when there is no g++, and
+    RuntimeError with the compiler's output when the build fails."""
+    lib = BUILD_DIR / f"lib{name}-{_digest(sources, flags)}.so"
+    if lib.exists():
+        return lib
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise FileNotFoundError("g++ not found on PATH")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *flags, "-o", str(tmp), *map(str, sources)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {name}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
 
 
 def build(names: Sequence[str]) -> Dict[str, Built]:

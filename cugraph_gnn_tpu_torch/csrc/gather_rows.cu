@@ -22,45 +22,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_io.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = kThreads / 32;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
-  v[0] = __low2float(a); v[1] = __high2float(a);
-  v[2] = __low2float(b); v[3] = __high2float(b);
-}
-
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 t;
-  t.x = *reinterpret_cast<const unsigned int*>(&a);
-  t.y = *reinterpret_cast<const unsigned int*>(&b);
-  *reinterpret_cast<uint2*>(p) = t;
-}
+using row_io::aligned;
+using row_io::from_float;
+using row_io::load4;
+using row_io::store4;
+using row_io::to_float;
 
 template <typename TIn, typename TOut, typename TId>
 __global__ void __launch_bounds__(kThreads)
@@ -88,10 +61,6 @@ gather_rows_kernel(const TIn* __restrict__ table, const TId* __restrict__ ids,
       for (int64_t j = lane; j < f; j += 32) dst[j] = from_float<TOut>(to_float(src[j]));
     }
   }
-}
-
-bool aligned(const void* p, size_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 template <typename TIn, typename TOut, typename TId>

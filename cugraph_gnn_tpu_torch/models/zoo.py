@@ -1,8 +1,8 @@
-"""Model zoo over sampled multihop batches (torch.nn).
+"""Model zoo over sampled multihop batches and full graphs (torch.nn).
 
-Counterpart of ``cugraph_gnn_tpu/models/zoo.py``: ``MultihopModel``'s sampled
-forward and ``GraphSAGE`` (the full-batch paths, dropout, degree inputs and
-the other models come with later slices).
+Counterpart of ``cugraph_gnn_tpu/models/zoo.py``: ``MultihopModel`` (the
+sampled forward, ``full`` and ``full_graph``), ``GraphSAGE`` and ``GCN``.
+Dropout, degree inputs and the other models come with later slices.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from cugraph_gnn_tpu_torch._device import resolve_device
-from cugraph_gnn_tpu_torch.models.conv import SAGEConv
+from cugraph_gnn_tpu_torch.models.conv import GCNConv, SAGEConv
 from cugraph_gnn_tpu_torch.sampler.output import MultihopBatch
 
 
@@ -40,6 +40,29 @@ class MultihopModel(nn.Module):
                 h = torch.relu(h)
         return h
 
+    def full(self, x, src, dst, num_nodes: int):
+        """Full batch over COO edges src -> dst."""
+        h = x
+        for i, conv in enumerate(self.convs):
+            h = conv.full(h, src, dst, num_nodes)
+            if i != len(self.convs) - 1:
+                h = torch.relu(h)
+        return h
+
+    def full_graph(self, x, fbg):
+        """Full batch through ``fbg`` (an ``ops.full_batch.FullBatchGraph``);
+        x in its graph order."""
+        h = x
+        for i, conv in enumerate(self.convs):
+            h = conv.full_graph(h, fbg)
+            if i != len(self.convs) - 1:
+                h = torch.relu(h)
+        return h
+
+
+def _dims(in_features, hidden_features, out_features, num_layers):
+    return [in_features] + [hidden_features] * (num_layers - 1) + [out_features]
+
 
 class GraphSAGE(MultihopModel):
     """``num_layers`` SAGEConvs: in -> hidden -> ... -> out.  Layer i is
@@ -51,7 +74,22 @@ class GraphSAGE(MultihopModel):
                  aggr: str = "mean", dtype: Optional[torch.dtype] = None,
                  device=None):
         dev = resolve_device(device)
-        dims = [in_features] + [hidden_features] * (num_layers - 1) + [out_features]
+        dims = _dims(in_features, hidden_features, out_features, num_layers)
         super().__init__([
             SAGEConv(dims[i], dims[i + 1], aggr=aggr, dtype=dtype, device=dev)
+            for i in range(num_layers)])
+
+
+class GCN(MultihopModel):
+    """``num_layers`` GCNConvs: in -> hidden -> ... -> out.  Layer i is
+    ``convs[i]`` (flax's ``conv_<i>``).  Built on ``device`` (default: the
+    card)."""
+
+    def __init__(self, in_features: int, hidden_features: int = 256,
+                 out_features: int = 64, num_layers: int = 2,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        dev = resolve_device(device)
+        dims = _dims(in_features, hidden_features, out_features, num_layers)
+        super().__init__([
+            GCNConv(dims[i], dims[i + 1], dtype=dtype, device=dev)
             for i in range(num_layers)])
