@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``cugraph_gnn_tpu_torch``) on one
 NVIDIA GPU: builds the kernels, holds each against its plain PyTorch version
 at the training paths' shapes and times it, then trains sampled GraphSAGE at
-the full width of ``bench.py``'s configuration, and full-batch GraphSAGE and
-GCN over a banded graph at ogbn-products scale.
+the full width of ``bench.py``'s configuration, and full-batch GraphSAGE,
+GCN and 4-head GAT over a banded graph at ogbn-products scale.
 
     python3 chip_smoke.py
 
@@ -49,7 +49,29 @@ Phases (any failure raises and exits non-zero):
    each; finite losses, and 3 band-kernel and 3 CSR-kernel launches per step
    (two forward aggregations and one backward: layer 0's input needs no
    gradient).  Then one step timed stage by stage.
-10. the ``kernels`` summary line, and last the ``ok`` line.
+10. attention pairs: the graph's (R = 256, bit planes: the band CSR by
+    source) and a second ``FullBatchGraph`` of the same graph at R = 512
+    (no bit planes: ``t_ell``); host seconds of each.
+11. attention kernels at full width: the forward and backward kernels on
+    both pairs at GAT's two layers' shapes (H=4, F=64 and H=1, F=47, f32 x)
+    plus one bf16-x forward, against their plain versions: within 1e-5
+    absolute plus 1e-5 of the same sums over the terms' magnitudes (|x|,
+    and for the backward |g| and -|t|: every term's absolute value; the
+    kernels sum in another order and factor the dot products out of the
+    sums), m equal and s within 1e-5.  Then CUDA-event times of kernel and
+    plain version at the main path's calls, with the byte and operation
+    counts that bound them (no single PyTorch call computes the fused
+    attention: library_ms is null).
+12. small-input agreement, GAT: three f32 full-batch steps on the card and
+    on the CPU from the same weights; losses within 1e-4.
+13. full-batch GAT train (``gat4h``: 4 heads of 64, then 47 classes, f32,
+    Adam 5e-3), 1 warm-up and 3 timed steps at R = 256; finite losses and,
+    per step, 2 forward attention launches and 2 ``onepass_bwd`` launches
+    (layer 0's input ``wx`` needs a gradient: ``lin`` has parameters), no
+    other kernel.  Then one step timed stage by stage, and one step at
+    R = 512: 2 forward launches, 1 ``slab_attention_bwd`` (layer 1, H = 1)
+    and 1 ``slab_attention_bwd_mh`` (layer 0, H = 4).
+14. the ``kernels`` summary line, and last the ``ok`` line.
 
 Every JSON line carries the card's name and power limit.
 """
@@ -71,7 +93,9 @@ H100_F32_OPS = 67e12   # H100 SXM float32 outside the tensor cores (data sheet)
 
 def full_batch(dev, emit, cuda_ms, hbm, counters):
     """Phases 6-9 (see the module docstring).  Returns the ``kernels`` rows
-    of the band kernel and the CSR SpMM kernel."""
+    of the band kernel and the CSR SpMM kernel, and what the GAT phases
+    reuse: the graph's COO, its ``FullBatchGraph``, f32 features and
+    labels."""
     import torch
     from torch.nn import functional as F
 
@@ -261,6 +285,8 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
 
     # -- 9. full-batch train at full width ----------------------------------
     x, labels = g.feats.to(torch.bfloat16), g.labels
+    reused = {"src": g.src, "dst": g.dst, "fbg": fbg, "feats": g.feats,
+              "labels": labels}
     del g
     torch.cuda.empty_cache()
     steps = 4
@@ -290,7 +316,7 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
                   "warmup": step == 0, "loss": v, "ms_per_step": dt * 1e3,
                   "edges_per_s": edges / dt})
         launches = {fn.__name__: fn.launches for fn in counters}
-        want = {"gather_rows": 0, "fused_uniform_sample": 0,
+        want = {**{fn.__name__: 0 for fn in counters},
                 "slab_spmm_band": 3 * steps, "csr_spmm": 3 * steps}
         emit({"phase": "full_batch_launch_counts", "model": name, "steps": steps,
               "launches": launches, "expected": want,
@@ -321,7 +347,7 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
                 "library_ms": sum(r["library_ms"] for r in rows)}
 
     # each row's times are one training step's three calls added together
-    return [
+    return reused, [
         kernel_row("slab_spmm", "cugraph_gnn_tpu_torch/csrc/slab_spmm.cu",
                    "cugraph_gnn_tpu/ops/pallas/slab_kernel.py:267",
                    totals["slab_spmm_band"], errs["slab_spmm"]),
@@ -331,11 +357,258 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
     ]
 
 
-def _staged_step(model, opt, x, fbg, labels, F):
-    """One full-batch step with CUDA events around its stages: the slab
-    SpMMs (forward, and backward through the transpose), the rest of forward
-    and backward (Linears, ReLU, casts; loss backward), the loss and Adam.
-    Returns milliseconds per stage."""
+def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
+    """Phases 10-13 (see the module docstring) on the graph of phase 6.
+    Returns the ``kernels`` rows of the attention kernels."""
+    import torch
+    from torch.nn import functional as F
+
+    from cugraph_gnn_tpu_torch import train_full as TF
+    from cugraph_gnn_tpu_torch.models.zoo import GAT
+    from cugraph_gnn_tpu_torch.ops.full_batch import FullBatchGraph
+    from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as AG
+    from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import (
+        slab_attention_spmm_mh,
+        slab_attention_spmm_mh_ref,
+    )
+
+    fbg = reused["fbg"]
+    n = fbg.num_nodes
+    edges = len(reused["src"])
+
+    # -- 10. attention pairs --------------------------------------------------
+    t0 = time.perf_counter()
+    fbg512 = FullBatchGraph.from_coo(reused["src"], reused["dst"], n, reorder="none",
+                                     block_rows=512, device=dev)
+    graph512_s = time.perf_counter() - t0
+    pairs = {256: fbg.attention_pair, 512: fbg512.attention_pair}
+    torch.cuda.synchronize()
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    def valid(t):
+        return int((t >= 0).sum())
+
+    emit({"phase": "attention_pairs", "full_batch_graph_512_s": graph512_s,
+          "build_seconds": {r: f.build_seconds for r, f in ((256, fbg), (512, fbg512))},
+          **{f"R{r}": {"band_fraction": p.fwd.band_fraction,
+                       "band_edges": valid(p.fwd.ell), "fallback_edges": valid(p.fwd.fb_src),
+                       "ell_k": p.fwd.ell.shape[1],
+                       "t_ell_k": None if p.t_ell is None else p.t_ell.shape[1],
+                       "transpose_index_bytes": nbytes(p.t_ell, p.t_rowptr, p.t_rows)}
+             for r, p in pairs.items()}})
+    if pairs[256].t_ell is not None or pairs[512].t_ell is None:
+        raise AssertionError("R = 256 must take the band CSR, R = 512 t_ell")
+
+    # -- 11. attention kernels at full width ---------------------------------
+    def check(name, got, want, magnitude, what):
+        """Within 1e-5 absolute plus 1e-5 of ``magnitude``; returns the max
+        abs difference."""
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        if not bool((diff <= 1e-5 + 1e-5 * magnitude).all()):
+            raise AssertionError(f"{name} {what}: off its plain version by "
+                                 f"{float(diff.max())}")
+        return float(diff.max())
+
+    def bound(nb, ops):
+        b_ms, o_ms = nb / hbm * 1e3, ops / H100_F32_OPS * 1e3
+        return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+    layers = {"layer0": (TF.HEADS, TF.HIDDEN // TF.HEADS), "layer1": (1, TF.CLASSES)}
+    names = ("slab_attention_fwd", "slab_attention_bwd_onepass", "slab_attention_bwd",
+             "slab_attention_bwd_mh")
+    timing = {k: [] for k in names}
+    errs = {k: 0.0 for k in names}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for r_blk, pair in pairs.items():
+        graph = pair.fwd
+        e_all = valid(graph.ell) + valid(graph.fb_src)
+        graph_bytes = nbytes(graph.ell, graph.fb_rowptr, graph.fb_src)
+        t_bytes = nbytes(pair.t_ell, pair.t_rowptr, pair.t_rows, pair.fb_t_rowptr,
+                         pair.fb_t_dst)
+        for layer, (h, f) in layers.items():
+            x = torch.randn((n, h, f), generator=gen, device=dev)
+            ad, as_ = (torch.randn((n, h), generator=gen, device=dev) for _ in range(2))
+            g = torch.randn((n, h, f), generator=gen, device=dev)
+            what = f"R={r_blk} {layer} H={h} F={f}"
+            out, m, s = slab_attention_spmm_mh(graph, x, ad, as_, return_stats=True)
+            want, m_w, s_w = slab_attention_spmm_mh_ref(graph, x, ad, as_, return_stats=True)
+            e_f = check("slab_attention_fwd", out, want,
+                        slab_attention_spmm_mh_ref(graph, x.abs(), ad, as_), what)
+            if not torch.equal(m, m_w) or not torch.allclose(s, s_w, rtol=1e-5, atol=0):
+                raise AssertionError(f"slab_attention_fwd {what}: stats differ")
+            errs["slab_attention_fwd"] = max(errs["slab_attention_fwd"], e_f)
+            del want, m_w, s_w
+            if r_blk == 256 and layer == "layer0":
+                xb = x.to(torch.bfloat16)
+                e_b = check("slab_attention_fwd", slab_attention_spmm_mh(graph, xb, ad, as_),
+                            slab_attention_spmm_mh_ref(graph, xb, ad, as_),
+                            slab_attention_spmm_mh_ref(graph, xb.float().abs(), ad, as_),
+                            what + " bf16 x")
+                emit({"phase": "attention_kernel_check", "kernel": "slab_attention_fwd",
+                      "case": what + " bf16 x", "max_abs_err": e_b})
+                del xb
+            t = (g * out).sum(-1)
+            key = ("slab_attention_bwd_onepass" if pair.t_ell is None else
+                   "slab_attention_bwd" if h == 1 else "slab_attention_bwd_mh")
+            got = AG.slab_attention_bwd_mh(pair, x, ad, as_, m, s, t, g)
+            ref = AG.slab_attention_bwd_ref(pair, x, ad, as_, m, s, t, g)
+            mag = AG.slab_attention_bwd_ref(pair, x.abs(), ad, as_, m, s, -t.abs(), g.abs())
+            e_b = max(check(key, a, b, c, f"{what} {nm}")
+                      for a, b, c, nm in zip(got, ref, mag, ("dx", "dad", "das")))
+            errs[key] = max(errs[key], e_b)
+            del got, ref, mag
+            emit({"phase": "attention_kernel_check", "case": what,
+                  "max_abs_err": {"slab_attention_fwd": e_f, key: e_b},
+                  "tolerance": "1e-5 abs + 1e-5 x the terms' magnitude sum; "
+                               "m equal, s within 1e-5"})
+            torch.cuda.empty_cache()
+
+            # times at the main path's calls: both layers at R = 256 (rows 5
+            # and 6); at R = 512 the backward (rows 7 and 8)
+            hf = h * f
+            rows_out = []
+            if r_blk == 256:
+                fb_ = nbytes(x, ad, as_) + graph_bytes + 4 * n * hf + 8 * n * h
+                rows_out.append(("slab_attention_fwd", fb_, e_all * h * (2 * f + 5),
+                                 lambda: slab_attention_spmm_mh(graph, x, ad, as_,
+                                                                return_stats=True),
+                                 lambda: slab_attention_spmm_mh_ref(graph, x, ad, as_,
+                                                                    return_stats=True)))
+            bb = (nbytes(x, g, ad, as_, m, s, t) + graph_bytes + t_bytes
+                  + 4 * n * hf + 8 * n * h)
+            rows_out.append((key, bb, e_all * h * (4 * f + 10),
+                             lambda: AG.slab_attention_bwd_mh(pair, x, ad, as_, m, s, t, g),
+                             lambda: AG.slab_attention_bwd_ref(pair, x, ad, as_, m, s, t, g)))
+            for name, nb, ops, kern, plain in rows_out:
+                b_ms, b_by = bound(nb, ops)
+                row = {"kernel": name, "block_rows": r_blk, "layer": layer, "heads": h,
+                       "f": f, "dtype": "float32", "edges": e_all,
+                       "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                       "library_ms": None, "bytes": nb, "operations": ops,
+                       "bound_ms": b_ms, "bound_by": b_by}
+                emit(row)
+                timing[name].append(row)
+            del x, ad, as_, g, out, m, s, t
+            torch.cuda.empty_cache()
+
+    # -- 12. small input, GAT: card against CPU -------------------------------
+    small = TF.make_synthetic_banded(3, "cpu", num_nodes=3000, deg=8, band=100,
+                                     feat_dim=16, classes=5)
+    kw = dict(reorder="none", block_rows=TF.BLOCK_ROWS)
+    fb_cpu = FullBatchGraph.from_coo(small.src, small.dst, 3000, device="cpu", **kw)
+    fb_gpu = FullBatchGraph.from_coo(small.src, small.dst, 3000, device=dev, **kw)
+    torch.manual_seed(3)
+    m_cpu = GAT(16, 32, 5, heads=TF.HEADS, device="cpu")
+    m_gpu = GAT(16, 32, 5, heads=TF.HEADS, device=dev)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    o_cpu = torch.optim.Adam(m_cpu.parameters(), lr=TF.LR)
+    o_gpu = torch.optim.Adam(m_gpu.parameters(), lr=TF.LR)
+    loss_diff = 0.0
+    for _ in range(3):
+        l_cpu = TF.full_batch_step(m_cpu, o_cpu, small.feats, fb_cpu, small.labels)
+        l_gpu = TF.full_batch_step(m_gpu, o_gpu, small.feats.to(dev), fb_gpu,
+                                   small.labels.to(dev))
+        loss_diff = max(loss_diff, abs(float(l_cpu) - float(l_gpu)))
+    if not loss_diff <= 1e-4:
+        raise AssertionError(f"small full-batch GAT f32 steps: card vs CPU loss "
+                             f"differ by {loss_diff}")
+    emit({"phase": "small_input_agreement_full_batch", "model": "gat", "steps": 3,
+          "max_loss_abs_diff": loss_diff, "tolerance": 1e-4})
+
+    # -- 13. full-batch GAT train at full width ------------------------------
+    x, labels = reused["feats"], reused["labels"]
+    totals = {fn.__name__: 0 for fn in counters}
+
+    def train(graph, steps, want_per_step, tag):
+        torch.manual_seed(0)
+        model = GAT(TF.FEAT_DIM, TF.HIDDEN, TF.CLASSES, heads=TF.HEADS, device=dev)
+        opt = torch.optim.Adam(model.parameters(), lr=TF.LR)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters:
+            fn.launches = 0
+        timed = []
+        for step in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = TF.full_batch_step(model, opt, x, graph, labels)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            v = float(loss)
+            if not math.isfinite(v):
+                raise AssertionError(f"gat {tag}: non-finite loss at step {step}")
+            if step or steps == 1:
+                timed.append(dt)
+            emit({"phase": "full_batch_train", "model": "gat", "graph": tag,
+                  "step": step, "warmup": step == 0 and steps > 1, "loss": v,
+                  "ms_per_step": dt * 1e3, "edges_per_s": edges / dt})
+        launches = {fn.__name__: fn.launches for fn in counters}
+        want = {**{fn.__name__: 0 for fn in counters},
+                **{k: v * steps for k, v in want_per_step.items()}}
+        emit({"phase": "full_batch_launch_counts", "model": "gat", "graph": tag,
+              "steps": steps, "launches": launches, "expected": want,
+              "ms_per_step": sum(timed) * 1e3 / len(timed),
+              "edges_per_s": edges * len(timed) / sum(timed),
+              "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        if launches != want:
+            raise AssertionError(f"gat {tag}: kernel launches {launches}, expected {want}")
+        for k in totals:
+            totals[k] += launches[k]
+        return model, opt
+
+    model, opt = train(fbg, 4, {"slab_attention_spmm_mh": 2, "onepass_bwd": 2}, "R256")
+    emit({"phase": "full_batch_stages", "model": "gat",
+          "ms": {**_staged_step(model, opt, x, fbg, labels, F,
+                                method="attention_spmm_mh", label="attention"),
+                 "fallback": "inside the attention kernels"}})
+    with torch.no_grad():
+        logits = model.full_graph(x, fbg)
+    if logits.shape != (n, TF.CLASSES) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"gat: logits {tuple(logits.shape)} not finite")
+    del model, opt, logits
+    torch.cuda.empty_cache()
+    model, opt = train(fbg512, 1, {"slab_attention_spmm_mh": 2, "slab_attention_bwd": 1,
+                                   "slab_attention_bwd_mh": 1}, "R512")
+    del model, opt, fbg512
+    torch.cuda.empty_cache()
+
+    def kernel_row(name, replaces, counter):
+        rows = timing[name]
+        return {"name": name, "route": "cuda",
+                "source": "cugraph_gnn_tpu_torch/csrc/" + (
+                    "slab_attn_fwd.cu" if name == "slab_attention_fwd" else "slab_attn_bwd.cu"),
+                "replaces": replaces, "launches": totals[counter],
+                "max_abs_err": errs[name], "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": sum(r["bound_ms"] for r in rows),
+                "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                else "operations", "library_ms": None}
+
+    # rows 5 and 6: one R = 256 step's two calls added; rows 7 and 8: the
+    # R = 512 step's call of each
+    return [
+        kernel_row("slab_attention_fwd", "cugraph_gnn_tpu/ops/pallas/slab_kernel.py:438",
+                   "slab_attention_spmm_mh"),
+        kernel_row("slab_attention_bwd_onepass",
+                   "cugraph_gnn_tpu/ops/pallas/slab_attn_grad.py:333", "onepass_bwd"),
+        kernel_row("slab_attention_bwd", "cugraph_gnn_tpu/ops/pallas/slab_attn_grad.py:507",
+                   "slab_attention_bwd"),
+        kernel_row("slab_attention_bwd_mh",
+                   "cugraph_gnn_tpu/ops/pallas/slab_attn_grad.py:689",
+                   "slab_attention_bwd_mh"),
+    ]
+
+
+def _staged_step(model, opt, x, fbg, labels, F, method="spmm", label="spmm"):
+    """One full-batch step with CUDA events around its stages: the graph
+    aggregations (``fbg.<method>``: the slab SpMMs, forward and backward
+    through the transpose, or the attention kernels, forward and backward),
+    the rest of forward and backward (Linears, ReLU, casts, scores; loss
+    backward), the loss and Adam.  Returns milliseconds per stage, the
+    aggregations' under ``label``."""
     import torch
 
     def event():
@@ -357,26 +630,26 @@ def _staged_step(model, opt, x, fbg, labels, F):
 
     fwd, bwd = [], []
 
+    def timed(h, *args, **kw):
+        grad = h.requires_grad
+        if grad:
+            start, end = event(), event()
+            h = Mark.apply(h, end)
+        a, b = event(), event()
+        a.record()
+        out = getattr(fbg, method)(h, *args, **kw)
+        b.record()
+        fwd.append((a, b))
+        if grad:
+            out = Mark.apply(out, start)
+            bwd.append((start, end))
+        return out
+
     class Timed:
-        """``fbg`` with every spmm call bracketed by events."""
+        """``fbg`` with every ``method`` call bracketed by events."""
 
         def __getattr__(self, name):
-            return getattr(fbg, name)
-
-        def spmm(self, h, reduce="mean", **kw):
-            grad = h.requires_grad
-            if grad:
-                start, end = event(), event()
-                h = Mark.apply(h, end)
-            a, b = event(), event()
-            a.record()
-            out = fbg.spmm(h, reduce, **kw)
-            b.record()
-            fwd.append((a, b))
-            if grad:
-                out = Mark.apply(out, start)
-                bwd.append((start, end))
-            return out
+            return timed if name == method else getattr(fbg, name)
 
     ev = {k: (event(), event()) for k in ("forward", "loss", "backward", "adam")}
     opt.zero_grad(set_to_none=True)
@@ -394,13 +667,13 @@ def _staged_step(model, opt, x, fbg, labels, F):
     ev["adam"][1].record()
     torch.cuda.synchronize()
     ms = {k: a.elapsed_time(b) for k, (a, b) in ev.items()}
-    spmm_fwd = sum(a.elapsed_time(b) for a, b in fwd)
-    spmm_bwd = sum(a.elapsed_time(b) for a, b in bwd)
-    return {"spmm_kernels": spmm_fwd + spmm_bwd, "spmm_forward": spmm_fwd,
-            "spmm_backward": spmm_bwd,
-            "linears_and_elementwise": ms["forward"] - spmm_fwd
-            + ms["backward"] - spmm_bwd,
-            "loss": ms["loss"], "adam": ms["adam"], "spmm_calls": [len(fwd), len(bwd)]}
+    agg_fwd = sum(a.elapsed_time(b) for a, b in fwd)
+    agg_bwd = sum(a.elapsed_time(b) for a, b in bwd)
+    return {f"{label}_kernels": agg_fwd + agg_bwd, f"{label}_forward": agg_fwd,
+            f"{label}_backward": agg_bwd,
+            "linears_and_elementwise": ms["forward"] - agg_fwd
+            + ms["backward"] - agg_bwd,
+            "loss": ms["loss"], "adam": ms["adam"], f"{label}_calls": [len(fwd), len(bwd)]}
 
 
 def main() -> None:
@@ -423,6 +696,8 @@ def main() -> None:
         multihop_uniform_batched,
     )
     from cugraph_gnn_tpu_torch import train as T
+    from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as AG
+    from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import slab_attention_spmm_mh
     from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import slab_spmm_band
     from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import csr_spmm
 
@@ -447,7 +722,8 @@ def main() -> None:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build(["gather_rows", "uniform_sample", "slab_spmm", "csr_spmm"])
+    built = _build.build(["gather_rows", "uniform_sample", "slab_spmm", "csr_spmm",
+                          "slab_attn_fwd", "slab_attn_bwd"])
     wall = time.perf_counter() - t0
     for name, b in built.items():
         print(f"build {name}: {b.seconds:.1f} s -> {b.path.name}")
@@ -605,7 +881,9 @@ def main() -> None:
     blocks = 4
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = (gather_rows, fused_uniform_sample, slab_spmm_band, csr_spmm)
+    counters = (gather_rows, fused_uniform_sample, slab_spmm_band, csr_spmm,
+                slab_attention_spmm_mh, AG.onepass_bwd, AG.slab_attention_bwd,
+                AG.slab_attention_bwd_mh)
     for fn in counters:
         fn.launches = 0
     for blk in range(blocks):
@@ -622,8 +900,8 @@ def main() -> None:
               "sampled_edges": int(edges), "sampled_edges_per_s": int(edges) / dt,
               "max_memory_allocated": torch.cuda.max_memory_allocated()})
     launches = {fn.__name__: fn.launches for fn in counters}
-    want = {"gather_rows": T.REPS * blocks, "fused_uniform_sample": 2 * blocks,
-            "slab_spmm_band": 0, "csr_spmm": 0}
+    want = {**{fn.__name__: 0 for fn in counters},
+            "gather_rows": T.REPS * blocks, "fused_uniform_sample": 2 * blocks}
     emit({"phase": "launch_counts", "blocks": blocks, "launches": launches,
           "expected": want})
     if launches != want:
@@ -655,9 +933,11 @@ def main() -> None:
     del graph, sample, blk_sample, hop_inputs, ids, seeds, u0, u1, x, st, logits
     torch.cuda.empty_cache()
 
-    fb_rows = full_batch(dev, emit, cuda_ms, hbm, counters)
+    reused, fb_rows = full_batch(dev, emit, cuda_ms, hbm, counters)
+    gat_rows = gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused)
+    del reused
 
-    # -- 10. summary --------------------------------------------------------
+    # -- 14. summary --------------------------------------------------------
     kernels.append({
         "name": "gather_rows", "route": "cuda",
         "source": "cugraph_gnn_tpu_torch/csrc/gather_rows.cu",
@@ -676,7 +956,7 @@ def main() -> None:
         "plain_ms": sum(r["plain_ms"] for r in b_rows),
         "bound_ms": sum(r["bound_ms"] for r in b_rows), "bound_by": "bytes",
         "library_ms": None})
-    kernels += fb_rows
+    kernels += fb_rows + gat_rows
     emit({"phase": "wall", "seconds": time.perf_counter() - wall0})
     print(smi)
     print(json.dumps({"kernels": kernels}))

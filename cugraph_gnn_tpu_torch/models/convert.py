@@ -11,7 +11,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cugraph_gnn_tpu_torch.models.zoo import GCN, GraphSAGE
+from cugraph_gnn_tpu_torch.models.zoo import GAT, GCN, GraphSAGE
 
 
 def graphsage_from_flax(params, model: Optional[GraphSAGE] = None, *,
@@ -57,6 +57,30 @@ def gcn_from_flax(params, model: Optional[GCN] = None, *,
         for conv, p in zip(model.convs, convs):
             _copy(conv.lin.weight, np.asarray(p["lin"]["kernel"]).T)
             _copy(conv.lin.bias, np.asarray(p["lin"]["bias"]))
+    return model
+
+
+def gat_from_flax(params, model: Optional[GAT] = None, *, device=None) -> GAT:
+    """A GAT holding the weights of the flax tree ``params``
+    (``{'params': {'conv_<i>': {'lin': {'kernel'}, 'att_src', 'att_dst',
+    'bias'}}}``), copied into ``model`` when given, else into a new one on
+    ``device`` (default: the card) whose widths and heads are read from the
+    tree."""
+    convs = _convs(params)
+    if model is None:
+        first, last = convs[0], convs[-1]
+        in_features = np.asarray(first["lin"]["kernel"]).shape[0]
+        _, heads, f = np.asarray(first["att_src"]).shape
+        kw = dict(hidden_features=heads * f, heads=heads) if len(convs) > 1 else {}
+        model = GAT(in_features, out_features=np.asarray(last["att_src"]).shape[2],
+                    num_layers=len(convs), device=device, **kw)
+    _check_depth(model, convs)
+    with torch.no_grad():
+        for conv, p in zip(model.convs, convs):
+            _copy(conv.lin.weight, np.asarray(p["lin"]["kernel"]).T)
+            _copy(conv.att_src, np.asarray(p["att_src"]))
+            _copy(conv.att_dst, np.asarray(p["att_dst"]))
+            _copy(conv.bias, np.asarray(p["bias"]))
     return model
 
 

@@ -1,7 +1,8 @@
 """Model zoo over sampled multihop batches and full graphs (torch.nn).
 
 Counterpart of ``cugraph_gnn_tpu/models/zoo.py``: ``MultihopModel`` (the
-sampled forward, ``full`` and ``full_graph``), ``GraphSAGE`` and ``GCN``.
+sampled forward, ``full`` and ``full_graph``), ``GraphSAGE``, ``GCN`` and
+``GAT``.
 Dropout, degree inputs and the other models come with later slices.
 """
 
@@ -13,7 +14,7 @@ import torch
 from torch import nn
 
 from cugraph_gnn_tpu_torch._device import resolve_device
-from cugraph_gnn_tpu_torch.models.conv import GCNConv, SAGEConv
+from cugraph_gnn_tpu_torch.models.conv import GATConv, GCNConv, SAGEConv
 from cugraph_gnn_tpu_torch.sampler.output import MultihopBatch
 
 
@@ -93,3 +94,25 @@ class GCN(MultihopModel):
         super().__init__([
             GCNConv(dims[i], dims[i + 1], dtype=dtype, device=dev)
             for i in range(num_layers)])
+
+
+class GAT(MultihopModel):
+    """``num_layers`` GATConvs: the hidden layers have ``heads`` heads of
+    hidden_features // heads features each, concatenated; the last has one
+    head of ``out_features``.  The convs compute in the promotion of the
+    input's and the parameters' dtypes (flax ``Dense(dtype=None)``, as the
+    JAX package's GAT builds them).  Layer i is ``convs[i]`` (flax's
+    ``conv_<i>``).  Built on ``device`` (default: the card)."""
+
+    def __init__(self, in_features: int, hidden_features: int = 256,
+                 out_features: int = 64, num_layers: int = 2, heads: int = 4,
+                 device=None):
+        dev = resolve_device(device)
+        convs, width = [], in_features
+        for i in range(num_layers):
+            last = i == num_layers - 1
+            f = out_features if last else hidden_features // heads
+            h = 1 if last else heads
+            convs.append(GATConv(width, f, heads=h, concat=not last, device=dev))
+            width = h * f
+        super().__init__(convs)

@@ -1,18 +1,21 @@
 """FullBatchGraph: full-batch message passing over a whole graph.
 
-Counterpart of ``cugraph_gnn_tpu/ops/full_batch.py`` (without the attention
-methods, which come with the GAT slice):
+Counterpart of ``cugraph_gnn_tpu/ops/full_batch.py``:
 
     fbg = FullBatchGraph.from_coo(src, dst, n, reorder="auto")
     x_g = fbg.to_graph_order(x)         # once, at load time
     h   = fbg.spmm(x_g, reduce="mean")  # slab kernels + fallback kernel
+    a   = fbg.attention_spmm_mh(wx, alpha_dst, alpha_src)   # GAT
     out = fbg.to_input_order(h)         # once, at the output boundary
 
 Pipeline: optional RCM reorder (``ops/reorder.py``) -> banded slab split
 (``ops/kernels/slab_kernel.py``) -> the slab SpMM, differentiable: its
-gradient runs the same kernels over the transposed graph.  A graph whose
-band fraction stays below ``min_band_fraction`` keeps the plain PyTorch
-degree-bucketed ELL path (``ops/spmm.py``), as in the JAX package.
+gradient runs the same kernels over the transposed graph.  The attention
+methods run the fused attention kernels over the attention pair
+(``ops/kernels/slab_attn_grad.py``), built from the graph-order CSR at
+first use.  A graph whose band fraction stays below ``min_band_fraction``
+keeps the plain PyTorch paths (``ops/spmm.py``, ``ops/sddmm.py``), as in
+the JAX package.
 
 Train in graph order: ``to_graph_order`` is meant for features and labels
 once at load time, with node ids mapped through ``map_ids``.
@@ -28,8 +31,17 @@ import torch
 
 from cugraph_gnn_tpu_torch import _native
 from cugraph_gnn_tpu_torch._device import resolve_device
+from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_grad import (
+    MAX_PACKED_HEADS,
+    AttnSlabPair,
+    build_attention_slab_pair,
+    differentiable_slab_attention,
+    differentiable_slab_attention_mh,
+)
+from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import lrelu
 from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import build_slab_graph, slab_spmm
 from cugraph_gnn_tpu_torch.ops.reorder import reorder_csr
+from cugraph_gnn_tpu_torch.ops.sddmm import coo_edge_softmax
 from cugraph_gnn_tpu_torch.ops.spmm import EllBuckets, ell_spmm, segment_spmm
 
 
@@ -59,8 +71,9 @@ class FullBatchGraph:
     """See the module docstring.  reorder: 'rcm' | 'none' | 'auto' (RCM, kept
     only if it raises the band fraction); ``min_band_fraction`` gates the
     slab path.  Device tensors live on ``device`` (default: the card).
-    ``build_seconds`` holds the host seconds of the two builds: the graph
-    (reorder included) and its transpose."""
+    ``build_seconds`` holds the host seconds of the builds: the graph
+    (reorder included), its transpose and, once an attention method has
+    run, the attention pair ("attention_pair")."""
 
     def __init__(self, indptr, indices, weights=None, *,
                  reorder: str = "auto", block_rows: int = 256,
@@ -112,6 +125,8 @@ class FullBatchGraph:
                                        max_k=max_k, device=self.device)
         self.build_seconds: Dict[str, float] = {
             "graph": t1 - t0, "transpose": time.perf_counter() - t1}
+        self._block_rows, self._max_k = block_rows, max_k
+        self._attn_pair: Optional[AttnSlabPair] = None
 
     # -- node-order mapping ---------------------------------------------
 
@@ -160,15 +175,73 @@ class FullBatchGraph:
                 self._ell = EllBuckets(self._indptr, self._indices,
                                        device=self.device)
             return ell_spmm(self._ell, x, reduce=reduce)
+        cols, rows, w = self._coo_arrays()
+        return segment_spmm(x, cols, rows, self.num_nodes, reduce=reduce,
+                            edge_weight=w)
+
+    def _coo_arrays(self):
+        """(cols, rows, weights) of the graph-order CSR as device tensors."""
         if self._coo is None:
             deg = self._indptr[1:] - self._indptr[:-1]
             rows = np.repeat(np.arange(self.num_nodes, dtype=np.int32), deg)
             self._coo = tuple(
                 None if a is None else torch.as_tensor(a, device=self.device)
                 for a in (self._indices, rows, self._weights))
-        cols, rows, w = self._coo
-        return segment_spmm(x, cols, rows, self.num_nodes, reduce=reduce,
-                            edge_weight=w)
+        return self._coo
+
+    # -- attention ----------------------------------------------------------
+
+    @property
+    def attention_pair(self) -> AttnSlabPair:
+        """The attention pair of the graph-order CSR (unweighted), built on
+        the host at first use; its seconds go to ``build_seconds``."""
+        if self._attn_pair is None:
+            t0 = time.perf_counter()
+            self._attn_pair = build_attention_slab_pair(
+                self._indptr, self._indices, block_rows=self._block_rows,
+                max_k=self._max_k, device=self.device)
+            self.build_seconds["attention_pair"] = time.perf_counter() - t0
+        return self._attn_pair
+
+    def attention_spmm_mh(self, x, alpha_dst, alpha_src, *,
+                          negative_slope: float = 0.2):
+        """Multi-head fused attention aggregate: x (N, H, F), alpha_dst /
+        alpha_src (N, H) -> (N, H, F) float32, in graph order,
+        differentiable in all three.  On the slab path all heads run in one
+        kernel launch per direction, in head groups of MAX_PACKED_HEADS;
+        off it, one plain single-head call per head."""
+        heads = x.shape[1]
+        if self.use_slab:
+            if heads <= MAX_PACKED_HEADS:
+                return differentiable_slab_attention_mh(
+                    self.attention_pair, negative_slope=negative_slope)(x, alpha_dst, alpha_src)
+            return torch.cat([
+                self.attention_spmm_mh(
+                    x[:, h0:h0 + MAX_PACKED_HEADS],
+                    alpha_dst[:, h0:h0 + MAX_PACKED_HEADS],
+                    alpha_src[:, h0:h0 + MAX_PACKED_HEADS],
+                    negative_slope=negative_slope)
+                for h0 in range(0, heads, MAX_PACKED_HEADS)], dim=1)
+        return torch.stack([
+            self.attention_spmm(x[:, h], alpha_dst[:, h], alpha_src[:, h],
+                                negative_slope=negative_slope)
+            for h in range(heads)], dim=1)
+
+    def attention_spmm(self, x, alpha_dst, alpha_src, *,
+                       negative_slope: float = 0.2):
+        """Single-head attention aggregate: x (N, F), alpha_* (N,) ->
+        (N, F) float32: the fused kernels on the slab path, else the plain
+        COO chain (edge scores, ``coo_edge_softmax``, ``segment_spmm``)."""
+        if self.use_slab:
+            return differentiable_slab_attention(
+                self.attention_pair, negative_slope=negative_slope)(x, alpha_dst, alpha_src)
+        cols, rows, _ = self._coo_arrays()
+        rows_l = rows.long()
+        e = lrelu(alpha_dst[rows_l] + alpha_src[cols.clamp(min=0).long()],
+                  negative_slope)
+        p = coo_edge_softmax(e, rows, self.num_nodes)
+        return segment_spmm(x.float(), cols, rows, self.num_nodes, reduce="sum",
+                            edge_weight=p)
 
     @classmethod
     def from_coo(cls, src, dst, num_nodes: int, weights=None, **kw):

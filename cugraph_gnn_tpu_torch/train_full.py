@@ -1,11 +1,14 @@
-"""Full-batch GraphSAGE / GCN training over a banded graph at ogbn-products
-scale: data and one optimizer step.
+"""Full-batch GraphSAGE / GCN / GAT training over a banded graph at
+ogbn-products scale: data and one optimizer step.
 
 The step of ``examples/full_batch_training.py`` in the JAX package: the whole
-graph's forward through ``FullBatchGraph`` (slab SpMM kernels, the fallback
-through the CSR SpMM kernel), mean softmax cross-entropy over every node,
-backward (the slab kernels over the transposed graph) and Adam (lr 5e-3,
-whose defaults match ``optax.adam``).
+graph's forward through ``FullBatchGraph`` (GraphSAGE and GCN: the slab SpMM
+kernels, the fallback through the CSR SpMM kernel; GAT: the fused attention
+kernels), mean softmax cross-entropy over every node, backward (the slab
+kernels over the transposed graph; the attention backward kernel) and Adam
+(lr 5e-3, whose defaults match ``optax.adam``).  GAT is
+``benchmarks/model_bench.py``'s ``gat4h``: ``HEADS`` heads of
+``HIDDEN // HEADS`` features, then one head of ``CLASSES``, in float32.
 
 The graph is the banded construction of the JAX package's slab benchmarks
 (``benchmarks/dist_slab_bench.py``: ``deg`` sources per row, uniform within
@@ -31,6 +34,7 @@ FAR = 1
 FEAT_DIM = 128
 HIDDEN = 256
 CLASSES = 47
+HEADS = 4
 BLOCK_ROWS = 256
 LR = 5e-3
 

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the row gather, the fused sampler, the slab SpMM's band kernel and the CSR
-SpMM kernel.
+the row gather, the fused sampler, the slab SpMM's band kernel, the CSR
+SpMM kernel, and the fused slab attention's forward and backward kernels.
 
 Marked ``cuda``: each test asks the ``card`` fixture for a device and skips
 without one.  The file imports no JAX, so on the machine with the card it
@@ -18,6 +18,11 @@ from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import gather_rows, gather_
 from cugraph_gnn_tpu_torch.ops.kernels.sample_kernel import (
     fused_uniform_sample,
     fused_uniform_sample_ref,
+)
+from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as attn_grad
+from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import (
+    slab_attention_spmm_mh,
+    slab_attention_spmm_mh_ref,
 )
 from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
     build_slab_graph,
@@ -233,3 +238,117 @@ def test_slab_spmm_matches_plain(card, name, x_dtype, reduce):
     assert got.dtype == x_dtype and got.shape == (n, 128)
     _assert_sum_close(got, slab_spmm_ref(g, x.float(), reduce, torch.float32),
                       slab_spmm_ref(g, x.float().abs(), reduce, torch.float32))
+
+
+def _attention_pair(r_blk, card, n=1300):
+    """An attention pair over ``n`` nodes: 6 sources per row within +-150
+    (a fifth uniform), 60 extra sources into column n // 2, parallel edges,
+    rows 10-11 without edges and rows 20-21 with only far sources; max_k 8,
+    so that both caps spill.  R = 128 has bit planes, R = 512 t_ell."""
+    rng = np.random.default_rng(r_blk)
+    dst = np.repeat(np.arange(n), 6)
+    src = np.clip(dst + rng.integers(-150, 151, n * 6), 0, n - 1)
+    src = np.where(rng.random(n * 6) < 0.2, rng.integers(0, n, n * 6), src)
+    src = np.where(np.isin(dst, [20, 21]), (dst + n // 2) % n, src)
+    hub = np.clip(n // 2 + rng.integers(-150, 151, 60), 0, n - 1)
+    src = np.concatenate([src, np.full(60, n // 2), src[:9]])
+    dst = np.concatenate([dst, hub, dst[:9]])
+    keep = ~np.isin(dst, [10, 11])
+    indptr, indices, _ = _native.build_csr(dst[keep], src[keep], n)
+    pair = attn_grad.build_attention_slab_pair(indptr, indices, block_rows=r_blk,
+                                               max_k=8, device=card)
+    assert (pair.t_ell is None) == (r_blk == 128)
+    assert 0.0 < pair.fwd.band_fraction < 1.0
+    return pair
+
+
+def _attn_inputs(n, heads, f, x_dtype, card, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda shape: torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                                      device=card)
+    return t((n, heads, f)).to(x_dtype), t((n, heads)), t((n, heads)), t((n, heads, f))
+
+
+def _assert_close_to(got, want, magnitude, rel=1e-5):
+    """Within 1e-5 absolute plus ``rel`` of ``magnitude``, the same sums
+    over the terms' absolute values: the kernels add in another order (and,
+    in the backward, factor the dot product out of the sums)."""
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    tol = 1e-5 + rel * magnitude
+    assert bool(((got - want).abs() <= tol).all()), float((got - want).abs().max())
+
+
+ATTN_SHAPES = [(4, 64), (1, 47), (3, 5), (2, 128)]
+
+
+@pytest.mark.parametrize("r_blk", [128, 512])
+@pytest.mark.parametrize("heads,f", ATTN_SHAPES)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_slab_attention_fwd_matches_plain(card, r_blk, heads, f, x_dtype):
+    """Forward kernel against its plain version: out within 1e-5 plus 1e-5
+    of the same aggregate over |x|; m equal and s within 1e-5 (the same
+    maxima, sums in the same order, expf against torch.exp); rows without
+    edges give zeros.  Both compute dtypes."""
+    pair = _attention_pair(r_blk, card)
+    n = pair.fwd.num_rows
+    x, ad, as_, _ = _attn_inputs(n, heads, f, x_dtype, card)
+    for compute in (torch.float32, torch.bfloat16):
+        before = slab_attention_spmm_mh.launches
+        out, m, s = slab_attention_spmm_mh(pair.fwd, x, ad, as_, compute_dtype=compute,
+                                           return_stats=True)
+        want, m_want, s_want = slab_attention_spmm_mh_ref(
+            pair.fwd, x, ad, as_, compute_dtype=compute, return_stats=True)
+        mag = slab_attention_spmm_mh_ref(pair.fwd, x.float().abs(), ad, as_,
+                                         compute_dtype=compute)
+        torch.cuda.synchronize()
+        assert slab_attention_spmm_mh.launches == before + 1
+        _assert_close_to(out, want, mag)
+        assert torch.equal(m, m_want)
+        torch.testing.assert_close(s, s_want, rtol=1e-5, atol=0)
+        assert not out[10:12].any() and not s[10:12].any() and s[20:22].all()
+
+
+@pytest.mark.parametrize("r_blk", [128, 512])
+@pytest.mark.parametrize("heads,f", ATTN_SHAPES)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_slab_attention_bwd_matches_plain(card, r_blk, heads, f, x_dtype):
+    """Backward kernel (R = 128: the band CSR, ``onepass_bwd``; R = 512:
+    t_ell, ``slab_attention_bwd`` at H = 1, ``slab_attention_bwd_mh``
+    above) against its plain version: within 1e-5 plus 1e-5 of the same
+    sums with |x|, |g| and -|t| (every term's magnitude)."""
+    pair = _attention_pair(r_blk, card)
+    n = pair.fwd.num_rows
+    x, ad, as_, g = _attn_inputs(n, heads, f, x_dtype, card, seed=1)
+    _, m, s = slab_attention_spmm_mh(pair.fwd, x, ad, as_, return_stats=True)
+    t = torch.randn((n, heads), generator=torch.Generator(card).manual_seed(2),
+                    device=card)
+    counter = (attn_grad.onepass_bwd if r_blk == 128 else attn_grad.slab_attention_bwd
+               if heads == 1 else attn_grad.slab_attention_bwd_mh)
+    before = counter.launches
+    got = attn_grad.slab_attention_bwd_mh(pair, x, ad, as_, m, s, t, g)
+    want = attn_grad.slab_attention_bwd_ref(pair, x, ad, as_, m, s, t, g)
+    mag = attn_grad.slab_attention_bwd_ref(pair, x.float().abs(), ad, as_, m, s,
+                                           -t.abs(), g.abs())
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    for a, b, c in zip(got, want, mag):
+        _assert_close_to(a, b, c)
+
+
+@pytest.mark.parametrize("r_blk", [128, 512])
+def test_slab_attention_autograd_card_matches_cpu(card, r_blk):
+    """The differentiable attention on the card (both kernels) against the
+    CPU (plain versions) from the same inputs: output and the three
+    gradients of sum(out * g) within 1e-4."""
+    pair = _attention_pair(r_blk, card)
+    pair_cpu = pair.to("cpu")
+    n = pair.fwd.num_rows
+    x, ad, as_, g = _attn_inputs(n, 4, 16, torch.float32, card, seed=3)
+    res = []
+    for p, dev in ((pair, card), (pair_cpu, "cpu")):
+        leaves = [a.detach().to(dev).requires_grad_() for a in (x, ad, as_)]
+        out = attn_grad.differentiable_slab_attention_mh(p)(*leaves)
+        (out * g.to(dev)).sum().backward()
+        res.append([out.detach().cpu()] + [a.grad.cpu() for a in leaves])
+    for a, b in zip(*res):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -17,11 +17,17 @@ import torch
 import cugraph_gnn_tpu_torch
 from cugraph_gnn_tpu_torch import train as T
 from cugraph_gnn_tpu_torch import train_full as TF
-from cugraph_gnn_tpu_torch.models.convert import gcn_from_flax, graphsage_from_flax
-from cugraph_gnn_tpu_torch.models.zoo import GCN, GraphSAGE
+from cugraph_gnn_tpu_torch.models.convert import (
+    gat_from_flax,
+    gcn_from_flax,
+    graphsage_from_flax,
+)
+from cugraph_gnn_tpu_torch.models.zoo import GAT, GCN, GraphSAGE
 from cugraph_gnn_tpu_torch.ops.full_batch import FullBatchGraph
+from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as attn_grad
 from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import gather_rows
 from cugraph_gnn_tpu_torch.ops.kernels.sample_kernel import fused_uniform_sample
+from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import slab_attention_spmm_mh
 from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
     build_slab_graph,
     slab_spmm_band,
@@ -71,21 +77,26 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     assert fused_uniform_sample.launches == 0
 
 
-@pytest.mark.parametrize("model_cls", [GraphSAGE, GCN])
-def test_cpu_full_batch_leaves_launch_counters_at_zero(model_cls):
-    slab_spmm_band.launches = 0
-    csr_spmm.launches = 0
+ATTN_COUNTERS = (slab_attention_spmm_mh, attn_grad.onepass_bwd,
+                 attn_grad.slab_attention_bwd, attn_grad.slab_attention_bwd_mh)
+
+
+@pytest.mark.parametrize("model_cls,block_rows", [(GraphSAGE, 128), (GCN, 128),
+                                                  (GAT, 128), (GAT, 512)])
+def test_cpu_full_batch_leaves_launch_counters_at_zero(model_cls, block_rows):
+    counters = (slab_spmm_band, csr_spmm) + ATTN_COUNTERS
+    for fn in counters:
+        fn.launches = 0
     g = TF.make_synthetic_banded(0, "cpu", num_nodes=300, deg=4, band=20,
                                  feat_dim=8, classes=3)
     fbg = FullBatchGraph.from_coo(g.src, g.dst, g.num_nodes, reorder="none",
-                                  block_rows=128, device="cpu")
+                                  block_rows=block_rows, device="cpu")
     assert fbg.slab.fb_src.shape[0] > 0 and fbg.use_slab
     model = model_cls(8, 16, 3, device="cpu")
     opt = torch.optim.Adam(model.parameters(), lr=TF.LR)
     loss = TF.full_batch_step(model, opt, g.feats, fbg, g.labels)
     assert torch.isfinite(loss)
-    assert slab_spmm_band.launches == 0
-    assert csr_spmm.launches == 0
+    assert all(fn.launches == 0 for fn in counters)
 
 
 def test_wrappers_refuse_other_devices():
@@ -108,6 +119,17 @@ def test_wrappers_refuse_other_devices():
                                 if isinstance(v, torch.Tensor)})
     with pytest.raises(ValueError, match="no kernel"):
         csr_spmm(padded, torch.empty((3, 8), device="meta"))
+    for r_blk in (128, 512):
+        pair = attn_grad.build_attention_slab_pair(indptr, indices, block_rows=r_blk,
+                                                   device="cpu").to("meta")
+        x3, s2 = torch.empty((3, 2, 4), device="meta"), torch.empty((3, 2), device="meta")
+        with pytest.raises(ValueError, match="no kernel"):
+            slab_attention_spmm_mh(pair.fwd, x3, s2, s2)
+        with pytest.raises(ValueError, match="no kernel"):
+            attn_grad.slab_attention_bwd_mh(pair, x3, s2, s2, s2, s2, s2, x3)
+        x1, s1 = torch.empty((3, 4), device="meta"), torch.empty((3,), device="meta")
+        with pytest.raises(ValueError, match="no kernel"):
+            attn_grad.slab_attention_bwd(pair, x1, s1, s1, s1, s1, s1, x1)
 
 
 _TREE = {"params": {"conv_0": {
@@ -116,6 +138,10 @@ _TREE = {"params": {"conv_0": {
     "lin_neigh": {"kernel": np.zeros((4, 3), np.float32)}}}}
 _GCN_TREE = {"params": {"conv_0": {"lin": {"kernel": np.zeros((4, 3), np.float32),
                                             "bias": np.zeros(3, np.float32)}}}}
+_GAT_TREE = {"params": {"conv_0": {"lin": {"kernel": np.zeros((4, 3), np.float32)},
+                                   "att_src": np.zeros((1, 1, 3), np.float32),
+                                   "att_dst": np.zeros((1, 1, 3), np.float32),
+                                   "bias": np.zeros(3, np.float32)}}}
 _INDPTR = np.array([0, 1, 2], np.int32)
 _INDICES = np.array([1, 0], np.int32)
 ENTRY_POINTS = {
@@ -129,6 +155,10 @@ ENTRY_POINTS = {
     "graphsage_from_flax": lambda: graphsage_from_flax(_TREE),
     "GCN": lambda: GCN(4),
     "gcn_from_flax": lambda: gcn_from_flax(_GCN_TREE),
+    "GAT": lambda: GAT(4),
+    "gat_from_flax": lambda: gat_from_flax(_GAT_TREE),
+    "build_attention_slab_pair": lambda: attn_grad.build_attention_slab_pair(
+        _INDPTR, _INDICES),
     "FullBatchGraph.from_coo": lambda: FullBatchGraph.from_coo(
         _INDICES, [0, 1], 2, reorder="none"),
     "make_synthetic_banded": lambda: TF.make_synthetic_banded(0, num_nodes=10),
