@@ -71,7 +71,38 @@ Phases (any failure raises and exits non-zero):
     other kernel.  Then one step timed stage by stage, and one step at
     R = 512: 2 forward launches, 1 ``slab_attention_bwd`` (layer 1, H = 1)
     and 1 ``slab_attention_bwd_mh`` (layer 0, H = 4).
-14. the ``kernels`` summary line, and last the ``ok`` line.
+14. shard kernels at a 4-rank geometry, in this one process: a banded graph
+    of 100,000 nodes (3 in-band and 1 uniform source each: ~1/4 fallback
+    edges) split into 4 row shards as ``DistFullBatchGraph`` splits it
+    (R = 256 with bit planes, R = 512 with ``t_ell``); each shard's inputs
+    are the whole arrays' rows with an R-row halo on each side (zeros past
+    the ends), so the kernels run with nonzero offsets and real halos.
+    Every shard wrapper (rows 9-14: the band SpMM over the graph and its
+    transpose at F = 128 bf16 and F = 256 f32, the attention forward and
+    backward at GAT's two layers' shapes) against its plain version, and
+    against the whole graph's single-graph kernel on the shard's rows
+    (band edges only): within 1e-5 absolute plus 1e-5 of the same sums over
+    the terms' magnitudes.
+15. row-sharded training at world size 1 over NCCL (``tcp://localhost``):
+    ``DistFullBatchGraph`` of phase 6's graph (R = 256, then R = 512);
+    GCN (bf16 activations) and ``gat4h``, 1 warm-up and 3 timed
+    ``dist_full_batch_step``s each at R = 256 and one GAT step at R = 512;
+    finite losses; per step 3 launches of row 9 (GCN), and 1 of row 13, 1
+    of row 10 and 2 of row 11 (GAT, R = 256) or 1 each of rows 13, 10, 14
+    and 12 (R = 512), no other kernel; one step of each timed stage by
+    stage.  Agreement: one float32 GCN step and one GAT step from the same
+    weights through ``full_batch_step`` on the single-device graph and
+    through ``dist_full_batch_step`` (after phase 16): losses within 1e-5
+    relative, each gradient tensor within 1e-3 of its own largest entry,
+    the parameters after the step within 1e-4 where the gradient is at least
+    1e-5 (Adam's first update, lr * g / (|g| + 1e-8), turns sum-order noise
+    in a small g into up to lr).
+16. rows 9-14 at the world-1 path's calls: each kernel against its plain
+    version on the same inputs (the tolerance of phase 14), then CUDA-event
+    times of kernel, plain version and, for row 9, ``torch.sparse.mm`` over
+    the shard's band CSR, with the byte and operation counts that bound
+    them (an ELL's bytes are its real entries, not its -1 padding).
+17. the ``kernels`` summary line (rows 1-14), and last the ``ok`` line.
 
 Every JSON line carries the card's name and power limit.
 """
@@ -217,7 +248,8 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
         el = x.element_size()
         nnz_band = int((slab.ell[:n] >= 0).sum())
         a_band = band_csr(slab, x.dtype)
-        band_bytes = slab.ell.numel() * 4 + x.numel() * el + n * f * 4
+        # the band's real entries: the ELL's -1 padding is not needed
+        band_bytes = 4 * nnz_band + x.numel() * el + n * f * 4
         b_ms, b_by = bound(band_bytes, nnz_band * f)
         row = {"kernel": "slab_spmm", "orientation": orient, "f": f,
                "dtype": "bfloat16", "band_edges": nnz_band,
@@ -425,9 +457,10 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
     for r_blk, pair in pairs.items():
         graph = pair.fwd
         e_all = valid(graph.ell) + valid(graph.fb_src)
-        graph_bytes = nbytes(graph.ell, graph.fb_rowptr, graph.fb_src)
-        t_bytes = nbytes(pair.t_ell, pair.t_rowptr, pair.t_rows, pair.fb_t_rowptr,
-                         pair.fb_t_dst)
+        # index bytes: the real entries of the ELLs (not their -1 padding)
+        graph_bytes = 4 * e_all + nbytes(graph.fb_rowptr)
+        t_bytes = (4 * (valid(pair.fb_t_dst) + (0 if pair.t_ell is None else valid(pair.t_ell)))
+                   + nbytes(pair.t_rowptr, pair.t_rows, pair.fb_t_rowptr))
         for layer, (h, f) in layers.items():
             x = torch.randn((n, h, f), generator=gen, device=dev)
             ad, as_ = (torch.randn((n, h), generator=gen, device=dev) for _ in range(2))
@@ -602,14 +635,583 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
     ]
 
 
-def _staged_step(model, opt, x, fbg, labels, F, method="spmm", label="spmm"):
+# rows 9-14 of the TPU-kernel table: name -> (CUDA source, TPU kernel, counter)
+SHARD_ROWS = {
+    "slab_spmm_shard": ("slab_spmm.cu", "cugraph_gnn_tpu/ops/dist_full_batch.py:178",
+                        "slab_spmm_band_shard"),
+    "slab_attention_fwd_shard": ("slab_attn_fwd.cu",
+                                 "cugraph_gnn_tpu/ops/dist_full_batch.py:585",
+                                 "slab_attention_spmm_shard"),
+    "slab_attention_bwd_onepass_shard": ("slab_attn_bwd.cu",
+                                         "cugraph_gnn_tpu/ops/dist_full_batch.py:679",
+                                         "onepass_bwd_shard"),
+    "slab_attention_bwd_shard": ("slab_attn_bwd.cu",
+                                 "cugraph_gnn_tpu/ops/dist_full_batch.py:818",
+                                 "slab_attention_bwd_shard"),
+    "slab_attention_fwd_mh_shard": ("slab_attn_fwd.cu",
+                                    "cugraph_gnn_tpu/ops/dist_full_batch.py:974",
+                                    "slab_attention_spmm_mh_shard"),
+    "slab_attention_bwd_mh_shard": ("slab_attn_bwd.cu",
+                                    "cugraph_gnn_tpu/ops/dist_full_batch.py:1071",
+                                    "slab_attention_bwd_mh_shard"),
+}
+
+
+def _close(name, got, want, magnitude, what):
+    """``got`` within 1e-5 absolute plus 1e-5 of ``magnitude`` (the plain
+    version's sum over the terms' absolute values) of ``want``; returns the
+    max abs difference."""
+    import torch
+
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    if not bool((diff <= 1e-5 + 1e-5 * magnitude).all()):
+        raise AssertionError(f"{name} {what}: off by {float(diff.max())}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def _bwd_row(r_blk, heads):
+    """The backward row a shard pair runs: bit planes (R = 256) the
+    one-pass row, t_ell (R = 512) the H = 1 or multi-head row."""
+    if r_blk * 3 <= 1024:
+        return "slab_attention_bwd_onepass_shard"
+    return "slab_attention_bwd_shard" if heads == 1 else "slab_attention_bwd_mh_shard"
+
+
+def shard_kernels(dev, emit, world=4, n=100_000):
+    """Phase 14 (see the module docstring) over ``n`` nodes.  Returns each
+    row's max abs difference from its plain version."""
+    import numpy as np
+    import torch
+
+    from cugraph_gnn_tpu_torch import _native
+    from cugraph_gnn_tpu_torch import train_full as TF
+    from cugraph_gnn_tpu_torch.ops import dist_full_batch as DF
+    from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as AG
+    from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_kernel as AK
+    from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
+        build_slab_graph,
+        slab_spmm_band,
+        slab_spmm_band_shard,
+        slab_spmm_band_shard_ref,
+    )
+
+    t0 = time.perf_counter()
+    g = TF.make_synthetic_banded(4, "cpu", num_nodes=n, deg=3, far=1, feat_dim=8,
+                                 classes=2)
+    indptr, indices, _ = _native.build_csr(g.dst, g.src, n)
+    rows_np = np.repeat(np.arange(n, dtype=np.int32), np.diff(indptr))
+    t_indptr, t_indices, _ = _native.build_csr(indices, rows_np, n)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    errs = {k: 0.0 for k in SHARD_ROWS}
+    vs_whole = {k: 0.0 for k in SHARD_ROWS}
+
+    def split(r_blk):
+        nb = -(-(-(-n // r_blk)) // world) * world
+        return nb // world * r_blk, nb * r_blk
+
+    def pad(t, rows):
+        out = t.new_zeros((rows,) + tuple(t.shape[1:]))
+        out[:t.shape[0]] = t
+        return out
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    # row 9: the band of the graph and of its transpose
+    r_blk = TF.BLOCK_ROWS
+    rs, n_pad = split(r_blk)
+    fb_fraction = {}
+    for orient, (ip, ix) in {"graph": (indptr, indices),
+                             "transpose": (t_indptr, t_indices)}.items():
+        slab = build_slab_graph(ip, ix, block_rows=r_blk, device="cpu")
+        fb_fraction[orient] = 1.0 - slab.band_fraction
+        ell = DF._padded(slab.ell.numpy(), n_pad, -1)
+        whole_slab = slab.to(dev)
+        for f, dt in ((128, torch.bfloat16), (256, torch.float32)):
+            x = pad(randn(n, f).to(dt), n_pad)
+            whole = pad(slab_spmm_band(whole_slab, x[:n].contiguous(), torch.float32), n_pad)
+            for w in range(world):
+                shard = DF.shard_slab(ell, None, w, rs, r_blk, dev)
+                x_ext = DF.halo_rows(x, w, rs, r_blk)
+                got = slab_spmm_band_shard(shard, x_ext, torch.float32)
+                mag = slab_spmm_band_shard_ref(shard, x_ext.float().abs(), torch.float32)
+                what = f"{orient} F={f} {dt} shard {w}"
+                errs["slab_spmm_shard"] = max(errs["slab_spmm_shard"], _close(
+                    "slab_spmm_shard", got,
+                    slab_spmm_band_shard_ref(shard, x_ext, torch.float32), mag, what))
+                vs_whole["slab_spmm_shard"] = max(vs_whole["slab_spmm_shard"], _close(
+                    "slab_spmm_shard", got, whole[w * rs:(w + 1) * rs], mag,
+                    what + " vs the whole graph"))
+        del whole_slab, x, whole
+
+    # rows 10-14: the attention pair at R = 256 (bit planes) and 512 (t_ell)
+    layers = {"layer0": (4, 64), "layer1": (1, 47)}
+    for r_blk in (256, 512):
+        rs, n_pad = split(r_blk)
+        pair = AG.build_attention_slab_pair(indptr, indices, block_rows=r_blk, device="cpu")
+        whole = pair.to(dev)
+        none = torch.zeros(0, dtype=torch.int32, device=dev)
+        ptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        band = whole._replace(fwd=whole.fwd._replace(fb_src=none, fb_dst=none, fb_rowptr=ptr),
+                              fb_t_rowptr=ptr, fb_t_dst=none)
+        shards = [DF.shard_attention_pair(pair, w, rs, n_pad, dev) for w in range(world)]
+        for layer, (h, f) in layers.items():
+            x, gg = pad(randn(n, h, f), n_pad), pad(randn(n, h, f), n_pad)
+            ad, as_, t = (pad(randn(n, h), n_pad) for _ in range(3))
+            out_w, m_w, s_w = AK.slab_attention_spmm_mh(band.fwd, x[:n], ad[:n], as_[:n],
+                                                        return_stats=True)
+            m, s = pad(m_w, n_pad), pad(s_w, n_pad)
+            out_w = pad(out_w, n_pad)
+            bwd_w = [pad(a, n_pad) for a in AG.slab_attention_bwd_mh(
+                band, x[:n], ad[:n], as_[:n], m_w, s_w, t[:n], gg[:n])]
+            fwd_name = "slab_attention_fwd_shard" if h == 1 else "slab_attention_fwd_mh_shard"
+            bwd_name = _bwd_row(r_blk, h)
+            for w, sp in enumerate(shards):
+                own = slice(w * rs, (w + 1) * rs)
+
+                def ext(a, w=w):
+                    return DF.halo_rows(a, w, rs, r_blk)
+
+                what = f"R={r_blk} {layer} shard {w}"
+                args = [ext(x), ad[own], ext(as_)]
+                if h == 1:
+                    fwd, ref = AK.slab_attention_spmm_shard, AK.slab_attention_spmm_shard_ref
+                    args = [a[:, 0] for a in args]
+                else:
+                    fwd, ref = AK.slab_attention_spmm_mh_shard, AK.slab_attention_spmm_mh_shard_ref
+                out, m_s, s_s = fwd(sp.fwd, *args, return_stats=True)
+                want, m_r, s_r = ref(sp.fwd, *args, return_stats=True)
+                mag = ref(sp.fwd, args[0].abs(), *args[1:])
+                if h == 1:
+                    out, want, mag = out[:, None], want[:, None], mag[:, None]
+                    m_s, s_s, m_r, s_r = (a[:, None] for a in (m_s, s_s, m_r, s_r))
+                errs[fwd_name] = max(errs[fwd_name], _close(fwd_name, out, want, mag, what))
+                vs_whole[fwd_name] = max(vs_whole[fwd_name], _close(
+                    fwd_name, out, out_w[own], mag, what + " vs the whole graph"))
+                if not torch.equal(m_s, m_r) or not torch.equal(m_s, m[own]):
+                    raise AssertionError(f"{fwd_name} {what}: m differs")
+                _close(fwd_name, s_s, s_r, s_r, what + " s")
+                _close(fwd_name, s_s, s[own], s_r, what + " s vs the whole graph")
+
+                e = [ext(a) for a in (x, ad, as_, m, s, t, gg)]
+                got = AG.slab_attention_bwd_mh_shard(sp, *e)
+                want = AG.slab_attention_bwd_shard_ref(sp, *e)
+                mag = AG.slab_attention_bwd_shard_ref(sp, e[0].abs(), *e[1:5], -e[5].abs(),
+                                                      e[6].abs())
+                for a, b, c, wh, nm in zip(got, want, mag, bwd_w, ("dx", "dad", "das")):
+                    errs[bwd_name] = max(errs[bwd_name], _close(bwd_name, a, b, c,
+                                                               f"{what} {nm}"))
+                    vs_whole[bwd_name] = max(vs_whole[bwd_name], _close(
+                        bwd_name, a, wh[own], c, f"{what} {nm} vs the whole graph"))
+        del whole, band, shards
+        torch.cuda.empty_cache()
+    emit({"phase": "shard_kernel_check", "world": world, "nodes": n,
+          "edges": g.num_edges, "fallback_fraction": fb_fraction,
+          "max_abs_err": errs, "max_abs_diff_from_whole_graph_kernel": vs_whole,
+          "seconds": time.perf_counter() - t0,
+          "tolerance": "1e-5 abs + 1e-5 x the terms' magnitude sum"})
+    return errs
+
+
+def _require_nccl(mesh) -> None:
+    if mesh.backend != "nccl" or mesh.device.type != "cuda":
+        raise AssertionError(f"world-1 mesh on {mesh.device} over {mesh.backend}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
+    """Phases 15-16 (see the module docstring).  Returns the ``kernels``
+    rows 9-14; ``errs`` is phase 14's max abs differences."""
+    import torch
+    import torch.distributed as dist
+    from torch.nn import functional as F
+
+    from cugraph_gnn_tpu_torch import train_full as TF
+    from cugraph_gnn_tpu_torch.models.zoo import GAT, GCN
+    from cugraph_gnn_tpu_torch.ops import dist_full_batch as DF
+    from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as AG
+    from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_kernel as AK
+    from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
+        slab_spmm_band_shard,
+        slab_spmm_band_shard_ref,
+    )
+    from cugraph_gnn_tpu_torch.utils import distributed as D
+
+    mesh = D.init(init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        _require_nccl(mesh)
+        n = reused["fbg"].num_nodes
+        edges = len(reused["src"])
+        graphs = {}
+
+        def graph(r_blk):
+            if r_blk not in graphs:
+                t0 = time.perf_counter()
+                g = DF.DistFullBatchGraph.from_coo(reused["src"], reused["dst"], n, mesh,
+                                                   reorder="none", block_rows=r_blk)
+                g._attn_structs()
+                torch.cuda.synchronize()
+                emit({"phase": "dist_graph", "block_rows": r_blk, "world": mesh.world,
+                      "backend": mesh.backend, "seconds": time.perf_counter() - t0,
+                      "build_seconds": g.build_seconds, "rows_per_rank": g.rows_per_rank,
+                      "n_pad": g.n_pad, "band_fraction": g.band_fraction,
+                      "fallback_edges": {("transpose" if k else "graph"): int(v.fb_src.numel())
+                                         for k, v in g._spmm.items()},
+                      "balanced": {("transpose" if k else "graph"): v.balanced
+                                   for k, v in g._spmm.items()}})
+                graphs[r_blk] = g
+            return graphs[r_blk]
+
+        def node_arrays(g):
+            """This rank's features (f32), labels and valid mask on ``g``."""
+            return (g.shard(reused["feats"]), g.shard(reused["labels"]),
+                    g.shard(torch.ones(n, device=dev)))
+
+        dfbg = graph(TF.BLOCK_ROWS)
+        x32, labels, valid = node_arrays(dfbg)
+        totals = {fn.__name__: 0 for fn in counters}
+
+        def train(make, graph_, x, steps, want_per_step, tag):
+            """``steps`` dist steps of a fresh model on ``graph_`` from x (this
+            rank's rows of ``graph_``); checks the launches per step."""
+            _, labels, valid = node_arrays(graph_)
+            torch.manual_seed(0)
+            model = make()
+            opt = torch.optim.Adam(model.parameters(), lr=TF.LR)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters:
+                fn.launches = 0
+            timed = []
+            for step in range(steps):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a.record()
+                loss = TF.dist_full_batch_step(model, opt, x, graph_, labels, valid)
+                b.record()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                v = float(loss)
+                if not math.isfinite(v):
+                    raise AssertionError(f"dist {tag}: non-finite loss at step {step}")
+                if step or steps == 1:
+                    timed.append(a.elapsed_time(b))
+                emit({"phase": "dist_full_batch_train", "model": tag, "step": step,
+                      "warmup": step == 0 and steps > 1, "loss": v,
+                      "ms_per_step_events": a.elapsed_time(b), "ms_per_step_host": dt * 1e3,
+                      "edges_per_s": edges / dt})
+            launches = {fn.__name__: fn.launches for fn in counters}
+            want = {**{fn.__name__: 0 for fn in counters},
+                    **{k: v * steps for k, v in want_per_step.items()}}
+            emit({"phase": "dist_full_batch_launch_counts", "model": tag, "steps": steps,
+                  "launches": launches, "expected": want,
+                  "ms_per_step": sum(timed) / len(timed),
+                  "edges_per_s": edges * len(timed) * 1e3 / sum(timed),
+                  "max_memory_allocated": torch.cuda.max_memory_allocated()})
+            if launches != want:
+                raise AssertionError(f"dist {tag}: kernel launches {launches}, "
+                                     f"expected {want}")
+            for k in totals:
+                totals[k] += launches[k]
+            return model, opt
+
+        # -- 15. GCN (bf16), gat4h at R = 256 and R = 512 -------------------
+        xb = x32.to(torch.bfloat16)
+        model, opt = train(lambda: GCN(TF.FEAT_DIM, TF.HIDDEN, TF.CLASSES,
+                                       dtype=torch.bfloat16, device=dev),
+                           dfbg, xb, 4, {"slab_spmm_band_shard": 3}, "gcn")
+        emit({"phase": "dist_full_batch_stages", "model": "gcn",
+              "ms": _staged_step(model, opt, xb, dfbg, labels, F, valid=valid)})
+        del model, opt
+        gat_r256 = {"slab_attention_spmm_mh_shard": 1, "slab_attention_spmm_shard": 1,
+                    "onepass_bwd_shard": 2}
+
+        def gat():
+            return GAT(TF.FEAT_DIM, TF.HIDDEN, TF.CLASSES, heads=TF.HEADS, device=dev)
+
+        model, opt = train(gat, dfbg, x32, 4, gat_r256, "gat_R256")
+        emit({"phase": "dist_full_batch_stages", "model": "gat",
+              "ms": _staged_step(model, opt, x32, dfbg, labels, F, valid=valid,
+                                 method="attention_spmm_mh", label="attention")})
+        with torch.no_grad():
+            logits = model.full_graph(x32, dfbg)
+        if logits.shape != (dfbg.rows_per_rank, TF.CLASSES) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"dist gat: logits {tuple(logits.shape)} not finite")
+        del model, opt, logits
+        torch.cuda.empty_cache()
+        dfbg512 = graph(512)
+        model, opt = train(gat, dfbg512, node_arrays(dfbg512)[0], 1,
+                           {"slab_attention_spmm_mh_shard": 1, "slab_attention_spmm_shard": 1,
+                            "slab_attention_bwd_mh_shard": 1, "slab_attention_bwd_shard": 1},
+                           "gat_R512")
+        del model, opt
+        torch.cuda.empty_cache()
+
+        # -- 16. rows 9-14 at the world-1 path's calls ------------------------
+        def bound(nb, ops):
+            b_ms, o_ms = nb / hbm * 1e3, ops / H100_F32_OPS * 1e3
+            return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+        def nbytes(*ts):
+            return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+        timing = {k: [] for k in SHARD_ROWS}
+        full_errs = {k: 0.0 for k in SHARD_ROWS}
+        gen = torch.Generator(device=dev).manual_seed(31)
+        r_blk, rs = dfbg._r_blk, dfbg.rows_per_rank
+        xs = {128: x32, 256: torch.randn((rs, 256), generator=gen, device=dev)}
+        for orient, f in (("graph", 128), ("graph", 256), ("transpose", 256)):
+            band = dfbg._spmm[orient == "transpose"].band
+            x_ext = DF._halo_exchange(xs[f].to(torch.bfloat16), r_blk, mesh)
+            ell = band.ell.long()
+            ok = ell >= 0
+            cols = ((torch.arange(rs, device=dev) // r_blk) * r_blk)[:, None] + ell
+            crow = torch.zeros(rs + 1, dtype=torch.int64, device=dev)
+            crow[1:] = ok.sum(1).cumsum(0)
+            a_band = torch.sparse_csr_tensor(crow, cols[ok], torch.ones(int(crow[-1]),
+                                             dtype=torch.bfloat16, device=dev),
+                                             (rs, x_ext.shape[0]))
+            full_errs["slab_spmm_shard"] = max(full_errs["slab_spmm_shard"], _close(
+                "slab_spmm_shard", slab_spmm_band_shard(band, x_ext, torch.float32),
+                slab_spmm_band_shard_ref(band, x_ext, torch.float32),
+                slab_spmm_band_shard_ref(band, x_ext.float().abs(), torch.float32),
+                f"world 1 {orient} F={f} bf16"))
+            # the band's real entries (the ELL's -1 padding is not needed)
+            nb = 4 * int(crow[-1]) + nbytes(x_ext) + rs * f * 4
+            b_ms, b_by = bound(nb, int(crow[-1]) * f)
+            row = {"kernel": "slab_spmm_shard", "orientation": orient, "f": f,
+                   "dtype": "bfloat16", "band_edges": int(crow[-1]),
+                   "ms": cuda_ms(lambda: slab_spmm_band_shard(band, x_ext, torch.float32)),
+                   "plain_ms": cuda_ms(lambda: slab_spmm_band_shard_ref(band, x_ext,
+                                                                        torch.float32),
+                                       iters=5),
+                   "library_ms": cuda_ms(lambda: torch.sparse.mm(a_band, x_ext)),
+                   "bytes": nb, "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            timing["slab_spmm_shard"].append(row)
+            del a_band, x_ext
+        layers = {"layer0": (TF.HEADS, TF.HIDDEN // TF.HEADS), "layer1": (1, TF.CLASSES)}
+        for r_blk, g in ((256, dfbg), (512, dfbg512)):
+            pair = g._attn_structs()["pair"]
+            rs = g.rows_per_rank
+            e_band = int((pair.fwd.ell >= 0).sum())
+            # real entries of the band by source (a shard has no fallback)
+            t_bytes = (4 * int((pair.t_ell >= 0).sum()) if pair.t_ell is not None
+                       else nbytes(pair.t_rowptr, pair.t_rows))
+            for layer, (h, f) in layers.items():
+                x, gg = (torch.randn((rs, h, f), generator=gen, device=dev) for _ in range(2))
+                ad, as_, t = (torch.randn((rs, h), generator=gen, device=dev)
+                              for _ in range(3))
+                _, m, s = AK.slab_attention_spmm_mh_shard(
+                    pair.fwd, DF._halo_exchange(x, r_blk, mesh), ad,
+                    DF._halo_exchange(as_, r_blk, mesh), return_stats=True)
+                e = [DF._halo_exchange(a, r_blk, mesh) for a in (x, ad, as_, m, s, t, gg)]
+                calls = []
+                if r_blk == 256:
+                    args = [e[0], ad, e[2]]
+                    if h == 1:
+                        name, fwd = "slab_attention_fwd_shard", AK.slab_attention_spmm_shard
+                        ref = AK.slab_attention_spmm_shard_ref
+                        args = [a[:, 0] for a in args]
+                    else:
+                        name, fwd = "slab_attention_fwd_mh_shard", AK.slab_attention_spmm_mh_shard
+                        ref = AK.slab_attention_spmm_mh_shard_ref
+                    nb = nbytes(e[0], ad, e[2]) + 4 * e_band + rs * h * f * 4 + 8 * rs * h
+                    calls.append((name, nb, e_band * h * (2 * f + 5),
+                                  lambda fwd=fwd, args=args: fwd(pair.fwd, *args,
+                                                                 return_stats=True),
+                                  lambda ref=ref, args=args: ref(pair.fwd, *args,
+                                                                 return_stats=True),
+                                  lambda ref=ref, args=args: (ref(
+                                      pair.fwd, args[0].abs(), *args[1:]),)))
+                nb = nbytes(*e) + 4 * e_band + t_bytes + rs * h * f * 4 + 8 * rs * h
+                calls.append((_bwd_row(r_blk, h), nb, e_band * h * (4 * f + 10),
+                              lambda e=e: AG.slab_attention_bwd_mh_shard(pair, *e),
+                              lambda e=e: AG.slab_attention_bwd_shard_ref(pair, *e),
+                              lambda e=e: AG.slab_attention_bwd_shard_ref(
+                                  pair, e[0].abs(), *e[1:5], -e[5].abs(), e[6].abs())))
+                for name, nb, ops, kern, plain, mag in calls:
+                    # the kernel against its plain version on these inputs:
+                    # out (fwd; m equal, s within 1e-5) or dx, dad, das
+                    what = f"world 1 R={r_blk} {layer}"
+                    got, want, mags = kern(), plain(), mag()
+                    for i, (a, b) in enumerate(zip(got, want)):
+                        if i < len(mags):
+                            full_errs[name] = max(full_errs[name],
+                                                  _close(name, a, b, mags[i], what))
+                        elif i == 1:
+                            if not torch.equal(a, b):
+                                raise AssertionError(f"{name} {what}: m differs")
+                        else:
+                            _close(name, a, b, b, what + " s")
+                    del got, want, mags
+                    b_ms, b_by = bound(nb, ops)
+                    row = {"kernel": name, "block_rows": r_blk, "layer": layer, "heads": h,
+                           "f": f, "dtype": "float32", "band_edges": e_band,
+                           "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                           "library_ms": None, "bytes": nb, "operations": ops,
+                           "bound_ms": b_ms, "bound_by": b_by}
+                    emit(row)
+                    timing[name].append(row)
+                del x, gg, ad, as_, t, m, s, e
+                torch.cuda.empty_cache()
+
+        emit({"phase": "shard_kernel_check", "world": 1, "nodes": n,
+              "max_abs_err": full_errs,
+              "tolerance": "1e-5 abs + 1e-5 x the terms' magnitude sum; m equal, "
+                           "s within 1e-5"})
+
+        # where a sharded call's time goes, beside its kernel: GCN layer 1's
+        # forward SpMM (bf16, F = 256) and GAT layer 0's attention (f32, H =
+        # 4, F = 64) at R = 256
+        st = dfbg._spmm[False]
+        xb = xs[256].to(torch.bfloat16)
+        x_ext = DF._halo_exchange(xb, TF.BLOCK_ROWS, mesh)
+        rows = DF._dist_gather_shard(xb, st.fb_src, book=dfbg._book, mesh=mesh).float()
+        acc = torch.zeros((dfbg.rows_per_rank, 256), device=dev)
+        emit({"phase": "dist_call_breakdown", "call": "gcn layer1 spmm forward",
+              "whole_ms": cuda_ms(lambda: dfbg._spmm_sharded(xb, transpose=False,
+                                                             compute_dtype=torch.float32)),
+              "halo_exchange_ms": cuda_ms(lambda: DF._halo_exchange(xb, TF.BLOCK_ROWS, mesh)),
+              "band_kernel_ms": cuda_ms(lambda: slab_spmm_band_shard(st.band, x_ext,
+                                                                     torch.float32)),
+              "fallback_gather_ms": cuda_ms(lambda: DF._dist_gather_shard(
+                  xb, st.fb_src, book=dfbg._book, mesh=mesh)),
+              "fallback_index_add_ms": cuda_ms(lambda: acc.index_add_(0, st.fb_dst, rows))})
+        del x_ext, rows, acc
+        a_st = dfbg._attn_structs()
+        rs = dfbg.rows_per_rank
+        x, gg = (torch.randn((rs, 4, 64), generator=gen, device=dev) for _ in range(2))
+        ad, as_, t = (torch.randn((rs, 4), generator=gen, device=dev) for _ in range(3))
+        _, m, s = dfbg._attn_fwd(x, ad, as_, 0.2)
+        src, dst = a_st["fb_by_dst"]
+        xa = torch.cat([x.reshape(rs, -1), as_], 1)
+        emit({"phase": "dist_call_breakdown", "call": "gat layer0 attention forward",
+              "whole_ms": cuda_ms(lambda: dfbg._attn_fwd(x, ad, as_, 0.2)),
+              "halo_exchange_ms": cuda_ms(lambda: (DF._halo_exchange(x, TF.BLOCK_ROWS, mesh),
+                                                   DF._halo_exchange(as_, TF.BLOCK_ROWS, mesh))),
+              "fallback_gather_ms": cuda_ms(lambda: DF._dist_gather_shard(
+                  xa, src, book=dfbg._book, mesh=mesh))})
+        src, dst = a_st["fb_by_src"]
+        gq = torch.cat([gg.reshape(rs, -1), ad, m, s, t], 1)
+        de = torch.randn((src.numel(), 4), generator=gen, device=dev)
+        emit({"phase": "dist_call_breakdown", "call": "gat layer0 attention backward",
+              "whole_ms": cuda_ms(lambda: dfbg._attn_bwd(x, ad, as_, m, s, t, gg, 0.2)),
+              "halo_exchange_ms": cuda_ms(lambda: [DF._halo_exchange(a, TF.BLOCK_ROWS, mesh)
+                                                   for a in (gq, x)]),
+              "fallback_gather_ms": cuda_ms(lambda: DF._dist_gather_shard(
+                  gq, dst, book=dfbg._book, mesh=mesh)),
+              "fallback_scatter_add_ms": cuda_ms(lambda: DF._dist_scatter_shard(
+                  ad, dst, de, book=dfbg._book, mesh=mesh, mode="add"))})
+        del x, gg, ad, as_, t, m, s, xa, gq, de, dfbg512
+        torch.cuda.empty_cache()
+
+        # agreement: one float32 step each through the single-device graph
+        # and the world-1 sharded graph, from the same weights
+        x32, labels, valid = node_arrays(graph(TF.BLOCK_ROWS))
+        for tag, make in (("gcn_f32", lambda: GCN(TF.FEAT_DIM, TF.HIDDEN, TF.CLASSES,
+                                                  device=dev)), ("gat", gat)):
+            torch.manual_seed(0)
+            single, sharded = make(), make()
+            sharded.load_state_dict(single.state_dict())
+            l_s = TF.full_batch_step(single, torch.optim.Adam(single.parameters(), lr=TF.LR),
+                                     reused["feats"], reused["fbg"], reused["labels"])
+            l_d = TF.dist_full_batch_step(sharded, torch.optim.Adam(sharded.parameters(),
+                                                                    lr=TF.LR),
+                                          x32, graph(TF.BLOCK_ROWS), labels, valid)
+            d_loss = abs(float(l_s) - float(l_d))
+            # Adam's first update is lr * g / (|g| + 1e-8): where |g| is small,
+            # sum-order noise in g moves it by up to lr, so the parameters are
+            # held where |g| >= 1e-5 (the update's slope there is at most
+            # lr * 1e-8 / 1e-10 = 0.5 per unit of g).  Each gradient tensor is
+            # held to 1e-3 of its own largest entry: the entries are sums of
+            # 2.4M nodes' terms of either sign, taken in another order, so
+            # rounding is relative to the terms, not to the sum (GCN's first
+            # weight, whose sums cancel most, reads ~3.4e-4 on the card)
+            with torch.no_grad():
+                per = {}
+                for (name, a), b in zip(single.named_parameters(), sharded.parameters()):
+                    d_g, g_max = float((a.grad - b.grad).abs().max()), float(a.grad.abs().max())
+                    per[name] = {
+                        "grad_max_abs_diff": d_g, "grad_max_abs": g_max,
+                        "grad_diff_over_tensor_max": d_g / g_max if g_max else d_g,
+                        "param_max_abs_diff": float((a - b).abs().max()),
+                        "param_max_abs_diff_where_grad_ge_1e-5": float(
+                            ((a - b).abs() * (a.grad.abs() >= 1e-5)).max()),
+                        "entries_with_grad_lt_1e-5": int((a.grad.abs() < 1e-5).sum())}
+            worst = max(per, key=lambda k: per[k]["grad_diff_over_tensor_max"])
+            d_grad = per[worst]["grad_diff_over_tensor_max"]
+            d_param = max(v["param_max_abs_diff_where_grad_ge_1e-5"] for v in per.values())
+            emit({"phase": "dist_agreement", "model": tag, "loss_single": float(l_s),
+                  "loss_dist": float(l_d), "loss_abs_diff": d_loss,
+                  "grad_diff_over_tensor_max": d_grad, "worst_grad_tensor": worst,
+                  "param_max_abs_diff_where_grad_ge_1e-5": d_param, "tensors": per,
+                  "tolerance": "loss 1e-5 relative; each gradient tensor 1e-3 of its own "
+                               "largest entry; parameters 1e-4 where |grad| >= 1e-5"})
+            if (d_loss > 1e-5 * max(1.0, abs(float(l_s))) or d_param > 1e-4
+                    or any(v["grad_max_abs_diff"] > 1e-3 * v["grad_max_abs"]
+                           for v in per.values())):
+                raise AssertionError(f"dist {tag} step differs from the single-device "
+                                     f"step: loss {d_loss}, gradient {worst} off by "
+                                     f"{d_grad} of its largest entry, parameters {d_param}")
+            del single, sharded
+        torch.cuda.empty_cache()
+        del graphs, dfbg
+        torch.cuda.empty_cache()
+    finally:
+        D.finalize()
+    if dist.is_initialized():
+        raise AssertionError("the process group is still up")
+
+    def kernel_row(name):
+        source, replaces, counter = SHARD_ROWS[name]
+        rows = timing[name]
+        return {"name": name, "route": "cuda",
+                "source": "cugraph_gnn_tpu_torch/csrc/" + source, "replaces": replaces,
+                "launches": totals[counter],
+                "max_abs_err": max(errs[name], full_errs[name]),
+                "max_abs_err_4_ranks": errs[name], "max_abs_err_world_1": full_errs[name],
+                "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": sum(r["bound_ms"] for r in rows),
+                "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                else "operations",
+                "library_ms": (None if rows[0]["library_ms"] is None
+                               else sum(r["library_ms"] for r in rows))}
+
+    # row 9: one GCN step's three calls added; rows 10 and 13: the R = 256
+    # step's call each; row 11: its two calls; rows 12 and 14: the R = 512
+    # step's call each
+    return [kernel_row(name) for name in ("slab_spmm_shard", "slab_attention_fwd_shard",
+                                          "slab_attention_bwd_onepass_shard",
+                                          "slab_attention_bwd_shard",
+                                          "slab_attention_fwd_mh_shard",
+                                          "slab_attention_bwd_mh_shard")]
+
+
+def _staged_step(model, opt, x, fbg, labels, F, method="spmm", label="spmm", valid=None):
     """One full-batch step with CUDA events around its stages: the graph
     aggregations (``fbg.<method>``: the slab SpMMs, forward and backward
-    through the transpose, or the attention kernels, forward and backward),
+    through the transpose, or the attention kernels, forward and backward;
+    on a sharded graph with their halo exchanges and fallback exchanges),
     the rest of forward and backward (Linears, ReLU, casts, scores; loss
-    backward), the loss and Adam.  Returns milliseconds per stage, the
-    aggregations' under ``label``."""
+    backward), the loss and Adam.  With ``valid`` (a ``DistFullBatchGraph``
+    step), the loss and the gradients' ``all_reduce`` are
+    ``train_full.dist_full_batch_step``'s own (``dist_loss``,
+    ``all_reduce_grads``), the latter a stage of its own.  Returns
+    milliseconds per stage, the aggregations' under ``label``."""
     import torch
+
+    from cugraph_gnn_tpu_torch import train_full as TF
 
     def event():
         return torch.cuda.Event(enable_timing=True)
@@ -651,17 +1253,26 @@ def _staged_step(model, opt, x, fbg, labels, F, method="spmm", label="spmm"):
         def __getattr__(self, name):
             return timed if name == method else getattr(fbg, name)
 
-    ev = {k: (event(), event()) for k in ("forward", "loss", "backward", "adam")}
+    stages = ("forward", "loss", "backward", "adam") + (
+        () if valid is None else ("grad_all_reduce",))
+    ev = {k: (event(), event()) for k in stages}
     opt.zero_grad(set_to_none=True)
     ev["forward"][0].record()
     logits = model.full_graph(x, Timed()).float()
     ev["forward"][1].record()
     ev["loss"][0].record()
-    loss = F.cross_entropy(logits, labels)
+    if valid is None:
+        loss = F.cross_entropy(logits, labels)
+    else:
+        loss = TF.dist_loss(logits, labels, valid, fbg.mesh.group)
     ev["loss"][1].record()
     ev["backward"][0].record()
     loss.backward()
     ev["backward"][1].record()
+    if valid is not None:
+        ev["grad_all_reduce"][0].record()
+        TF.all_reduce_grads(model, loss, fbg.mesh.group)
+        ev["grad_all_reduce"][1].record()
     ev["adam"][0].record()
     opt.step()
     ev["adam"][1].record()
@@ -673,7 +1284,8 @@ def _staged_step(model, opt, x, fbg, labels, F, method="spmm", label="spmm"):
             f"{label}_backward": agg_bwd,
             "linears_and_elementwise": ms["forward"] - agg_fwd
             + ms["backward"] - agg_bwd,
-            "loss": ms["loss"], "adam": ms["adam"], f"{label}_calls": [len(fwd), len(bwd)]}
+            "loss": ms["loss"], "adam": ms["adam"], f"{label}_calls": [len(fwd), len(bwd)],
+            **({} if valid is None else {"grad_all_reduce": ms["grad_all_reduce"]})}
 
 
 def main() -> None:
@@ -697,8 +1309,12 @@ def main() -> None:
     )
     from cugraph_gnn_tpu_torch import train as T
     from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as AG
+    from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_kernel as AK
     from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import slab_attention_spmm_mh
-    from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import slab_spmm_band
+    from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
+        slab_spmm_band,
+        slab_spmm_band_shard,
+    )
     from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import csr_spmm
 
     wall0 = time.perf_counter()
@@ -883,7 +1499,10 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     counters = (gather_rows, fused_uniform_sample, slab_spmm_band, csr_spmm,
                 slab_attention_spmm_mh, AG.onepass_bwd, AG.slab_attention_bwd,
-                AG.slab_attention_bwd_mh)
+                AG.slab_attention_bwd_mh, slab_spmm_band_shard,
+                AK.slab_attention_spmm_shard, AG.onepass_bwd_shard,
+                AG.slab_attention_bwd_shard, AK.slab_attention_spmm_mh_shard,
+                AG.slab_attention_bwd_mh_shard)
     for fn in counters:
         fn.launches = 0
     for blk in range(blocks):
@@ -935,9 +1554,11 @@ def main() -> None:
 
     reused, fb_rows = full_batch(dev, emit, cuda_ms, hbm, counters)
     gat_rows = gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused)
+    shard_errs = shard_kernels(dev, emit)
+    dist_rows = dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, shard_errs)
     del reused
 
-    # -- 14. summary --------------------------------------------------------
+    # -- 17. summary --------------------------------------------------------
     kernels.append({
         "name": "gather_rows", "route": "cuda",
         "source": "cugraph_gnn_tpu_torch/csrc/gather_rows.cu",
@@ -956,7 +1577,7 @@ def main() -> None:
         "plain_ms": sum(r["plain_ms"] for r in b_rows),
         "bound_ms": sum(r["bound_ms"] for r in b_rows), "bound_by": "bytes",
         "library_ms": None})
-    kernels += fb_rows + gat_rows
+    kernels += fb_rows + gat_rows + dist_rows
     emit({"phase": "wall", "seconds": time.perf_counter() - wall0})
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,11 @@
 //   de_rc = w_rc * (g[r,h] . x[c,h] - t[r,h])
 // and writes dad[r,h] = sum_c de_rc, das[c,h] = sum_r de_rc and
 // dx[c,h,:] = sum_r a_rc g[r,h,:].  x is float32 or bfloat16, g and every
-// output float32.
+// output float32.  The outputs cover n nodes; the per-node inputs (x, g,
+// alpha_src, st) hold x_rows rows with node i at row i + col_offset: a whole
+// graph passes col_offset 0 and x_rows n, a row shard its halo-extended
+// inputs, col_offset R and x_rows n + 2R, with the band edges of its sources
+// (t_ell, or t_rows as halo-extended row ids) and no fallback edges.
 //
 // Replaces, in one source, the three TPU backward kernels of
 // cugraph_gnn_tpu/ops/pallas/slab_attn_grad.py: _onepass_bwd (:333;
@@ -17,7 +21,10 @@
 // VPU and reach the column sums either by accumulating them in VMEM across a
 // sequential grid (one pass, bit planes) or through the transpose ELL t_ell
 // (two orientations); the fallback edges' gradients are XLA segment sums
-// (_add_fallback_grads_mh :763).  Hopper blocks run in no order, so the
+// (_add_fallback_grads_mh :763).  With the shard offset it also replaces
+// the per-shard backwards of cugraph_gnn_tpu/ops/dist_full_batch.py
+// (_attn_bwd_sharded_onepass :679, pallas_call :735; _attn_bwd_sharded :818,
+// :886; _attn_bwd_sharded_mh :1071, :1131).  Hopper blocks run in no order, so the
 // column sums come from a second pass over a transpose index instead of
 // from atomics: the pair's t_ell where it has one, else a host-built CSR of
 // the same band edges by source; the fallback edges ride both passes, by
@@ -74,8 +81,9 @@ template <typename TX, int kPer>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dst_kernel(const TX* __restrict__ x, const float* __restrict__ g,
                     const float* __restrict__ as, const float4* __restrict__ st,
-                    int64_t n, int64_t heads, int64_t f, float slope,
-                    const int32_t* __restrict__ ell, int64_t k_width, int64_t block_rows,
+                    int64_t n, int64_t col_offset, int64_t x_rows, int64_t heads,
+                    int64_t f, float slope, const int32_t* __restrict__ ell,
+                    int64_t k_width, int64_t block_rows,
                     const int64_t* __restrict__ fb_rowptr,
                     const int32_t* __restrict__ fb_src, float* __restrict__ dad) {
   const int lane = threadIdx.x & 31;
@@ -83,7 +91,8 @@ attn_bwd_dst_kernel(const TX* __restrict__ x, const float* __restrict__ g,
   const int64_t stride = (int64_t)gridDim.x * kWarpsPerBlock;
   for (int64_t r = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
        r < n; r += stride) {
-    const int64_t base = (r / block_rows) * block_rows - block_rows;
+    const int64_t base = (r / block_rows) * block_rows - block_rows + col_offset;
+    const int64_t rx = r + col_offset;   // r's row in the per-node inputs
     const int32_t* ids = ell + r * k_width;
     const int64_t e0 = fb_rowptr[r];
     const int64_t e1 = fb_rowptr[r + 1];
@@ -91,11 +100,11 @@ attn_bwd_dst_kernel(const TX* __restrict__ x, const float* __restrict__ g,
       const int64_t j = c0 + kPer * lane;
       const bool active = j < hf;
       const int64_t h = active ? j / f : 0;
-      const float4 sr = st[r * heads + h];
+      const float4 sr = st[rx * heads + h];
       float gv[kPer];
 #pragma unroll
       for (int q = 0; q < kPer; ++q) gv[q] = 0.0f;
-      if (active) row_io::load_row<kPer>(g + r * hf + j, gv);
+      if (active) row_io::load_row<kPer>(g + rx * hf + j, gv);
       float d = 0.0f;      // this lane's part of sum_c w (g . x[c])
       float w_sum = 0.0f;  // sum_c w, the same in every lane of the head
       auto visit = [&](const int32_t* cc) {
@@ -123,8 +132,8 @@ attn_bwd_dst_kernel(const TX* __restrict__ x, const float* __restrict__ g,
           }
         }
       };
-      attn::ell_edges(lane, ids, k_width, base, n, visit);
-      attn::csr_edges(lane, fb_src, e0, e1, n, visit);
+      attn::ell_edges(lane, ids, k_width, base, x_rows, visit);
+      attn::csr_edges(lane, fb_src, e0, e1, x_rows, visit);
       // the head's first lane carries -t * sum_c w once
       const float part = d - (active && j % f == 0 ? sr.w * w_sum : 0.0f);
       attn::add_head_sums(part, active, h, c0, kPer, f, heads, lane, dad + r * heads);
@@ -136,8 +145,9 @@ template <typename TX, int kPer>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_src_kernel(const TX* __restrict__ x, const float* __restrict__ g,
                     const float* __restrict__ as, const float4* __restrict__ st,
-                    int64_t n, int64_t heads, int64_t f, float slope,
-                    const int32_t* __restrict__ t_ell, int64_t t_width, int64_t block_rows,
+                    int64_t n, int64_t col_offset, int64_t x_rows, int64_t heads,
+                    int64_t f, float slope, const int32_t* __restrict__ t_ell,
+                    int64_t t_width, int64_t block_rows,
                     const int64_t* __restrict__ t_rowptr, const int32_t* __restrict__ t_rows,
                     const int64_t* __restrict__ fbt_rowptr,
                     const int32_t* __restrict__ fbt_dst, float* __restrict__ dx,
@@ -147,17 +157,18 @@ attn_bwd_src_kernel(const TX* __restrict__ x, const float* __restrict__ g,
   const int64_t stride = (int64_t)gridDim.x * kWarpsPerBlock;
   for (int64_t c = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
        c < n; c += stride) {
-    const int64_t base = (c / block_rows) * block_rows - block_rows;
+    const int64_t base = (c / block_rows) * block_rows - block_rows + col_offset;
+    const int64_t cx = c + col_offset;   // c's row in the per-node inputs
     for (int64_t c0 = 0; c0 < hf; c0 += 32 * kPer) {
       const int64_t j = c0 + kPer * lane;
       const bool active = j < hf;
       const int64_t h = active ? j / f : 0;
-      const float as_c = as[c * heads + h];
+      const float as_c = as[cx * heads + h];
       float xv[kPer];
       float acc[kPer];
 #pragma unroll
       for (int q = 0; q < kPer; ++q) xv[q] = acc[q] = 0.0f;
-      if (active) row_io::load_row<kPer>(x + c * hf + j, xv);
+      if (active) row_io::load_row<kPer>(x + cx * hf + j, xv);
       float d = 0.0f;      // this lane's part of sum_r w (g[r] . x)
       float wt_sum = 0.0f; // sum_r w t[r], the same in every lane of the head
       auto visit = [&](const int32_t* rr) {
@@ -189,10 +200,10 @@ attn_bwd_src_kernel(const TX* __restrict__ x, const float* __restrict__ g,
         }
       };
       if (t_ell != nullptr)
-        attn::ell_edges(lane, t_ell + c * t_width, t_width, base, n, visit);
+        attn::ell_edges(lane, t_ell + c * t_width, t_width, base, x_rows, visit);
       else
-        attn::csr_edges(lane, t_rows, t_rowptr[c], t_rowptr[c + 1], n, visit);
-      attn::csr_edges(lane, fbt_dst, fbt_rowptr[c], fbt_rowptr[c + 1], n, visit);
+        attn::csr_edges(lane, t_rows, t_rowptr[c], t_rowptr[c + 1], x_rows, visit);
+      attn::csr_edges(lane, fbt_dst, fbt_rowptr[c], fbt_rowptr[c + 1], x_rows, visit);
       if (active) row_io::store_row<kPer>(dx + c * hf + j, acc);
       const float part = d - (active && j % f == 0 ? wt_sum : 0.0f);
       attn::add_head_sums(part, active, h, c0, kPer, f, heads, lane, das + c * heads);
@@ -202,7 +213,7 @@ attn_bwd_src_kernel(const TX* __restrict__ x, const float* __restrict__ g,
 
 struct Args {
   const void *x, *g, *as, *st;
-  int64_t n, heads, f;
+  int64_t n, col_offset, x_rows, heads, f;
   float slope;
   const void *ell;
   int64_t k_width, block_rows;
@@ -221,13 +232,15 @@ int launch_both(const Args& a, cudaStream_t stream) {
   const float* as = static_cast<const float*>(a.as);
   const float4* st = static_cast<const float4*>(a.st);
   attn_bwd_dst_kernel<TX, kPer><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      x, g, as, st, a.n, a.heads, a.f, a.slope, static_cast<const int32_t*>(a.ell),
+      x, g, as, st, a.n, a.col_offset, a.x_rows, a.heads, a.f, a.slope,
+      static_cast<const int32_t*>(a.ell),
       a.k_width, a.block_rows, static_cast<const int64_t*>(a.fb_rowptr),
       static_cast<const int32_t*>(a.fb_src), static_cast<float*>(a.dad));
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   attn_bwd_src_kernel<TX, kPer><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      x, g, as, st, a.n, a.heads, a.f, a.slope, static_cast<const int32_t*>(a.t_ell),
+      x, g, as, st, a.n, a.col_offset, a.x_rows, a.heads, a.f, a.slope,
+      static_cast<const int32_t*>(a.t_ell),
       a.t_width, a.block_rows, static_cast<const int64_t*>(a.t_rowptr),
       static_cast<const int32_t*>(a.t_rows), static_cast<const int64_t*>(a.fbt_rowptr),
       static_cast<const int32_t*>(a.fbt_dst), static_cast<float*>(a.dx),
@@ -244,19 +257,23 @@ int launch(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// x_dtype: 0 = float32, 1 = bfloat16.  x (n, heads, f); g float32 (n,
-// heads, f); alpha_src float32 (n, heads); stats float32 (n, heads, 4) =
-// (alpha_dst, m, max(s, 1e-16), t), 16-byte aligned; ell int32 (>= n rows,
-// k_width) and fb_rowptr int64 (n + 1) over fb_src: the forward's edges by
-// destination; t_ell int32 (>= n rows, t_width) window-local destination
-// rows, or (t_ell null) t_rowptr int64 (n + 1) over t_rows int32 global
-// destination rows: the band edges by source; fb_t_rowptr int64 (n + 1)
-// over fb_t_dst int32: the fallback edges by source.  dx float32 (n, heads,
-// f) is written; dad and das float32 (n, heads) must hold zeros.  Returns
-// cudaGetLastError() after the launches (0 on success).
+// x_dtype: 0 = float32, 1 = bfloat16.  x (x_rows, heads, f); g float32
+// (x_rows, heads, f); alpha_src float32 (x_rows, heads); stats float32
+// (x_rows, heads, 4) = (alpha_dst, m, max(s, 1e-16), t), 16-byte aligned;
+// ell int32 (>= n rows, k_width) and fb_rowptr int64 (n + 1) over fb_src:
+// the forward's edges by destination; t_ell int32 (>= n rows, t_width)
+// window-local destination rows, or (t_ell null) t_rowptr int64 (n + 1) over
+// t_rows int32 destination rows of the per-node inputs: the band edges by
+// source; fb_t_rowptr int64 (n + 1) over fb_t_dst int32: the fallback edges
+// by source.  Node i sits at row i + col_offset of the per-node inputs (0
+// for a whole graph, x_rows = n; block_rows for a shard's halo-extended
+// inputs).  dx float32 (n, heads, f) is written; dad and das float32 (n,
+// heads) must hold zeros.  Returns cudaGetLastError() after the launches (0
+// on success).
 extern "C" int slab_attn_bwd(const void* x, int x_dtype, const void* g,
                              const void* alpha_src, const void* stats, int64_t n,
-                             int64_t heads, int64_t f, float slope, const void* ell,
+                             int64_t col_offset, int64_t x_rows, int64_t heads,
+                             int64_t f, float slope, const void* ell,
                              int64_t k_width, int64_t block_rows, const void* fb_rowptr,
                              const void* fb_src, const void* t_ell, int64_t t_width,
                              const void* t_rowptr, const void* t_rows,
@@ -265,7 +282,8 @@ extern "C" int slab_attn_bwd(const void* x, int x_dtype, const void* g,
   if (!row_io::aligned(stats, 16) ||
       (t_ell == nullptr && (t_rowptr == nullptr || t_rows == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const Args a{x, g, alpha_src, stats, n, heads, f, slope, ell, k_width, block_rows,
+  const Args a{x, g, alpha_src, stats, n, col_offset, x_rows, heads, f, slope, ell,
+               k_width, block_rows,
                fb_rowptr, fb_src, t_ell, t_width, t_rowptr, t_rows, fb_t_rowptr,
                fb_t_dst, dx, dad, das};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

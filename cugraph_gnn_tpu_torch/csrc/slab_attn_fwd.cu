@@ -1,18 +1,23 @@
 // Fused slab attention forward: for every row r < n and head h, over the
-// row's edges r <- c (the band ELL's and the fallback's alike),
+// row's edges r <- c (the band ELL's and the fallback's alike; c indexes x
+// and as, whose x_rows rows hold the band's columns at col_offset: 0 and n
+// for a whole graph, R and n + 2R for a row shard's halo-extended operands),
 //   e_rc       = leakyrelu(ad[r,h] + as[c,h])
 //   m[r,h]     = max_c e_rc                (0 for a row with no edge)
 //   s[r,h]     = sum_c exp(e_rc - m[r,h])
 //   out[r,h,:] = sum_c exp(e_rc - m[r,h]) x[c,h,:] / max(s[r,h], 1e-16)
-// x is (n, H, F) float32 or bfloat16; ad, as, m, s are (n, H) float32; out
-// is float32.  With round_bf16 the band edges' weights and x elements are
+// x is (x_rows, H, F) float32 or bfloat16; ad, m, s are (n, H) and as
+// (x_rows, H) float32; out is float32.  With round_bf16 the band edges' weights and x elements are
 // rounded to bfloat16 before they are multiplied (the JAX package's MXU
 // operands for compute_dtype bfloat16); the fallback edges and every sum
 // stay float32.
 //
 // Replaces cugraph_gnn_tpu/ops/pallas/slab_kernel.py::slab_attention_spmm_mh
 // (:438; pallas_call :503 over _slab_attn_fwd_kernel :386; H = 1 through
-// slab_attention_spmm :546).  The TPU kernel builds the (R, 3R) adjacency
+// slab_attention_spmm :546) and, with the shard offset, the per-shard
+// forwards of cugraph_gnn_tpu/ops/dist_full_batch.py (_attn_fwd_sharded :585,
+// pallas_call :628; _attn_fwd_sharded_mh :974, :1019), whose fallback edges
+// stay outside the kernel.  The TPU kernel builds the (R, 3R) adjacency
 // of a row block, takes each head's masked row softmax over the window on
 // the VPU and multiplies it with the block's 3R-row window of x on the MXU,
 // G blocks stacked to fit VMEM; the fallback edges join afterwards through
@@ -64,7 +69,8 @@ __device__ __forceinline__ float round_bf16(float v) {
 template <typename TX, bool kRound, int kPer>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ ad,
-                const float* __restrict__ as, int64_t n, int64_t heads, int64_t f,
+                const float* __restrict__ as, int64_t n, int64_t col_offset,
+                int64_t x_rows, int64_t heads, int64_t f,
                 const int32_t* __restrict__ ell, int64_t k_width, int64_t block_rows,
                 const int64_t* __restrict__ fb_rowptr, const int32_t* __restrict__ fb_src,
                 float slope, float* __restrict__ out, float* __restrict__ m_out,
@@ -74,7 +80,7 @@ attn_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ ad,
   const int64_t stride = (int64_t)gridDim.x * kWarpsPerBlock;
   for (int64_t r = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
        r < n; r += stride) {
-    const int64_t base = (r / block_rows) * block_rows - block_rows;
+    const int64_t base = (r / block_rows) * block_rows - block_rows + col_offset;
     const int32_t* ids = ell + r * k_width;
     const int64_t e0 = fb_rowptr[r];
     const int64_t e1 = fb_rowptr[r + 1];
@@ -93,8 +99,8 @@ attn_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ ad,
             mx = fmaxf(mx, attn::lrelu(adr + __ldg(as + (int64_t)cc[u] * heads + h), slope));
         }
       };
-      attn::ell_edges(lane, ids, k_width, base, n, max_of);
-      attn::csr_edges(lane, fb_src, e0, e1, n, max_of);
+      attn::ell_edges(lane, ids, k_width, base, x_rows, max_of);
+      attn::csr_edges(lane, fb_src, e0, e1, x_rows, max_of);
       const float m = mx == -INFINITY ? 0.0f : mx;
 
       // pass 2: the weights, their sum and the weighted rows
@@ -130,8 +136,8 @@ attn_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ ad,
       };
       auto band_rows = [&](const int32_t* cc) { accumulate(cc, true); };
       auto fallback_rows = [&](const int32_t* cc) { accumulate(cc, false); };
-      attn::ell_edges(lane, ids, k_width, base, n, band_rows);
-      attn::csr_edges(lane, fb_src, e0, e1, n, fallback_rows);
+      attn::ell_edges(lane, ids, k_width, base, x_rows, band_rows);
+      attn::csr_edges(lane, fb_src, e0, e1, x_rows, fallback_rows);
 
       if (active) {
         const float denom = fmaxf(s, 1e-16f);
@@ -149,9 +155,9 @@ attn_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ ad,
 }
 
 template <typename TX, bool kRound>
-int launch(const void* x, const void* ad, const void* as, int64_t n, int64_t heads,
-           int64_t f, const void* ell, int64_t k_width, int64_t block_rows,
-           const void* fb_rowptr, const void* fb_src, float slope, void* out, void* m,
+int launch(const void* x, const void* ad, const void* as, int64_t n, int64_t col_offset,
+           int64_t x_rows, int64_t heads, int64_t f, const void* ell, int64_t k_width,
+           int64_t block_rows, const void* fb_rowptr, const void* fb_src, float slope, void* out, void* m,
            void* s, cudaStream_t stream) {
   int64_t blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > (1 << 20)) blocks = 1 << 20;  // the row loop strides over the rest
@@ -168,36 +174,37 @@ int launch(const void* x, const void* ad, const void* as, int64_t n, int64_t hea
   float* sp = static_cast<float*>(s);
   if (vec)
     attn_fwd_kernel<TX, kRound, 4><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        xp, adp, asp, n, heads, f, ep, k_width, block_rows, rp, fp, slope, op, mp, sp);
+        xp, adp, asp, n, col_offset, x_rows, heads, f, ep, k_width, block_rows, rp, fp,
+        slope, op, mp, sp);
   else
     attn_fwd_kernel<TX, kRound, 1><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        xp, adp, asp, n, heads, f, ep, k_width, block_rows, rp, fp, slope, op, mp, sp);
+        xp, adp, asp, n, col_offset, x_rows, heads, f, ep, k_width, block_rows, rp, fp,
+        slope, op, mp, sp);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x_dtype: 0 = float32, 1 = bfloat16.  x (n, heads, f); alpha_dst,
-// alpha_src, m, s float32 (n, heads); ell int32 (>= n rows, k_width);
-// fb_rowptr int64 (n + 1) over fb_src int32; out float32 (n, heads, f).
-// Returns cudaGetLastError() after the launch (0 on success).
+// x_dtype: 0 = float32, 1 = bfloat16.  x (x_rows, heads, f); alpha_src
+// float32 (x_rows, heads); alpha_dst, m, s float32 (n, heads); ell int32
+// (>= n rows, k_width); fb_rowptr int64 (n + 1) over fb_src int32 (ids into
+// x); out float32 (n, heads, f).  col_offset: 0 for a whole graph (x_rows =
+// n), block_rows for a shard's halo-extended x and alpha_src.  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int slab_attn_fwd(const void* x, int x_dtype, const void* alpha_dst,
-                             const void* alpha_src, int64_t n, int64_t heads, int64_t f,
+                             const void* alpha_src, int64_t n, int64_t col_offset,
+                             int64_t x_rows, int64_t heads, int64_t f,
                              const void* ell, int64_t k_width, int64_t block_rows,
                              const void* fb_rowptr, const void* fb_src, float slope,
                              int round_bf16, void* out, void* m, void* s, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0 && round_bf16)
-    return launch<float, true>(x, alpha_dst, alpha_src, n, heads, f, ell, k_width,
-                               block_rows, fb_rowptr, fb_src, slope, out, m, s, st);
-  if (x_dtype == 0)
-    return launch<float, false>(x, alpha_dst, alpha_src, n, heads, f, ell, k_width,
-                                block_rows, fb_rowptr, fb_src, slope, out, m, s, st);
-  if (x_dtype == 1 && round_bf16)
-    return launch<__nv_bfloat16, true>(x, alpha_dst, alpha_src, n, heads, f, ell, k_width,
-                                       block_rows, fb_rowptr, fb_src, slope, out, m, s, st);
-  if (x_dtype == 1)
-    return launch<__nv_bfloat16, false>(x, alpha_dst, alpha_src, n, heads, f, ell, k_width,
-                                        block_rows, fb_rowptr, fb_src, slope, out, m, s, st);
+#define SLAB_ATTN_FWD_LAUNCH(TX, ROUND)                                                \
+  return launch<TX, ROUND>(x, alpha_dst, alpha_src, n, col_offset, x_rows, heads, f, ell, \
+                           k_width, block_rows, fb_rowptr, fb_src, slope, out, m, s, st)
+  if (x_dtype == 0 && round_bf16) SLAB_ATTN_FWD_LAUNCH(float, true);
+  if (x_dtype == 0) SLAB_ATTN_FWD_LAUNCH(float, false);
+  if (x_dtype == 1 && round_bf16) SLAB_ATTN_FWD_LAUNCH(__nv_bfloat16, true);
+  if (x_dtype == 1) SLAB_ATTN_FWD_LAUNCH(__nv_bfloat16, false);
+#undef SLAB_ATTN_FWD_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

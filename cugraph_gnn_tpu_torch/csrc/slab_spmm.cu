@@ -1,14 +1,20 @@
 // Slab SpMM, band part: for every row r < n of a banded graph,
-//   out[r] = sum_k w[r,k] * x[(r / R) * R - R + ell[r,k]]
-// over the ELL entries ell[r,k] >= 0 whose column lies in [0, n); w = 1 for
-// an unweighted graph.  x is float32 or bfloat16; out is float32, summed in
-// float32 registers.  With round_bf16 (compute dtype bfloat16) every x
-// element and weight is rounded to bfloat16 before it is used, as the MXU's
-// operands are in the JAX package.  The fallback edges, the mean
-// divide and the cast to x's dtype are the caller's (slab_kernel.py).
+//   out[r] = sum_k w[r,k] * x[(r / R) * R - R + col_offset + ell[r,k]]
+// over the ELL entries ell[r,k] >= 0 whose x row lies in [0, x_rows); w = 1
+// for an unweighted graph.  A whole graph passes col_offset 0 and x_rows n.
+// A row shard passes its x with one R-row halo on each side (x_rows = n + 2R)
+// and col_offset R, so its local row r reads x row (r / R) * R + ell[r,k].
+// x is float32 or bfloat16; out is float32, summed in float32 registers.
+// With round_bf16 (compute dtype bfloat16) every x element and weight is
+// rounded to bfloat16 before it is used, as the MXU's operands are in the JAX
+// package.  The fallback edges, the mean divide and the cast to x's dtype are
+// the caller's (slab_kernel.py, ops/dist_full_batch.py).
 //
 // Replaces cugraph_gnn_tpu/ops/pallas/slab_kernel.py::slab_spmm (:267;
-// pallas_call :333 over _slab_bits_kernel :198 and _slab_kernel :177).  The
+// pallas_call :333 over _slab_bits_kernel :198 and _slab_kernel :177) and,
+// with the shard offset, the per-shard band kernel of
+// cugraph_gnn_tpu/ops/dist_full_batch.py::_shard_spmm_body (:178; pallas_call
+// :218 over the same kernels at G = 1 on the halo-extended x).  The
 // TPU design multiplies a 0/1 (R, 3R) block, decoded from bit planes, with
 // the block's 3R-row window of x on the MXU, G blocks stacked to fit 16 MB of
 // VMEM.  None of that carries over: the window (3R x F = 768 rows x 512 B =
@@ -54,15 +60,15 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 template <typename TX, bool kWeighted, bool kRound, int kPer>
 __global__ void __launch_bounds__(kThreads)
-slab_band_kernel(const TX* __restrict__ x, int64_t n,
-                 const int32_t* __restrict__ ell, const float* __restrict__ ell_w,
-                 int64_t k_width, int64_t block_rows, float* __restrict__ out,
-                 int64_t f) {
+slab_band_kernel(const TX* __restrict__ x, int64_t n, int64_t col_offset,
+                 int64_t x_rows, const int32_t* __restrict__ ell,
+                 const float* __restrict__ ell_w, int64_t k_width, int64_t block_rows,
+                 float* __restrict__ out, int64_t f) {
   const int lane = threadIdx.x & 31;
   const int64_t stride = (int64_t)gridDim.x * kWarpsPerBlock;
   for (int64_t r = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
        r < n; r += stride) {
-    const int64_t base = (r / block_rows) * block_rows - block_rows;
+    const int64_t base = (r / block_rows) * block_rows - block_rows + col_offset;
     const int32_t* ids = ell + r * k_width;
     const float* ws = kWeighted ? ell_w + r * k_width : nullptr;
     float* dst = out + r * f;
@@ -78,9 +84,9 @@ slab_band_kernel(const TX* __restrict__ x, int64_t n,
         if (kc + lane < k_width) {
           const int32_t id = ids[kc + lane];
           const int64_t col = base + id;
-          // a real entry is never outside [0, n); guard as the TPU kernel's
-          // clamped window blocks do
-          if (id >= 0 && col >= 0 && col < n) {
+          // a real entry is never outside [0, x_rows); guard as the TPU
+          // kernel's clamped window blocks do
+          if (id >= 0 && col >= 0 && col < x_rows) {
             my_c = (int32_t)col;
             if (kWeighted) my_w = kRound ? round_bf16(ws[kc + lane]) : ws[kc + lane];
           }
@@ -121,8 +127,8 @@ slab_band_kernel(const TX* __restrict__ x, int64_t n,
 }
 
 template <typename TX, bool kWeighted, bool kRound>
-int launch(const void* x, int64_t n, const void* ell, const void* ell_w,
-           int64_t k_width, int64_t block_rows, void* out, int64_t f,
+int launch(const void* x, int64_t n, int64_t col_offset, int64_t x_rows, const void* ell,
+           const void* ell_w, int64_t k_width, int64_t block_rows, void* out, int64_t f,
            cudaStream_t stream) {
   int64_t blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > (1 << 20)) blocks = 1 << 20;  // the row loop strides over the rest
@@ -134,39 +140,43 @@ int launch(const void* x, int64_t n, const void* ell, const void* ell_w,
   float* op = static_cast<float*>(out);
   if (vec)
     slab_band_kernel<TX, kWeighted, kRound, 4><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        xp, n, ep, wp, k_width, block_rows, op, f);
+        xp, n, col_offset, x_rows, ep, wp, k_width, block_rows, op, f);
   else
     slab_band_kernel<TX, kWeighted, kRound, 1><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        xp, n, ep, wp, k_width, block_rows, op, f);
+        xp, n, col_offset, x_rows, ep, wp, k_width, block_rows, op, f);
   return (int)cudaGetLastError();
 }
 
 template <typename TX, bool kRound>
-int launch_w(const void* x, int64_t n, const void* ell, const void* ell_w,
-             int64_t k_width, int64_t block_rows, void* out, int64_t f,
+int launch_w(const void* x, int64_t n, int64_t col_offset, int64_t x_rows, const void* ell,
+             const void* ell_w, int64_t k_width, int64_t block_rows, void* out, int64_t f,
              cudaStream_t stream) {
   if (ell_w != nullptr)
-    return launch<TX, true, kRound>(x, n, ell, ell_w, k_width, block_rows, out, f, stream);
-  return launch<TX, false, kRound>(x, n, ell, ell_w, k_width, block_rows, out, f, stream);
+    return launch<TX, true, kRound>(x, n, col_offset, x_rows, ell, ell_w, k_width,
+                                    block_rows, out, f, stream);
+  return launch<TX, false, kRound>(x, n, col_offset, x_rows, ell, ell_w, k_width,
+                                   block_rows, out, f, stream);
 }
 
 }  // namespace
 
-// x_dtype: 0 = float32, 1 = bfloat16.  ell int32 (n_pad, k_width), ell_w
-// float32 (n_pad, k_width) or null, out float32 (n, f).  round_bf16 rounds x
-// (a no-op for bfloat16 x) and the weights to bfloat16.  Returns
-// cudaGetLastError() after the launch (0 on success).
-extern "C" int slab_spmm(const void* x, int x_dtype, int64_t n, const void* ell,
-                         const void* ell_w, int64_t k_width, int64_t block_rows,
-                         int round_bf16, void* out, int64_t f, void* stream) {
+// x_dtype: 0 = float32, 1 = bfloat16.  x (x_rows, f); ell int32 (>= n rows,
+// k_width), ell_w float32 (>= n rows, k_width) or null, out float32 (n, f).
+// col_offset: 0 for a whole graph, block_rows for a shard's halo-extended x.
+// round_bf16 rounds x (a no-op for bfloat16 x) and the weights to bfloat16.
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int slab_spmm(const void* x, int x_dtype, int64_t n, int64_t col_offset,
+                         int64_t x_rows, const void* ell, const void* ell_w,
+                         int64_t k_width, int64_t block_rows, int round_bf16, void* out,
+                         int64_t f, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && round_bf16)
-    return launch_w<float, true>(x, n, ell, ell_w, k_width, block_rows, out, f, s);
+    return launch_w<float, true>(x, n, col_offset, x_rows, ell, ell_w, k_width, block_rows, out, f, s);
   if (x_dtype == 0)
-    return launch_w<float, false>(x, n, ell, ell_w, k_width, block_rows, out, f, s);
+    return launch_w<float, false>(x, n, col_offset, x_rows, ell, ell_w, k_width, block_rows, out, f, s);
   if (x_dtype == 1 && round_bf16)
-    return launch_w<__nv_bfloat16, true>(x, n, ell, ell_w, k_width, block_rows, out, f, s);
+    return launch_w<__nv_bfloat16, true>(x, n, col_offset, x_rows, ell, ell_w, k_width, block_rows, out, f, s);
   if (x_dtype == 1)
-    return launch_w<__nv_bfloat16, false>(x, n, ell, ell_w, k_width, block_rows, out, f, s);
+    return launch_w<__nv_bfloat16, false>(x, n, col_offset, x_rows, ell, ell_w, k_width, block_rows, out, f, s);
   return (int)cudaErrorInvalidValue;
 }

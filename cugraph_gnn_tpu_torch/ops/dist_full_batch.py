@@ -1,0 +1,640 @@
+"""Row-sharded full-batch message passing over ``torch.distributed``.
+
+Counterpart of ``cugraph_gnn_tpu/ops/dist_full_batch.py``.  After the banded
+split of the slab path (``ops/kernels/slab_kernel.py``: |col - row| <= R), a
+rank owning rows [w*rs, (w+1)*rs) reads only x rows [w*rs - R, (w+1)*rs + R)
+for its band edges, so each rank gets ONE R-row halo from each neighbour
+(``_halo_exchange``: ``batch_isend_irecv`` with ranks w - 1 and w + 1; the end
+ranks get zeros) and runs the single-graph kernels on its rows with a column
+offset of R (the ``*_shard`` wrappers).  The fallback edges (off-band,
+duplicate, past ``max_k``) stay outside the kernels, as in the JAX package:
+bucketed on the host by destination rank (or, when those counts are skewed,
+in even chunks with global destination ids, ``_plan_fallback``), their
+source rows fetched by the store's distributed gather
+(``store/dist_array.py``) and reduced with ``index_add_`` (or returned to
+their owners by a distributed scatter-add).
+
+Gradients: d/dx (A x) = A^T g, and the transpose of a banded graph is banded
+with the same bandwidth, so ``spmm``'s backward is the same sharded routine
+over the transposed structures.  The attention's backward halo-exchanges g
+and the per-node stats (alpha_dst, m, s, t, alpha_src) as well as x, and
+reads, per rank, the band edges by source with halo-extended destination
+rows (the pair's ``t_ell`` rows, or a slice of its band CSR by source), so
+dx, dalpha_dst and dalpha_src come out for the rank's own rows and no
+reverse halo is needed.  The JAX package's one-pass backward instead sums
+margin planes and returns them with ``_halo_reduce``: the same function.
+Collectives in a backward run in the same order on every rank because every
+rank runs the same autograd graph.
+
+Every rank builds the whole graph's host structures and keeps its own rows
+on its device.  Node arrays are this rank's rs rows (:meth:`shard`); the
+model's parameters are replicated (``train_full.dist_full_batch_step``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from cugraph_gnn_tpu_torch import _native
+from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as AG
+from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import (
+    lrelu,
+    slab_attention_spmm_mh_shard,
+    slab_attention_spmm_shard,
+)
+from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
+    SlabGraph,
+    build_slab_graph,
+    slab_spmm_band_shard,
+)
+from cugraph_gnn_tpu_torch.ops.reorder import reorder_csr
+from cugraph_gnn_tpu_torch.parallel.mesh import Mesh
+from cugraph_gnn_tpu_torch.store.dist_array import (
+    _dist_gather_shard,
+    _dist_scatter_shard,
+    put_global,
+)
+from cugraph_gnn_tpu_torch.store.partition import PartitionBook
+
+
+def _bucket_fallback(fb_src, fb_dst, rows_per_shard: int, world: int,
+                     bucket_by: str = "dst", localize: str = "dst", fb_w=None):
+    """Host-side: group fallback edges by ``bucket_by`` ('dst' or 'src')
+    shard, pad every shard to the max count (a multiple of 128), and
+    localize the ``localize`` side's ids to shard-relative offsets (the
+    other side stays global for the exchange).  Returns (W * cap,) src / dst
+    arrays, -1 padded (plus a 0-padded weight array when ``fb_w`` is given);
+    all shape (0,) when the graph has no fallback edges.  The JAX package's
+    arrays, bit for bit."""
+    fb_src = np.asarray(fb_src)
+    fb_dst = np.asarray(fb_dst)
+    valid = (fb_src >= 0) & (fb_dst >= 0)
+    fb_src, fb_dst = fb_src[valid], fb_dst[valid]
+    if fb_w is not None:
+        fb_w = np.asarray(fb_w, np.float32)[valid]
+    if not len(fb_src):
+        out = (np.zeros(0, np.int32),) * 2
+        return out + (np.zeros(0, np.float32),) if fb_w is not None else out
+    shard = (fb_dst if bucket_by == "dst" else fb_src) // rows_per_shard
+    cap = int(np.bincount(shard, minlength=world).max(initial=0))
+    cap = max(-(-cap // 128) * 128, 128)
+    src_p = np.full((world, cap), -1, np.int32)
+    dst_p = np.full((world, cap), -1, np.int32)
+    w_p = np.zeros((world, cap), np.float32)
+    for w in range(world):
+        sel = shard == w
+        k = int(sel.sum())
+        src_p[w, :k] = fb_src[sel] - (w * rows_per_shard if localize == "src" else 0)
+        dst_p[w, :k] = fb_dst[sel] - (w * rows_per_shard if localize == "dst" else 0)
+        if fb_w is not None:
+            w_p[w, :k] = fb_w[sel]
+    if fb_w is not None:
+        return src_p.reshape(-1), dst_p.reshape(-1), w_p.reshape(-1)
+    return src_p.reshape(-1), dst_p.reshape(-1)
+
+
+def _plan_fallback(fb_src, fb_dst, rows_per_shard: int, world: int, fb_w=None,
+                   balance_threshold: float = 2.0):
+    """Fallback-edge placement for the SpMM with bounded memory: bucketed
+    by destination shard (local reduce, no extra exchange) while the
+    per-shard counts are even (max <= ``balance_threshold`` x mean); on
+    hub-concentrated fallbacks, where that padding would cost O(W * max),
+    W equal chunks with GLOBAL destination ids, returned to their owners by
+    one distributed scatter-add.  Returns (src, dst[, w], balanced), the
+    JAX package's arrays."""
+    s = np.asarray(fb_src)
+    d = np.asarray(fb_dst)
+    valid = (s >= 0) & (d >= 0)
+    s, d = s[valid], d[valid]
+    w = None if fb_w is None else np.asarray(fb_w, np.float32)[valid]
+    e = len(s)
+    if e:
+        counts = np.bincount(d // rows_per_shard, minlength=world)
+        balanced = counts.max() > balance_threshold * max(e / world, 1.0)
+    else:
+        balanced = False
+    if not balanced:
+        return _bucket_fallback(fb_src, fb_dst, rows_per_shard, world, fb_w=fb_w) + (False,)
+    chunk = -(-e // world)
+    cap = max(-(-chunk // 128) * 128, 128)
+    src_p = np.full((world, cap), -1, np.int32)
+    dst_p = np.full((world, cap), -1, np.int32)
+    w_p = np.zeros((world, cap), np.float32)
+    for i in range(world):
+        lo, hi = i * chunk, min((i + 1) * chunk, e)
+        k = max(hi - lo, 0)
+        src_p[i, :k] = s[lo:hi]
+        dst_p[i, :k] = d[lo:hi]
+        if w is not None:
+            w_p[i, :k] = w[lo:hi]
+    if fb_w is not None:
+        return src_p.reshape(-1), dst_p.reshape(-1), w_p.reshape(-1), True
+    return src_p.reshape(-1), dst_p.reshape(-1), True
+
+
+def _p2p(mesh: Mesh, sends, recvs) -> None:
+    """Post sends [(tensor, rank)] and receives [(buffer, rank)] as one
+    batch and wait for all of them."""
+    ops = ([dist.P2POp(dist.isend, t, mesh.global_rank(r), mesh.group) for t, r in sends]
+           + [dist.P2POp(dist.irecv, t, mesh.global_rank(r), mesh.group) for t, r in recvs])
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def _halo_exchange(x_local: torch.Tensor, r_blk: int, mesh: Mesh) -> torch.Tensor:
+    """x_ext = [previous rank's last R rows | x_local | next rank's first R
+    rows]; the end ranks get zeros for the missing side."""
+    w, world = mesh.rank, mesh.world
+    prev = x_local.new_zeros((r_blk,) + tuple(x_local.shape[1:]))
+    nxt = torch.zeros_like(prev)
+    sends, recvs = [], []
+    if w + 1 < world:
+        sends.append((x_local[-r_blk:].contiguous(), w + 1))
+        recvs.append((nxt, w + 1))
+    if w > 0:
+        sends.append((x_local[:r_blk].contiguous(), w - 1))
+        recvs.append((prev, w - 1))
+    _p2p(mesh, sends, recvs)
+    return torch.cat([prev, x_local, nxt])
+
+
+def _halo_reduce(c_ext: torch.Tensor, r_blk: int, mesh: Mesh) -> torch.Tensor:
+    """Inverse of :func:`_halo_exchange` for accumulation: ``c_ext`` (rs +
+    2R, ...) holds [contributions to the previous rank's last R rows | own
+    rows | contributions to the next rank's first R rows]; the margins go to
+    their owners and are added to their edge rows.  The end ranks' outer
+    margins are dropped (the graph has no rows there)."""
+    w, world = mesh.rank, mesh.world
+    from_next = c_ext.new_zeros((r_blk,) + tuple(c_ext.shape[1:]))
+    from_prev = torch.zeros_like(from_next)
+    sends, recvs = [], []
+    if w > 0:
+        sends.append((c_ext[:r_blk].contiguous(), w - 1))
+        recvs.append((from_prev, w - 1))
+    if w + 1 < world:
+        sends.append((c_ext[-r_blk:].contiguous(), w + 1))
+        recvs.append((from_next, w + 1))
+    _p2p(mesh, sends, recvs)
+    body = c_ext[r_blk:c_ext.shape[0] - r_blk].clone()
+    body[-r_blk:] += from_next
+    body[:r_blk] += from_prev
+    return body
+
+
+def halo_rows(x: torch.Tensor, w: int, rs: int, r_blk: int) -> torch.Tensor:
+    """Rows [w*rs - R, (w+1)*rs + R) of a whole (padded) node array, zeros
+    outside it: what rank w's :func:`_halo_exchange` of ``x``'s rows gives."""
+    lo, hi = w * rs - r_blk, (w + 1) * rs + r_blk
+    out = x.new_zeros((hi - lo,) + tuple(x.shape[1:]))
+    a, b = max(lo, 0), min(hi, x.shape[0])
+    if b > a:
+        out[a - lo:b - lo] = x[a:b]
+    return out
+
+
+def _padded(a: np.ndarray, rows: int, fill) -> np.ndarray:
+    if a.shape[0] >= rows:
+        return a[:rows]
+    pad = np.full((rows - a.shape[0],) + a.shape[1:], fill, a.dtype)
+    return np.concatenate([a, pad])
+
+
+def shard_slab(ell: np.ndarray, ell_w: Optional[np.ndarray], w: int, rs: int,
+               r_blk: int, device) -> SlabGraph:
+    """Rank w's rows of a band ELL (and weights) as a SlabGraph without
+    fallback edges, the input of the shard kernels.  ``ell`` has at least
+    (w + 1) * rs rows (pad with -1)."""
+    sl = slice(w * rs, (w + 1) * rs)
+
+    def t(a):
+        return None if a is None else torch.as_tensor(np.ascontiguousarray(a[sl]),
+                                                       device=device)
+
+    ell_l = t(ell)
+    no_edges = torch.zeros(0, dtype=torch.int32, device=device)
+    return SlabGraph(ell=ell_l, ell_w=t(ell_w), fb_src=no_edges, fb_dst=no_edges,
+                     fb_w=None, degrees=(ell_l >= 0).sum(1, dtype=torch.int32),
+                     num_rows=rs, block_rows=r_blk, n_blocks=rs // r_blk,
+                     fb_rowptr=torch.zeros(rs + 1, dtype=torch.int64, device=device))
+
+
+def shard_attention_pair(pair: AG.AttnSlabPair, w: int, rs: int, n_pad: int,
+                         device) -> AG.AttnSlabPair:
+    """Rank w's part of a whole graph's attention pair (host tensors): its
+    band by destination, its band by source (``t_ell`` rows, or the band
+    CSR by source with destination rows shifted into the halo-extended
+    numbering: global row - (w*rs - R)), no fallback edges."""
+    r_blk, n = pair.fwd.block_rows, pair.fwd.num_rows
+    fwd = shard_slab(_padded(pair.fwd.ell.cpu().numpy(), n_pad, -1), None, w, rs,
+                     r_blk, device)
+    no_edges = torch.zeros(0, dtype=torch.int32, device=device)
+    empty_ptr = torch.zeros(rs + 1, dtype=torch.int64, device=device)
+    if pair.t_ell is not None:
+        t_ell = _padded(pair.t_ell.cpu().numpy(), n_pad, -1)[w * rs:(w + 1) * rs]
+        return AG.AttnSlabPair(fwd=fwd, fb_t_rowptr=empty_ptr, fb_t_dst=no_edges,
+                               t_ell=torch.as_tensor(np.ascontiguousarray(t_ell),
+                                                     device=device))
+    ptr = pair.t_rowptr.cpu().numpy()
+    lo, hi = min(w * rs, n), min((w + 1) * rs, n)
+    e0, e1 = int(ptr[lo]), int(ptr[hi])
+    t_ptr = np.full(rs + 1, e1 - e0, np.int64)
+    t_ptr[:hi - lo + 1] = ptr[lo:hi + 1] - e0
+    t_rows = (pair.t_rows.cpu().numpy()[e0:e1].astype(np.int64)
+              - (w * rs - r_blk)).astype(np.int32)
+    return AG.AttnSlabPair(fwd=fwd, fb_t_rowptr=empty_ptr, fb_t_dst=no_edges,
+                           t_rowptr=torch.as_tensor(t_ptr, device=device),
+                           t_rows=torch.as_tensor(t_rows, device=device))
+
+
+def _shard_spmm_body(band: SlabGraph, x_local, fb_src, fb_dst, fb_w=None, *, mesh: Mesh,
+                     book: PartitionBook, compute_dtype, fb_balanced: bool, has_fb: bool):
+    """One rank's sum aggregation, float32 (rs, F): halo exchange, the band
+    kernel over the shard, then the fallback edges: their source rows by
+    the distributed gather, reduced into the local rows (``fb_dst`` local)
+    or, balanced, returned to their owners by a distributed scatter-add
+    (``fb_dst`` global).  ``has_fb``: whether the graph has fallback edges
+    at all (every rank takes part in the exchange, with or without edges of
+    its own)."""
+    x_ext = _halo_exchange(x_local, band.block_rows, mesh)
+    out = slab_spmm_band_shard(band, x_ext, compute_dtype)
+    if has_fb:
+        rows = _dist_gather_shard(x_local, fb_src, book=book, mesh=mesh, fill=0).float()
+        if fb_w is not None:
+            rows = rows * fb_w[:, None]
+        if fb_balanced:
+            out = _dist_scatter_shard(out, fb_dst, rows, book=book, mesh=mesh, mode="add")
+        else:
+            out.index_add_(0, fb_dst, rows)
+    return out
+
+
+class _ShardSpmm(NamedTuple):
+    """One orientation's SpMM structures on this rank."""
+
+    band: SlabGraph
+    fb_src: torch.Tensor
+    fb_dst: torch.Tensor
+    fb_w: Optional[torch.Tensor]
+    balanced: bool
+    has_fb: bool
+
+
+class _DistSpmm(torch.autograd.Function):
+    """Forward: the sharded SpMM, 'mean' divided by max(degree, 1), cast to
+    x's dtype.  Backward: g / degree for 'mean', then the sharded SpMM over
+    the transposed structures, as ``FullBatchGraph``'s."""
+
+    @staticmethod
+    def forward(ctx, x, graph, reduce, compute_dtype):
+        ctx.graph, ctx.reduce, ctx.compute_dtype = graph, reduce, compute_dtype
+        ctx.x_dtype = x.dtype
+        out = graph._spmm_sharded(x, transpose=False, compute_dtype=compute_dtype)
+        if reduce == "mean":
+            out = out / graph.degrees.clamp(min=1)[:, None].to(out.dtype)
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        graph = ctx.graph
+        g = g.contiguous()
+        if ctx.reduce == "mean":
+            g = g / graph.degrees.clamp(min=1)[:, None].to(g.dtype)
+        gx = graph._spmm_sharded(g, transpose=True, compute_dtype=ctx.compute_dtype)
+        return gx.to(ctx.x_dtype), None, None, None
+
+
+class _DistAttention(torch.autograd.Function):
+    """Forward: the sharded fused attention, keeping its stats.  Backward:
+    t = sum(g * out, -1), then the sharded backward; gradients in their
+    inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, alpha_dst, alpha_src, graph, negative_slope):
+        out, m, s = graph._attn_fwd(x, alpha_dst, alpha_src, negative_slope)
+        ctx.save_for_backward(x, alpha_dst, alpha_src, out, m, s)
+        ctx.graph, ctx.negative_slope = graph, negative_slope
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, alpha_dst, alpha_src, out, m, s = ctx.saved_tensors
+        t = (g.float() * out).sum(-1)
+        dx, dad, das = ctx.graph._attn_bwd(x, alpha_dst, alpha_src, m, s, t, g,
+                                           ctx.negative_slope)
+        return (dx.to(x.dtype), dad.to(alpha_dst.dtype), das.to(alpha_src.dtype),
+                None, None)
+
+
+class DistFullBatchGraph:
+    """Row-sharded full-batch message passing over ``mesh``.
+
+    The surface of ``FullBatchGraph`` that distributes (``spmm`` sum/mean,
+    ``degrees``, the attention methods, ``to_graph_order``), so that the
+    models' ``full_graph`` paths run unchanged on this rank's rows.  The
+    node count is padded to ``n_pad``, a multiple of world x R; rank w owns
+    rows [w*rs, (w+1)*rs).  Padded rows have no edges and degree 0.
+    ``build_seconds`` holds the host seconds of the builds.
+    """
+
+    def __init__(self, indptr, indices, mesh: Mesh, *, weights=None,
+                 reorder: str = "auto", block_rows: int = 256, max_k: int = 64):
+        t0 = time.perf_counter()
+        indptr = np.asarray(indptr, np.int64)
+        indices = np.asarray(indices, np.int32)
+        if weights is not None:
+            weights = np.asarray(weights, np.float32)
+        n = len(indptr) - 1
+        self.num_nodes = n
+        self.mesh = mesh
+        self._order = None
+        if reorder in ("rcm", "auto"):
+            rg = reorder_csr(indptr, indices)
+            if reorder == "rcm" or self._band_better(indptr, indices, rg, block_rows):
+                self._order = rg
+                indptr, indices = rg.indptr, rg.indices
+                if weights is not None:
+                    weights = weights[np.asarray(rg.edge_perm)]
+        elif reorder != "none":
+            raise ValueError(f"unknown reorder {reorder!r}")
+        build = dict(block_rows=block_rows, max_k=max_k, device="cpu")
+        slab = build_slab_graph(indptr, indices, weights, **build)
+        self.band_fraction = slab.band_fraction
+        self._indptr_g, self._indices_g = indptr, indices
+        self._max_k = max_k
+        world = mesh.world
+        # pad the block count to a multiple of the world size
+        nb_w = -(-slab.n_blocks // world) * world
+        self._r_blk = block_rows
+        self._rs = (nb_w // world) * block_rows
+        self._n_pad = nb_w * block_rows
+        self._world = world
+        self._book = PartitionBook.even(self._n_pad, world)
+        self.weighted = weights is not None
+        deg = np.zeros(self._n_pad, np.int32)
+        deg[:n] = slab.degrees.numpy()[:n]
+        self.degrees = put_global(deg, mesh)
+        self._spmm = {False: self._spmm_structs(slab)}
+        t1 = time.perf_counter()
+        # transpose structures for the backward pass
+        rows = np.repeat(np.arange(n, dtype=np.int32), indptr[1:] - indptr[:-1])
+        ok = (indices >= 0) & (indices < n)
+        t_indptr, t_indices, t_perm = _native.build_csr(indices[ok], rows[ok], n)
+        w_t = None if weights is None else weights[ok][t_perm]
+        self._spmm[True] = self._spmm_structs(build_slab_graph(t_indptr, t_indices, w_t,
+                                                               **build))
+        self._attn = None
+        self.build_seconds: Dict[str, float] = {
+            "graph": t1 - t0, "transpose": time.perf_counter() - t1}
+
+    @staticmethod
+    def _band_better(indptr, indices, rg, block_rows) -> bool:
+        """auto mode: keep RCM only if it raises the in-band fraction."""
+        n = len(indptr) - 1
+
+        def frac(ip, ix):
+            rows = np.repeat(np.arange(n, dtype=np.int64),
+                             np.asarray(ip)[1:] - np.asarray(ip)[:-1])
+            cols = np.asarray(ix, np.int64)
+            ok = (cols >= 0) & (cols < n)
+            if not ok.any():
+                return 0.0
+            return float((np.abs(cols[ok] - rows[ok]) <= block_rows).mean())
+
+        return frac(rg.indptr, rg.indices) > frac(indptr, indices)
+
+    # -- placement ---------------------------------------------------------
+
+    def _local_edges(self, *arrays) -> Tuple[torch.Tensor, ...]:
+        """This rank's slice of planned fallback arrays ((world * cap,)
+        each), without its -1 padding, on its device (ids int64)."""
+        cap = len(arrays[0]) // self._world
+        sl = slice(self.mesh.rank * cap, (self.mesh.rank + 1) * cap)
+        keep = (arrays[0][sl] >= 0) & (arrays[1][sl] >= 0)
+        return tuple(torch.as_tensor(a[sl][keep].astype(np.int64 if a.dtype.kind == "i"
+                                                        else np.float32),
+                                     device=self.mesh.device) for a in arrays)
+
+    def _spmm_structs(self, slab: SlabGraph) -> _ShardSpmm:
+        ell = _padded(slab.ell.numpy(), self._n_pad, -1)
+        ell_w = None if slab.ell_w is None else _padded(slab.ell_w.numpy(), self._n_pad, 0)
+        fb_w = None if slab.fb_w is None else slab.fb_w.numpy()
+        *planned, balanced = _plan_fallback(slab.fb_src.numpy(), slab.fb_dst.numpy(),
+                                            self._rs, self._world, fb_w=fb_w)
+        fb = self._local_edges(*planned)
+        return _ShardSpmm(band=shard_slab(ell, ell_w, self.mesh.rank, self._rs,
+                                          self._r_blk, self.mesh.device),
+                          fb_src=fb[0], fb_dst=fb[1], fb_w=fb[2] if len(fb) > 2 else None,
+                          balanced=bool(balanced), has_fb=len(planned[0]) > 0)
+
+    @property
+    def n_pad(self) -> int:
+        """Padded node count (world x rows per rank)."""
+        return self._n_pad
+
+    @property
+    def rows_per_rank(self) -> int:
+        return self._rs
+
+    @property
+    def order(self) -> Optional[np.ndarray]:
+        return None if self._order is None else self._order.order
+
+    @property
+    def inv_order(self) -> Optional[np.ndarray]:
+        return None if self._order is None else self._order.inv_order
+
+    def to_graph_order(self, x):
+        """A host node array (numpy or CPU tensor, N rows) in graph order."""
+        return x if self._order is None else x[np.asarray(self._order.order)]
+
+    def shard(self, x, dtype=None) -> torch.Tensor:
+        """This rank's rows of a host node array (graph order, N rows),
+        padded with zeros, on its device: (rs, ...)."""
+        x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
+        if dtype is not None:
+            x = x.to(dtype)
+        rs, w = self._rs, self.mesh.rank
+        out = torch.zeros((rs,) + tuple(x.shape[1:]), dtype=x.dtype, device=self.mesh.device)
+        part = x[w * rs:min((w + 1) * rs, self.num_nodes)]
+        out[:part.shape[0]] = part.to(self.mesh.device)
+        return out
+
+    def unshard(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a sharded node array, trimmed to N, on the
+        host (a collective: every rank calls it)."""
+        parts = [torch.empty_like(x) for _ in range(self._world)]
+        dist.all_gather(parts, x.contiguous(), group=self.mesh.group)
+        return torch.cat(parts)[:self.num_nodes].cpu()
+
+    # -- aggregation -------------------------------------------------------
+
+    def spmm_arrays(self, transpose: bool = False):
+        """(ell, fb_src, fb_dst) of this rank, for :meth:`spmm_with_arrays`."""
+        st = self._spmm[transpose]
+        return st.band.ell, st.fb_src, st.fb_dst
+
+    def spmm_with_arrays(self, x, ell, fb_s, fb_d, *, compute_dtype=torch.float32):
+        """Forward-only, unweighted sum aggregation with this graph's
+        structure arrays passed explicitly (see :meth:`spmm_arrays`)."""
+        return self._spmm_sharded(x, transpose=False, compute_dtype=compute_dtype,
+                                  arrays=(ell, fb_s, fb_d))
+
+    def _spmm_sharded(self, x, *, transpose: bool, compute_dtype, arrays=None):
+        st = self._spmm[transpose]
+        band, fb_s, fb_d, fb_w = st.band, st.fb_src, st.fb_dst, st.fb_w
+        if arrays is not None:
+            band = band._replace(ell=arrays[0], ell_w=None)
+            fb_s, fb_d, fb_w = arrays[1], arrays[2], None
+        return _shard_spmm_body(band, x.contiguous(), fb_s, fb_d, fb_w, mesh=self.mesh,
+                                book=self._book, compute_dtype=compute_dtype,
+                                fb_balanced=st.balanced, has_fb=st.has_fb)
+
+    def spmm(self, x, reduce: str = "mean", *, compute_dtype=torch.float32):
+        """out[r] = reduce over row r's in-neighbors of w * x[c]; x and out
+        are this rank's rows (:meth:`shard`).  Differentiable in x (the
+        transposed graph's sharded SpMM)."""
+        if reduce not in ("sum", "mean"):
+            raise ValueError(f"dist slab spmm supports sum/mean, got {reduce!r}")
+        return _DistSpmm.apply(x, self, reduce, compute_dtype)
+
+    # -- fused attention -----------------------------------------------------
+
+    def _attn_structs(self):
+        """The attention pair of the graph-order CSR, this rank's part of it
+        and its fallback edges bucketed by destination (forward, dalpha_dst)
+        and by source (dx, dalpha_src); built at first use."""
+        if self._attn is None:
+            t0 = time.perf_counter()
+            pair = AG.build_attention_slab_pair(self._indptr_g, self._indices_g,
+                                                block_rows=self._r_blk,
+                                                max_k=self._max_k, device="cpu")
+            fb_s, fb_d = pair.fwd.fb_src.numpy(), pair.fwd.fb_dst.numpy()
+            by_dst = _bucket_fallback(fb_s, fb_d, self._rs, self._world)
+            by_src = _bucket_fallback(fb_s, fb_d, self._rs, self._world, bucket_by="src",
+                                      localize="src")
+            self._attn = dict(
+                pair=shard_attention_pair(pair, self.mesh.rank, self._rs, self._n_pad,
+                                          self.mesh.device),
+                fb_by_dst=self._local_edges(*by_dst),
+                fb_by_src=self._local_edges(*by_src),
+                has_fb=len(by_dst[0]) > 0)
+            self.build_seconds["attention_pair"] = time.perf_counter() - t0
+        return self._attn
+
+    def _attn_fwd(self, x, alpha_dst, alpha_src, negative_slope):
+        """(out (rs, H, F), m, s (rs, H)), float32: the band through the
+        shard kernel over halo-extended x and alpha_src (H = 1: the
+        single-head wrapper), the fallback edges by a log-sum-exp merge."""
+        st = self._attn_structs()
+        graph = st["pair"].fwd
+        rs, heads, fh = x.shape
+        x_ext = _halo_exchange(x.contiguous(), self._r_blk, self.mesh)
+        as_ext = _halo_exchange(alpha_src.float().contiguous(), self._r_blk, self.mesh)
+        ad = alpha_dst.float()
+        kw = dict(negative_slope=negative_slope, return_stats=True)
+        if heads == 1:
+            out, m, s = (a[:, None] for a in slab_attention_spmm_shard(
+                graph, x_ext[:, 0], ad[:, 0], as_ext[:, 0], **kw))
+        else:
+            out, m, s = slab_attention_spmm_mh_shard(graph, x_ext, ad, as_ext, **kw)
+        if not st["has_fb"]:
+            return out, m, s
+        src, dst = st["fb_by_dst"]                  # global sources, local rows
+        hf = heads * fh
+        xa = _dist_gather_shard(torch.cat([x.reshape(rs, hf).float(), alpha_src.float()], 1),
+                                src, book=self._book, mesh=self.mesh, fill=0)
+        x_fb, as_fb = xa[:, :hf].reshape(-1, heads, fh), xa[:, hf:]
+        e = lrelu(ad[dst] + as_fb, negative_slope)
+        m_f = torch.full((rs, heads), -torch.inf, device=x.device).scatter_reduce(
+            0, dst[:, None].expand(-1, heads), e, "amax")
+        m_f = torch.where(torch.isfinite(m_f), m_f, 0)
+        p = torch.exp(e - m_f[dst])
+        s_f = torch.zeros_like(s).index_add_(0, dst, p)
+        u_f = torch.zeros_like(out).index_add_(0, dst, p[..., None] * x_fb)
+        m_all = torch.maximum(m, m_f)
+        # a row without band (fallback) edges has s = 0 and takes no share
+        wb = torch.where(s > 0, torch.exp(m - m_all), 0)
+        wf = torch.where(s_f > 0, torch.exp(m_f - m_all), 0)
+        s_all = s * wb + s_f * wf
+        u = out * (s * wb)[..., None] + u_f * wf[..., None]   # the kernel's out is u_b / s
+        return u / s_all.clamp(min=1e-16)[..., None], m_all, s_all
+
+    def _attn_bwd(self, x, alpha_dst, alpha_src, m, s, t, g, negative_slope):
+        """(dx (rs, H, F), dalpha_dst, dalpha_src (rs, H)), float32: the
+        band through the shard backward kernel over halo-extended x, g and
+        stats; the fallback edges by source, their destinations' g and
+        stats by the distributed gather, dalpha_dst returned by a
+        distributed scatter-add."""
+        st = self._attn_structs()
+        pair = st["pair"]
+        rs, heads, fh = x.shape
+        r_blk, mesh = self._r_blk, self.mesh
+        s_safe = s.clamp(min=1e-16)
+        stats = torch.cat([alpha_dst.float(), m, s_safe, t, alpha_src.float()], 1)
+        st_ext = _halo_exchange(stats, r_blk, mesh)
+        # the end ranks' zero halo rows: keep s positive
+        st_ext[:, 2 * heads:3 * heads].clamp_(min=1e-16)
+        ad_e, m_e, s_e, t_e, as_e = st_ext.split(heads, 1)
+        x_ext = _halo_exchange(x.contiguous(), r_blk, mesh)
+        g_ext = _halo_exchange(g.float().contiguous(), r_blk, mesh)
+        if heads == 1:
+            dx, dad, das = (a[:, None] for a in AG.slab_attention_bwd_shard(
+                pair, x_ext[:, 0], ad_e[:, 0], as_e[:, 0], m_e[:, 0], s_e[:, 0],
+                t_e[:, 0], g_ext[:, 0], negative_slope=negative_slope))
+        else:
+            dx, dad, das = AG.slab_attention_bwd_mh_shard(
+                pair, x_ext, ad_e, as_e, m_e, s_e, t_e, g_ext, negative_slope=negative_slope)
+        if not st["has_fb"]:
+            return dx, dad, das
+        src, dst = st["fb_by_src"]                  # local sources, global rows
+        hf = heads * fh
+        gq = _dist_gather_shard(
+            torch.cat([g.reshape(rs, hf).float(), alpha_dst.float(), m, s_safe, t], 1),
+            dst, book=self._book, mesh=mesh, fill=0)
+        g_d = gq[:, :hf].reshape(-1, heads, fh)
+        ad_d, m_d, s_d, t_d = gq[:, hf:].split(heads, 1)
+        z = ad_d + alpha_src.float()[src]
+        a_e = torch.exp(lrelu(z, negative_slope) - m_d) / s_d.clamp(min=1e-16)
+        de = (a_e * ((g_d * x.float()[src]).sum(-1) - t_d)
+              * torch.where(z >= 0, 1.0, negative_slope))
+        dx = dx.index_add_(0, src, a_e[..., None] * g_d)
+        das = das.index_add_(0, src, de)
+        dad = _dist_scatter_shard(dad, dst, de, book=self._book, mesh=mesh, mode="add")
+        return dx, dad, das
+
+    def attention_spmm(self, x, alpha_dst, alpha_src, *, negative_slope: float = 0.2):
+        """Single-head fused attention aggregate: x (rs, F), alpha_* (rs,)
+        this rank's rows -> (rs, F) float32; differentiable in all three."""
+        return _DistAttention.apply(x[:, None], alpha_dst[:, None], alpha_src[:, None],
+                                    self, negative_slope)[:, 0]
+
+    def attention_spmm_mh(self, x, alpha_dst, alpha_src, *, negative_slope: float = 0.2):
+        """Multi-head fused attention aggregate (``GATConv.full_graph``'s
+        contract): x (rs, H, F), alpha_* (rs, H) -> (rs, H, F) float32,
+        differentiable.  All heads of a group run in one kernel launch per
+        direction; heads beyond ``MAX_PACKED_HEADS`` run in groups of that
+        size.  H = 1 takes the single-head kernels."""
+        heads = x.shape[1]
+        group = AG.MAX_PACKED_HEADS
+        if heads > group:
+            return torch.cat([
+                self.attention_spmm_mh(x[:, h0:h0 + group], alpha_dst[:, h0:h0 + group],
+                                       alpha_src[:, h0:h0 + group],
+                                       negative_slope=negative_slope)
+                for h0 in range(0, heads, group)], dim=1)
+        return _DistAttention.apply(x, alpha_dst, alpha_src, self, negative_slope)
+
+    @classmethod
+    def from_coo(cls, src, dst, num_nodes: int, mesh: Mesh, weights=None, **kw):
+        """From COO edges src -> dst (aggregation at dst); keyword arguments
+        as for the constructor."""
+        indptr, indices, perm = _native.build_csr(
+            np.asarray(dst, np.int32), np.asarray(src, np.int32), num_nodes)
+        w = None if weights is None else np.asarray(weights)[perm]
+        return cls(indptr, indices, mesh, weights=w, **kw)

@@ -21,9 +21,14 @@ always a source-major CSR of the fallback edges (``fb_t_rowptr``/
 and count their own launches: ``onepass_bwd`` (pairs with bit planes),
 ``slab_attention_bwd`` (H = 1 over ``t_ell``) and ``slab_attention_bwd_mh``
 (H > 1 over ``t_ell``; H = 1 goes to ``slab_attention_bwd``).  CPU tensors
-run ``slab_attention_bwd_ref``.  The JAX package's VMEM devices (G-stacking,
-margin planes, packed stat lanes) have no counterpart; ``MAX_PACKED_HEADS``
-stays as the head-group size of ``FullBatchGraph.attention_spmm_mh``.
+run ``slab_attention_bwd_ref``.  Their ``_shard`` twins run the same kernel
+on one row shard of a graph (``ops/dist_full_batch.py``, the JAX package's
+sharded backwards): per-node inputs with an R-row halo on each side, the
+shard's band by source with halo-extended destination rows, the fallback
+edges left to the caller; each counts its own launches.  The JAX package's
+VMEM devices (G-stacking, margin planes, packed stat lanes) have no
+counterpart; ``MAX_PACKED_HEADS`` stays as the head-group size of
+``FullBatchGraph.attention_spmm_mh`` and ``DistFullBatchGraph``'s.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import (
     fallback_edges,
     lrelu,
     slab_attention_spmm_mh,
+    window_columns,
 )
 from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
     SlabGraph,
@@ -52,12 +58,13 @@ from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import padded_from_coo
 
 MAX_PACKED_HEADS = 25
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# x, x dtype, g, alpha_src, stats, n, heads, f, negative_slope, ell,
-# k_width, block_rows, fb_rowptr, fb_src, t_ell, t_width, t_rowptr, t_rows,
-# fb_t_rowptr, fb_t_dst, dx, dad, das, stream
+# x, x dtype, g, alpha_src, stats, n, col_offset, x_rows, heads, f,
+# negative_slope, ell, k_width, block_rows, fb_rowptr, fb_src, t_ell, t_width,
+# t_rowptr, t_rows, fb_t_rowptr, fb_t_dst, dx, dad, das, stream
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
-_ARGTYPES = [_P, ctypes.c_int, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float,
-             _P, _I64, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P]
+_ARGTYPES = [_P, ctypes.c_int, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+             ctypes.c_float, _P, _I64, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
+             _P, _P, _P]
 
 
 class AttnSlabPair(NamedTuple):
@@ -171,33 +178,36 @@ def build_attention_slab_pair(indptr, indices, *, block_rows: int = 256,
                         t_ell=t(t_ell), t_rowptr=t(t_ptr), t_rows=t(t_rows))
 
 
-def _check(pair: AttnSlabPair, x, stats, g) -> None:
+def _check(pair: AttnSlabPair, x, stats, g, col_offset: int) -> None:
     if x.dim() != 3 or x.dtype not in _FLOAT_CODES:
         raise TypeError(f"x must be (N, H, F) float32 or bfloat16, got "
                         f"{tuple(x.shape)} {x.dtype}")
-    n, heads, f = x.shape
-    if n != pair.fwd.num_rows:
-        raise ValueError(f"x has {n} rows, the graph {pair.fwd.num_rows}")
-    if tuple(g.shape) != (n, heads, f):
-        raise ValueError(f"g must be {(n, heads, f)}, got {tuple(g.shape)}")
+    x_rows, heads, f = x.shape
+    n = pair.fwd.num_rows
+    if x_rows != n + 2 * col_offset:
+        raise ValueError(f"x has {x_rows} rows, the graph {n}"
+                         + (f" plus a {col_offset}-row halo on each side"
+                            if col_offset else ""))
+    if tuple(g.shape) != (x_rows, heads, f):
+        raise ValueError(f"g must be {(x_rows, heads, f)}, got {tuple(g.shape)}")
     for a in stats:
-        if tuple(a.shape) != (n, heads):
-            raise ValueError(f"per-node stats must be {(n, heads)}, got "
+        if tuple(a.shape) != (x_rows, heads):
+            raise ValueError(f"per-node stats must be {(x_rows, heads)}, got "
                              f"{tuple(a.shape)}")
     for a in (*stats, g, pair.fwd.ell):
         if a.device != x.device:
             raise ValueError(f"tensors on {a.device} and {x.device}")
 
 
-def slab_attention_bwd_ref(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s,
-                           t, g, *, negative_slope: float = 0.2):
-    """Plain PyTorch version of the backward kernel: (dx (N, H, F),
-    dalpha_dst (N, H), dalpha_src (N, H)), float32, over the forward
-    orientation's edges (band one ELL column at a time, fallback in
-    chunks)."""
-    _check(pair, x, (alpha_dst, alpha_src, m, s, t), g)
+def _bwd_ref(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
+             negative_slope, col_offset):
+    """The kernel's two passes in plain PyTorch: dalpha_dst over each row's
+    edges by destination (band ELL, fallback), dx and dalpha_src over each
+    column's edges by source (``t_ell`` or the band CSR, fallback CSR)."""
+    _check(pair, x, (alpha_dst, alpha_src, m, s, t), g, col_offset)
     graph = pair.fwd
-    n, heads, f = x.shape
+    n = graph.num_rows
+    x_rows, heads, f = x.shape
     ad, as_, m, t = (a.float() for a in (alpha_dst, alpha_src, m, t))
     s_safe = s.float().clamp(min=1e-16)
     x32, g32 = x.float(), g.float()
@@ -205,38 +215,76 @@ def slab_attention_bwd_ref(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s,
     dad = torch.zeros((n, heads), device=x.device)
     das = torch.zeros((n, heads), device=x.device)
 
-    def add(r, c, ok=None):
+    def edge(r, c, ok=None):
+        """a and de of the edges r <- c (rows of the per-node inputs)."""
         z = ad[r] + as_[c]
         a = torch.exp(lrelu(z, negative_slope) - m[r]) / s_safe[r]
         if ok is not None:
             a = torch.where(ok[:, None], a, 0)
         de = (a * torch.where(z >= 0, 1.0, negative_slope)
               * ((g32[r] * x32[c]).sum(-1) - t[r]))
-        dad.index_add_(0, r, de)
-        das.index_add_(0, c, de)
-        dx.index_add_(0, c, a[..., None] * g32[r])
+        return a, de
 
-    cols, ok = band_columns(graph, n)
-    rows = torch.arange(n, device=x.device)
+    def by_source(c, r):   # c: local columns, r: input rows; in chunks
+        for e0 in range(0, c.numel(), _FB_CHUNK):
+            cc, rr = c[e0:e0 + _FB_CHUNK], r[e0:e0 + _FB_CHUNK]
+            a, de = edge(rr, cc + col_offset)
+            das.index_add_(0, cc, de)
+            dx.index_add_(0, cc, a[..., None] * g32[rr])
+
+    def csr(rowptr, ids):
+        cnt = (rowptr[1:n + 1] - rowptr[:n]).long()
+        return torch.repeat_interleave(torch.arange(n, device=x.device), cnt), ids.long()
+
+    own = torch.arange(n, device=x.device) + col_offset
+    cols, ok = band_columns(graph, x_rows, col_offset)
     for k in range(cols.shape[1]):
-        add(rows, cols[:, k], ok[:, k])
-    src, dst = fallback_edges(graph, n)
+        dad += edge(own, cols[:, k], ok[:, k])[1]
+    src, dst = fallback_edges(graph, x_rows)
     for e0 in range(0, src.numel(), _FB_CHUNK):
-        add(dst[e0:e0 + _FB_CHUNK], src[e0:e0 + _FB_CHUNK])
+        d = dst[e0:e0 + _FB_CHUNK]
+        dad.index_add_(0, d, edge(d + col_offset, src[e0:e0 + _FB_CHUNK])[1])
+
+    if pair.t_ell is not None:
+        rows, ok = window_columns(pair.t_ell[:n], graph.block_rows, x_rows, col_offset)
+        for k in range(rows.shape[1]):
+            a, de = edge(rows[:, k], own, ok[:, k])
+            das += de
+            dx += a[..., None] * g32[rows[:, k]]
+    else:
+        by_source(*csr(pair.t_rowptr, pair.t_rows))
+    by_source(*csr(pair.fb_t_rowptr, pair.fb_t_dst))
     return dx, dad, das
 
 
+def slab_attention_bwd_ref(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t,
+                           g, *, negative_slope: float = 0.2):
+    """Plain PyTorch version of the backward kernel: (dx (N, H, F),
+    dalpha_dst (N, H), dalpha_src (N, H)), float32."""
+    return _bwd_ref(pair, x, alpha_dst, alpha_src, m, s, t, g, negative_slope, 0)
+
+
+def slab_attention_bwd_shard_ref(pair: AttnSlabPair, x_ext, alpha_dst, alpha_src, m,
+                                 s, t, g_ext, *, negative_slope: float = 0.2):
+    """Plain PyTorch version of the shard backward (:func:`onepass_bwd_shard`,
+    :func:`slab_attention_bwd_mh_shard`): the same function over one row
+    shard's pair, every per-node input with its R-row halo on each side."""
+    return _bwd_ref(pair, x_ext, alpha_dst, alpha_src, m, s, t, g_ext, negative_slope,
+                    pair.fwd.block_rows)
+
+
 def _launch(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
-            negative_slope: float):
+            negative_slope: float, col_offset: int):
     """The backward kernel on the card: both passes, one C call."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    n, heads, f = x.shape
-    if n >= 2**31:
-        raise ValueError(f"{n} rows do not fit int32 ids")
+    x_rows, heads, f = x.shape
+    n = pair.fwd.num_rows
+    if x_rows >= 2**31:
+        raise ValueError(f"{x_rows} rows do not fit int32 ids")
     graph = pair.fwd
     stats = torch.stack([alpha_dst.float(), m.float(), s.float().clamp(min=1e-16),
-                         t.float()], dim=-1).contiguous()     # (N, H, 4)
+                         t.float()], dim=-1).contiguous()     # (x_rows, H, 4)
     x = x.contiguous()
     g = g.float().contiguous()
     as_ = alpha_src.float().contiguous()
@@ -253,9 +301,9 @@ def _launch(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(x.data_ptr(), _FLOAT_CODES[x.dtype], g.data_ptr(), as_.data_ptr(),
-                    stats.data_ptr(), n, heads, f, float(negative_slope),
-                    graph.ell.data_ptr(), graph.ell.shape[1], graph.block_rows,
-                    graph.fb_rowptr.data_ptr(), graph.fb_src.data_ptr(),
+                    stats.data_ptr(), n, col_offset, x_rows, heads, f,
+                    float(negative_slope), graph.ell.data_ptr(), graph.ell.shape[1],
+                    graph.block_rows, graph.fb_rowptr.data_ptr(), graph.fb_src.data_ptr(),
                     ptr(pair.t_ell), 0 if pair.t_ell is None else pair.t_ell.shape[1],
                     ptr(pair.t_rowptr), ptr(pair.t_rows),
                     pair.fb_t_rowptr.data_ptr(), pair.fb_t_dst.data_ptr(),
@@ -264,22 +312,35 @@ def _launch(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
     return dx, dad, das
 
 
+def _run(counter, pair, args, negative_slope, col_offset):
+    """The plain version for CPU tensors, else the kernel, counted."""
+    x = args[0]
+    _check(pair, x, args[1:6], args[6], col_offset)
+    if x.device.type == "cpu":
+        return _bwd_ref(pair, *args, negative_slope, col_offset)
+    if pair.t_ell is None and pair.t_rows is None:
+        raise ValueError("the pair has neither t_ell nor the band CSR by source")
+    out = _launch(pair, *args, negative_slope, col_offset)
+    counter.launches += 1
+    return out
+
+
+def _squeeze_heads(res):
+    dx, dad, das = res
+    return dx[:, 0], dad[:, 0], das[:, 0]
+
+
 def onepass_bwd(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g, *,
                 negative_slope: float = 0.2):
     """Gradients for a pair with bit planes (no ``t_ell``): the source pass
     reads the host-built band CSR.  x/g (N, H, F); alpha_*/m/s/t (N, H).
     Returns float32 (dx, dalpha_dst, dalpha_src), fallback edges
     included."""
-    _check(pair, x, (alpha_dst, alpha_src, m, s, t), g)
-    if x.device.type == "cpu":
-        return slab_attention_bwd_ref(pair, x, alpha_dst, alpha_src, m, s, t, g,
-                                      negative_slope=negative_slope)
-    if pair.t_rows is None:
+    if pair.t_ell is not None and x.device.type != "cpu":
         raise ValueError("the pair has t_ell, not the band CSR: use "
                          "slab_attention_bwd(_mh)")
-    out = _launch(pair, x, alpha_dst, alpha_src, m, s, t, g, negative_slope)
-    onepass_bwd.launches += 1
-    return out
+    return _run(onepass_bwd, pair, (x, alpha_dst, alpha_src, m, s, t, g),
+                negative_slope, 0)
 
 
 onepass_bwd.launches = 0
@@ -294,16 +355,8 @@ def slab_attention_bwd(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t,
     args = (x[:, None], alpha_dst[:, None], alpha_src[:, None], m[:, None],
             s[:, None], t[:, None], g[:, None])
     if pair.t_ell is None:
-        dx, dad, das = onepass_bwd(pair, *args, negative_slope=negative_slope)
-    else:
-        _check(pair, args[0], args[1:6], args[6])
-        if x.device.type == "cpu":
-            dx, dad, das = slab_attention_bwd_ref(pair, *args,
-                                                  negative_slope=negative_slope)
-        else:
-            dx, dad, das = _launch(pair, *args, negative_slope)
-            slab_attention_bwd.launches += 1
-    return dx[:, 0], dad[:, 0], das[:, 0]
+        return _squeeze_heads(onepass_bwd(pair, *args, negative_slope=negative_slope))
+    return _squeeze_heads(_run(slab_attention_bwd, pair, args, negative_slope, 0))
 
 
 slab_attention_bwd.launches = 0
@@ -322,21 +375,83 @@ def slab_attention_bwd_mh(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s,
     if pair.t_ell is None:
         return onepass_bwd(pair, x, alpha_dst, alpha_src, m, s, t, g,
                            negative_slope=negative_slope)
-    _check(pair, x, (alpha_dst, alpha_src, m, s, t), g)
+    _check(pair, x, (alpha_dst, alpha_src, m, s, t), g, 0)
     if heads == 1:
         dx, dad, das = slab_attention_bwd(
             pair, x[:, 0], alpha_dst[:, 0], alpha_src[:, 0], m[:, 0], s[:, 0],
             t[:, 0], g[:, 0], negative_slope=negative_slope)
         return dx[:, None], dad[:, None], das[:, None]
-    if x.device.type == "cpu":
-        return slab_attention_bwd_ref(pair, x, alpha_dst, alpha_src, m, s, t, g,
-                                      negative_slope=negative_slope)
-    out = _launch(pair, x, alpha_dst, alpha_src, m, s, t, g, negative_slope)
-    slab_attention_bwd_mh.launches += 1
-    return out
+    return _run(slab_attention_bwd_mh, pair, (x, alpha_dst, alpha_src, m, s, t, g),
+                negative_slope, 0)
 
 
 slab_attention_bwd_mh.launches = 0
+
+
+# -- one row shard -----------------------------------------------------------
+# The same kernel with col_offset R over a shard's pair (``ops/dist_full_batch.py``):
+# the rs rows of the shard's band by destination (forward ELL) and by source
+# (``t_ell`` rows, or the band CSR by source with halo-extended destination
+# rows), no fallback edges (the caller adds theirs); every per-node input
+# (x, g, alpha_*, m, s, t) holds rs + 2R rows, the shard's with the R rows
+# before and after it; the gradients cover the rs rows.
+
+
+def onepass_bwd_shard(pair: AttnSlabPair, x_ext, alpha_dst, alpha_src, m, s, t,
+                      g_ext, *, negative_slope: float = 0.2):
+    """:func:`onepass_bwd` on one row shard's pair (bit planes: the band CSR
+    by source); counts ``onepass_bwd_shard.launches``."""
+    if pair.t_ell is not None and x_ext.device.type != "cpu":
+        raise ValueError("the pair has t_ell, not the band CSR: use "
+                         "slab_attention_bwd(_mh)_shard")
+    return _run(onepass_bwd_shard, pair, (x_ext, alpha_dst, alpha_src, m, s, t, g_ext),
+                negative_slope, pair.fwd.block_rows)
+
+
+onepass_bwd_shard.launches = 0
+
+
+def slab_attention_bwd_shard(pair: AttnSlabPair, x_ext, alpha_dst, alpha_src, m, s,
+                             t, g_ext, *, negative_slope: float = 0.2):
+    """:func:`slab_attention_bwd` on one row shard's pair: x_ext/g_ext
+    (rs + 2R, F), the rest (rs + 2R,); returns (dx (rs, F), dalpha_dst (rs,),
+    dalpha_src (rs,)).  Pairs with bit planes go to :func:`onepass_bwd_shard`;
+    counts ``slab_attention_bwd_shard.launches``."""
+    args = (x_ext[:, None], alpha_dst[:, None], alpha_src[:, None], m[:, None],
+            s[:, None], t[:, None], g_ext[:, None])
+    if pair.t_ell is None:
+        return _squeeze_heads(onepass_bwd_shard(pair, *args,
+                                                negative_slope=negative_slope))
+    return _squeeze_heads(_run(slab_attention_bwd_shard, pair, args, negative_slope,
+                               pair.fwd.block_rows))
+
+
+slab_attention_bwd_shard.launches = 0
+
+
+def slab_attention_bwd_mh_shard(pair: AttnSlabPair, x_ext, alpha_dst, alpha_src, m,
+                                s, t, g_ext, *, negative_slope: float = 0.2):
+    """:func:`slab_attention_bwd_mh` on one row shard's pair; pairs with bit
+    planes go to :func:`onepass_bwd_shard`, H = 1 to
+    :func:`slab_attention_bwd_shard`; counts
+    ``slab_attention_bwd_mh_shard.launches``."""
+    heads = x_ext.shape[1] if x_ext.dim() == 3 else 0
+    if heads > MAX_PACKED_HEADS:
+        raise ValueError(f"slab_attention_bwd_mh_shard supports "
+                         f"<={MAX_PACKED_HEADS} heads, got {heads}")
+    args = (x_ext, alpha_dst, alpha_src, m, s, t, g_ext)
+    if pair.t_ell is None:
+        return onepass_bwd_shard(pair, *args, negative_slope=negative_slope)
+    _check(pair, x_ext, args[1:6], g_ext, pair.fwd.block_rows)
+    if heads == 1:
+        res = slab_attention_bwd_shard(pair, *(a[:, 0] for a in args),
+                                       negative_slope=negative_slope)
+        return tuple(a[:, None] for a in res)
+    return _run(slab_attention_bwd_mh_shard, pair, args, negative_slope,
+                pair.fwd.block_rows)
+
+
+slab_attention_bwd_mh_shard.launches = 0
 
 
 class _SlabAttention(torch.autograd.Function):

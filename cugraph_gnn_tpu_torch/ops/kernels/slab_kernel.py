@@ -14,7 +14,9 @@ kernel in accumulate mode (``spmm_kernel.csr_spmm``, where the JAX package
 uses XLA's ``segment_spmm``), then the 'mean' divide and the cast to x's
 dtype.  ``slab_spmm_band`` is the band kernel's wrapper: it launches for CUDA
 tensors, runs ``slab_spmm_band_ref`` for CPU tensors, and counts
-``slab_spmm_band.launches``.
+``slab_spmm_band.launches``.  ``slab_spmm_band_shard`` launches the same
+kernel on one row shard of a graph (``ops/dist_full_batch.py``), whose x
+carries one R-row halo on each side, and counts its own launches.
 
 Unlike the JAX package, a bfloat16 result is rounded once, after the band,
 the fallback and the divide are summed in float32 (the JAX bit-plane path
@@ -39,10 +41,12 @@ from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import (
 )
 
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# x, x dtype, n, ell, ell_w, k_width, block_rows, round_bf16, out, f, stream
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+# x, x dtype, n, col_offset, x_rows, ell, ell_w, k_width, block_rows,
+# round_bf16, out, f, stream
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_void_p]
 _FB_TILE = 128   # fallback COO padding, as in the JAX package
 
 
@@ -182,12 +186,14 @@ def _pack_bits(kept_rows, slab_local, n_pad, r_blk):
     return bits.view(np.int8)
 
 
-def _check(graph: SlabGraph, x, compute_dtype) -> None:
+def _check(graph: SlabGraph, x, compute_dtype, col_offset: int) -> None:
     if x.dim() != 2 or x.dtype not in _FLOAT_CODES:
         raise TypeError(f"x must be 2-D float32 or bfloat16, got "
                         f"{tuple(x.shape)} {x.dtype}")
-    if x.shape[0] != graph.num_rows:
-        raise ValueError(f"x has {x.shape[0]} rows, the graph {graph.num_rows}")
+    if x.shape[0] != graph.num_rows + 2 * col_offset:
+        raise ValueError(f"x has {x.shape[0]} rows, the graph {graph.num_rows}"
+                         + (f" plus a {col_offset}-row halo on each side"
+                            if col_offset else ""))
     if compute_dtype not in _FLOAT_CODES:
         raise TypeError(f"compute_dtype must be float32 or bfloat16, got "
                         f"{compute_dtype}")
@@ -195,26 +201,57 @@ def _check(graph: SlabGraph, x, compute_dtype) -> None:
         raise ValueError(f"graph on {graph.ell.device}, x on {x.device}")
 
 
-def slab_spmm_band_ref(graph: SlabGraph, x, compute_dtype=torch.bfloat16):
-    """Plain PyTorch version of :func:`slab_spmm_band`."""
-    _check(graph, x, compute_dtype)
-    n, f = x.shape
+def _band_ref(graph: SlabGraph, x, compute_dtype, col_offset: int):
+    _check(graph, x, compute_dtype, col_offset)
+    n = graph.num_rows
+    x_rows, f = x.shape
     r_blk = graph.block_rows
     ell = graph.ell[:n].long()
-    base = (torch.arange(n, device=x.device) // r_blk) * r_blk - r_blk
+    base = (torch.arange(n, device=x.device) // r_blk) * r_blk - r_blk + col_offset
     cols = base[:, None] + ell
-    ok = (ell >= 0) & (cols >= 0) & (cols < n)
+    ok = (ell >= 0) & (cols >= 0) & (cols < x_rows)
     xs = x.to(compute_dtype).float()
     w = None
     if graph.ell_w is not None:
         w = graph.ell_w[:n].to(compute_dtype).float()
     out = torch.zeros((n, f), dtype=torch.float32, device=x.device)
     for k in range(ell.shape[1]):
-        term = xs[cols[:, k].clamp(0, max(n - 1, 0))]
+        term = xs[cols[:, k].clamp(0, max(x_rows - 1, 0))]
         if w is not None:
             term = term * w[:, k:k + 1]
         out += torch.where(ok[:, k:k + 1], term, 0)
     return out
+
+
+def _band_launch(graph: SlabGraph, x, compute_dtype, col_offset: int):
+    """The band kernel on the card (x already checked); no launch when
+    there is nothing to compute."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    n = graph.num_rows
+    x_rows, f = x.shape
+    if x_rows >= 2**31:
+        raise ValueError(f"{x_rows} rows do not fit int32 column ids")
+    out = torch.empty((n, f), dtype=torch.float32, device=x.device)
+    if n == 0 or f == 0:
+        return out
+    fn = _build.function("slab_spmm", _ARGTYPES)
+    w = graph.ell_w
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(x.data_ptr(), _FLOAT_CODES[x.dtype], n, col_offset, x_rows,
+                    graph.ell.data_ptr(), None if w is None else w.data_ptr(),
+                    graph.ell.shape[1], graph.block_rows,
+                    int(compute_dtype == torch.bfloat16), out.data_ptr(), f, stream)
+    _build.check(status, "slab_spmm")
+    return out
+
+
+def slab_spmm_band_ref(graph: SlabGraph, x, compute_dtype=torch.bfloat16):
+    """Plain PyTorch version of :func:`slab_spmm_band`."""
+    return _band_ref(graph, x, compute_dtype, 0)
 
 
 def slab_spmm_band(graph: SlabGraph, x, compute_dtype=torch.bfloat16):
@@ -228,33 +265,40 @@ def slab_spmm_band(graph: SlabGraph, x, compute_dtype=torch.bfloat16):
     tensors launch the kernel on the current stream without synchronising;
     CPU tensors run :func:`slab_spmm_band_ref`.
     """
-    _check(graph, x, compute_dtype)
+    _check(graph, x, compute_dtype, 0)
     if x.device.type == "cpu":
-        return slab_spmm_band_ref(graph, x, compute_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    n, f = x.shape
-    if n >= 2**31:
-        raise ValueError(f"{n} rows do not fit int32 column ids")
-    out = torch.empty((n, f), dtype=torch.float32, device=x.device)
-    if n == 0 or f == 0:
-        return out
-    fn = _build.function("slab_spmm", _ARGTYPES)
-    w = graph.ell_w
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(x.data_ptr(), _FLOAT_CODES[x.dtype], n, graph.ell.data_ptr(),
-                    None if w is None else w.data_ptr(), graph.ell.shape[1],
-                    graph.block_rows, int(compute_dtype == torch.bfloat16),
-                    out.data_ptr(), f, stream)
-    _build.check(status, "slab_spmm")
-    slab_spmm_band.launches += 1
+        return _band_ref(graph, x, compute_dtype, 0)
+    out = _band_launch(graph, x, compute_dtype, 0)
+    if out.numel():
+        slab_spmm_band.launches += 1
     return out
 
 
 slab_spmm_band.launches = 0
+
+
+def slab_spmm_band_shard_ref(graph: SlabGraph, x_ext, compute_dtype=torch.bfloat16):
+    """Plain PyTorch version of :func:`slab_spmm_band_shard`."""
+    return _band_ref(graph, x_ext, compute_dtype, graph.block_rows)
+
+
+def slab_spmm_band_shard(graph: SlabGraph, x_ext, compute_dtype=torch.bfloat16):
+    """Band part of one row shard's slab SpMM, float32 (rs, F).  ``graph``
+    holds the shard's rs rows (its ELL rows, rs a multiple of R, the shard's
+    first row a multiple of R); ``x_ext`` (rs + 2R, F) is the shard's x with
+    the R rows before it and the R rows after it (zeros past the graph's
+    ends), so local row r reads ``x_ext[(r//R)*R + ell[r, k]]``.  Otherwise as
+    :func:`slab_spmm_band`; counts ``slab_spmm_band_shard.launches``."""
+    _check(graph, x_ext, compute_dtype, graph.block_rows)
+    if x_ext.device.type == "cpu":
+        return _band_ref(graph, x_ext, compute_dtype, graph.block_rows)
+    out = _band_launch(graph, x_ext, compute_dtype, graph.block_rows)
+    if out.numel():
+        slab_spmm_band_shard.launches += 1
+    return out
+
+
+slab_spmm_band_shard.launches = 0
 
 
 def _slab_spmm(graph, x, reduce, compute_dtype, band, fallback):

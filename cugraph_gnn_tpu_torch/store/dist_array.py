@@ -1,0 +1,129 @@
+"""Distributed gather and scatter of row-sharded arrays over a process group.
+
+Counterpart of ``cugraph_gnn_tpu/store/dist_array.py:61-301``: the per-shard
+exchange routines of the reference's hot path (bucket the ids by owner, send
+them to their owners, gather locally, send the rows back, restore the order).
+Each function runs on every rank of ``mesh`` with this rank's tensors, as the
+JAX bodies run under ``shard_map``; every rank must call it, in the same
+order.
+
+The exchange is ``torch.distributed.all_to_all_single`` with split sizes
+known on the host: the send sizes are counted on this rank and the receive
+sizes come from a one-element-per-peer exchange first, so each call reads
+two small tensors back to the host.  Only the actual rows cross (the TPU's
+ragged all-to-all semantics; the JAX package's CPU path pads every peer's
+slot to the whole batch).  Ids of -1 are not sent: their rows are ``fill``
+(gather) or dropped (scatter).  The ``DistArray`` class and the bounded
+multi-round gather come with the modules that need them.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from cugraph_gnn_tpu_torch.parallel.mesh import Mesh
+from cugraph_gnn_tpu_torch.store.partition import PartitionBook
+
+
+def put_global(host_array, mesh: Mesh) -> torch.Tensor:
+    """This rank's rows of a host array row-sharded evenly over ``mesh``
+    (its length a multiple of the world size), on the mesh's device."""
+    host = torch.as_tensor(np.asarray(host_array))
+    per = host.shape[0] // mesh.world
+    if per * mesh.world != host.shape[0]:
+        raise ValueError(f"{host.shape[0]} rows do not split evenly over "
+                         f"{mesh.world} ranks")
+    return host[mesh.rank * per:(mesh.rank + 1) * per].to(mesh.device)
+
+
+def _bucket_by_owner(ids: torch.Tensor, book: PartitionBook):
+    """Sort query ids by owner rank; -1 ids go last and are not counted.
+    Returns (sorted_ids, perm, counts): counts[r] ids for rank r lead
+    ``sorted_ids`` in rank order."""
+    world = book.world_size
+    valid = ids >= 0
+    owner = book.owner_of(ids.clamp(min=0)).clamp(0, world - 1)
+    owner = torch.where(valid, owner, world)
+    perm = torch.argsort(owner, stable=True)
+    counts = torch.bincount(owner, minlength=world + 1)[:world]
+    return ids[perm], perm, counts
+
+
+def alltoallv(data: torch.Tensor, send_sizes: Sequence[int], recv_sizes: Sequence[int],
+              mesh: Mesh) -> torch.Tensor:
+    """Variable-size exchange: ``data`` holds send_sizes[r] rows for each
+    rank r in rank order; returns the recv_sizes[r] rows from each rank r,
+    in rank order."""
+    out = data.new_empty((int(sum(recv_sizes)),) + tuple(data.shape[1:]))
+    dist.all_to_all_single(out, data.contiguous(), list(recv_sizes), list(send_sizes),
+                           group=mesh.group)
+    return out
+
+
+def _ragged_a2a(data: torch.Tensor, counts: torch.Tensor, mesh: Mesh):
+    """alltoallv of the leading counts[r] rows of ``data`` for each rank r,
+    with the receive sizes (the peers' counts for this rank, one element
+    from each) exchanged first and read to the host together with the send
+    sizes.  Returns (received rows, send_sizes, recv_sizes)."""
+    counts = counts.to(device=mesh.device, dtype=torch.int64)
+    recv = torch.empty_like(counts)
+    dist.all_to_all_single(recv, counts, group=mesh.group)
+    send_sizes, recv_sizes = torch.stack([counts, recv]).tolist()
+    out = alltoallv(data[:sum(send_sizes)], send_sizes, recv_sizes, mesh)
+    return out, send_sizes, recv_sizes
+
+
+def _owned_local(req_ids: torch.Tensor, book: PartitionBook, mesh: Mesh):
+    """(is-mine mask, local offset) of requested global ids."""
+    safe = req_ids.clamp(min=0)
+    local = book.local_offset(safe)
+    ok = ((req_ids >= 0) & (book.owner_of(safe) == mesh.rank)
+          & (local < int(book.counts[mesh.rank])))
+    return ok, local
+
+
+def _dist_gather_shard(table: torch.Tensor, ids: torch.Tensor, *, book: PartitionBook,
+                       mesh: Mesh, fill=0) -> torch.Tensor:
+    """rows = global_table[ids], each rank with its own ``ids`` (B,) and its
+    shard ``table`` (shard_size, ...).  Ids of -1, and ids that no rank
+    holds, give ``fill`` rows.  Returns (B, ...) in the order of ``ids``."""
+    sorted_ids, perm, counts = _bucket_by_owner(ids, book)
+    req, send_sizes, recv_sizes = _ragged_a2a(sorted_ids, counts, mesh)
+    n_send = sum(send_sizes)
+    ok, local = _owned_local(req, book, mesh)
+    rows = table[torch.where(ok, local, 0)]
+    keep = ok.view((-1,) + (1,) * (table.dim() - 1))
+    rows = torch.where(keep, rows, torch.as_tensor(fill, dtype=rows.dtype,
+                                                   device=rows.device))
+    back = alltoallv(rows, recv_sizes, send_sizes, mesh)
+    out = table.new_full((ids.shape[0],) + tuple(table.shape[1:]), fill)
+    out[perm[:n_send]] = back
+    return out
+
+
+def _dist_scatter_shard(table: torch.Tensor, ids: torch.Tensor, values: torch.Tensor, *,
+                        book: PartitionBook, mesh: Mesh, mode: str) -> torch.Tensor:
+    """global_table[ids] = values ("set") or += values ("add", repeated ids
+    accumulate), each rank with its own ``ids``/``values`` and its shard
+    ``table``; -1 ids are dropped.  Returns this rank's updated shard (a new
+    tensor)."""
+    if mode not in ("set", "add"):
+        raise ValueError(mode)
+    sorted_ids, perm, counts = _bucket_by_owner(ids, book)
+    req_ids, send_sizes, recv_sizes = _ragged_a2a(sorted_ids, counts, mesh)
+    n_send = sum(send_sizes)
+    req_vals = alltoallv(values[perm[:n_send]], send_sizes, recv_sizes, mesh)
+    ok, local = _owned_local(req_ids, book, mesh)
+    rows = table.shape[0]
+    safe = torch.where(ok, local, rows)            # row `rows`: a dropped slot
+    out = torch.cat([table, table.new_zeros((1,) + tuple(table.shape[1:]))])
+    vals = req_vals.to(table.dtype)
+    if mode == "set":
+        out[safe] = vals
+    else:
+        out.index_add_(0, safe, vals)
+    return out[:rows]

@@ -1,5 +1,7 @@
 """Full-batch GraphSAGE / GCN / GAT training over a banded graph at
-ogbn-products scale: data and one optimizer step.
+ogbn-products scale: data and one optimizer step, on one device
+(``full_batch_step``) or row-sharded over a process group
+(``dist_full_batch_step``).
 
 The step of ``examples/full_batch_training.py`` in the JAX package: the whole
 graph's forward through ``FullBatchGraph`` (GraphSAGE and GCN: the slab SpMM
@@ -15,6 +17,12 @@ The graph is the banded construction of the JAX package's slab benchmarks
 +-``band`` of the row) plus ``far`` uniform sources per row, so that the
 fallback kernel does real work.  It is banded by construction, so it needs no
 reordering: build its ``FullBatchGraph`` with ``reorder="none"``.
+
+``dist_full_batch_step`` is the step of ``examples/dist_full_batch_training.py``
+over an ``ops.dist_full_batch.DistFullBatchGraph``: node arrays are this
+rank's rows, the parameters are replicated, and the gradients are summed
+over the ranks (``dist_loss``, ``all_reduce_grads``), so every rank takes the
+same Adam step as one device would over the whole graph.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.nn import functional as F
 
 from cugraph_gnn_tpu_torch._device import resolve_device
@@ -95,3 +104,45 @@ def full_batch_step(model, optimizer, x, fbg, labels) -> torch.Tensor:
     loss.backward()
     optimizer.step()
     return loss.detach()
+
+
+def dist_loss(logits, labels, valid, group) -> torch.Tensor:
+    """This rank's share of the global mean cross-entropy: its masked sum
+    (``valid`` 1 for a real node, 0 for padding) over the global count of
+    valid nodes (one ``all_reduce``).  Summed over the ranks it is the mean
+    over every real node."""
+    valid = valid.float()
+    count = valid.sum()
+    dist.all_reduce(count, group=group)
+    return (F.cross_entropy(logits.float(), labels, reduction="none") * valid).sum() / count
+
+
+def all_reduce_grads(model, loss, group) -> torch.Tensor:
+    """Sums the replicated parameters' gradients and ``loss`` over the ranks
+    in one ``all_reduce`` (a parameter without a gradient adds zeros), and
+    returns the summed loss."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params] + [loss.detach().reshape(1)])
+    dist.all_reduce(flat, group=group)
+    off = 0
+    for p in params:
+        p.grad = flat[off:off + p.numel()].view_as(p).clone()
+        off += p.numel()
+    return flat[-1]
+
+
+def dist_full_batch_step(model, optimizer, x, fbg, labels, valid) -> torch.Tensor:
+    """One step over a row-sharded graph ``fbg`` (a ``DistFullBatchGraph``);
+    x, labels and ``valid`` (1 for a real node, 0 for padding) are this
+    rank's rows, in graph order.  The loss is ``dist_loss``; after its
+    backward, ``all_reduce_grads`` sums the gradients over the ranks, so that
+    each rank holds the global mean's gradient, and the optimizer steps.
+    Returns the global loss (float32, on the device); every rank must call
+    it."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = dist_loss(model.full_graph(x, fbg), labels, valid, fbg.mesh.group)
+    loss.backward()
+    loss = all_reduce_grads(model, loss, fbg.mesh.group)
+    optimizer.step()
+    return loss

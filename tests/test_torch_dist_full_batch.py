@@ -1,0 +1,344 @@
+"""Port parity: the row-sharded full-batch graph (``DistFullBatchGraph``) at
+gloo worlds of 2 and 4 ranks against the JAX package's ``DistFullBatchGraph``
+on a 4-device sub-mesh of the CPU mesh (its Pallas kernels in interpret mode,
+jitted): ``spmm`` forward and gradient (sum and mean, weighted, and a hub
+graph whose fallback edges take the balanced regime at 4 ranks), the
+attention forward and gradients (H = 1 and H = 3, with bit planes at R = 128
+and with ``t_ell`` at R = 512, and the port's head groups), the RCM order, and three
+chained GCN and GAT training steps against the optax steps.
+
+Each world is spawned once (a module fixture) and runs every case; each rank
+computes its rows and rank 0 saves the gathered results.  Each JAX reference
+is computed once, in a module fixture.  The JAX package is imported inside
+the fixtures, not at the top: the spawned workers import this file and run
+torch alone.
+
+Tolerances: forward outputs within 1e-5 (float32 sums of a few dozen terms
+in another order), gradients within 1e-4 (the attention's through exp and a
+division), training losses and parameters after each step within 1e-5.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from cugraph_gnn_tpu_torch import train_full as TF
+
+N, F, H, FH = 600, 16, 3, 8
+R_BITS, R_TELL = 128, 512
+JAX_WORLD = 4
+CLASSES = 4
+STEPS = 3
+SPMM_CASES = ("sum", "mean", "weighted", "hub")
+ATTN_CASES = ("h1_bits", "h1_tell", "mh_bits", "mh_tell", "mh_groups")
+
+
+def _graphs():
+    """COO edges src -> dst, the same in the test process and the workers:
+    'a', 600 nodes with 5 sources each, within +-60 or (a quarter) anywhere;
+    'w', weights for 'a'; 'hub', a banded graph plus 300 far edges that all
+    end on node 5, so that one rank holds every fallback destination."""
+    rng = np.random.default_rng(7)
+    rows = np.repeat(np.arange(N), 5)
+    src = np.clip(rows + rng.integers(-60, 61, len(rows)), 0, N - 1)
+    far = rng.random(len(rows)) < 0.25
+    src[far] = rng.integers(0, N, int(far.sum()))
+    w = rng.uniform(0.1, 2.0, len(rows)).astype(np.float32)
+    rows_h = np.repeat(np.arange(N), 4)
+    src_h = np.clip(rows_h + rng.integers(-20, 21, len(rows_h)), 0, N - 1)
+    hub_src = np.concatenate([src_h, rng.integers(N // 2, N, 300)])
+    hub_dst = np.concatenate([rows_h, np.full(300, 5)])
+    return {"a": (src.astype(np.int32), rows.astype(np.int32)), "w": w,
+            "hub": (hub_src.astype(np.int32), hub_dst.astype(np.int32))}
+
+
+def _inputs():
+    rng = np.random.default_rng(8)
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    return {"x": normal(N, F), "gy": normal(N, F), "x3": normal(N, H, FH),
+            "ad3": normal(N, H), "as3": normal(N, H), "g3": normal(N, H, FH),
+            "feat": normal(N, F), "labels": (np.arange(N) * CLASSES // N).astype(np.int64)}
+
+
+def _graph_kw(case):
+    r = R_TELL if case.endswith("tell") else R_BITS
+    return dict(reorder="none", block_rows=r)
+
+
+def _attn_args(case, inp):
+    if case.startswith("h1"):
+        return inp["x3"][:, 0], inp["ad3"][:, 0], inp["as3"][:, 0], inp["g3"][:, 0]
+    return inp["x3"], inp["ad3"], inp["as3"], inp["g3"]
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def _nest(flat, prefix):
+    tree = {}
+    for key, v in flat.items():
+        if key.startswith(prefix):
+            *path, leaf = key[len(prefix):].split("/")
+            node = tree
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = v
+    return tree
+
+
+def _worker(rank, world, store, out_dir):
+    """One rank of a gloo world: every case on this rank's rows; rank 0
+    saves the gathered results to ``out_dir/out.npz``."""
+    from cugraph_gnn_tpu_torch.models.convert import gat_from_flax, gcn_from_flax
+    from cugraph_gnn_tpu_torch.ops.dist_full_batch import DistFullBatchGraph
+    from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as AG
+    from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_kernel as AK
+    from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import slab_spmm_band_shard
+    from cugraph_gnn_tpu_torch.utils import distributed as D
+
+    torch.set_num_threads(1)     # the ranks share the CPU cores
+    mesh = D.init(init_method=f"file://{store}", rank=rank, world_size=world, device="cpu")
+    try:
+        gr, inp = _graphs(), _inputs()
+        res = {}
+        graphs = {}
+
+        def graph(key, r_blk, weights=None):
+            if (key, r_blk, weights is None) not in graphs:
+                graphs[key, r_blk, weights is None] = DistFullBatchGraph.from_coo(
+                    *gr[key], N, mesh, weights=weights, reorder="none", block_rows=r_blk)
+            return graphs[key, r_blk, weights is None]
+
+        for case in SPMM_CASES:
+            g = graph("hub" if case == "hub" else "a", R_BITS,
+                      gr["w"] if case == "weighted" else None)
+            xs = g.shard(inp["x"]).requires_grad_()
+            y = g.spmm(xs, reduce="mean" if case in ("mean", "hub") else "sum")
+            (y * g.shard(inp["gy"])).sum().backward()
+            res[f"spmm_{case}"] = g.unshard(y.detach()).numpy()
+            res[f"spmm_{case}_grad"] = g.unshard(xs.grad).numpy()
+            res[f"spmm_{case}_balanced"] = np.array([g._spmm[False].balanced,
+                                                     g._spmm[True].balanced])
+        g = graph("a", R_BITS)
+        xs = g.shard(inp["x"])
+        res["spmm_with_arrays"] = g.unshard(
+            g.spmm_with_arrays(xs, *g.spmm_arrays())).numpy()
+
+        for case in ATTN_CASES:
+            g = graph("a", _graph_kw(case)["block_rows"])
+            x, ad, as_, gy = _attn_args(case, inp)
+            ins = [g.shard(v).requires_grad_() for v in (x, ad, as_)]
+            keep = AG.MAX_PACKED_HEADS
+            AG.MAX_PACKED_HEADS = 2 if case == "mh_groups" else keep
+            try:
+                fn = g.attention_spmm if case.startswith("h1") else g.attention_spmm_mh
+                y = fn(*ins)
+                (y * g.shard(gy)).sum().backward()
+            finally:
+                AG.MAX_PACKED_HEADS = keep
+            res[f"attn_{case}"] = g.unshard(y.detach()).numpy()
+            for name, t in zip(("dx", "dad", "das"), ins):
+                res[f"attn_{case}_{name}"] = g.unshard(t.grad).numpy()
+
+        g = DistFullBatchGraph.from_coo(*gr["a"], N, mesh, reorder="rcm",
+                                        block_rows=R_BITS)
+        res["rcm_order"], res["rcm_band_fraction"] = g.order, np.array(g.band_fraction)
+
+        params = dict(np.load(os.path.join(out_dir, "params.npz")))
+        for name, conv, r_blk in (("gcn", gcn_from_flax, R_BITS),
+                                  ("gat", gat_from_flax, R_BITS)):
+            g = graph("a", r_blk)
+            model = conv(_nest(params, f"{name}/"), device="cpu")
+            opt = torch.optim.Adam(model.parameters(), lr=TF.LR)
+            x = g.shard(inp["feat"])
+            labels = g.shard(inp["labels"])
+            valid = g.shard(np.ones(N, np.float32))
+            res[f"{name}_losses"] = np.array([
+                float(TF.dist_full_batch_step(model, opt, x, g, labels, valid))
+                for _ in range(STEPS)])
+            for key, p in model.state_dict().items():
+                res[f"{name}_param/{key}"] = p.numpy()
+        counters = (slab_spmm_band_shard, AK.slab_attention_spmm_shard,
+                    AK.slab_attention_spmm_mh_shard, AG.onepass_bwd_shard,
+                    AG.slab_attention_bwd_shard, AG.slab_attention_bwd_mh_shard)
+        res["launches"] = np.array([fn.launches for fn in counters])
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "out.npz"), **res)
+    finally:
+        D.finalize()
+
+
+@pytest.fixture(scope="module")
+def want():
+    """The JAX package's results for every case, and the flax parameters
+    the training cases start from."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from jax.sharding import Mesh
+
+    from cugraph_gnn_tpu.models import GAT as JaxGAT
+    from cugraph_gnn_tpu.models import GCN as JaxGCN
+    from cugraph_gnn_tpu.ops.dist_full_batch import DistFullBatchGraph
+    from cugraph_gnn_tpu.parallel import STORE_AXIS
+
+    mesh = Mesh(np.array(jax.devices()[:JAX_WORLD]), (STORE_AXIS,))
+    gr, inp = _graphs(), _inputs()
+    out = {}
+
+    def graph(key, r_blk, weights=None):
+        return DistFullBatchGraph.from_coo(*gr[key], N, mesh, weights=weights,
+                                           reorder="none", block_rows=r_blk)
+
+    for case in SPMM_CASES:
+        g = graph("hub" if case == "hub" else "a", R_BITS,
+                  gr["w"] if case == "weighted" else None)
+        reduce = "mean" if case in ("mean", "hub") else "sum"
+        gs = g.shard(inp["gy"])
+
+        def run(z, g=g, reduce=reduce, gs=gs):
+            y, vjp = jax.vjp(lambda q: g.spmm(q, reduce=reduce), z)
+            return y, vjp(gs)[0]
+
+        y, gx = jax.jit(run)(g.shard(inp["x"]))
+        out[f"spmm_{case}"], out[f"spmm_{case}_grad"] = g.unshard(y), g.unshard(gx)
+        out[f"spmm_{case}_balanced"] = np.array([g._fb_balanced, g._fb_balanced_t])
+
+    graphs = {r: graph("a", r) for r in (R_BITS, R_TELL)}
+    for case in ATTN_CASES[:-1]:
+        g = graphs[_graph_kw(case)["block_rows"]]
+        x, ad, as_, gy = (g.shard(v) for v in _attn_args(case, inp))
+        fn = g.attention_spmm if case.startswith("h1") else g.attention_spmm_mh
+
+        def run(*z, fn=fn, gy=gy):
+            y, vjp = jax.vjp(fn, *z)
+            return (y,) + vjp(gy)
+
+        for name, v in zip(("", "_dx", "_dad", "_das"), jax.jit(run)(x, ad, as_)):
+            out[f"attn_{case}{name}"] = g.unshard(v)
+    # head groups compute the function of one group: the reference of the
+    # port's groups of 2 over 3 heads is JAX's 3 heads at once
+    for name in ("", "_dx", "_dad", "_das"):
+        out[f"attn_mh_groups{name}"] = out[f"attn_mh_bits{name}"]
+
+    g = DistFullBatchGraph.from_coo(*gr["a"], N, mesh, reorder="rcm", block_rows=R_BITS)
+    out["rcm_order"], out["rcm_band_fraction"] = g.order, np.array(g.band_fraction)
+
+    params = {}
+    g = graphs[R_BITS]
+    x = g.shard(inp["feat"])
+    y_pad = np.zeros(g._n_pad, np.int32)
+    y_pad[:N] = inp["labels"]
+    ys = g.shard(y_pad)
+    valid = g.shard((np.arange(g._n_pad) < N).astype(np.float32))
+    for name, model, conv in (("gcn", JaxGCN(hidden_features=16, out_features=CLASSES,
+                                              num_layers=2), JaxGCN),
+                              ("gat", JaxGAT(hidden_features=8, out_features=CLASSES,
+                                             num_layers=2, heads=2), JaxGAT)):
+        p = jax.jit(lambda z, m=model, c=conv: m.init(jax.random.PRNGKey(0), z, g,
+                                                      method=c.full_graph))(x)
+        params.update(_flat(jax.tree_util.tree_map(np.asarray, p), f"{name}/"))
+        tx = optax.adam(TF.LR)
+
+        def step(state, _, m=model, c=conv, tx=tx):
+            def loss_fn(q):
+                logits = m.apply(q, x, g, method=c.full_graph)
+                ls = optax.softmax_cross_entropy_with_integer_labels(logits, ys)
+                return jnp.sum(ls * valid) / jnp.sum(valid)
+            p, opt = state
+            loss, grads = jax.value_and_grad(loss_fn)(p)
+            upd, opt = tx.update(grads, opt)
+            return (optax.apply_updates(p, upd), opt), loss
+
+        # the chained steps in one program (one compile of the step)
+        (p, _), losses = jax.jit(lambda p, opt, step=step: jax.lax.scan(
+            step, (p, opt), None, length=STEPS))(p, tx.init(p))
+        out[f"{name}_losses"] = np.asarray(losses)
+        out[f"{name}_params"] = jax.tree_util.tree_map(np.asarray, p)["params"]
+    out["params"] = params
+    return out
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=lambda w: f"world{w}")
+def got(request, want, tmp_path_factory):
+    """The port's results at a gloo world of 2 or 4 ranks: (results, world)."""
+    world = request.param
+    out_dir = tmp_path_factory.mktemp(f"world{world}")
+    np.savez(out_dir / "params.npz", **want["params"])
+    mp.spawn(_worker, args=(world, str(out_dir / "store"), str(out_dir)), nprocs=world,
+             join=True)
+    return dict(np.load(out_dir / "out.npz")), world
+
+
+@pytest.mark.parametrize("case", SPMM_CASES)
+def test_spmm_matches_jax(got, want, case):
+    """Forward within 1e-5, gradient (transposed graph) within 1e-5; the
+    hub graph takes the balanced fallback regime at 4 ranks (both
+    orientations), as JAX's at 4 devices."""
+    res, world = got
+    np.testing.assert_allclose(res[f"spmm_{case}"], want[f"spmm_{case}"], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(res[f"spmm_{case}_grad"], want[f"spmm_{case}_grad"],
+                               rtol=1e-5, atol=1e-5)
+    balanced = res[f"spmm_{case}_balanced"]
+    assert list(balanced) == ([case == "hub"] * 2 if world == 4 else [False, False])
+    np.testing.assert_array_equal(want[f"spmm_{case}_balanced"], [case == "hub"] * 2)
+
+
+def test_spmm_with_arrays_is_the_sum(got):
+    res, _ = got
+    np.testing.assert_allclose(res["spmm_with_arrays"], res["spmm_sum"], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_matches_jax(got, want, case):
+    """Forward within 1e-5 and dx, dalpha_dst, dalpha_src within 1e-4 of
+    the JAX sharded attention (H = 1 and 3; bit planes at R = 128, t_ell at
+    R = 512; 'mh_groups': the port's head groups of 2 over 3 heads against
+    JAX's 3 heads in one group)."""
+    res, _ = got
+    np.testing.assert_allclose(res[f"attn_{case}"], want[f"attn_{case}"], rtol=1e-5,
+                               atol=1e-5)
+    for name in ("dx", "dad", "das"):
+        np.testing.assert_allclose(res[f"attn_{case}_{name}"], want[f"attn_{case}_{name}"],
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_rcm_order_matches_jax(got, want):
+    res, _ = got
+    np.testing.assert_array_equal(res["rcm_order"], want["rcm_order"])
+    assert float(res["rcm_band_fraction"]) == pytest.approx(float(want["rcm_band_fraction"]))
+
+
+@pytest.mark.parametrize("name", ["gcn", "gat"])
+def test_training_steps_match_optax(got, want, name):
+    """Three chained dist_full_batch_steps (Adam 5e-3) from the flax
+    parameters: the global loss of each step within 1e-5 and every
+    parameter after the last within 1e-5 of the optax steps over JAX's
+    sharded graph; the CPU run launched no kernel."""
+    res, _ = got
+    np.testing.assert_allclose(res[f"{name}_losses"], want[f"{name}_losses"], rtol=0,
+                               atol=1e-5)
+    for i in range(2):
+        p = want[f"{name}_params"][f"conv_{i}"]
+        pairs = [("lin.weight", np.asarray(p["lin"]["kernel"]).T),
+                 ("lin.bias", p["lin"]["bias"]) if name == "gcn" else ("bias", p["bias"])]
+        if name == "gat":
+            pairs += [("att_src", p["att_src"]), ("att_dst", p["att_dst"])]
+        for key, theirs in pairs:
+            np.testing.assert_allclose(res[f"{name}_param/convs.{i}.{key}"], theirs, rtol=0,
+                                       atol=1e-5, err_msg=key)
+    assert not res["launches"].any()

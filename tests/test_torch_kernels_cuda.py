@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the row gather, the fused sampler, the slab SpMM's band kernel, the CSR
-SpMM kernel, and the fused slab attention's forward and backward kernels.
+SpMM kernel, and the fused slab attention's forward and backward kernels,
+each of the last three also on the row shards of a 4-rank split (the shard
+wrappers of ``ops/dist_full_batch.py``, halo-extended inputs).
 
 Marked ``cuda``: each test asks the ``card`` fixture for a device and skips
 without one.  The file imports no JAX, so on the machine with the card it
@@ -14,12 +16,14 @@ import pytest
 import torch
 
 from cugraph_gnn_tpu_torch import _native
+from cugraph_gnn_tpu_torch.ops import dist_full_batch as DF
 from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import gather_rows, gather_rows_ref
 from cugraph_gnn_tpu_torch.ops.kernels.sample_kernel import (
     fused_uniform_sample,
     fused_uniform_sample_ref,
 )
 from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as attn_grad
+from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_kernel as attn_fwd
 from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import (
     slab_attention_spmm_mh,
     slab_attention_spmm_mh_ref,
@@ -29,6 +33,8 @@ from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
     slab_spmm,
     slab_spmm_band,
     slab_spmm_band_ref,
+    slab_spmm_band_shard,
+    slab_spmm_band_shard_ref,
     slab_spmm_ref,
 )
 from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import (
@@ -352,3 +358,147 @@ def test_slab_attention_autograd_card_matches_cpu(card, r_blk):
         res.append([out.detach().cpu()] + [a.grad.cpu() for a in leaves])
     for a, b in zip(*res):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# -- row shards (rows 9-14 of the TPU-kernel table) ---------------------------
+
+WORLD = 4
+
+
+def _split(n_rows, r_blk):
+    """(rows per rank, padded rows) of a WORLD-rank split, as
+    DistFullBatchGraph pads it."""
+    nb = -(-max(-(-n_rows // r_blk), 1) // WORLD) * WORLD
+    return nb // WORLD * r_blk, nb * r_blk
+
+
+def _pad(t, rows):
+    out = t.new_zeros((rows,) + tuple(t.shape[1:]))
+    out[:t.shape[0]] = t
+    return out
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_slab_spmm_band_shard_matches_plain(card, x_dtype, weighted):
+    """Each shard of a 4-rank split: the band kernel over the shard's
+    halo-extended x within 1e-5 of its plain version and of the whole
+    graph's band kernel on the shard's rows (the same entries, in the same
+    order); both compute dtypes."""
+    rng = np.random.default_rng(30 + weighted)
+    indptr, indices, w = _csr(rng, 1000, 9, 100, far=0.2, weighted=weighted)
+    g = build_slab_graph(indptr, indices, w, block_rows=128, max_k=8, device="cpu")
+    rs, n_pad = _split(1000, 128)
+    ell = DF._padded(g.ell.numpy(), n_pad, -1)
+    ell_w = None if g.ell_w is None else DF._padded(g.ell_w.numpy(), n_pad, 0)
+    x = _pad(_x(rng, 1000, 128, x_dtype, card), n_pad)
+    for compute in (torch.float32, torch.bfloat16):
+        whole = _pad(slab_spmm_band(g.to(card), x[:1000], compute), n_pad)
+        for rank in range(WORLD):
+            shard = DF.shard_slab(ell, ell_w, rank, rs, 128, card)
+            x_ext = DF.halo_rows(x, rank, rs, 128)
+            before = slab_spmm_band_shard.launches
+            got = slab_spmm_band_shard(shard, x_ext, compute)
+            want = slab_spmm_band_shard_ref(shard, x_ext, compute)
+            torch.cuda.synchronize()
+            assert slab_spmm_band_shard.launches == before + 1
+            assert got.shape == (rs, 128)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(got, whole[rank * rs:(rank + 1) * rs], rtol=1e-5,
+                                       atol=1e-5)
+
+
+def _band_only(pair):
+    """The pair without its fallback edges: the whole graph's band."""
+    n = pair.fwd.num_rows
+    dev = pair.fwd.ell.device
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    ptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    return pair._replace(fwd=pair.fwd._replace(fb_src=none, fb_dst=none, fb_rowptr=ptr),
+                         fb_t_rowptr=ptr, fb_t_dst=none)
+
+
+SHARD_ATTN_SHAPES = [(4, 64), (1, 47)]
+
+
+@pytest.mark.parametrize("r_blk", [128, 512])
+@pytest.mark.parametrize("heads,f", SHARD_ATTN_SHAPES)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_slab_attention_fwd_shard_matches_plain(card, r_blk, heads, f, x_dtype):
+    """Each shard of a 4-rank split: the forward over the shard's band
+    (``slab_attention_spmm_shard`` at H = 1, ``_mh_shard`` above) within 1e-5
+    plus 1e-5 of the aggregate over |x| of its plain version (m equal, s
+    within 1e-5) and of the whole graph's band-only forward on the shard's
+    rows."""
+    pair = _attention_pair(r_blk, card)
+    n = pair.fwd.num_rows
+    rs, n_pad = _split(n, r_blk)
+    x, ad, as_, _ = (_pad(a, n_pad) for a in _attn_inputs(n, heads, f, x_dtype, card))
+    whole = slab_attention_spmm_mh(_band_only(pair).fwd, x[:n], ad[:n], as_[:n],
+                                   return_stats=True)
+    whole = [_pad(a, n_pad) for a in whole]
+    for rank in range(WORLD):
+        shard = DF.shard_attention_pair(pair, rank, rs, n_pad, card).fwd
+        rows = slice(rank * rs, (rank + 1) * rs)
+        args = [DF.halo_rows(x, rank, rs, r_blk), ad[rows], DF.halo_rows(as_, rank, rs, r_blk)]
+        if heads == 1:
+            fn, ref = attn_fwd.slab_attention_spmm_shard, attn_fwd.slab_attention_spmm_shard_ref
+            args = [a[:, 0] for a in args]
+        else:
+            fn, ref = (attn_fwd.slab_attention_spmm_mh_shard,
+                       attn_fwd.slab_attention_spmm_mh_shard_ref)
+        before = fn.launches
+        out, m, s = fn(shard, *args, return_stats=True)
+        want, m_want, s_want = ref(shard, *args, return_stats=True)
+        mag = ref(shard, args[0].float().abs(), *args[1:])
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        if heads == 1:
+            out, m, s, want, m_want, s_want, mag = (
+                a[:, None] for a in (out, m, s, want, m_want, s_want, mag))
+        _assert_close_to(out, want, mag)
+        assert torch.equal(m, m_want)
+        torch.testing.assert_close(s, s_want, rtol=1e-5, atol=0)
+        _assert_close_to(out, whole[0][rows], mag)
+        assert torch.equal(m, whole[1][rows])
+        torch.testing.assert_close(s, whole[2][rows], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("r_blk", [128, 512])
+@pytest.mark.parametrize("heads,f", SHARD_ATTN_SHAPES)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_slab_attention_bwd_shard_matches_plain(card, r_blk, heads, f, x_dtype):
+    """Each shard of a 4-rank split: the backward over the shard's band by
+    destination and by source (R = 128: the band CSR with halo-extended
+    rows, ``onepass_bwd_shard``; R = 512: t_ell, ``slab_attention_bwd_shard``
+    at H = 1, ``_mh_shard`` above) within 1e-5 plus 1e-5 of the sums with
+    |x|, |g|, -|t| of its plain version and of the whole graph's band-only
+    backward on the shard's rows."""
+    pair = _attention_pair(r_blk, card)
+    n = pair.fwd.num_rows
+    rs, n_pad = _split(n, r_blk)
+    x, ad, as_, g = _attn_inputs(n, heads, f, x_dtype, card, seed=1)
+    band = _band_only(pair)
+    _, m, s = slab_attention_spmm_mh(band.fwd, x, ad, as_, return_stats=True)
+    t = torch.randn((n, heads), generator=torch.Generator(card).manual_seed(2), device=card)
+    whole = [_pad(a, n_pad) for a in attn_grad.slab_attention_bwd_mh(
+        band, x, ad, as_, m, s, t, g)]
+    per_node = [_pad(a, n_pad) for a in (x, ad, as_, m, s, t, g)]
+    per_node[4][n:] = 1e-16      # padded rows, as the halo exchange leaves them
+    counter = (attn_grad.onepass_bwd_shard if r_blk == 128 else
+               attn_grad.slab_attention_bwd_shard if heads == 1 else
+               attn_grad.slab_attention_bwd_mh_shard)
+    for rank in range(WORLD):
+        shard = DF.shard_attention_pair(pair, rank, rs, n_pad, card)
+        ext = [DF.halo_rows(a, rank, rs, r_blk) for a in per_node]
+        before = counter.launches
+        got = attn_grad.slab_attention_bwd_mh_shard(shard, *ext)
+        want = attn_grad.slab_attention_bwd_shard_ref(shard, *ext)
+        mag = attn_grad.slab_attention_bwd_shard_ref(
+            shard, ext[0].float().abs(), *ext[1:5], -ext[5].abs(), ext[6].abs())
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        rows = slice(rank * rs, (rank + 1) * rs)
+        for a, b, c, w in zip(got, want, mag, whole):
+            _assert_close_to(a, b, c)
+            _assert_close_to(a, w[rows], c)

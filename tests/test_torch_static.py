@@ -5,9 +5,12 @@
 - CPU tensors take the plain versions: the kernels' launch counters stay 0,
   on the sampled and the full-batch training paths.
 - Entry points given no device run on the card, and raise without one.
+- A gloo mesh refuses the card and the row-sharded step, at one rank on the
+  CPU, launches no kernel.
 """
 
 import ast
+import os
 import pathlib
 
 import numpy as np
@@ -17,6 +20,10 @@ import torch
 import cugraph_gnn_tpu_torch
 from cugraph_gnn_tpu_torch import train as T
 from cugraph_gnn_tpu_torch import train_full as TF
+from cugraph_gnn_tpu_torch.ops import dist_full_batch as DF
+from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_kernel as attn_fwd
+from cugraph_gnn_tpu_torch.parallel.mesh import create_store_mesh
+from cugraph_gnn_tpu_torch.utils import distributed as D
 from cugraph_gnn_tpu_torch.models.convert import (
     gat_from_flax,
     gcn_from_flax,
@@ -31,6 +38,7 @@ from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import slab_attention_sp
 from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
     build_slab_graph,
     slab_spmm_band,
+    slab_spmm_band_shard,
 )
 from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import (
     build_padded_blocks,
@@ -165,6 +173,8 @@ ENTRY_POINTS = {
     "build_slab_graph": lambda: build_slab_graph(_INDPTR, _INDICES),
     "build_padded_blocks": lambda: build_padded_blocks(_INDPTR, _INDICES),
     "EllBuckets": lambda: EllBuckets(_INDPTR, _INDICES),
+    "distributed.init": lambda: D.init(init_method="tcp://localhost:1", world_size=1),
+    "create_store_mesh": create_store_mesh,
 }
 
 
@@ -173,3 +183,59 @@ def test_entry_points_raise_without_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[name]()
+
+
+SHARD_COUNTERS = (slab_spmm_band_shard, attn_fwd.slab_attention_spmm_shard,
+                  attn_fwd.slab_attention_spmm_mh_shard, attn_grad.onepass_bwd_shard,
+                  attn_grad.slab_attention_bwd_shard, attn_grad.slab_attention_bwd_mh_shard)
+
+
+def test_shard_wrappers_refuse_other_devices():
+    """The shard wrappers refuse a tensor on neither the CPU nor a card."""
+    indptr = np.array([0, 1, 2, 2], np.int64)
+    indices = np.array([1, 2], np.int32)
+    slab = build_slab_graph(indptr, indices, block_rows=128, device="cpu")
+    shard = DF.shard_slab(DF._padded(slab.ell.numpy(), 128, -1), None, 0, 128, 128, "meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        slab_spmm_band_shard(shard, torch.empty((384, 8), device="meta"))
+    for r_blk in (128, 512):
+        pair = attn_grad.build_attention_slab_pair(indptr, indices, block_rows=r_blk,
+                                                   device="cpu")
+        sp = DF.shard_attention_pair(pair, 0, r_blk, r_blk, "meta")
+        ext = 3 * r_blk
+        x3, s2 = torch.empty((ext, 2, 4), device="meta"), torch.empty((ext, 2), device="meta")
+        ad = torch.empty((r_blk, 2), device="meta")
+        with pytest.raises(ValueError, match="no kernel"):
+            attn_fwd.slab_attention_spmm_mh_shard(sp.fwd, x3, ad, s2)
+        with pytest.raises(ValueError, match="no kernel"):
+            attn_fwd.slab_attention_spmm_shard(sp.fwd, x3[:, 0], ad[:, 0], s2[:, 0])
+        with pytest.raises(ValueError, match="no kernel"):
+            attn_grad.slab_attention_bwd_mh_shard(sp, x3, s2, s2, s2, s2, s2, x3)
+        with pytest.raises(ValueError, match="no kernel"):
+            attn_grad.slab_attention_bwd_shard(sp, x3[:, 0], *(s2[:, 0],) * 5, x3[:, 0])
+
+
+@pytest.mark.parametrize("model_cls,block_rows", [(GCN, 128), (GAT, 128), (GAT, 512)])
+def test_cpu_dist_step_leaves_launch_counters_at_zero(model_cls, block_rows, tmp_path):
+    """One rank of gloo on the CPU: a gloo mesh refuses the card, and a
+    row-sharded step takes the plain versions (finite loss, no launch)."""
+    mesh = D.init(init_method=f"file://{os.path.join(tmp_path, 'store')}", rank=0,
+                  world_size=1, device="cpu")
+    try:
+        assert mesh.backend == "gloo" and D.world_info() == (0, 1, 0, 1)
+        with pytest.raises(ValueError, match="nccl"):
+            create_store_mesh("cuda:0")
+        for fn in SHARD_COUNTERS:
+            fn.launches = 0
+        g = TF.make_synthetic_banded(0, "cpu", num_nodes=300, deg=4, band=20,
+                                     feat_dim=8, classes=3)
+        fbg = DF.DistFullBatchGraph.from_coo(g.src, g.dst, g.num_nodes, mesh,
+                                             reorder="none", block_rows=block_rows)
+        model = model_cls(8, 16, 3, device="cpu")
+        opt = torch.optim.Adam(model.parameters(), lr=TF.LR)
+        loss = TF.dist_full_batch_step(model, opt, fbg.shard(g.feats), fbg,
+                                       fbg.shard(g.labels), fbg.shard(torch.ones(300)))
+        assert torch.isfinite(loss)
+        assert all(fn.launches == 0 for fn in SHARD_COUNTERS)
+    finally:
+        D.finalize()
