@@ -5,7 +5,8 @@ at the training paths' shapes and times it, then trains sampled GraphSAGE at
 the full width of ``bench.py``'s configuration, and full-batch GraphSAGE,
 GCN and 4-head GAT over a banded graph at ogbn-products scale.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, on one card
+    python3 chip_smoke.py --probe    # phases 1, 2 and 11b alone
 
 Phases (any failure raises and exits non-zero):
 1. card: nvidia-smi's name and power limit; no CUDA device is an error.
@@ -36,7 +37,9 @@ Phases (any failure raises and exits non-zero):
    float32 sums of their plain versions: within 1e-5 absolute plus 1e-5
    relative to the sum of the terms' magnitudes (the sum order differs, and
    the transpose's hub rows sum hundreds of terms), a bf16 output within one
-   bf16 ulp more.  Then
+   bf16 ulp more.  The CSR kernel also in accumulate mode into a float32
+   output, as the path calls it, twice: the two results bit for bit equal
+   (its long rows are split over a block and added in a fixed order).  Then
    times at the three calls of one training step (bf16 x: graph F = 128,
    graph F = 256, transpose F = 256) of kernel, plain version and
    ``torch.sparse.mm`` over the same edges, with the byte and operation
@@ -58,10 +61,17 @@ Phases (any failure raises and exits non-zero):
     absolute plus 1e-5 of the same sums over the terms' magnitudes (|x|,
     and for the backward |g| and -|t|: every term's absolute value; the
     kernels sum in another order and factor the dot products out of the
-    sums), m equal and s within 1e-5.  Then CUDA-event times of kernel and
-    plain version at the main path's calls, with the byte and operation
-    counts that bound them (no single PyTorch call computes the fused
-    attention: library_ms is null).
+    sums), m equal and s within 1e-5; each backward launched twice, bit
+    for bit equal.  Then CUDA-event times of kernel and plain version at
+    the main path's calls, with the byte and operation counts that bound
+    them (no single PyTorch call computes the fused attention: library_ms
+    is null).
+11b. the one-pass backward's phase probe (row 15 of the TPU-kernel table,
+    ``slab_attn_grad.onepass_bwd_probe``) on the R = 256 pair at both
+    layers' shapes: with every phase on, bit for bit the kernel's result;
+    then times of the dst pass and the src pass alone, each also without
+    expf, without the dot/FMA work and with neither (the same memory
+    traffic).  A few seconds; ``--probe`` runs it alone on phase 6's graph.
 12. small-input agreement, GAT: three f32 full-batch steps on the card and
     on the CPU from the same weights; losses within 1e-4.
 13. full-batch GAT train (``gat4h``: 4 heads of 64, then 47 classes, f32,
@@ -82,7 +92,7 @@ Phases (any failure raises and exits non-zero):
     backward at GAT's two layers' shapes) against its plain version, and
     against the whole graph's single-graph kernel on the shard's rows
     (band edges only): within 1e-5 absolute plus 1e-5 of the same sums over
-    the terms' magnitudes.
+    the terms' magnitudes; each backward launched twice, bit for bit equal.
 15. row-sharded training at world size 1 over NCCL (``tcp://localhost``):
     ``DistFullBatchGraph`` of phase 6's graph (R = 256, then R = 512);
     GCN (bf16 activations) and ``gat4h``, 1 warm-up and 3 timed
@@ -98,11 +108,13 @@ Phases (any failure raises and exits non-zero):
     1e-5 (Adam's first update, lr * g / (|g| + 1e-8), turns sum-order noise
     in a small g into up to lr).
 16. rows 9-14 at the world-1 path's calls: each kernel against its plain
-    version on the same inputs (the tolerance of phase 14), then CUDA-event
+    version on the same inputs (the tolerance of phase 14) and launched
+    twice, bit for bit equal; then CUDA-event
     times of kernel, plain version and, for row 9, ``torch.sparse.mm`` over
     the shard's band CSR, with the byte and operation counts that bound
     them (an ELL's bytes are its real entries, not its -1 padding).
-17. the ``kernels`` summary line (rows 1-14), and last the ``ok`` line.
+17. the ``kernels`` summary line (rows 1-14, then the probe, which the
+    main path launches no time), and last the ``ok`` line.
 
 Every JSON line carries the card's name and power limit.
 """
@@ -196,9 +208,19 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
                 e_band = check("slab_spmm_band", slab_spmm_band(slab, x, torch.float32),
                                slab_spmm_band_ref(slab, x, torch.float32),
                                slab_spmm_band_ref(slab, ax, torch.float32), what)
-                e_fb = check("csr_spmm", csr_spmm(slab.fallback, x),
-                             csr_spmm_ref(slab.fallback, x.float()),
-                             csr_spmm_ref(slab.fallback, ax), what)
+                fb_sum = csr_spmm_ref(slab.fallback, x.float())
+                fb_mag = csr_spmm_ref(slab.fallback, ax)
+                e_new = check("csr_spmm", csr_spmm(slab.fallback, x), fb_sum, fb_mag, what)
+                # accumulate mode, as the path calls it, twice: bit for bit
+                base = torch.randn((n, f), generator=gen, device=dev)
+                acc = csr_spmm(slab.fallback, x, out=base.clone())
+                e_fb = check("csr_spmm", acc, base + fb_sum, base.abs() + fb_mag,
+                             what + " accumulate")
+                if e_new is not None:   # a float32 new output
+                    e_fb = max(e_fb, e_new)
+                _same_bits("csr_spmm", acc, csr_spmm(slab.fallback, x, out=base.clone()),
+                           what + " accumulate")
+                del fb_sum, fb_mag, base, acc
                 e_all = check("slab_spmm", slab_spmm(slab, x, reduce, torch.float32),
                               slab_spmm_ref(slab, x.float(), reduce, torch.float32),
                               slab_spmm_ref(slab, ax, reduce, torch.float32),
@@ -492,7 +514,10 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
             e_b = max(check(key, a, b, c, f"{what} {nm}")
                       for a, b, c, nm in zip(got, ref, mag, ("dx", "dad", "das")))
             errs[key] = max(errs[key], e_b)
-            del got, ref, mag
+            del ref, mag
+            for a, b in zip(got, AG.slab_attention_bwd_mh(pair, x, ad, as_, m, s, t, g)):
+                _same_bits(key, a, b, what)
+            del got
             emit({"phase": "attention_kernel_check", "case": what,
                   "max_abs_err": {"slab_attention_fwd": e_f, key: e_b},
                   "tolerance": "1e-5 abs + 1e-5 x the terms' magnitude sum; "
@@ -526,6 +551,9 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
                 timing[name].append(row)
             del x, ad, as_, g, out, m, s, t
             torch.cuda.empty_cache()
+
+    # -- 11b. the one-pass backward's phase probe (row 15) --------------------
+    probe = attn_bwd_probe(dev, emit, cuda_ms, pairs[256])
 
     # -- 12. small input, GAT: card against CPU -------------------------------
     small = TF.make_synthetic_banded(3, "cpu", num_nodes=3000, deg=8, band=100,
@@ -620,6 +648,21 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
                 "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
                 else "operations", "library_ms": None}
 
+    # row 15, the probe: its every-phase time at row 6's two calls, beside
+    # row 6's bound and plain version (the same function); it is no kernel
+    # of the path, so the main path launches it no time
+    row6 = timing["slab_attention_bwd_onepass"]
+    probe_row = {
+        "name": "slab_attention_bwd_probe", "route": "cuda",
+        "source": "cugraph_gnn_tpu_torch/csrc/slab_attn_bwd.cu",
+        "replaces": "benchmarks/bwd_kernel_anatomy.py:91",
+        "also_replaces": "benchmarks/attn_bwd_probe.py:114", "launches": 0,
+        "on_main_path": False, "max_abs_err": 0.0,
+        "ms": sum(v["full"] for v in probe.values()),
+        "plain_ms": sum(r["plain_ms"] for r in row6),
+        "bound_ms": sum(r["bound_ms"] for r in row6), "bound_by": "bytes",
+        "library_ms": None, "split_ms": probe}
+
     # rows 5 and 6: one R = 256 step's two calls added; rows 7 and 8: the
     # R = 512 step's call of each
     return [
@@ -632,7 +675,50 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
         kernel_row("slab_attention_bwd_mh",
                    "cugraph_gnn_tpu/ops/pallas/slab_attn_grad.py:689",
                    "slab_attention_bwd_mh"),
-    ]
+    ], probe_row
+
+
+# the probe's variants (phase 11b): name -> mask of slab_attn_grad.PROBE_*
+PROBE_VARIANTS = {"full": 15, "dst": 13, "src": 14, "dst_no_exp": 9, "dst_no_dots": 5,
+                  "dst_memory": 1, "src_no_exp": 10, "src_no_dots": 6, "src_memory": 2}
+
+
+def attn_bwd_probe(dev, emit, cuda_ms, pair):
+    """Phase 11b (see the module docstring): the one-pass backward's phase
+    probe on ``pair`` (R = 256, the band CSR by source) at GAT's two
+    layers' shapes.  Returns {layer: {variant: ms}}."""
+    import torch
+
+    from cugraph_gnn_tpu_torch import train_full as TF
+    from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as AG
+    from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import slab_attention_spmm_mh
+
+    t0 = time.perf_counter()
+    n = pair.fwd.num_rows
+    gen = torch.Generator(device=dev).manual_seed(13)
+    split = {}
+    for layer, (h, f) in {"layer0": (TF.HEADS, TF.HIDDEN // TF.HEADS),
+                          "layer1": (1, TF.CLASSES)}.items():
+        x, g = (torch.randn((n, h, f), generator=gen, device=dev) for _ in range(2))
+        ad, as_ = (torch.randn((n, h), generator=gen, device=dev) for _ in range(2))
+        out, m, s = slab_attention_spmm_mh(pair.fwd, x, ad, as_, return_stats=True)
+        t = (g * out).sum(-1)
+        del out
+        args = (pair, x, ad, as_, m, s, t, g)
+        # every phase on is the kernel's own code: bit for bit its result
+        for a, b in zip(AG.onepass_bwd_probe(*args), AG.onepass_bwd(*args)):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"probe {layer}: all phases differ from the kernel")
+        split[layer] = {name: cuda_ms(lambda p=p: AG.onepass_bwd_probe(*args, phases=p),
+                                      iters=10, warmup=2)
+                        for name, p in PROBE_VARIANTS.items()}
+        emit({"phase": "attn_bwd_probe", "layer": layer, "heads": h, "f": f,
+              "dtype": "float32", "block_rows": pair.fwd.block_rows, "ms": split[layer],
+              "masks": PROBE_VARIANTS, "bit_equal_all_phases": True})
+        del x, g, ad, as_, m, s, t, args
+        torch.cuda.empty_cache()
+    emit({"phase": "attn_bwd_probe_done", "seconds": time.perf_counter() - t0})
+    return split
 
 
 # rows 9-14 of the TPU-kernel table: name -> (CUDA source, TPU kernel, counter)
@@ -655,6 +741,17 @@ SHARD_ROWS = {
                                     "cugraph_gnn_tpu/ops/dist_full_batch.py:1071",
                                     "slab_attention_bwd_mh_shard"),
 }
+
+
+def _same_bits(name, a, b, what):
+    """Two launches on the same inputs must agree bit for bit (no atomics,
+    a fixed order of sums)."""
+    import torch
+
+    torch.cuda.synchronize()
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if not torch.equal(a.view(bits[a.dtype]), b.view(bits[b.dtype])):
+        raise AssertionError(f"{name} {what}: two launches differ")
 
 
 def _close(name, got, want, magnitude, what):
@@ -796,6 +893,8 @@ def shard_kernels(dev, emit, world=4, n=100_000):
 
                 e = [ext(a) for a in (x, ad, as_, m, s, t, gg)]
                 got = AG.slab_attention_bwd_mh_shard(sp, *e)
+                for a, b in zip(got, AG.slab_attention_bwd_mh_shard(sp, *e)):
+                    _same_bits(bwd_name, a, b, what)
                 want = AG.slab_attention_bwd_shard_ref(sp, *e)
                 mag = AG.slab_attention_bwd_shard_ref(sp, e[0].abs(), *e[1:5], -e[5].abs(),
                                                       e[6].abs())
@@ -1045,6 +1144,8 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
                     # out (fwd; m equal, s within 1e-5) or dx, dad, das
                     what = f"world 1 R={r_blk} {layer}"
                     got, want, mags = kern(), plain(), mag()
+                    for a, b in zip(got, kern()):
+                        _same_bits(name, a, b, what)
                     for i, (a, b) in enumerate(zip(got, want)):
                         if i < len(mags):
                             full_errs[name] = max(full_errs[name],
@@ -1291,6 +1392,10 @@ def _staged_step(model, opt, x, fbg, labels, F, method="spmm", label="spmm", val
 def main() -> None:
     import torch
 
+    probe_only = sys.argv[1:] == ["--probe"]
+    if sys.argv[1:] and not probe_only:
+        sys.exit("usage: chip_smoke.py [--probe]")
+
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
 
@@ -1353,6 +1458,39 @@ def main() -> None:
           "seconds": {n: b.seconds for n, b in built.items()},
           "host_library_s": time.perf_counter() - t0})
 
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
+
+    def cuda_ms(fn, iters=20, warmup=3):
+        """Median CUDA-event time of ``fn`` with the L2 flushed before each."""
+        for _ in range(warmup):
+            fn()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        for a, b in ev:
+            flush.zero_()
+            a.record()
+            fn()
+            b.record()
+        torch.cuda.synchronize()
+        return sorted(a.elapsed_time(b) for a, b in ev)[iters // 2]
+
+    if probe_only:
+        # the probe phase alone, on phase 6's graph and its R = 256 pair
+        from cugraph_gnn_tpu_torch import train_full as TF
+        from cugraph_gnn_tpu_torch.ops.full_batch import FullBatchGraph
+
+        t0 = time.perf_counter()
+        g = TF.make_synthetic_banded(0, dev)
+        fbg = FullBatchGraph.from_coo(g.src, g.dst, g.num_nodes, reorder="none",
+                                      block_rows=TF.BLOCK_ROWS, device=dev)
+        pair = fbg.attention_pair
+        del g
+        torch.cuda.synchronize()
+        emit({"phase": "probe_data", "seconds": time.perf_counter() - t0})
+        attn_bwd_probe(dev, emit, cuda_ms, pair)
+        print(smi)
+        return
+
     # -- 3. kernels at the training path's shapes --------------------------
     t0 = time.perf_counter()
     graph = T.make_synthetic_products(0, dev)
@@ -1374,22 +1512,6 @@ def main() -> None:
     hop_inputs = [(seeds.reshape(-1), u0), (sample.levels[1].reshape(-1), u1)]
     ids = sample.step(0).input_nodes
     assert ids.shape == (123_904,) and bool((ids < 0).any())
-
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
-
-    def cuda_ms(fn, iters=20, warmup=3):
-        """Median CUDA-event time of ``fn`` with the L2 flushed before each."""
-        for _ in range(warmup):
-            fn()
-        ev = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-        for a, b in ev:
-            flush.zero_()
-            a.record()
-            fn()
-            b.record()
-        torch.cuda.synchronize()
-        return sorted(a.elapsed_time(b) for a, b in ev)[iters // 2]
 
     hbm = 3.35e12   # H100 SXM HBM3 bytes/s (data sheet)
     kernels = []
@@ -1502,7 +1624,7 @@ def main() -> None:
                 AG.slab_attention_bwd_mh, slab_spmm_band_shard,
                 AK.slab_attention_spmm_shard, AG.onepass_bwd_shard,
                 AG.slab_attention_bwd_shard, AK.slab_attention_spmm_mh_shard,
-                AG.slab_attention_bwd_mh_shard)
+                AG.slab_attention_bwd_mh_shard, AG.onepass_bwd_probe)
     for fn in counters:
         fn.launches = 0
     for blk in range(blocks):
@@ -1553,7 +1675,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     reused, fb_rows = full_batch(dev, emit, cuda_ms, hbm, counters)
-    gat_rows = gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused)
+    gat_rows, probe_row = gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused)
     shard_errs = shard_kernels(dev, emit)
     dist_rows = dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, shard_errs)
     del reused
@@ -1577,7 +1699,7 @@ def main() -> None:
         "plain_ms": sum(r["plain_ms"] for r in b_rows),
         "bound_ms": sum(r["bound_ms"] for r in b_rows), "bound_by": "bytes",
         "library_ms": None})
-    kernels += fb_rows + gat_rows + dist_rows
+    kernels += fb_rows + gat_rows + dist_rows + [probe_row]
     emit({"phase": "wall", "seconds": time.perf_counter() - wall0})
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -130,17 +130,18 @@ def build(names: Sequence[str]) -> Dict[str, Built]:
     return out
 
 
-def function(name: str, argtypes) -> Callable[..., int]:
-    """The C entry ``name`` of ``csrc/<name>.cu`` (each source exports one
-    entry named after its file), built and loaded at first use, with
-    ``argtypes`` declared and an int (cudaError_t) result."""
-    fn = _FUNCTIONS.get(name)
+def function(name: str, argtypes, symbol: str = "") -> Callable[..., int]:
+    """The C entry ``symbol`` (default ``name``: each source exports an entry
+    named after its file) of ``csrc/<name>.cu``, built and loaded at first
+    use, with ``argtypes`` declared and an int (cudaError_t) result."""
+    symbol = symbol or name
+    fn = _FUNCTIONS.get(symbol)
     if fn is None:
         lib = ctypes.CDLL(str(build([name])[name].path))
-        fn = getattr(lib, name)
+        fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _FUNCTIONS[name] = fn
+        _FUNCTIONS[symbol] = fn
     return fn
 
 

@@ -274,8 +274,9 @@ def slab_attention_bwd_shard_ref(pair: AttnSlabPair, x_ext, alpha_dst, alpha_src
 
 
 def _launch(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
-            negative_slope: float, col_offset: int):
-    """The backward kernel on the card: both passes, one C call."""
+            negative_slope: float, col_offset: int, phases: Optional[int] = None):
+    """The backward kernel on the card: both passes, one C call (with
+    ``phases``, the probe entry ``slab_attn_bwd_probe``)."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     x_rows, heads, f = x.shape
@@ -297,7 +298,12 @@ def _launch(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
     def ptr(a):
         return None if a is None else a.data_ptr()
 
-    fn = _build.function("slab_attn_bwd", _ARGTYPES)
+    if phases is None:
+        fn, extra = _build.function("slab_attn_bwd", _ARGTYPES), ()
+    else:
+        fn = _build.function("slab_attn_bwd", _ARGTYPES + [ctypes.c_int],
+                             symbol="slab_attn_bwd_probe")
+        extra = (int(phases),)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(x.data_ptr(), _FLOAT_CODES[x.dtype], g.data_ptr(), as_.data_ptr(),
@@ -307,8 +313,8 @@ def _launch(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
                     ptr(pair.t_ell), 0 if pair.t_ell is None else pair.t_ell.shape[1],
                     ptr(pair.t_rowptr), ptr(pair.t_rows),
                     pair.fb_t_rowptr.data_ptr(), pair.fb_t_dst.data_ptr(),
-                    dx.data_ptr(), dad.data_ptr(), das.data_ptr(), stream)
-    _build.check(status, "slab_attn_bwd")
+                    dx.data_ptr(), dad.data_ptr(), das.data_ptr(), stream, *extra)
+    _build.check(status, "slab_attn_bwd" if phases is None else "slab_attn_bwd_probe")
     return dx, dad, das
 
 
@@ -386,6 +392,37 @@ def slab_attention_bwd_mh(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s,
 
 
 slab_attention_bwd_mh.launches = 0
+
+
+# -- phase probe -------------------------------------------------------------
+# Counterpart of the JAX package's benchmarks/bwd_kernel_anatomy.py (decode /
+# exp / dots) and benchmarks/attn_bwd_probe.py: variants of the one-pass
+# backward with phases switched off at compile time and the memory traffic
+# kept.  The port reads the band CSR by source, so there is no decode phase.
+PROBE_DST, PROBE_SRC, PROBE_EXP, PROBE_DOTS = 1, 2, 4, 8
+PROBE_ALL = PROBE_DST | PROBE_SRC | PROBE_EXP | PROBE_DOTS
+
+
+def onepass_bwd_probe(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g, *,
+                      phases: int = PROBE_ALL, negative_slope: float = 0.2):
+    """:func:`onepass_bwd`'s kernel with only ``phases`` on (a mask of
+    ``PROBE_DST``, ``PROBE_SRC``, ``PROBE_EXP``, ``PROBE_DOTS``): a timing
+    probe on the card, not part of any path.  ``PROBE_ALL`` runs exactly the
+    kernel's code and returns its (dx, dalpha_dst, dalpha_src); other masks
+    take float32 x only and return meaningless values.  CUDA tensors only;
+    counts ``onepass_bwd_probe.launches``."""
+    _check(pair, x, (alpha_dst, alpha_src, m, s, t), g, 0)
+    if not 0 <= phases <= PROBE_ALL:
+        raise ValueError(f"phases must be a mask within {PROBE_ALL}, got {phases}")
+    if pair.t_ell is not None or pair.t_rows is None:
+        raise ValueError("the probe takes a pair with the band CSR by source")
+    out = _launch(pair, x, alpha_dst, alpha_src, m, s, t, g, negative_slope, 0,
+                  phases=phases)
+    onepass_bwd_probe.launches += 1
+    return out
+
+
+onepass_bwd_probe.launches = 0
 
 
 # -- one row shard -----------------------------------------------------------

@@ -502,3 +502,110 @@ def test_slab_attention_bwd_shard_matches_plain(card, r_blk, heads, f, x_dtype):
         for a, b, c, w in zip(got, want, mag, whole):
             _assert_close_to(a, b, c)
             _assert_close_to(a, w[rows], c)
+
+
+# -- the CSR SpMM's sized groups and split long rows, the one-pass backward's
+# shared-memory windows (fallback edges in the same passes), the probe -------
+
+
+def _csr_with_long_row(rng, n, f_rows_long=300):
+    """~1.1 uniform slots per row, every fifth row empty, row 7 with
+    ``f_rows_long`` slots (past the kernel's 64-slot split threshold) and
+    -1 / past-the-end slots."""
+    deg = np.where(np.arange(n) % 5 == 0, 0, rng.integers(1, 3, n))
+    deg[7] = f_rows_long
+    dst = np.repeat(np.arange(n), deg)
+    src = rng.integers(0, n, len(dst))
+    indptr, indices, _ = _native.build_csr(dst, src, n)
+    indices[::13] = -1
+    indices[5::17] = n + 3
+    return indptr, indices
+
+
+@pytest.mark.parametrize("f", [128, 256])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_csr_spmm_long_rows_and_repeat(card, f, x_dtype, weighted):
+    """The kernel at the main path's widths with empty rows, a row split over
+    a block and -1 slots: a new output and accumulation into float32 and
+    bfloat16 against the float32 sum (``_assert_sum_close``); two launches
+    bit for bit equal."""
+    rng = np.random.default_rng(500 + f + weighted)
+    indptr, indices = _csr_with_long_row(rng, 1500)
+    w = rng.uniform(0.5, 2.0, len(indices)).astype(np.float32) if weighted else None
+    padded = build_padded_blocks(indptr, indices, edge_tile=128, weights=w, device=card)
+    x = _x(rng, 1500, f, x_dtype, card)
+    f32_sum = csr_spmm_ref(padded, x.float())
+    magnitude = csr_spmm_ref(padded, x.float().abs())
+    got = csr_spmm(padded, x)
+    _assert_sum_close(got, f32_sum, magnitude)
+    assert torch.equal(_bits(got), _bits(csr_spmm(padded, x)))
+    for out_dtype in (torch.float32, torch.bfloat16):
+        base = _x(rng, 1500, f, out_dtype, card)
+        out = csr_spmm(padded, x, out=base.clone())
+        _assert_sum_close(out, base.float() + f32_sum, base.float().abs() + magnitude)
+        assert torch.equal(_bits(out), _bits(csr_spmm(padded, x, out=base.clone())))
+
+
+def _ends_pair(card, r_blk=256, n=1100):
+    """A bit-plane pair (R = 256) whose first and last blocks have clipped
+    windows (n is not a multiple of R), with edges at rows 0 and n - 1,
+    fallback edges and a spilled row."""
+    rng = np.random.default_rng(77)
+    dst = np.repeat(np.arange(n), 7)
+    src = np.clip(dst + rng.integers(-250, 251, n * 7), 0, n - 1)
+    src = np.where(rng.random(n * 7) < 0.15, rng.integers(0, n, n * 7), src)
+    extra_dst = np.concatenate([np.zeros(40, np.int64), np.full(40, n - 1)])
+    extra_src = np.concatenate([rng.integers(0, 200, 40), rng.integers(n - 200, n, 40)])
+    indptr, indices, _ = _native.build_csr(np.concatenate([dst, extra_dst]),
+                                           np.concatenate([src, extra_src]), n)
+    pair = attn_grad.build_attention_slab_pair(indptr, indices, block_rows=r_blk,
+                                               max_k=24, device=card)
+    assert pair.t_ell is None and 0.0 < pair.fwd.band_fraction < 1.0
+    return pair
+
+
+@pytest.mark.parametrize("heads,f", SHARD_ATTN_SHAPES)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_onepass_bwd_windows_repeat_and_probe(card, heads, f, x_dtype):
+    """``onepass_bwd`` at R = 256 with clipped windows at both graph ends
+    against its plain version (within 1e-5 plus 1e-5 of the sums over every
+    term's magnitude); two launches bit for bit equal; the probe with every
+    phase on equal to the kernel bit for bit (float32 x: each other variant
+    also launches)."""
+    pair = _ends_pair(card)
+    n = pair.fwd.num_rows
+    x, ad, as_, g = _attn_inputs(n, heads, f, x_dtype, card, seed=5)
+    _, m, s = slab_attention_spmm_mh(pair.fwd, x, ad, as_, return_stats=True)
+    t = torch.randn((n, heads), generator=torch.Generator(card).manual_seed(6), device=card)
+    args = (pair, x, ad, as_, m, s, t, g)
+    got = attn_grad.onepass_bwd(*args)
+    want = attn_grad.slab_attention_bwd_ref(*args)
+    mag = attn_grad.slab_attention_bwd_ref(pair, x.float().abs(), ad, as_, m, s, -t.abs(),
+                                           g.abs())
+    for a, b, c in zip(got, want, mag):
+        _assert_close_to(a, b, c)
+    for a, b, c in zip(got, attn_grad.onepass_bwd(*args), attn_grad.onepass_bwd_probe(*args)):
+        assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a), _bits(c))
+    if x_dtype == torch.float32:
+        for phases in range(1, attn_grad.PROBE_ALL):
+            attn_grad.onepass_bwd_probe(*args, phases=phases)
+        torch.cuda.synchronize()
+
+
+def test_onepass_bwd_shard_repeat(card):
+    """The shard kernel (col_offset = R, real halos) twice on the same
+    inputs: bit for bit equal."""
+    pair = _attention_pair(128, card)
+    n = pair.fwd.num_rows
+    rs, n_pad = _split(n, 128)
+    x, ad, as_, g = _attn_inputs(n, 4, 64, torch.float32, card, seed=8)
+    _, m, s = slab_attention_spmm_mh(pair.fwd, x, ad, as_, return_stats=True)
+    t = torch.randn((n, 4), generator=torch.Generator(card).manual_seed(9), device=card)
+    per_node = [_pad(a, n_pad) for a in (x, ad, as_, m, s, t, g)]
+    per_node[4][n:] = 1e-16
+    shard = DF.shard_attention_pair(pair, 1, rs, n_pad, card)
+    ext = [DF.halo_rows(a, 1, rs, 128) for a in per_node]
+    for a, b in zip(attn_grad.onepass_bwd_shard(shard, *ext),
+                    attn_grad.onepass_bwd_shard(shard, *ext)):
+        assert torch.equal(_bits(a), _bits(b))

@@ -239,3 +239,25 @@ def test_cpu_dist_step_leaves_launch_counters_at_zero(model_cls, block_rows, tmp
         assert all(fn.launches == 0 for fn in SHARD_COUNTERS)
     finally:
         D.finalize()
+
+
+def test_bwd_probe_is_card_only():
+    """The phase probe (a timing tool, no path's kernel) has no CPU mode:
+    CPU tensors, a mask outside [0, 15] and a pair with t_ell are refused,
+    and nothing is counted."""
+    attn_grad.onepass_bwd_probe.launches = 0
+    rng = np.random.default_rng(0)
+    dst = np.repeat(np.arange(200), 4)
+    src = np.clip(dst + rng.integers(-30, 31, 800), 0, 199)
+    indptr = np.searchsorted(dst, np.arange(201)).astype(np.int64)
+    for r_blk in (128, 512):
+        pair = attn_grad.build_attention_slab_pair(indptr, src.astype(np.int32),
+                                                   block_rows=r_blk, device="cpu")
+        x, g = torch.zeros((200, 2, 4)), torch.zeros((200, 2, 4))
+        stats = [torch.ones((200, 2)) for _ in range(5)]
+        with pytest.raises(ValueError):
+            attn_grad.onepass_bwd_probe(pair, x, *stats, g)
+        with pytest.raises(ValueError, match="mask"):
+            attn_grad.onepass_bwd_probe(pair, x, *stats, g, phases=16)
+    assert attn_grad.onepass_bwd_probe.launches == 0
+    assert attn_grad.PROBE_ALL == 15
