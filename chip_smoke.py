@@ -31,27 +31,28 @@ Phases (any failure raises and exits non-zero):
    in-band sources within +-256 and 1 uniform source per node: 31,837,377
    edges) and its ``FullBatchGraph`` (reorder "none", R = 256) with the
    transpose; host seconds of each build.
-7. full-batch kernels: the slab SpMM's band kernel, the CSR SpMM kernel on
-   the fallback edges and the two together (``slab_spmm``), over the graph
-   and its transpose, on f32 and bf16 x at F = 128 and 256, against the
-   float32 sums of their plain versions: within 1e-5 absolute plus 1e-5
-   relative to the sum of the terms' magnitudes (the sum order differs, and
-   the transpose's hub rows sum hundreds of terms), a bf16 output within one
-   bf16 ulp more.  The CSR kernel also in accumulate mode into a float32
-   output, as the path calls it, twice: the two results bit for bit equal
-   (its long rows are split over a block and added in a fixed order).  Then
-   times at the three calls of one training step (bf16 x: graph F = 128,
-   graph F = 256, transpose F = 256) of kernel, plain version and
-   ``torch.sparse.mm`` over the same edges, with the byte and operation
+7. full-batch kernels: the slab SpMM (``slab_spmm``: band, fallback edges,
+   'mean' divide and cast in one launch) and its band-only mode
+   (``slab_spmm_band``), and the CSR SpMM kernel on the fallback edges, over
+   the graph and its transpose, on f32 and bf16 x at F = 128 and 256,
+   against the float32 sums of their plain versions: within 1e-5 absolute
+   plus 1e-5 relative to the sum of the terms' magnitudes (the sum order
+   differs, and the transpose's hub rows sum hundreds of terms), a bf16
+   output within one bf16 ulp more; each launched twice, bit for bit equal
+   (the CSR kernel in accumulate mode into a float32 output).  Then times at
+   the three calls of one training step (bf16 x: graph F = 128 'mean',
+   graph F = 256 'mean', transpose F = 256 'sum') of kernel, plain version
+   and ``torch.sparse.mm`` over the same edges (for ``slab_spmm`` the whole
+   graph's CSR, values 1/degree for 'mean'), with the byte and operation
    counts that bound them.
 8. small-input agreement, full batch: GraphSAGE and GCN each trained for
    three f32 steps on the card and on the CPU from the same weights; losses
    within 1e-4.
 9. full-batch train: GraphSAGE, then GCN (F = 128, hidden 256, 47 classes,
    bf16 activations, f32 params, Adam 5e-3), 1 warm-up and 3 timed steps
-   each; finite losses, and 3 band-kernel and 3 CSR-kernel launches per step
-   (two forward aggregations and one backward: layer 0's input needs no
-   gradient).  Then one step timed stage by stage.
+   each; finite losses, and 3 ``slab_spmm`` launches per step (two forward
+   aggregations and one backward: layer 0's input needs no gradient), no
+   band-only or CSR-kernel launch.  Then one step timed stage by stage.
 10. attention pairs: the graph's (R = 256, bit planes: the band CSR by
     source) and a second ``FullBatchGraph`` of the same graph at R = 512
     (no bit planes: ``t_ell``); host seconds of each.
@@ -61,8 +62,8 @@ Phases (any failure raises and exits non-zero):
     absolute plus 1e-5 of the same sums over the terms' magnitudes (|x|,
     and for the backward |g| and -|t|: every term's absolute value; the
     kernels sum in another order and factor the dot products out of the
-    sums), m equal and s within 1e-5; each backward launched twice, bit
-    for bit equal.  Then CUDA-event times of kernel and plain version at
+    sums), m equal and s within 1e-5; each kernel launched twice, bit for
+    bit equal.  Then CUDA-event times of kernel and plain version at
     the main path's calls, with the byte and operation counts that bound
     them (no single PyTorch call computes the fused attention: library_ms
     is null).
@@ -97,24 +98,35 @@ Phases (any failure raises and exits non-zero):
     ``DistFullBatchGraph`` of phase 6's graph (R = 256, then R = 512);
     GCN (bf16 activations) and ``gat4h``, 1 warm-up and 3 timed
     ``dist_full_batch_step``s each at R = 256 and one GAT step at R = 512;
-    finite losses; per step 3 launches of row 9 (GCN), and 1 of row 13, 1
-    of row 10 and 2 of row 11 (GAT, R = 256) or 1 each of rows 13, 10, 14
-    and 12 (R = 512), no other kernel; one step of each timed stage by
-    stage.  Agreement: one float32 GCN step and one GAT step from the same
+    finite losses; per step 3 launches of row 9 and 3 of the CSR kernel (the
+    fallback sums) (GCN), and 1 of row 13, 1 of row 10, 2 of row 11 and 10
+    of the CSR kernel (GAT, R = 256) or 1 each of rows 13, 10, 14 and 12 and
+    10 of the CSR kernel (R = 512), no other kernel; one step of each timed
+    stage by stage.  Reproducibility: GCN and GAT each take one step twice
+    from the same weights and inputs; losses and every gradient bit for bit
+    equal (every sum of the sharded step has a fixed order).  Agreement:
+    one float32 GCN step and one GAT step from the same
     weights through ``full_batch_step`` on the single-device graph and
     through ``dist_full_batch_step`` (after phase 16): losses within 1e-5
     relative, each gradient tensor within 1e-3 of its own largest entry,
     the parameters after the step within 1e-4 where the gradient is at least
     1e-5 (Adam's first update, lr * g / (|g| + 1e-8), turns sum-order noise
     in a small g into up to lr).
-16. rows 9-14 at the world-1 path's calls: each kernel against its plain
-    version on the same inputs (the tolerance of phase 14) and launched
-    twice, bit for bit equal; then CUDA-event
+16. row 3 at the world-1 path's calls: every ``segment_add`` of one GCN
+    step (3) and one GAT step (10), on the plans, values (bf16 or f32) and
+    widths (1 to 256) the path builds, against ``csr_spmm_ref`` on the same
+    inputs (phase 7's tolerance), launched twice more bit for bit equal, and
+    timed beside ``index_add_``.  Rows 9-14 at the world-1 path's calls:
+    each kernel against its plain version on the same inputs (the tolerance
+    of phase 14) and launched twice, bit for bit equal; then CUDA-event
     times of kernel, plain version and, for row 9, ``torch.sparse.mm`` over
     the shard's band CSR, with the byte and operation counts that bound
     them (an ELL's bytes are its real entries, not its -1 padding).
 17. the ``kernels`` summary line (rows 1-14, then the probe, which the
-    main path launches no time), and last the ``ok`` line.
+    main path launches no time; row 3's launches and numbers are the
+    sharded path's, phase 16's, beside phase 7's one-card numbers under
+    ``*_one_card``: the one-card path no longer runs it), and last the
+    ``ok`` line.
 
 Every JSON line carries the card's name and power limit.
 """
@@ -178,23 +190,7 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
                              f"and the fallback must both do work")
 
     # -- 7. full-batch kernels at full width --------------------------------
-    def check(name, got, f32_sum, magnitude, what):
-        """``got`` against the plain version's float32 sum: within 1e-5,
-        absolute and relative to ``magnitude`` (the same sum over the terms'
-        absolute values, the scale of sum-order rounding); a bf16 ``got``
-        also within one bf16 ulp of the sum.  Returns the max abs
-        difference of a float32 ``got`` (None for bf16)."""
-        torch.cuda.synchronize()
-        tol = 1e-5 * (1 + magnitude)
-        if got.dtype == torch.bfloat16:
-            _, e = torch.frexp(f32_sum)
-            tol = tol + torch.ldexp(torch.ones_like(f32_sum), e - 8)
-        diff = (got.float() - f32_sum).abs()
-        if not bool((diff <= tol).all()):
-            raise AssertionError(f"{name} {what}: off its plain version by "
-                                 f"{float(diff.max())}")
-        return float(diff.max()) if got.dtype == torch.float32 else None
-
+    check = _check_sum
     gen = torch.Generator(device=dev).manual_seed(5)
     xs = {128: g.feats, 256: torch.randn((n, 256), generator=gen, device=dev)}
     errs = {"slab_spmm": 0.0, "csr_spmm": 0.0}
@@ -205,9 +201,12 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
                 x = xf.to(dt)
                 ax = x.float().abs()
                 what = f"{orient} F={f} {dt}"
-                e_band = check("slab_spmm_band", slab_spmm_band(slab, x, torch.float32),
+                band = slab_spmm_band(slab, x, torch.float32)
+                e_band = check("slab_spmm_band", band,
                                slab_spmm_band_ref(slab, x, torch.float32),
                                slab_spmm_band_ref(slab, ax, torch.float32), what)
+                _same_bits("slab_spmm_band", band, slab_spmm_band(slab, x, torch.float32), what)
+                del band
                 fb_sum = csr_spmm_ref(slab.fallback, x.float())
                 fb_mag = csr_spmm_ref(slab.fallback, ax)
                 e_new = check("csr_spmm", csr_spmm(slab.fallback, x), fb_sum, fb_mag, what)
@@ -221,12 +220,16 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
                 _same_bits("csr_spmm", acc, csr_spmm(slab.fallback, x, out=base.clone()),
                            what + " accumulate")
                 del fb_sum, fb_mag, base, acc
-                e_all = check("slab_spmm", slab_spmm(slab, x, reduce, torch.float32),
+                got = slab_spmm(slab, x, reduce, torch.float32)
+                e_all = check("slab_spmm", got,
                               slab_spmm_ref(slab, x.float(), reduce, torch.float32),
                               slab_spmm_ref(slab, ax, reduce, torch.float32),
                               f"{what} {reduce}")
+                _same_bits("slab_spmm", got, slab_spmm(slab, x, reduce, torch.float32),
+                           f"{what} {reduce}")
+                del got
                 if dt == torch.float32:   # each kernel against its own plain version
-                    errs["slab_spmm"] = max(errs["slab_spmm"], e_band)
+                    errs["slab_spmm"] = max(errs["slab_spmm"], e_band, e_all)
                     errs["csr_spmm"] = max(errs["csr_spmm"], e_fb)
                 emit({"phase": "full_batch_kernel_check", "orientation": orient,
                       "f": f, "dtype": str(dt), "reduce": reduce,
@@ -256,24 +259,70 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
         return torch.sparse_csr_tensor(slab.fb_rowptr, cols,
                                        torch.ones_like(cols, dtype=dtype), (n, n))
 
+    def whole_csr(slab, dtype, reduce):
+        """Every edge of the graph (band and fallback) as a torch CSR matrix,
+        values 1 / max(degree, 1) for 'mean', else 1: one PyTorch call
+        computes ``slab_spmm``'s function with it."""
+        r_blk = slab.block_rows
+        ell = slab.ell[:n].long()
+        rows = torch.arange(n, device=dev)[:, None].expand_as(ell)
+        cols = (rows // r_blk) * r_blk - r_blk + ell
+        ok = ell >= 0
+        fb = slab.fb_src >= 0
+        key = torch.cat([rows[ok] * n + cols[ok],
+                         slab.fb_dst[fb].long() * n + slab.fb_src[fb].long()]).sort().values
+        rows, cols = key // n, key % n
+        del key
+        crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.bincount(rows, minlength=n).cumsum(0)
+        vals = (1.0 / slab.degrees.clamp(min=1).float())[rows] if reduce == "mean" else \
+            torch.ones(rows.numel(), device=dev)
+        return torch.sparse_csr_tensor(crow, cols, vals.to(dtype), (n, n))
+
     def bound(nbytes, ops):
         b_ms, o_ms = nbytes / hbm * 1e3, ops / H100_F32_OPS * 1e3
         return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
     # the three calls of one training step: layer 0 and layer 1 forward
-    # (graph), layer 1's backward (transpose); bf16 activations
+    # (graph, 'mean' as GraphSAGE aggregates), layer 1's backward
+    # (transpose, 'sum'); bf16 activations
     step_calls = [("graph", 128), ("graph", 256), ("transpose", 256)]
-    timing = {"slab_spmm": [], "csr_spmm": []}
+    timing = {"slab_spmm": [], "csr_spmm": [], "slab_spmm_band": []}
     for orient, f in step_calls:
         slab = slabs[orient]
+        reduce = "mean" if orient == "graph" else "sum"
         x = xs[f].to(torch.bfloat16)
         el = x.element_size()
         nnz_band = int((slab.ell[:n] >= 0).sum())
+        fb = slab.fallback
+        nv = fb_edges[orient]
+        src = slab.fb_src[:nv]
+        uniq = int(torch.unique(src).numel())
+        rows_with = int((fb.rowptr[1:] > fb.rowptr[:-1]).sum())
+        # the whole function: the ELL's real entries (not its -1 padding), x
+        # once (the fallback's source rows are rows of x), the fallback row
+        # pointer and ids, the degrees ('mean'), the output once in x's type
+        all_bytes = (4 * nnz_band + x.numel() * el + fb.rowptr.numel() * 8 + nv * 4
+                     + (4 * n if reduce == "mean" else 0) + n * f * el)
+        a_ms, a_by = bound(all_bytes, (nnz_band + nv) * f)
+        a_all = whole_csr(slab, x.dtype, reduce)
+        row = {"kernel": "slab_spmm", "orientation": orient, "f": f, "reduce": reduce,
+               "dtype": "bfloat16", "band_edges": nnz_band, "fallback_edges": nv,
+               "distinct_sources": uniq,
+               "ms": cuda_ms(lambda: slab_spmm(slab, x, reduce, torch.float32)),
+               "plain_ms": cuda_ms(lambda: slab_spmm_ref(slab, x, reduce, torch.float32),
+                                   iters=5),
+               "library_ms": cuda_ms(lambda: torch.sparse.mm(a_all, x)),
+               "bytes": all_bytes, "bound_ms": a_ms, "bound_by": a_by}
+        emit(row)
+        timing["slab_spmm"].append(row)
+        del a_all
+
         a_band = band_csr(slab, x.dtype)
-        # the band's real entries: the ELL's -1 padding is not needed
+        # the band-only mode: the band's real entries, x once, float32 out
         band_bytes = 4 * nnz_band + x.numel() * el + n * f * 4
         b_ms, b_by = bound(band_bytes, nnz_band * f)
-        row = {"kernel": "slab_spmm", "orientation": orient, "f": f,
+        row = {"kernel": "slab_spmm_band", "orientation": orient, "f": f,
                "dtype": "bfloat16", "band_edges": nnz_band,
                "ms": cuda_ms(lambda: slab_spmm_band(slab, x, torch.float32)),
                "plain_ms": cuda_ms(lambda: slab_spmm_band_ref(slab, x, torch.float32),
@@ -281,14 +330,9 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
                "library_ms": cuda_ms(lambda: torch.sparse.mm(a_band, x)),
                "bytes": band_bytes, "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
-        timing["slab_spmm"].append(row)
+        timing["slab_spmm_band"].append(row)
         del a_band
 
-        fb = slab.fallback
-        nv = fb_edges[orient]
-        src = slab.fb_src[:nv]
-        uniq = int(torch.unique(src).numel())
-        rows_with = int((fb.rowptr[1:] > fb.rowptr[:-1]).sum())
         a_fb = fallback_csr(slab, x.dtype)
         acc = torch.zeros((n, f), dtype=torch.float32, device=dev)
         # accumulate mode, as the path calls it: the row pointer, the valid
@@ -344,7 +388,7 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
     del g
     torch.cuda.empty_cache()
     steps = 4
-    totals = {"slab_spmm_band": 0, "csr_spmm": 0}
+    totals = {"slab_spmm": 0, "csr_spmm": 0}
     for name, cls in (("graphsage", GraphSAGE), ("gcn", GCN)):
         torch.manual_seed(0)
         model = cls(TF.FEAT_DIM, TF.HIDDEN, TF.CLASSES, dtype=torch.bfloat16,
@@ -370,8 +414,7 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
                   "warmup": step == 0, "loss": v, "ms_per_step": dt * 1e3,
                   "edges_per_s": edges / dt})
         launches = {fn.__name__: fn.launches for fn in counters}
-        want = {**{fn.__name__: 0 for fn in counters},
-                "slab_spmm_band": 3 * steps, "csr_spmm": 3 * steps}
+        want = {**{fn.__name__: 0 for fn in counters}, "slab_spmm": 3 * steps}
         emit({"phase": "full_batch_launch_counts", "model": name, "steps": steps,
               "launches": launches, "expected": want,
               "ms_per_step": sum(timed) * 1e3 / len(timed),
@@ -404,7 +447,7 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
     return reused, [
         kernel_row("slab_spmm", "cugraph_gnn_tpu_torch/csrc/slab_spmm.cu",
                    "cugraph_gnn_tpu/ops/pallas/slab_kernel.py:267",
-                   totals["slab_spmm_band"], errs["slab_spmm"]),
+                   totals["slab_spmm"], errs["slab_spmm"]),
         kernel_row("csr_spmm", "cugraph_gnn_tpu_torch/csrc/csr_spmm.cu",
                    "cugraph_gnn_tpu/ops/pallas/spmm_kernel.py:90",
                    totals["csr_spmm"], errs["csr_spmm"]),
@@ -489,6 +532,9 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
             g = torch.randn((n, h, f), generator=gen, device=dev)
             what = f"R={r_blk} {layer} H={h} F={f}"
             out, m, s = slab_attention_spmm_mh(graph, x, ad, as_, return_stats=True)
+            for a, b in zip((out, m, s), slab_attention_spmm_mh(graph, x, ad, as_,
+                                                                return_stats=True)):
+                _same_bits("slab_attention_fwd", a, b, what)
             want, m_w, s_w = slab_attention_spmm_mh_ref(graph, x, ad, as_, return_stats=True)
             e_f = check("slab_attention_fwd", out, want,
                         slab_attention_spmm_mh_ref(graph, x.abs(), ad, as_), what)
@@ -743,6 +789,28 @@ SHARD_ROWS = {
 }
 
 
+def _check_sum(name, got, f32_sum, magnitude, what):
+    """``got`` against the plain version's float32 sum: within 1e-5,
+    absolute and relative to ``magnitude`` (the same sum over the terms'
+    absolute values, the scale of sum-order rounding); a bf16 ``got`` also
+    within one bf16 ulp of the sum.  Returns the max abs difference of a
+    float32 ``got`` (None for bf16)."""
+    import torch
+
+    torch.cuda.synchronize()
+    tol = 1e-5 * (1 + magnitude)
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(f32_sum)
+        tol = tol + torch.ldexp(torch.ones_like(f32_sum), e - 8)
+    diff = (got.float() - f32_sum).abs()
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"{name} {what}: off its plain version by "
+                             f"{float(diff.max())}")
+    if got.dtype != torch.float32:
+        return None
+    return float(diff.max()) if diff.numel() else 0.0
+
+
 def _same_bits(name, a, b, what):
     """Two launches on the same inputs must agree bit for bit (no atomics,
     a fixed order of sums)."""
@@ -942,6 +1010,8 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
         slab_spmm_band_shard,
         slab_spmm_band_shard_ref,
     )
+    from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import csr_spmm, csr_spmm_ref
+    from cugraph_gnn_tpu_torch.store import dist_array as DA
     from cugraph_gnn_tpu_torch.utils import distributed as D
 
     mesh = D.init(init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
@@ -1025,14 +1095,17 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
 
         # -- 15. GCN (bf16), gat4h at R = 256 and R = 512 -------------------
         xb = x32.to(torch.bfloat16)
+        # the fallback sums go through the CSR kernel (store/dist_array.py
+        # segment_add): one a SpMM; two a forward attention call (out, s)
+        # and three a backward one (dx, dalpha_src, dalpha_dst's scatter-add)
         model, opt = train(lambda: GCN(TF.FEAT_DIM, TF.HIDDEN, TF.CLASSES,
                                        dtype=torch.bfloat16, device=dev),
-                           dfbg, xb, 4, {"slab_spmm_band_shard": 3}, "gcn")
+                           dfbg, xb, 4, {"slab_spmm_band_shard": 3, "csr_spmm": 3}, "gcn")
         emit({"phase": "dist_full_batch_stages", "model": "gcn",
               "ms": _staged_step(model, opt, xb, dfbg, labels, F, valid=valid)})
         del model, opt
         gat_r256 = {"slab_attention_spmm_mh_shard": 1, "slab_attention_spmm_shard": 1,
-                    "onepass_bwd_shard": 2}
+                    "onepass_bwd_shard": 2, "csr_spmm": 10}
 
         def gat():
             return GAT(TF.FEAT_DIM, TF.HIDDEN, TF.CLASSES, heads=TF.HEADS, device=dev)
@@ -1051,9 +1124,36 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
         dfbg512 = graph(512)
         model, opt = train(gat, dfbg512, node_arrays(dfbg512)[0], 1,
                            {"slab_attention_spmm_mh_shard": 1, "slab_attention_spmm_shard": 1,
-                            "slab_attention_bwd_mh_shard": 1, "slab_attention_bwd_shard": 1},
+                            "slab_attention_bwd_mh_shard": 1, "slab_attention_bwd_shard": 1,
+                            "csr_spmm": 10},
                            "gat_R512")
         del model, opt
+        torch.cuda.empty_cache()
+
+        # reproducibility: one step twice from the same weights and inputs
+        bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+        for tag, make, xr in (("gcn", lambda: GCN(TF.FEAT_DIM, TF.HIDDEN, TF.CLASSES,
+                                                  dtype=torch.bfloat16, device=dev), xb),
+                              ("gat", gat, x32)):
+            torch.manual_seed(0)
+            runs = [make()]
+            runs.append(make())
+            runs[1].load_state_dict(runs[0].state_dict())
+            losses = [TF.dist_full_batch_step(mdl, torch.optim.Adam(mdl.parameters(),
+                                                                    lr=TF.LR),
+                                              xr, dfbg, labels, valid) for mdl in runs]
+            torch.cuda.synchronize()
+            same = [torch.equal(a.grad.view(bits[a.dtype]), b.grad.view(bits[b.dtype]))
+                    for a, b in zip(runs[0].parameters(), runs[1].parameters())]
+            same_loss = torch.equal(losses[0].view(torch.int32), losses[1].view(torch.int32))
+            emit({"phase": "dist_repeat_bitwise", "model": tag, "loss": float(losses[0]),
+                  "loss_bit_equal": same_loss, "gradients": len(same),
+                  "gradients_bit_equal": sum(same)})
+            if not same_loss or not all(same):
+                raise AssertionError(f"dist {tag}: two steps from the same weights differ "
+                                     f"(loss equal {same_loss}, gradients equal "
+                                     f"{sum(same)} of {len(same)})")
+            del runs, losses
         torch.cuda.empty_cache()
 
         # -- 16. rows 9-14 at the world-1 path's calls ------------------------
@@ -1063,6 +1163,74 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
 
         def nbytes(*ts):
             return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+        # row 3 at its world-1 calls: every segment_add of one GCN step and
+        # one GAT step (R = 256), on the plans, values and widths the path
+        # builds, held against its plain version on the same inputs, launched
+        # twice more bit for bit, and timed beside index_add_
+        seg_rows = []
+        real_add = DA.segment_add
+
+        def held(out, plan, values):
+            base = out.clone()
+            got = real_add(out, plan, values)          # the path's own call
+            torch.cuda.synchronize()
+            flat = base.view(base.shape[0], -1)
+            vals = values.reshape(values.shape[0], flat.shape[1]).contiguous()
+            what = (f"world 1 {seg_tag} call {len(seg_rows)}: width {flat.shape[1]}, "
+                    f"{vals.dtype} into {flat.dtype}")
+            err = _check_sum("csr_spmm", got.view(flat.shape),
+                             csr_spmm_ref(plan, vals, out=flat.to(torch.float32, copy=True)),
+                             csr_spmm_ref(plan, vals.float().abs(), out=flat.float().abs()),
+                             what)
+            for _ in range(2):
+                _same_bits("csr_spmm", got, real_add(base.clone(), plan, values), what)
+            ok = (plan.rows >= 0) & (plan.cols >= 0) & (plan.cols < vals.shape[0])
+            idx, cols = plan.rows[ok].long(), plan.cols[ok].long()
+            terms = vals[cols].float()
+            if plan.weights is not None:
+                terms = terms * plan.weights[ok][:, None]
+            acc = flat.clone()
+            nv, width, el = int(cols.numel()), flat.shape[1], vals.element_size()
+            rows_with = int((plan.rowptr[1:] > plan.rowptr[:-1]).sum())
+            # accumulate mode: the row pointer, the slots' columns (and
+            # weights), each slot's value row once, and each output row that
+            # has slots read and written once
+            nb = (plan.rowptr.numel() * 8 + plan.cols.numel() * 4
+                  + (0 if plan.weights is None else plan.weights.numel() * 4)
+                  + nv * width * el + 2 * rows_with * width * flat.element_size())
+            b_ms, b_by = bound(nb, nv * width)
+            row = {"kernel": "csr_spmm", "path": "world 1", "step": seg_tag,
+                   "call": len(seg_rows), "width": width, "values": str(vals.dtype),
+                   "out": str(flat.dtype), "slots": nv, "rows_with_slots": rows_with,
+                   "max_abs_err": err,
+                   "ms": cuda_ms(lambda: csr_spmm(plan, vals, out=acc)),
+                   "plain_ms": cuda_ms(lambda: csr_spmm_ref(plan, vals, out=acc), iters=3,
+                                       warmup=1),
+                   "library_ms": cuda_ms(lambda: acc.index_add_(0, idx, terms)),
+                   "bytes": nb, "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            seg_rows.append(row)
+            del base, vals, terms, acc, idx, cols
+            return got
+
+        DF.segment_add = DA.segment_add = held
+        try:
+            for seg_tag, make, xr in (("gcn", lambda: GCN(TF.FEAT_DIM, TF.HIDDEN, TF.CLASSES,
+                                                          dtype=torch.bfloat16, device=dev),
+                                       xb), ("gat", gat, x32)):
+                torch.manual_seed(0)
+                mdl = make()
+                TF.dist_full_batch_step(mdl, torch.optim.Adam(mdl.parameters(), lr=TF.LR),
+                                        xr, dfbg, labels, valid)
+                del mdl
+        finally:
+            DF.segment_add = DA.segment_add = real_add
+        torch.cuda.synchronize()
+        if [r["step"] for r in seg_rows] != ["gcn"] * 3 + ["gat"] * 10:
+            raise AssertionError(f"world-1 segment_add calls: "
+                                 f"{[(r['step'], r['width']) for r in seg_rows]}")
+        torch.cuda.empty_cache()
 
         timing = {k: [] for k in SHARD_ROWS}
         full_errs = {k: 0.0 for k in SHARD_ROWS}
@@ -1178,7 +1346,7 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
         st = dfbg._spmm[False]
         xb = xs[256].to(torch.bfloat16)
         x_ext = DF._halo_exchange(xb, TF.BLOCK_ROWS, mesh)
-        rows = DF._dist_gather_shard(xb, st.fb_src, book=dfbg._book, mesh=mesh).float()
+        rows = DF._dist_gather_shard(xb, st.fb_src, book=dfbg._book, mesh=mesh)
         acc = torch.zeros((dfbg.rows_per_rank, 256), device=dev)
         emit({"phase": "dist_call_breakdown", "call": "gcn layer1 spmm forward",
               "whole_ms": cuda_ms(lambda: dfbg._spmm_sharded(xb, transpose=False,
@@ -1188,7 +1356,7 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
                                                                      torch.float32)),
               "fallback_gather_ms": cuda_ms(lambda: DF._dist_gather_shard(
                   xb, st.fb_src, book=dfbg._book, mesh=mesh)),
-              "fallback_index_add_ms": cuda_ms(lambda: acc.index_add_(0, st.fb_dst, rows))})
+              "fallback_segment_add_ms": cuda_ms(lambda: DF.segment_add(acc, st.fb_plan, rows))})
         del x_ext, rows, acc
         a_st = dfbg._attn_structs()
         rs = dfbg.rows_per_rank
@@ -1212,8 +1380,8 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
                                                    for a in (gq, x)]),
               "fallback_gather_ms": cuda_ms(lambda: DF._dist_gather_shard(
                   gq, dst, book=dfbg._book, mesh=mesh)),
-              "fallback_scatter_add_ms": cuda_ms(lambda: DF._dist_scatter_shard(
-                  ad, dst, de, book=dfbg._book, mesh=mesh, mode="add"))})
+              "fallback_scatter_add_ms": cuda_ms(lambda: DF._dist_scatter_add(
+                  ad, de, a_st["plan_dad"], mesh=mesh))})
         del x, gg, ad, as_, t, m, s, xa, gq, de, dfbg512
         torch.cuda.empty_cache()
 
@@ -1291,12 +1459,19 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
 
     # row 9: one GCN step's three calls added; rows 10 and 13: the R = 256
     # step's call each; row 11: its two calls; rows 12 and 14: the R = 512
-    # step's call each
+    # step's call each.  Also the CSR kernel's launches on this path and its
+    # numbers at one GCN step's and one GAT step's calls, added.
+    csr = {"launches": totals["csr_spmm"], "calls": len(seg_rows),
+           "max_abs_err": max(r["max_abs_err"] for r in seg_rows),
+           **{k: sum(r[k] for r in seg_rows)
+              for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+           "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in seg_rows)
+           else "operations"}
     return [kernel_row(name) for name in ("slab_spmm_shard", "slab_attention_fwd_shard",
                                           "slab_attention_bwd_onepass_shard",
                                           "slab_attention_bwd_shard",
                                           "slab_attention_fwd_mh_shard",
-                                          "slab_attention_bwd_mh_shard")]
+                                          "slab_attention_bwd_mh_shard")], csr
 
 
 def _staged_step(model, opt, x, fbg, labels, F, method="spmm", label="spmm", valid=None):
@@ -1417,6 +1592,7 @@ def main() -> None:
     from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_kernel as AK
     from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import slab_attention_spmm_mh
     from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
+        slab_spmm,
         slab_spmm_band,
         slab_spmm_band_shard,
     )
@@ -1619,7 +1795,7 @@ def main() -> None:
     blocks = 4
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = (gather_rows, fused_uniform_sample, slab_spmm_band, csr_spmm,
+    counters = (gather_rows, fused_uniform_sample, slab_spmm, slab_spmm_band, csr_spmm,
                 slab_attention_spmm_mh, AG.onepass_bwd, AG.slab_attention_bwd,
                 AG.slab_attention_bwd_mh, slab_spmm_band_shard,
                 AK.slab_attention_spmm_shard, AG.onepass_bwd_shard,
@@ -1677,8 +1853,24 @@ def main() -> None:
     reused, fb_rows = full_batch(dev, emit, cuda_ms, hbm, counters)
     gat_rows, probe_row = gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused)
     shard_errs = shard_kernels(dev, emit)
-    dist_rows = dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, shard_errs)
+    dist_rows, sharded_csr = dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused,
+                                             shard_errs)
     del reused
+    # row 3: the one-card path no longer launches it (row 4's kernel takes
+    # the fallback); the sharded path sums its fallback edges with it, so its
+    # numbers are those of the world-1 calls, and the one-card fallback
+    # calls of phase 7 (checked, accumulate mode too) stand beside them
+    csr_row = fb_rows[1]
+    one_card = {f"{k}_one_card": csr_row[k] for k in ("launches", "max_abs_err", "ms",
+                                                       "plain_ms", "bound_ms", "library_ms")}
+    csr_row.update(**one_card, launches_sharded=sharded_csr["launches"],
+                   on_one_card_path=csr_row["launches"] > 0,
+                   on_sharded_path=sharded_csr["launches"] > 0,
+                   calls_timed_sharded=sharded_csr["calls"],
+                   **{k: sharded_csr[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms")},
+                   launches=csr_row["launches"] + sharded_csr["launches"],
+                   max_abs_err=max(csr_row["max_abs_err"], sharded_csr["max_abs_err"]))
 
     # -- 17. summary --------------------------------------------------------
     kernels.append({

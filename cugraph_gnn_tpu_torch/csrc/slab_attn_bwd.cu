@@ -286,19 +286,10 @@ constexpr int kMaxIds = 16;                   // ELL ids of a row in registers
 constexpr int kMaxChunk = 64;                 // elements of a head a tile holds
 constexpr int64_t kLongFb = 64;   // columns with more fallback in-edges: the whole CTA
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
+using row_io::cp_async16;
+using row_io::cp_async4;
+using row_io::cp_async_wait_all;
+using row_io::window_index;
 
 struct BandArgs {
   const void* x;
@@ -319,16 +310,6 @@ struct BandArgs {
   int n_chunks;
   bool x_vec, g_vec;   // 16-byte (8-byte bf16) pieces of x rows; of g and dx rows
 };
-
-// Window id j in [0, 3R) of row block b (input row (b - 1) R + col_offset
-// + j) is window row (b + j / R) % 3 * R + j % R of the 3-slot ring; b3 is
-// b % 3.  32-bit compares, no division: this runs once per edge.
-__device__ __forceinline__ int window_index(int j, int R, int b3) {
-  const int jb = j >= 2 * R ? 2 : j >= R ? 1 : 0;
-  int slot = b3 + jb;
-  if (slot >= 3) slot -= 3;
-  return slot * R + (j - jb * R);
-}
 
 // Window row idx keeps its quad q at quad (q + idx) % kNQ: the rows that a
 // warp's threads read together then spread over the banks.
@@ -414,17 +395,15 @@ __device__ __forceinline__ float4 window_quad(const float* win, int idx, int q) 
   return reinterpret_cast<const float4*>(win)[idx * kNQ + rot_quad<kNQ>(idx, q)];
 }
 
-// The team's lanes in the warp, and a value from team thread u.
-__device__ __forceinline__ unsigned team_mask() {
-  return ((1u << kSub) - 1u) << (threadIdx.x & 31 & ~(kSub - 1));
-}
+// A value from team thread u, and the team's sum.
 template <typename T>
 __device__ __forceinline__ T from_team(T v, int u) {
-  return __shfl_sync(team_mask(), v, u, kSub);
+  return row_io::from_team<kSub>(v, u);
 }
 __device__ __forceinline__ float team_sum(float v) {
 #pragma unroll
-  for (int off = 1; off < kSub; off <<= 1) v += __shfl_xor_sync(team_mask(), v, off, kSub);
+  for (int off = 1; off < kSub; off <<= 1)
+    v += __shfl_xor_sync(row_io::team_mask<kSub>(), v, off, kSub);
   return v;
 }
 

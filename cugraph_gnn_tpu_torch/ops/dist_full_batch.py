@@ -11,8 +11,10 @@ duplicate, past ``max_k``) stay outside the kernels, as in the JAX package:
 bucketed on the host by destination rank (or, when those counts are skewed,
 in even chunks with global destination ids, ``_plan_fallback``), their
 source rows fetched by the store's distributed gather
-(``store/dist_array.py``) and reduced with ``index_add_`` (or returned to
-their owners by a distributed scatter-add).
+(``store/dist_array.py``) and summed in a fixed order (``segment_add``: the
+CSR SpMM kernel over a destination-sorted plan built once per graph), or
+returned to their owners by a distributed scatter-add, so that two runs of a
+step agree bit for bit.
 
 Gradients: d/dx (A x) = A^T g, and the transpose of a banded graph is banded
 with the same bandwidth, so ``spmm``'s backward is the same sharded routine
@@ -34,7 +36,7 @@ model's parameters are replicated (``train_full.dist_full_batch_step``).
 from __future__ import annotations
 
 import time
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,14 +52,20 @@ from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import (
 from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
     SlabGraph,
     build_slab_graph,
+    ell_lengths,
     slab_spmm_band_shard,
 )
 from cugraph_gnn_tpu_torch.ops.reorder import reorder_csr
 from cugraph_gnn_tpu_torch.parallel.mesh import Mesh
+from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import PaddedCSR
 from cugraph_gnn_tpu_torch.store.dist_array import (
+    ScatterAddPlan,
     _dist_gather_shard,
-    _dist_scatter_shard,
+    _dist_scatter_add,
     put_global,
+    scatter_add_plan,
+    segment_add,
+    segment_plan,
 )
 from cugraph_gnn_tpu_torch.store.partition import PartitionBook
 
@@ -221,7 +229,8 @@ def shard_slab(ell: np.ndarray, ell_w: Optional[np.ndarray], w: int, rs: int,
     return SlabGraph(ell=ell_l, ell_w=t(ell_w), fb_src=no_edges, fb_dst=no_edges,
                      fb_w=None, degrees=(ell_l >= 0).sum(1, dtype=torch.int32),
                      num_rows=rs, block_rows=r_blk, n_blocks=rs // r_blk,
-                     fb_rowptr=torch.zeros(rs + 1, dtype=torch.int64, device=device))
+                     fb_rowptr=torch.zeros(rs + 1, dtype=torch.int64, device=device),
+                     ell_len=ell_lengths(ell_l))
 
 
 def shard_attention_pair(pair: AG.AttnSlabPair, w: int, rs: int, n_pad: int,
@@ -253,24 +262,32 @@ def shard_attention_pair(pair: AG.AttnSlabPair, w: int, rs: int, n_pad: int,
 
 
 def _shard_spmm_body(band: SlabGraph, x_local, fb_src, fb_dst, fb_w=None, *, mesh: Mesh,
-                     book: PartitionBook, compute_dtype, fb_balanced: bool, has_fb: bool):
+                     book: PartitionBook, compute_dtype, fb_balanced: bool, has_fb: bool,
+                     fb_plan: Union[PaddedCSR, ScatterAddPlan, None] = None):
     """One rank's sum aggregation, float32 (rs, F): halo exchange, the band
     kernel over the shard, then the fallback edges: their source rows by
-    the distributed gather, reduced into the local rows (``fb_dst`` local)
+    the distributed gather, summed into the local rows (``fb_dst`` local)
     or, balanced, returned to their owners by a distributed scatter-add
-    (``fb_dst`` global).  ``has_fb``: whether the graph has fallback edges
-    at all (every rank takes part in the exchange, with or without edges of
-    its own)."""
+    (``fb_dst`` global), in the order of ``fb_plan`` (``segment_plan(fb_dst,
+    rs, fb_w)``, balanced ``scatter_add_plan(fb_dst, rs)``; built here when
+    not given).  ``has_fb``: whether the graph has fallback edges at all
+    (every rank takes part in the exchange, with or without edges of its
+    own)."""
     x_ext = _halo_exchange(x_local, band.block_rows, mesh)
     out = slab_spmm_band_shard(band, x_ext, compute_dtype)
     if has_fb:
-        rows = _dist_gather_shard(x_local, fb_src, book=book, mesh=mesh, fill=0).float()
-        if fb_w is not None:
-            rows = rows * fb_w[:, None]
+        rows = _dist_gather_shard(x_local, fb_src, book=book, mesh=mesh, fill=0)
+        rs = out.shape[0]
         if fb_balanced:
-            out = _dist_scatter_shard(out, fb_dst, rows, book=book, mesh=mesh, mode="add")
+            rows = rows.float()
+            if fb_w is not None:
+                rows = rows * fb_w[:, None]
+            plan = fb_plan if fb_plan is not None else scatter_add_plan(fb_dst, rs, book=book,
+                                                                        mesh=mesh)
+            out = _dist_scatter_add(out, rows, plan, mesh=mesh)
         else:
-            out.index_add_(0, fb_dst, rows)
+            segment_add(out, fb_plan if fb_plan is not None else segment_plan(fb_dst, rs, fb_w),
+                        rows)
     return out
 
 
@@ -283,6 +300,7 @@ class _ShardSpmm(NamedTuple):
     fb_w: Optional[torch.Tensor]
     balanced: bool
     has_fb: bool
+    fb_plan: Union[PaddedCSR, ScatterAddPlan]   # the fallback sums' order
 
 
 class _DistSpmm(torch.autograd.Function):
@@ -427,10 +445,14 @@ class DistFullBatchGraph:
         *planned, balanced = _plan_fallback(slab.fb_src.numpy(), slab.fb_dst.numpy(),
                                             self._rs, self._world, fb_w=fb_w)
         fb = self._local_edges(*planned)
+        fb_w = fb[2] if len(fb) > 2 else None
         return _ShardSpmm(band=shard_slab(ell, ell_w, self.mesh.rank, self._rs,
                                           self._r_blk, self.mesh.device),
-                          fb_src=fb[0], fb_dst=fb[1], fb_w=fb[2] if len(fb) > 2 else None,
-                          balanced=bool(balanced), has_fb=len(planned[0]) > 0)
+                          fb_src=fb[0], fb_dst=fb[1], fb_w=fb_w,
+                          balanced=bool(balanced), has_fb=len(planned[0]) > 0,
+                          fb_plan=(scatter_add_plan(fb[1], self._rs, book=self._book,
+                                                    mesh=self.mesh) if balanced
+                                   else segment_plan(fb[1], self._rs, fb_w)))
 
     @property
     def n_pad(self) -> int:
@@ -487,13 +509,13 @@ class DistFullBatchGraph:
 
     def _spmm_sharded(self, x, *, transpose: bool, compute_dtype, arrays=None):
         st = self._spmm[transpose]
-        band, fb_s, fb_d, fb_w = st.band, st.fb_src, st.fb_dst, st.fb_w
+        band, fb_s, fb_d, fb_w, plan = st.band, st.fb_src, st.fb_dst, st.fb_w, st.fb_plan
         if arrays is not None:
-            band = band._replace(ell=arrays[0], ell_w=None)
-            fb_s, fb_d, fb_w = arrays[1], arrays[2], None
+            band = band.with_ell(arrays[0])
+            fb_s, fb_d, fb_w, plan = arrays[1], arrays[2], None, None
         return _shard_spmm_body(band, x.contiguous(), fb_s, fb_d, fb_w, mesh=self.mesh,
                                 book=self._book, compute_dtype=compute_dtype,
-                                fb_balanced=st.balanced, has_fb=st.has_fb)
+                                fb_balanced=st.balanced, has_fb=st.has_fb, fb_plan=plan)
 
     def spmm(self, x, reduce: str = "mean", *, compute_dtype=torch.float32):
         """out[r] = reduce over row r's in-neighbors of w * x[c]; x and out
@@ -508,7 +530,8 @@ class DistFullBatchGraph:
     def _attn_structs(self):
         """The attention pair of the graph-order CSR, this rank's part of it
         and its fallback edges bucketed by destination (forward, dalpha_dst)
-        and by source (dx, dalpha_src); built at first use."""
+        and by source (dx, dalpha_src), with the orders of their sums (and
+        of dalpha_dst's scatter-add); built at first use."""
         if self._attn is None:
             t0 = time.perf_counter()
             pair = AG.build_attention_slab_pair(self._indptr_g, self._indices_g,
@@ -518,11 +541,15 @@ class DistFullBatchGraph:
             by_dst = _bucket_fallback(fb_s, fb_d, self._rs, self._world)
             by_src = _bucket_fallback(fb_s, fb_d, self._rs, self._world, bucket_by="src",
                                       localize="src")
+            fb_by_dst, fb_by_src = self._local_edges(*by_dst), self._local_edges(*by_src)
             self._attn = dict(
                 pair=shard_attention_pair(pair, self.mesh.rank, self._rs, self._n_pad,
                                           self.mesh.device),
-                fb_by_dst=self._local_edges(*by_dst),
-                fb_by_src=self._local_edges(*by_src),
+                fb_by_dst=fb_by_dst, fb_by_src=fb_by_src,
+                plan_by_dst=segment_plan(fb_by_dst[1], self._rs),
+                plan_by_src=segment_plan(fb_by_src[0], self._rs),
+                plan_dad=scatter_add_plan(fb_by_src[1], self._rs, book=self._book,
+                                          mesh=self.mesh),
                 has_fb=len(by_dst[0]) > 0)
             self.build_seconds["attention_pair"] = time.perf_counter() - t0
         return self._attn
@@ -530,7 +557,8 @@ class DistFullBatchGraph:
     def _attn_fwd(self, x, alpha_dst, alpha_src, negative_slope):
         """(out (rs, H, F), m, s (rs, H)), float32: the band through the
         shard kernel over halo-extended x and alpha_src (H = 1: the
-        single-head wrapper), the fallback edges by a log-sum-exp merge."""
+        single-head wrapper), the fallback edges by a log-sum-exp merge
+        (their sums in a fixed order)."""
         st = self._attn_structs()
         graph = st["pair"].fwd
         rs, heads, fh = x.shape
@@ -555,8 +583,9 @@ class DistFullBatchGraph:
             0, dst[:, None].expand(-1, heads), e, "amax")
         m_f = torch.where(torch.isfinite(m_f), m_f, 0)
         p = torch.exp(e - m_f[dst])
-        s_f = torch.zeros_like(s).index_add_(0, dst, p)
-        u_f = torch.zeros_like(out).index_add_(0, dst, p[..., None] * x_fb)
+        plan = st["plan_by_dst"]
+        u_f = segment_add(torch.zeros_like(out), plan, p[..., None] * x_fb)
+        s_f = segment_add(torch.zeros_like(s), plan, p)
         m_all = torch.maximum(m, m_f)
         # a row without band (fallback) edges has s = 0 and takes no share
         wb = torch.where(s > 0, torch.exp(m - m_all), 0)
@@ -570,7 +599,7 @@ class DistFullBatchGraph:
         band through the shard backward kernel over halo-extended x, g and
         stats; the fallback edges by source, their destinations' g and
         stats by the distributed gather, dalpha_dst returned by a
-        distributed scatter-add."""
+        distributed scatter-add; every sum in a fixed order."""
         st = self._attn_structs()
         pair = st["pair"]
         rs, heads, fh = x.shape
@@ -603,9 +632,10 @@ class DistFullBatchGraph:
         a_e = torch.exp(lrelu(z, negative_slope) - m_d) / s_d.clamp(min=1e-16)
         de = (a_e * ((g_d * x.float()[src]).sum(-1) - t_d)
               * torch.where(z >= 0, 1.0, negative_slope))
-        dx = dx.index_add_(0, src, a_e[..., None] * g_d)
-        das = das.index_add_(0, src, de)
-        dad = _dist_scatter_shard(dad, dst, de, book=self._book, mesh=mesh, mode="add")
+        plan = st["plan_by_src"]
+        dx = segment_add(dx.contiguous(), plan, a_e[..., None] * g_d)
+        das = segment_add(das.contiguous(), plan, de)
+        dad = _dist_scatter_add(dad.contiguous(), de, st["plan_dad"], mesh=mesh)
         return dx, dad, das
 
     def attention_spmm(self, x, alpha_dst, alpha_src, *, negative_slope: float = 0.2):

@@ -53,6 +53,7 @@ from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
     SlabGraph,
     _first_occurrence_mask,
     _pack_bits,
+    ell_lengths,
 )
 from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import padded_from_coo
 
@@ -168,7 +169,7 @@ def build_attention_slab_pair(indptr, indices, *, block_rows: int = 256,
         ell=t(ell), ell_w=None, fb_src=fallback.cols, fb_dst=fallback.rows,
         fb_w=None, degrees=t(np.bincount(rows[valid], minlength=n).astype(np.int32)),
         num_rows=n, block_rows=r_blk, n_blocks=n_blocks,
-        fb_rowptr=fallback.rowptr, ell_bits=ell_bits)
+        fb_rowptr=fallback.rowptr, ell_bits=ell_bits, ell_len=ell_lengths(t(ell)))
     # source-major indexes (build_csr groups by its first argument)
     fbt_ptr, fbt_dst, _ = _native.build_csr(cols[fb], rows[fb], n)
     t_ptr = t_rows = None

@@ -11,8 +11,8 @@ fallback edges alike):
     out[r] = sum_c exp(e_rc - m) x[c, h] / max(s, 1e-16)
 
 ``slab_attention_spmm_mh`` launches ``csrc/slab_attn_fwd.cu`` for CUDA
-tensors (its header says what bounds it on the H100 and how its design meets
-that), runs ``slab_attention_spmm_mh_ref`` for CPU tensors, and counts
+tensors (its header says what bounds it on the H100 and how its design, the
+window of a row block in shared memory, meets that), runs ``slab_attention_spmm_mh_ref`` for CPU tensors, and counts
 ``slab_attention_spmm_mh.launches``.  The JAX package merges the fallback
 edges into the band's softmax by a log-sum-exp outside its kernel; here the
 kernel reads them through the graph's ``fb_rowptr`` and takes one softmax
@@ -44,11 +44,11 @@ _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEADS = 64   # the JAX kernel's packed-stats limit, kept as the port's
 _FB_CHUNK = 1 << 20   # fallback edges per step of the plain version
 # x, x dtype, alpha_dst, alpha_src, n, col_offset, x_rows, heads, f, ell,
-# k_width, block_rows, fb_rowptr, fb_src, negative_slope, round_bf16, out, m,
-# s, stream
+# ell_len, k_width, block_rows, fb_rowptr, fb_src, negative_slope,
+# round_bf16, out, m, s, stream
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-             ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p]
@@ -160,8 +160,9 @@ def _fwd_launch(graph: SlabGraph, x, alpha_dst, alpha_src, negative_slope,
         raise ValueError(f"no kernel for device {x.device}")
     x_rows, heads, f = x.shape
     n = graph.num_rows
-    if x_rows >= 2**31:
-        raise ValueError(f"{x_rows} rows do not fit int32 column ids")
+    if x_rows >= 2**31 or graph.fb_src.shape[0] >= 2**31:
+        raise ValueError(f"{x_rows} rows or {graph.fb_src.shape[0]} fallback slots do "
+                         f"not fit int32 ids")
     x = x.contiguous()
     ad = alpha_dst.float().contiguous()
     as_ = alpha_src.float().contiguous()
@@ -174,7 +175,8 @@ def _fwd_launch(graph: SlabGraph, x, alpha_dst, alpha_src, negative_slope,
             stream = torch.cuda.current_stream().cuda_stream
             status = fn(x.data_ptr(), _FLOAT_CODES[x.dtype], ad.data_ptr(),
                         as_.data_ptr(), n, col_offset, x_rows, heads, f,
-                        graph.ell.data_ptr(), graph.ell.shape[1], graph.block_rows,
+                        graph.ell.data_ptr(), graph.ell_len.data_ptr(),
+                        graph.ell.shape[1], graph.block_rows,
                         graph.fb_rowptr.data_ptr(), graph.fb_src.data_ptr(),
                         float(negative_slope), int(compute_dtype == torch.bfloat16),
                         out.data_ptr(), m.data_ptr(), s.data_ptr(), stream)

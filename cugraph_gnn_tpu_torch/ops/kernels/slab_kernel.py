@@ -7,16 +7,19 @@ lists neighbors in the 3R-row window ``[(r//R)*R - R, (r//R)*R + 2R)``, and a
 fallback COO of the out-of-band, duplicate and past-``max_k`` edges.  The
 host arrays equal the JAX package's.
 
-``slab_spmm`` = the band kernel (``csrc/slab_spmm.cu``, replacing the Pallas
-slab kernels; its header says what bounds it on the H100 and how the
-warp-per-row design meets that), plus the fallback through the CSR SpMM
-kernel in accumulate mode (``spmm_kernel.csr_spmm``, where the JAX package
-uses XLA's ``segment_spmm``), then the 'mean' divide and the cast to x's
-dtype.  ``slab_spmm_band`` is the band kernel's wrapper: it launches for CUDA
-tensors, runs ``slab_spmm_band_ref`` for CPU tensors, and counts
-``slab_spmm_band.launches``.  ``slab_spmm_band_shard`` launches the same
-kernel on one row shard of a graph (``ops/dist_full_batch.py``), whose x
-carries one R-row halo on each side, and counts its own launches.
+``slab_spmm`` computes the whole function in one launch of
+``csrc/slab_spmm.cu`` (replacing the Pallas slab kernels and the XLA passes
+after them; its header says what bounds it on the H100 and how its
+shared-memory window design meets that): the band, the fallback edges
+(where the JAX package uses XLA's ``segment_spmm``), the 'mean' divide and
+the cast to x's dtype.  It runs ``slab_spmm_ref`` for CPU tensors and counts
+``slab_spmm.launches``.  ``slab_spmm_band`` launches the same source's
+band-only mode (float32 output, no fallback, no divide; one warp a row, the
+faster design for that function), runs ``slab_spmm_band_ref`` for CPU
+tensors, and counts ``slab_spmm_band.launches``.  ``slab_spmm_band_shard``
+launches the band-only mode on one row shard of a graph
+(``ops/dist_full_batch.py``), whose x carries one R-row halo on each side,
+and counts its own launches.
 
 Unlike the JAX package, a bfloat16 result is rounded once, after the band,
 the fallback and the divide are summed in float32 (the JAX bit-plane path
@@ -35,18 +38,19 @@ from cugraph_gnn_tpu_torch import _build
 from cugraph_gnn_tpu_torch._device import resolve_device
 from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import (
     PaddedCSR,
-    csr_spmm,
     csr_spmm_ref,
     padded_from_coo,
 )
 
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# x, x dtype, n, col_offset, x_rows, ell, ell_w, k_width, block_rows,
-# round_bf16, out, f, stream
+# x, x dtype, n, col_offset, x_rows, ell, ell_w, ell_len, k_width,
+# block_rows, round_bf16, fb_rowptr, fb_src, fb_w, degrees, out, out dtype,
+# f, stream
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
-             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-             ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-             ctypes.c_void_p]
+             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
 _FB_TILE = 128   # fallback COO padding, as in the JAX package
 
 
@@ -63,6 +67,11 @@ class SlabGraph(NamedTuple):
     degrees:    (num_rows,) int32 total degree (band + fallback) for 'mean'.
     fb_rowptr:  (num_rows + 1,) int64 row pointer over fb_dst, built on the
                 host, for the CSR SpMM kernel.
+    ell_len:    (n_blocks * R,) int32 ``ell_lengths(ell)``: the ELL slots
+                the fused SpMM and attention kernels read in each row (its
+                last valid slot + 1: the ELL keeps holes where parallel
+                edges were dropped).  Take another ELL with :meth:`with_ell`,
+                which rebuilds it.
     ell_bits:   the JAX package's bit-plane adjacency ((n_blocks * R, 128)
                 int8; column c at byte c % 128, bit c // 128), or None when
                 3R > 1024.  A host numpy array: the port's kernel reads the
@@ -79,6 +88,7 @@ class SlabGraph(NamedTuple):
     block_rows: int
     n_blocks: int
     fb_rowptr: torch.Tensor
+    ell_len: torch.Tensor
     ell_bits: Optional[np.ndarray] = None
 
     @property
@@ -93,6 +103,10 @@ class SlabGraph(NamedTuple):
         """The fallback COO as the CSR SpMM kernel's input."""
         return PaddedCSR(self.fb_src, self.fb_dst, self.fb_src.shape[0] // _FB_TILE,
                          self.num_rows, self.fb_rowptr, self.fb_w)
+
+    def with_ell(self, ell: torch.Tensor, ell_w: Optional[torch.Tensor] = None) -> "SlabGraph":
+        """The same graph with another ELL (and its weights, or none)."""
+        return self._replace(ell=ell, ell_w=ell_w, ell_len=ell_lengths(ell))
 
     def to(self, device) -> "SlabGraph":
         """The same graph with its tensors on ``device``."""
@@ -159,7 +173,16 @@ def build_slab_graph(indptr, indices, weights=None, *, block_rows: int = 256,
         fb_w=fallback.weights,
         degrees=t(np.bincount(rows[valid], minlength=n).astype(np.int32)),
         num_rows=n, block_rows=r_blk, n_blocks=n_blocks,
-        fb_rowptr=fallback.rowptr, ell_bits=ell_bits)
+        fb_rowptr=fallback.rowptr, ell_bits=ell_bits, ell_len=ell_lengths(t(ell)))
+
+
+def ell_lengths(ell: torch.Tensor) -> torch.Tensor:
+    """(rows,) int32 on ``ell``'s device: each ELL row's last valid slot + 1
+    (0 for none), the ``SlabGraph.ell_len`` of every constructor."""
+    if ell.shape[1] == 0:
+        return torch.zeros(ell.shape[0], dtype=torch.int32, device=ell.device)
+    slot = torch.arange(1, ell.shape[1] + 1, dtype=torch.int32, device=ell.device)
+    return torch.where(ell >= 0, slot, 0).amax(1).to(torch.int32)
 
 
 def _first_occurrence_mask(rows, cols, keep, n):
@@ -223,28 +246,39 @@ def _band_ref(graph: SlabGraph, x, compute_dtype, col_offset: int):
     return out
 
 
-def _band_launch(graph: SlabGraph, x, compute_dtype, col_offset: int):
-    """The band kernel on the card (x already checked); no launch when
-    there is nothing to compute."""
+def _launch(graph: SlabGraph, x, compute_dtype, col_offset: int, reduce=None):
+    """The kernel on the card (x already checked): the band only (``reduce``
+    None: float32 output) or the whole function ('sum' / 'mean': the
+    fallback edges, the divide, output in x's dtype).  No launch when there
+    is nothing to compute."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     n = graph.num_rows
     x_rows, f = x.shape
-    if x_rows >= 2**31:
-        raise ValueError(f"{x_rows} rows do not fit int32 column ids")
-    out = torch.empty((n, f), dtype=torch.float32, device=x.device)
+    if x_rows >= 2**31 or graph.fb_src.shape[0] >= 2**31:
+        raise ValueError(f"{x_rows} rows or {graph.fb_src.shape[0]} fallback slots do "
+                         f"not fit int32 ids")
+    out_dtype = torch.float32 if reduce is None else x.dtype
+    out = torch.empty((n, f), dtype=out_dtype, device=x.device)
     if n == 0 or f == 0:
         return out
     fn = _build.function("slab_spmm", _ARGTYPES)
-    w = graph.ell_w
+    fb = reduce is not None and graph.fb_src.shape[0] > 0
+
+    def ptr(t, use=True):
+        return t.data_ptr() if use and t is not None else None
+
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(x.data_ptr(), _FLOAT_CODES[x.dtype], n, col_offset, x_rows,
-                    graph.ell.data_ptr(), None if w is None else w.data_ptr(),
+                    graph.ell.data_ptr(), ptr(graph.ell_w), graph.ell_len.data_ptr(),
                     graph.ell.shape[1], graph.block_rows,
-                    int(compute_dtype == torch.bfloat16), out.data_ptr(), f, stream)
+                    int(compute_dtype == torch.bfloat16), ptr(graph.fb_rowptr, fb),
+                    ptr(graph.fb_src, fb), ptr(graph.fb_w, fb),
+                    ptr(graph.degrees, reduce == "mean"), out.data_ptr(),
+                    _FLOAT_CODES[out_dtype], f, stream)
     _build.check(status, "slab_spmm")
     return out
 
@@ -268,7 +302,7 @@ def slab_spmm_band(graph: SlabGraph, x, compute_dtype=torch.bfloat16):
     _check(graph, x, compute_dtype, 0)
     if x.device.type == "cpu":
         return _band_ref(graph, x, compute_dtype, 0)
-    out = _band_launch(graph, x, compute_dtype, 0)
+    out = _launch(graph, x, compute_dtype, 0)
     if out.numel():
         slab_spmm_band.launches += 1
     return out
@@ -292,7 +326,7 @@ def slab_spmm_band_shard(graph: SlabGraph, x_ext, compute_dtype=torch.bfloat16):
     _check(graph, x_ext, compute_dtype, graph.block_rows)
     if x_ext.device.type == "cpu":
         return _band_ref(graph, x_ext, compute_dtype, graph.block_rows)
-    out = _band_launch(graph, x_ext, compute_dtype, graph.block_rows)
+    out = _launch(graph, x_ext, compute_dtype, graph.block_rows)
     if out.numel():
         slab_spmm_band_shard.launches += 1
     return out
@@ -301,30 +335,41 @@ def slab_spmm_band_shard(graph: SlabGraph, x_ext, compute_dtype=torch.bfloat16):
 slab_spmm_band_shard.launches = 0
 
 
-def _slab_spmm(graph, x, reduce, compute_dtype, band, fallback):
+def _check_reduce(reduce: str) -> None:
     if reduce not in ("sum", "mean"):
         raise ValueError(f"slab_spmm supports sum/mean, got {reduce!r}")
-    out = band(graph, x, compute_dtype)
+
+
+def slab_spmm_ref(graph: SlabGraph, x, reduce: str = "sum",
+                  compute_dtype=torch.bfloat16):
+    """Plain PyTorch version of :func:`slab_spmm`: the band, plus the
+    fallback's float32 sum, divided, rounded once to x's dtype."""
+    _check_reduce(reduce)
+    out = slab_spmm_band_ref(graph, x, compute_dtype)
     if graph.fb_src.shape[0]:
-        fallback(graph.fallback, x, out=out)
+        csr_spmm_ref(graph.fallback, x, out=out)
     if reduce == "mean":
         out.div_(graph.degrees.clamp(min=1)[:, None])
     return out.to(x.dtype)
 
 
-def slab_spmm_ref(graph: SlabGraph, x, reduce: str = "sum",
-                  compute_dtype=torch.bfloat16):
-    """Plain PyTorch version of :func:`slab_spmm`."""
-    return _slab_spmm(graph, x, reduce, compute_dtype, slab_spmm_band_ref,
-                      csr_spmm_ref)
-
-
 def slab_spmm(graph: SlabGraph, x, reduce: str = "sum",
               compute_dtype=torch.bfloat16):
-    """out[r] = reduce over CSR row r of w * x[cols]: the band kernel plus
-    the fallback edges (CSR SpMM kernel, accumulating in float32), divided
-    by max(degree, 1) for 'mean', returned in x's dtype.  reduce: 'sum' |
-    'mean'.  x: (N, F) float32 or bfloat16 on the graph's device; the
-    fallback reads x as it is (float32 sums), only the band honours
-    ``compute_dtype``, as in the JAX package."""
-    return _slab_spmm(graph, x, reduce, compute_dtype, slab_spmm_band, csr_spmm)
+    """out[r] = reduce over CSR row r of w * x[cols]: the band edges, then
+    the fallback edges, summed in float32, divided by max(degree, 1) for
+    'mean', returned in x's dtype (rounded once).  reduce: 'sum' | 'mean'.
+    x: (N, F) float32 or bfloat16, contiguous, on the graph's device; the
+    fallback reads x as it is, only the band honours ``compute_dtype``, as
+    in the JAX package.  CUDA tensors launch the kernel once on the current
+    stream without synchronising; CPU tensors run :func:`slab_spmm_ref`."""
+    _check_reduce(reduce)
+    _check(graph, x, compute_dtype, 0)
+    if x.device.type == "cpu":
+        return slab_spmm_ref(graph, x, reduce, compute_dtype)
+    out = _launch(graph, x, compute_dtype, 0, reduce)
+    if out.numel():
+        slab_spmm.launches += 1
+    return out
+
+
+slab_spmm.launches = 0

@@ -15,16 +15,27 @@ ragged all-to-all semantics; the JAX package's CPU path pads every peer's
 slot to the whole batch).  Ids of -1 are not sent: their rows are ``fill``
 (gather) or dropped (scatter).  The ``DistArray`` class and the bounded
 multi-round gather come with the modules that need them.
+
+Sums of rows keyed by ids (the scatter's "add", and the sharded SpMM's and
+attention's fallback edges in ``ops/dist_full_batch.py``) take a fixed
+order: :func:`segment_plan` sorts the ids once (stably) into a row pointer,
+and :func:`segment_add` sums each id's rows in that order with the CSR SpMM
+kernel in accumulate mode (``ops/kernels/spmm_kernel.py``; its plain version
+on the CPU).  ``index_add_`` on a card adds with atomics, whose order, and
+so whose rounding, changes from run to run.  Where the ids of a scatter-add
+are fixed, :func:`scatter_add_plan` does its id exchange and sort once, and
+:func:`_dist_scatter_add` then moves and sums only the values.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, NamedTuple, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import PaddedCSR, csr_spmm
 from cugraph_gnn_tpu_torch.parallel.mesh import Mesh
 from cugraph_gnn_tpu_torch.store.partition import PartitionBook
 
@@ -38,6 +49,33 @@ def put_global(host_array, mesh: Mesh) -> torch.Tensor:
         raise ValueError(f"{host.shape[0]} rows do not split evenly over "
                          f"{mesh.world} ranks")
     return host[mesh.rank * per:(mesh.rank + 1) * per].to(mesh.device)
+
+
+def segment_plan(ids: torch.Tensor, num_rows: int, weights=None) -> PaddedCSR:
+    """The fixed order in which :func:`segment_add` sums values keyed by
+    ``ids`` (E,): slot e of row r names value row ``cols[e]``, the slots of
+    each row in the order of ``ids`` (a stable sort); ids outside [0,
+    num_rows) are dropped.  ``weights`` (E,) float32, in the order of
+    ``ids``, scale the values.  Built once where the ids are fixed."""
+    ids = ids.long()
+    key = torch.where((ids >= 0) & (ids < num_rows), ids, num_rows)
+    order = torch.argsort(key, stable=True)
+    key = key[order]
+    rowptr = torch.searchsorted(key, torch.arange(num_rows + 1, device=ids.device))
+    rows = torch.where(key < num_rows, key, -1).to(torch.int32)
+    w = None if weights is None else weights[order].float().contiguous()
+    return PaddedCSR(order.to(torch.int32), rows, -(-order.numel() // 128), int(num_rows),
+                     rowptr, w)
+
+
+def segment_add(out: torch.Tensor, plan: PaddedCSR, values: torch.Tensor) -> torch.Tensor:
+    """out[r] += the sum, in ``plan``'s order, of its slots' (weighted)
+    value rows, in place; ``out`` (num_rows, ...) contiguous and ``values``
+    (E, ...) with the same trailing shape, float32 or bfloat16, summed in
+    float32 and rounded once per row.  Returns ``out``."""
+    flat = out.view(out.shape[0], -1)
+    csr_spmm(plan, values.reshape(values.shape[0], flat.shape[1]).contiguous(), out=flat)
+    return out
 
 
 def _bucket_by_owner(ids: torch.Tensor, book: PartitionBook):
@@ -105,25 +143,63 @@ def _dist_gather_shard(table: torch.Tensor, ids: torch.Tensor, *, book: Partitio
     return out
 
 
+class ScatterAddPlan(NamedTuple):
+    """A scatter-add of values keyed by fixed ids into ``rows``-row shards:
+    the values' sending order and sizes, and the order of the sums of what
+    this rank receives."""
+
+    perm: torch.Tensor            # the values sent, in rank order
+    send_sizes: List[int]
+    recv_sizes: List[int]
+    sums: PaddedCSR               # received slot -> local row
+
+
+def _route(ids: torch.Tensor, rows: int, book: PartitionBook, mesh: Mesh):
+    """Where a scatter of this rank's ``ids`` into shards of ``rows`` rows
+    sends its values: (the values' sending order, send sizes, receive
+    sizes, each received value's local row, ``rows`` where dropped)."""
+    sorted_ids, perm, counts = _bucket_by_owner(ids, book)
+    req_ids, send_sizes, recv_sizes = _ragged_a2a(sorted_ids, counts, mesh)
+    ok, local = _owned_local(req_ids, book, mesh)
+    return perm[:sum(send_sizes)], send_sizes, recv_sizes, torch.where(ok, local, rows)
+
+
+def scatter_add_plan(ids: torch.Tensor, rows: int, *, book: PartitionBook,
+                     mesh: Mesh) -> ScatterAddPlan:
+    """The plan of :func:`_dist_scatter_add` for this rank's ``ids`` (-1
+    dropped) into shards of ``rows`` rows; every rank calls it together."""
+    perm, send_sizes, recv_sizes, local = _route(ids, rows, book, mesh)
+    return ScatterAddPlan(perm, send_sizes, recv_sizes, segment_plan(local, rows))
+
+
+def _dist_scatter_add(table: torch.Tensor, values: torch.Tensor, plan: ScatterAddPlan, *,
+                      mesh: Mesh) -> torch.Tensor:
+    """global_table[ids] += values along ``plan`` (the ids' plan), in place
+    in this rank's contiguous shard ``table`` (float32 or bfloat16), summed
+    in the plan's fixed order; every rank calls it together.  Returns
+    ``table``."""
+    vals = alltoallv(values[plan.perm], plan.send_sizes, plan.recv_sizes, mesh)
+    return segment_add(table, plan.sums, vals.to(table.dtype))
+
+
 def _dist_scatter_shard(table: torch.Tensor, ids: torch.Tensor, values: torch.Tensor, *,
                         book: PartitionBook, mesh: Mesh, mode: str) -> torch.Tensor:
     """global_table[ids] = values ("set") or += values ("add", repeated ids
-    accumulate), each rank with its own ``ids``/``values`` and its shard
-    ``table``; -1 ids are dropped.  Returns this rank's updated shard (a new
-    tensor)."""
+    accumulate, float32 or bfloat16 in the fixed order of
+    :func:`segment_add`), each rank with its own ``ids``/``values`` and its
+    shard ``table``; -1 ids are dropped.  Returns this rank's updated shard
+    (a new tensor)."""
     if mode not in ("set", "add"):
         raise ValueError(mode)
-    sorted_ids, perm, counts = _bucket_by_owner(ids, book)
-    req_ids, send_sizes, recv_sizes = _ragged_a2a(sorted_ids, counts, mesh)
-    n_send = sum(send_sizes)
-    req_vals = alltoallv(values[perm[:n_send]], send_sizes, recv_sizes, mesh)
-    ok, local = _owned_local(req_ids, book, mesh)
     rows = table.shape[0]
-    safe = torch.where(ok, local, rows)            # row `rows`: a dropped slot
+    if mode == "add" and table.dtype in (torch.float32, torch.bfloat16):
+        return _dist_scatter_add(table.clone(memory_format=torch.contiguous_format), values,
+                                 scatter_add_plan(ids, rows, book=book, mesh=mesh), mesh=mesh)
+    perm, send_sizes, recv_sizes, safe = _route(ids, rows, book, mesh)
+    vals = alltoallv(values[perm], send_sizes, recv_sizes, mesh).to(table.dtype)
     out = torch.cat([table, table.new_zeros((1,) + tuple(table.shape[1:]))])
-    vals = req_vals.to(table.dtype)
     if mode == "set":
         out[safe] = vals
-    else:
+    else:   # integers: exact in any order
         out.index_add_(0, safe, vals)
     return out[:rows]

@@ -3,7 +3,9 @@ package's (exact, host numpy), and the port's distributed exchanges
 (``_dist_gather_shard``, ``_dist_scatter_shard`` set and add,
 ``_halo_exchange``, ``_halo_reduce``, ``put_global``) against numpy indexing
 of the whole array, in spawned gloo worlds of 2 and 4 ranks (exact: the
-exchanges move values, and the adds are of integers held in float32).
+exchanges move values, and the adds are of integers held in float32); the
+fixed-order sums under the adds (``segment_plan``, ``segment_add``) against
+numpy.
 
 The JAX package is imported inside the tests, not at the top: the spawned
 workers import this file and run torch alone.
@@ -85,6 +87,35 @@ def test_bucket_fallback_matches_jax(bucket_by):
             np.testing.assert_array_equal(a, b)
     empty = np.zeros(0, np.int32)
     assert all(a.shape == (0,) for a in DF._bucket_fallback(empty, empty, 300, 4))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_segment_plan_and_add_match_numpy(weighted):
+    """``segment_plan`` keeps each row's slots in the order of the ids and
+    drops ids of -1 and past the rows; ``segment_add`` adds the (weighted)
+    value rows into its output in place (on the CPU the plain version)."""
+    from cugraph_gnn_tpu_torch.store.dist_array import segment_add, segment_plan
+
+    rng = np.random.default_rng(3)
+    n, e, f = 50, 400, 5
+    ids = rng.integers(-1, n + 5, e)
+    w = rng.standard_normal(e).astype(np.float32) if weighted else None
+    plan = segment_plan(torch.as_tensor(ids), n, None if w is None else torch.as_tensor(w))
+    ok = (ids >= 0) & (ids < n)
+    order = np.flatnonzero(ok)[np.argsort(ids[ok], kind="stable")]
+    kept = len(order)
+    np.testing.assert_array_equal(plan.cols.numpy()[:kept], order)
+    np.testing.assert_array_equal(plan.rows.numpy()[:kept], ids[order])
+    assert (plan.rows.numpy()[kept:] == -1).all()
+    np.testing.assert_array_equal(plan.rowptr.numpy(),
+                                  np.searchsorted(ids[order], np.arange(n + 1)))
+    vals = rng.integers(-8, 8, (e, f)).astype(np.float32)
+    base = rng.integers(-8, 8, (n, f)).astype(np.float32)
+    out = torch.as_tensor(base.copy())
+    assert segment_add(out, plan, torch.as_tensor(vals)) is out
+    want = base.copy()
+    np.add.at(want, ids[ok], vals[ok] * (1 if w is None else w[ok][:, None]))
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-6, atol=1e-5)
 
 
 def _exchange_worker(rank, world, store):

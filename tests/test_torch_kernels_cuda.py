@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the row gather, the fused sampler, the slab SpMM's band kernel, the CSR
-SpMM kernel, and the fused slab attention's forward and backward kernels,
-each of the last three also on the row shards of a 4-rank split (the shard
-wrappers of ``ops/dist_full_batch.py``, halo-extended inputs).
+the row gather, the fused sampler, the slab SpMM (the whole function and
+its band-only mode), the CSR SpMM kernel, and the fused slab attention's
+forward and backward kernels, each of the last three also on the row shards
+of a 4-rank split (the shard wrappers of ``ops/dist_full_batch.py``,
+halo-extended inputs).  Kernels without atomics are launched twice on the
+same inputs and held bit for bit equal.
 
 Marked ``cuda``: each test asks the ``card`` fixture for a device and skips
 without one.  The file imports no JAX, so on the machine with the card it
@@ -161,16 +163,44 @@ def _assert_sum_close(got, f32_sum, magnitude):
     assert bool(((got.float() - f32_sum).abs() <= tol).all())
 
 
+SPMM_WIDTHS = [64, 128, 256, 100, 47]
+
+
+def _holes_csr(rng, n, weighted=False):
+    """A banded CSR whose ELL has holes (parallel edges, dropped from the
+    band after their first instance) and is 64 wide (row n // 3 has 70
+    in-band sources), with far sources (fallback edges)."""
+    dst = np.repeat(np.arange(n), 8)
+    src = np.clip(dst + rng.integers(-100, 101, n * 8), 0, n - 1)
+    src[1::8] = src[::8]                        # parallel edges
+    src = np.where(rng.random(n * 8) < 0.1, rng.integers(0, n, n * 8), src)
+    hub = n // 3
+    dst = np.concatenate([dst, np.full(70, hub)])
+    src = np.concatenate([src, np.clip(hub + rng.integers(-120, 121, 70), 0, n - 1)])
+    indptr, indices, _ = _native.build_csr(dst, src, n)
+    w = rng.uniform(0.5, 2.0, len(indices)).astype(np.float32) if weighted else None
+    return indptr, indices, w
+
+
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("f", [64, 128, 256, 100])
+@pytest.mark.parametrize("f", SPMM_WIDTHS)
 @pytest.mark.parametrize("weighted", [False, True])
-def test_slab_spmm_band_matches_plain(card, x_dtype, f, weighted):
-    """The band kernel against its plain version, float32 sums in another
-    order: 1e-5.  n = 1000 is not a multiple of R = 128; both compute
-    dtypes."""
+@pytest.mark.parametrize("graph", ["k8", "holes_k64"])
+def test_slab_spmm_band_matches_plain(card, x_dtype, f, weighted, graph):
+    """The band-only mode against its plain version, float32 sums: 1e-5.
+    n = 1000 is not a multiple of R = 128; both compute dtypes; an ELL capped
+    at 8 and one 64 wide with holes (its rows read to their length); two
+    launches bit for bit equal."""
     rng = np.random.default_rng(f + weighted)
-    indptr, indices, w = _csr(rng, 1000, 9, 100, far=0.2, weighted=weighted)
-    g = build_slab_graph(indptr, indices, w, block_rows=128, max_k=8, device=card)
+    if graph == "k8":
+        indptr, indices, w = _csr(rng, 1000, 9, 100, far=0.2, weighted=weighted)
+        g = build_slab_graph(indptr, indices, w, block_rows=128, max_k=8, device=card)
+    else:
+        indptr, indices, w = _holes_csr(rng, 1000, weighted)
+        g = build_slab_graph(indptr, indices, w, block_rows=128, device=card)
+        valid = (g.ell >= 0).sum(1)
+        assert g.ell.shape[1] == 64 and bool((g.ell_len >= valid).all())
+        assert bool((g.ell_len > valid).any())   # holes before a row's last entry
     x = _x(rng, 1000, f, x_dtype, card)
     for compute in (torch.float32, torch.bfloat16):
         before = slab_spmm_band.launches
@@ -180,6 +210,7 @@ def test_slab_spmm_band_matches_plain(card, x_dtype, f, weighted):
         assert slab_spmm_band.launches == before + 1
         assert got.dtype == torch.float32 and got.shape == (1000, f)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(_bits(got), _bits(slab_spmm_band(g, x, compute)))
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
@@ -223,10 +254,12 @@ SLAB_CASES = {
 @pytest.mark.parametrize("name", sorted(SLAB_CASES))
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
-def test_slab_spmm_matches_plain(card, name, x_dtype, reduce):
-    """Band kernel + fallback kernel + mean divide against the plain
-    version's float32 sum (``_assert_sum_close``); each kernel launches only
-    where it has work."""
+@pytest.mark.parametrize("f", [128, 47])
+def test_slab_spmm_matches_plain(card, name, x_dtype, reduce, f):
+    """The whole function in one launch (band, fallback, mean divide, one
+    rounding to x's dtype) against the plain version's float32 sum
+    (``_assert_sum_close``); one launch where there are rows, no launch of
+    the band-only mode or the CSR kernel; two launches bit for bit equal."""
     n, deg, band, far, shift = SLAB_CASES[name]
     rng = np.random.default_rng(7)
     indptr, indices, _ = _csr(rng, n, deg, band, far=far, shift=shift)
@@ -235,15 +268,38 @@ def test_slab_spmm_matches_plain(card, name, x_dtype, reduce):
         assert g.fb_src.shape[0] == 0
     if name == "all_fallback":
         assert g.band_fraction == 0.0
-    x = _x(rng, n, 128, x_dtype, card)
-    band0, csr0 = slab_spmm_band.launches, csr_spmm.launches
+    x = _x(rng, n, f, x_dtype, card)
+    before, band0, csr0 = slab_spmm.launches, slab_spmm_band.launches, csr_spmm.launches
     got = slab_spmm(g, x, reduce, torch.float32)
     torch.cuda.synchronize()
-    assert slab_spmm_band.launches == band0 + (n > 0)
-    assert csr_spmm.launches == csr0 + (g.fb_src.shape[0] > 0 and n > 0)
-    assert got.dtype == x_dtype and got.shape == (n, 128)
+    assert slab_spmm.launches == before + (n > 0)
+    assert (slab_spmm_band.launches, csr_spmm.launches) == (band0, csr0)
+    assert got.dtype == x_dtype and got.shape == (n, f)
     _assert_sum_close(got, slab_spmm_ref(g, x.float(), reduce, torch.float32),
                       slab_spmm_ref(g, x.float().abs(), reduce, torch.float32))
+    assert torch.equal(_bits(got), _bits(slab_spmm(g, x, reduce, torch.float32)))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", SPMM_WIDTHS)
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+def test_slab_spmm_holes_weights_and_widths(card, x_dtype, f, weighted, reduce):
+    """The whole function over an ELL 64 wide with holes, with fallback
+    edges, weighted or not, at every width, both compute dtypes: within the
+    float32 sum's tolerance (``_assert_sum_close``), the band's operands
+    rounded to bfloat16 where the compute dtype says so; two launches bit for
+    bit equal."""
+    rng = np.random.default_rng(40 + f + weighted)
+    indptr, indices, w = _holes_csr(rng, 1000, weighted)
+    g = build_slab_graph(indptr, indices, w, block_rows=128, device=card)
+    assert g.fb_src.shape[0] > 0 and g.ell.shape[1] == 64
+    x = _x(rng, 1000, f, x_dtype, card)
+    for compute in (torch.float32, torch.bfloat16):
+        got = slab_spmm(g, x, reduce, compute)
+        _assert_sum_close(got, slab_spmm_ref(g, x.float(), reduce, compute),
+                          slab_spmm_ref(g, x.float().abs(), reduce, torch.float32))
+        assert torch.equal(_bits(got), _bits(slab_spmm(g, x, reduce, compute)))
 
 
 def _attention_pair(r_blk, card, n=1300):
@@ -294,7 +350,8 @@ def test_slab_attention_fwd_matches_plain(card, r_blk, heads, f, x_dtype):
     """Forward kernel against its plain version: out within 1e-5 plus 1e-5
     of the same aggregate over |x|; m equal and s within 1e-5 (the same
     maxima, sums in the same order, expf against torch.exp); rows without
-    edges give zeros.  Both compute dtypes."""
+    edges give zeros.  Both compute dtypes; two launches bit for bit
+    equal."""
     pair = _attention_pair(r_blk, card)
     n = pair.fwd.num_rows
     x, ad, as_, _ = _attn_inputs(n, heads, f, x_dtype, card)
@@ -312,6 +369,10 @@ def test_slab_attention_fwd_matches_plain(card, r_blk, heads, f, x_dtype):
         assert torch.equal(m, m_want)
         torch.testing.assert_close(s, s_want, rtol=1e-5, atol=0)
         assert not out[10:12].any() and not s[10:12].any() and s[20:22].all()
+        again = slab_attention_spmm_mh(pair.fwd, x, ad, as_, compute_dtype=compute,
+                                       return_stats=True)
+        for a, b in zip((out, m, s), again):
+            assert torch.equal(_bits(a), _bits(b))
 
 
 @pytest.mark.parametrize("r_blk", [128, 512])
@@ -380,18 +441,19 @@ def _pad(t, rows):
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("weighted", [False, True])
-def test_slab_spmm_band_shard_matches_plain(card, x_dtype, weighted):
+@pytest.mark.parametrize("f", SPMM_WIDTHS)
+def test_slab_spmm_band_shard_matches_plain(card, x_dtype, weighted, f):
     """Each shard of a 4-rank split: the band kernel over the shard's
     halo-extended x within 1e-5 of its plain version and of the whole
     graph's band kernel on the shard's rows (the same entries, in the same
-    order); both compute dtypes."""
-    rng = np.random.default_rng(30 + weighted)
+    order); both compute dtypes; two launches bit for bit equal."""
+    rng = np.random.default_rng(30 + weighted + f)
     indptr, indices, w = _csr(rng, 1000, 9, 100, far=0.2, weighted=weighted)
     g = build_slab_graph(indptr, indices, w, block_rows=128, max_k=8, device="cpu")
     rs, n_pad = _split(1000, 128)
     ell = DF._padded(g.ell.numpy(), n_pad, -1)
     ell_w = None if g.ell_w is None else DF._padded(g.ell_w.numpy(), n_pad, 0)
-    x = _pad(_x(rng, 1000, 128, x_dtype, card), n_pad)
+    x = _pad(_x(rng, 1000, f, x_dtype, card), n_pad)
     for compute in (torch.float32, torch.bfloat16):
         whole = _pad(slab_spmm_band(g.to(card), x[:1000], compute), n_pad)
         for rank in range(WORLD):
@@ -402,8 +464,9 @@ def test_slab_spmm_band_shard_matches_plain(card, x_dtype, weighted):
             want = slab_spmm_band_shard_ref(shard, x_ext, compute)
             torch.cuda.synchronize()
             assert slab_spmm_band_shard.launches == before + 1
-            assert got.shape == (rs, 128)
+            assert got.shape == (rs, f)
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            assert torch.equal(_bits(got), _bits(slab_spmm_band_shard(shard, x_ext, compute)))
             torch.testing.assert_close(got, whole[rank * rs:(rank + 1) * rs], rtol=1e-5,
                                        atol=1e-5)
 
@@ -429,7 +492,7 @@ def test_slab_attention_fwd_shard_matches_plain(card, r_blk, heads, f, x_dtype):
     (``slab_attention_spmm_shard`` at H = 1, ``_mh_shard`` above) within 1e-5
     plus 1e-5 of the aggregate over |x| of its plain version (m equal, s
     within 1e-5) and of the whole graph's band-only forward on the shard's
-    rows."""
+    rows; two launches bit for bit equal."""
     pair = _attention_pair(r_blk, card)
     n = pair.fwd.num_rows
     rs, n_pad = _split(n, r_blk)
@@ -462,6 +525,11 @@ def test_slab_attention_fwd_shard_matches_plain(card, r_blk, heads, f, x_dtype):
         _assert_close_to(out, whole[0][rows], mag)
         assert torch.equal(m, whole[1][rows])
         torch.testing.assert_close(s, whole[2][rows], rtol=1e-5, atol=0)
+        again = fn(shard, *args, return_stats=True)
+        if heads == 1:
+            again = [a[:, None] for a in again]
+        for a, b in zip((out, m, s), again):
+            assert torch.equal(_bits(a), _bits(b))
 
 
 @pytest.mark.parametrize("r_blk", [128, 512])
@@ -609,3 +677,195 @@ def test_onepass_bwd_shard_repeat(card):
     for a, b in zip(attn_grad.onepass_bwd_shard(shard, *ext),
                     attn_grad.onepass_bwd_shard(shard, *ext)):
         assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("heads,f", SHARD_ATTN_SHAPES)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_slab_attention_fwd_windows_and_repeat(card, heads, f, x_dtype):
+    """The forward at R = 256 with clipped windows at both graph ends (rows
+    0 and n - 1 with 40 extra sources) against its plain version (out within
+    1e-5 plus 1e-5 of the aggregate over |x|, m equal, s within 1e-5), both
+    compute dtypes; two launches bit for bit equal."""
+    pair = _ends_pair(card)
+    n = pair.fwd.num_rows
+    x, ad, as_, _ = _attn_inputs(n, heads, f, x_dtype, card, seed=12)
+    for compute in (torch.float32, torch.bfloat16):
+        out, m, s = slab_attention_spmm_mh(pair.fwd, x, ad, as_, compute_dtype=compute,
+                                           return_stats=True)
+        want, m_want, s_want = slab_attention_spmm_mh_ref(
+            pair.fwd, x, ad, as_, compute_dtype=compute, return_stats=True)
+        mag = slab_attention_spmm_mh_ref(pair.fwd, x.float().abs(), ad, as_,
+                                         compute_dtype=compute)
+        _assert_close_to(out, want, mag)
+        assert torch.equal(m, m_want)
+        torch.testing.assert_close(s, s_want, rtol=1e-5, atol=0)
+        again = slab_attention_spmm_mh(pair.fwd, x, ad, as_, compute_dtype=compute,
+                                       return_stats=True)
+        for a, b in zip((out, m, s), again):
+            assert torch.equal(_bits(a), _bits(b))
+
+
+# -- hub rows and columns: more than 64 fallback edges ------------------------
+
+
+def _hub_csr(n=1500, hub_row=700, hub_col=300, extra=80):
+    """A banded CSR (6 sources per row within +-100, a tenth uniform) plus
+    ``extra`` far sources into row ``hub_row`` and ``extra`` far destinations
+    of column ``hub_col``: both more than 64 fallback edges at R = 128."""
+    rng = np.random.default_rng(90)
+    dst = np.repeat(np.arange(n), 6)
+    src = np.clip(dst + rng.integers(-100, 101, n * 6), 0, n - 1)
+    src = np.where(rng.random(n * 6) < 0.1, rng.integers(0, n, n * 6), src)
+    dst = np.concatenate([dst, np.full(extra, hub_row), rng.integers(1000, n, extra)])
+    src = np.concatenate([src, rng.integers(0, 400, extra), np.full(extra, hub_col)])
+    return _native.build_csr(dst, src, n)[:2]
+
+
+@pytest.mark.parametrize("f", [128, 256, 47])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+def test_slab_spmm_hub_rows(card, f, x_dtype, reduce):
+    """The whole function over the hub graph and its transpose (a row of
+    more than 64 fallback slots, taken by the whole CTA) against the plain
+    version's float32 sum (``_assert_sum_close``); two launches bit for bit
+    equal."""
+    indptr, indices = _hub_csr()
+    n = len(indptr) - 1
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    t_indptr, t_indices, _ = _native.build_csr(indices, rows, n)
+    x = _x(np.random.default_rng(f), n, f, x_dtype, card)
+    for ip, ix in ((indptr, indices), (t_indptr, t_indices)):
+        g = build_slab_graph(ip, ix, block_rows=128, device=card)
+        assert int((g.fb_rowptr[1:] - g.fb_rowptr[:-1]).max()) > 64
+        got = slab_spmm(g, x, reduce, torch.float32)
+        _assert_sum_close(got, slab_spmm_ref(g, x.float(), reduce, torch.float32),
+                          slab_spmm_ref(g, x.float().abs(), reduce, torch.float32))
+        assert torch.equal(_bits(got), _bits(slab_spmm(g, x, reduce, torch.float32)))
+
+
+@pytest.mark.parametrize("heads,f", SHARD_ATTN_SHAPES)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_attention_hub_row_and_column(card, heads, f, x_dtype):
+    """The hub graph at R = 128 (the band CSR by source): the forward (a row
+    of more than 64 fallback edges) against its plain version, and
+    ``onepass_bwd`` (a column of more than 64 fallback in-edges, taken by the
+    whole CTA) against ``slab_attention_bwd_ref``, each within 1e-5 plus
+    1e-5 of the sums over every term's magnitude; each launched twice, bit
+    for bit equal."""
+    indptr, indices = _hub_csr()
+    pair = attn_grad.build_attention_slab_pair(indptr, indices, block_rows=128, device=card)
+    assert pair.t_ell is None
+    assert int((pair.fwd.fb_rowptr[701] - pair.fwd.fb_rowptr[700]).cpu()) > 64
+    assert int((pair.fb_t_rowptr[301] - pair.fb_t_rowptr[300]).cpu()) > 64
+    n = pair.fwd.num_rows
+    x, ad, as_, g = _attn_inputs(n, heads, f, x_dtype, card, seed=14)
+    out, m, s = slab_attention_spmm_mh(pair.fwd, x, ad, as_, return_stats=True)
+    want, m_want, s_want = slab_attention_spmm_mh_ref(pair.fwd, x, ad, as_,
+                                                      return_stats=True)
+    _assert_close_to(out, want, slab_attention_spmm_mh_ref(pair.fwd, x.float().abs(), ad, as_))
+    assert torch.equal(m, m_want)
+    torch.testing.assert_close(s, s_want, rtol=1e-5, atol=0)
+    for a, b in zip((out, m, s), slab_attention_spmm_mh(pair.fwd, x, ad, as_,
+                                                        return_stats=True)):
+        assert torch.equal(_bits(a), _bits(b))
+    t = torch.randn((n, heads), generator=torch.Generator(card).manual_seed(15), device=card)
+    args = (pair, x, ad, as_, m, s, t, g)
+    got = attn_grad.onepass_bwd(*args)
+    ref = attn_grad.slab_attention_bwd_ref(*args)
+    mag = attn_grad.slab_attention_bwd_ref(pair, x.float().abs(), ad, as_, m, s, -t.abs(),
+                                           g.abs())
+    for a, b, c in zip(got, ref, mag):
+        _assert_close_to(a, b, c)
+    for a, b in zip(got, attn_grad.onepass_bwd(*args)):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def _segment_case(rng, n, e, width, dtype, weighted, card):
+    """Ids with -1 and out-of-range entries and one row of 200 slots, their
+    values and an accumulator; returns (ids, weights, values, base)."""
+    ids = rng.integers(-1, n + 50, e)
+    ids[rng.permutation(e)[:200]] = 7                   # more than 64 slots
+    w = torch.as_tensor(rng.standard_normal(e), dtype=torch.float32,
+                        device=card) if weighted else None
+    vals = _x(rng, e, width, dtype, card)
+    base = torch.as_tensor(rng.standard_normal((n, width)), dtype=torch.float32, device=card)
+    return torch.as_tensor(ids, device=card), w, vals, base
+
+
+@pytest.mark.parametrize("width", [1, 4, 48, 260])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_segment_add_matches_plain(card, width, dtype, out_dtype, weighted):
+    """The sharded path's fixed-order sum (``segment_plan`` + the CSR kernel
+    in accumulate mode) against index_add_ in float32: ids of -1 and past
+    the rows are dropped, a 200-slot row takes the long-row launch, bf16
+    values sum into a float32 (or bfloat16) output; launched twice, bit for
+    bit equal."""
+    from cugraph_gnn_tpu_torch.store.dist_array import segment_add, segment_plan
+
+    n, e = 3000, 20000
+    ids, w, vals, base = _segment_case(np.random.default_rng(width), n, e, width, dtype,
+                                       weighted, card)
+    base = base.to(out_dtype)
+    plan = segment_plan(ids, n, w)
+    before = csr_spmm.launches
+    got = segment_add(base.clone(), plan, vals)
+    assert csr_spmm.launches == before + 1
+    ok = (ids >= 0) & (ids < n)
+    terms = vals[ok].float() * (1 if w is None else w[ok][:, None])
+    want = base.to(torch.float32, copy=True).index_add_(0, ids[ok], terms)
+    mag = base.float().abs().index_add_(0, ids[ok], terms.abs())
+    _assert_sum_close(got, want, mag)
+    assert torch.equal(_bits(got), _bits(segment_add(base.clone(), plan, vals)))
+
+
+@pytest.fixture
+def world1(card):
+    """A world-1 NCCL mesh on the card (``tcp://localhost``, a free port)."""
+    import socket
+
+    from cugraph_gnn_tpu_torch.utils import distributed as D
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mesh = D.init(init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        yield mesh
+    finally:
+        D.finalize()
+
+
+@pytest.mark.parametrize("width", [1, 4, 48, 260])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+def test_dist_scatter_add_matches_plain(world1, width, table_dtype):
+    """``_dist_scatter_shard`` "add" at world 1 (float32 values into a
+    float32 or bfloat16 table, ids of -1 and past the table dropped), and
+    the same sum through a plan built once (``scatter_add_plan`` +
+    ``_dist_scatter_add``): equal to each other bit for bit, over two runs,
+    and to index_add_ in float32 within the sum tolerance."""
+    from cugraph_gnn_tpu_torch.store.dist_array import (
+        _dist_scatter_add,
+        _dist_scatter_shard,
+        scatter_add_plan,
+    )
+    from cugraph_gnn_tpu_torch.store.partition import PartitionBook
+
+    n, e = 3000, 20000
+    card = world1.device
+    ids, _, vals, table = _segment_case(np.random.default_rng(width + 1), n, e, width,
+                                        torch.float32, False, card)
+    table = table.to(table_dtype)
+    book = PartitionBook.even(n, 1)
+    got = _dist_scatter_shard(table, ids, vals, book=book, mesh=world1, mode="add")
+    assert got.dtype == table_dtype and got.data_ptr() != table.data_ptr()
+    plan = scatter_add_plan(ids, n, book=book, mesh=world1)
+    for _ in range(2):
+        again = _dist_scatter_add(table.clone(), vals, plan, mesh=world1)
+        assert torch.equal(_bits(got), _bits(again))
+    ok = (ids >= 0) & (ids < n)
+    terms = vals[ok].to(table_dtype).float()      # the values take the table's type first
+    want = table.to(torch.float32, copy=True).index_add_(0, ids[ok], terms)
+    mag = table.float().abs().index_add_(0, ids[ok], terms.abs())
+    _assert_sum_close(got, want, mag)

@@ -120,7 +120,7 @@ def test_slab_spmm_band_skips_out_of_range_ids():
     ell[0, 0] = 5          # row 0, block 0: column -123
     ell[299, 0] = 300      # row 299, block 2: column 428 >= 300
     ell[200, 0] = 100      # row 200, block 1: column 100, valid
-    g = g._replace(ell=ell)
+    g = g.with_ell(ell)
     x = torch.randn(300, 8)
     out = port_slab.slab_spmm_band(g, x, torch.float32)
     want = torch.zeros(300, 8)

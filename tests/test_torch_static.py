@@ -37,6 +37,7 @@ from cugraph_gnn_tpu_torch.ops.kernels.sample_kernel import fused_uniform_sample
 from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import slab_attention_spmm_mh
 from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
     build_slab_graph,
+    slab_spmm,
     slab_spmm_band,
     slab_spmm_band_shard,
 )
@@ -92,7 +93,7 @@ ATTN_COUNTERS = (slab_attention_spmm_mh, attn_grad.onepass_bwd,
 @pytest.mark.parametrize("model_cls,block_rows", [(GraphSAGE, 128), (GCN, 128),
                                                   (GAT, 128), (GAT, 512)])
 def test_cpu_full_batch_leaves_launch_counters_at_zero(model_cls, block_rows):
-    counters = (slab_spmm_band, csr_spmm) + ATTN_COUNTERS
+    counters = (slab_spmm, slab_spmm_band, csr_spmm) + ATTN_COUNTERS
     for fn in counters:
         fn.launches = 0
     g = TF.make_synthetic_banded(0, "cpu", num_nodes=300, deg=4, band=20,
@@ -122,6 +123,8 @@ def test_wrappers_refuse_other_devices():
     slab = build_slab_graph(indptr, indices, block_rows=128, device="cpu").to("meta")
     with pytest.raises(ValueError, match="no kernel"):
         slab_spmm_band(slab, torch.empty((3, 8), device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        slab_spmm(slab, torch.empty((3, 8), device="meta"), "mean")
     padded = build_padded_blocks(indptr, indices, device="cpu")
     padded = padded._replace(**{k: v.to("meta") for k, v in padded._asdict().items()
                                 if isinstance(v, torch.Tensor)})
@@ -225,7 +228,7 @@ def test_cpu_dist_step_leaves_launch_counters_at_zero(model_cls, block_rows, tmp
         assert mesh.backend == "gloo" and D.world_info() == (0, 1, 0, 1)
         with pytest.raises(ValueError, match="nccl"):
             create_store_mesh("cuda:0")
-        for fn in SHARD_COUNTERS:
+        for fn in SHARD_COUNTERS + (csr_spmm,):
             fn.launches = 0
         g = TF.make_synthetic_banded(0, "cpu", num_nodes=300, deg=4, band=20,
                                      feat_dim=8, classes=3)
@@ -236,7 +239,7 @@ def test_cpu_dist_step_leaves_launch_counters_at_zero(model_cls, block_rows, tmp
         loss = TF.dist_full_batch_step(model, opt, fbg.shard(g.feats), fbg,
                                        fbg.shard(g.labels), fbg.shard(torch.ones(300)))
         assert torch.isfinite(loss)
-        assert all(fn.launches == 0 for fn in SHARD_COUNTERS)
+        assert all(fn.launches == 0 for fn in SHARD_COUNTERS + (csr_spmm,))
     finally:
         D.finalize()
 
