@@ -53,9 +53,13 @@ Phases (any failure raises and exits non-zero):
    each; finite losses, and 3 ``slab_spmm`` launches per step (two forward
    aggregations and one backward: layer 0's input needs no gradient), no
    band-only or CSR-kernel launch.  Then one step timed stage by stage.
-10. attention pairs: the graph's (R = 256, bit planes: the band CSR by
-    source) and a second ``FullBatchGraph`` of the same graph at R = 512
-    (no bit planes: ``t_ell``); host seconds of each.
+10. attention pairs: the graph's (R = 256, bit planes) and a second
+    ``FullBatchGraph`` of the same graph at R = 512 (no bit planes: ``t_ell``),
+    each with the band CSR by source; host seconds of each, the bytes of
+    each transpose index and the host seconds of the band CSR's build; the
+    backward kernels each pair takes at both layers' widths
+    (``slab_attn_grad.backward_design``, decided by shape): the window
+    kernels for both, or the phase fails.
 11. attention kernels at full width: the forward and backward kernels on
     both pairs at GAT's two layers' shapes (H=4, F=64 and H=1, F=47, f32 x)
     plus one bf16-x forward, against their plain versions: within 1e-5
@@ -63,24 +67,28 @@ Phases (any failure raises and exits non-zero):
     and for the backward |g| and -|t|: every term's absolute value; the
     kernels sum in another order and factor the dot products out of the
     sums), m equal and s within 1e-5; each kernel launched twice, bit for
-    bit equal.  Then CUDA-event times of kernel and plain version at
-    the main path's calls, with the byte and operation counts that bound
-    them (no single PyTorch call computes the fused attention: library_ms
-    is null).
+    bit equal; the backward's design and chunk width.  Then CUDA-event
+    times of kernel and plain version at the main path's calls, with the
+    byte and operation counts that bound them (the backward's transpose
+    index counted as the design reads it: the band CSR by source for the
+    window kernels, t_ell's real entries for warp per node; no single
+    PyTorch call computes the fused attention: library_ms is null).
 11b. the one-pass backward's phase probe (row 15 of the TPU-kernel table,
     ``slab_attn_grad.onepass_bwd_probe``) on the R = 256 pair at both
     layers' shapes: with every phase on, bit for bit the kernel's result;
     then times of the dst pass and the src pass alone, each also without
     expf, without the dot/FMA work and with neither (the same memory
-    traffic).  A few seconds; ``--probe`` runs it alone on phase 6's graph.
+    traffic).  Then on the R = 512 pair's band CSR: every phase on, bit for
+    bit rows 7 and 8's result; times of the kernel (256-row tiles) by pass.
+    A few seconds; ``--probe`` runs it alone on phase 6's graph.
 12. small-input agreement, GAT: three f32 full-batch steps on the card and
     on the CPU from the same weights; losses within 1e-4.
 13. full-batch GAT train (``gat4h``: 4 heads of 64, then 47 classes, f32,
     Adam 5e-3), 1 warm-up and 3 timed steps at R = 256; finite losses and,
     per step, 2 forward attention launches and 2 ``onepass_bwd`` launches
     (layer 0's input ``wx`` needs a gradient: ``lin`` has parameters), no
-    other kernel.  Then one step timed stage by stage, and one step at
-    R = 512: 2 forward launches, 1 ``slab_attention_bwd`` (layer 1, H = 1)
+    other kernel; then one step timed stage by stage.  The same at R = 512:
+    per step 2 forward launches, 1 ``slab_attention_bwd`` (layer 1, H = 1)
     and 1 ``slab_attention_bwd_mh`` (layer 0, H = 4).
 14. shard kernels at a 4-rank geometry, in this one process: a banded graph
     of 100,000 nodes (3 in-band and 1 uniform source each: ~1/4 fallback
@@ -93,16 +101,17 @@ Phases (any failure raises and exits non-zero):
     backward at GAT's two layers' shapes) against its plain version, and
     against the whole graph's single-graph kernel on the shard's rows
     (band edges only): within 1e-5 absolute plus 1e-5 of the same sums over
-    the terms' magnitudes; each backward launched twice, bit for bit equal.
+    the terms' magnitudes; each backward launched twice, bit for bit equal;
+    every shard's backward takes the window kernels, or the phase fails.
 15. row-sharded training at world size 1 over NCCL (``tcp://localhost``):
     ``DistFullBatchGraph`` of phase 6's graph (R = 256, then R = 512);
     GCN (bf16 activations) and ``gat4h``, 1 warm-up and 3 timed
-    ``dist_full_batch_step``s each at R = 256 and one GAT step at R = 512;
+    ``dist_full_batch_step``s each at R = 256 and GAT's at R = 512;
     finite losses; per step 3 launches of row 9 and 3 of the CSR kernel (the
     fallback sums) (GCN), and 1 of row 13, 1 of row 10, 2 of row 11 and 10
     of the CSR kernel (GAT, R = 256) or 1 each of rows 13, 10, 14 and 12 and
     10 of the CSR kernel (R = 512), no other kernel; one step of each timed
-    stage by stage.  Reproducibility: GCN and GAT each take one step twice
+    stage by stage (GAT at both R).  Reproducibility: GCN and GAT each take one step twice
     from the same weights and inputs; losses and every gradient bit for bit
     equal (every sum of the sharded step has a fixed order).  Agreement:
     one float32 GCN step and one GAT step from the same
@@ -123,7 +132,9 @@ Phases (any failure raises and exits non-zero):
     the shard's band CSR, with the byte and operation counts that bound
     them (an ELL's bytes are its real entries, not its -1 padding).
 17. the ``kernels`` summary line (rows 1-14, then the probe, which the
-    main path launches no time; row 3's launches and numbers are the
+    main path launches no time; rows 5-14 also carry their timed calls, the
+    gap launches * (ms - bound) / calls and, for the backward rows, the
+    design each layer took; row 3's launches and numbers are the
     sharded path's, phase 16's, beside phase 7's one-card numbers under
     ``*_one_card``: the one-card path no longer runs it), and last the
     ``ok`` line.
@@ -487,16 +498,27 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
     def valid(t):
         return int((t >= 0).sum())
 
+    layers = {"layer0": (TF.HEADS, TF.HIDDEN // TF.HEADS), "layer1": (1, TF.CLASSES)}
+    # the backward kernels each pair takes, decided by shape before any launch
+    designs = {r: {layer: AG.backward_design(p, f) for layer, (_, f) in layers.items()}
+               for r, p in pairs.items()}
     emit({"phase": "attention_pairs", "full_batch_graph_512_s": graph512_s,
           "build_seconds": {r: f.build_seconds for r, f in ((256, fbg), (512, fbg512))},
           **{f"R{r}": {"band_fraction": p.fwd.band_fraction,
                        "band_edges": valid(p.fwd.ell), "fallback_edges": valid(p.fwd.fb_src),
                        "ell_k": p.fwd.ell.shape[1],
                        "t_ell_k": None if p.t_ell is None else p.t_ell.shape[1],
-                       "transpose_index_bytes": nbytes(p.t_ell, p.t_rowptr, p.t_rows)}
+                       "t_ell_bytes": nbytes(p.t_ell),
+                       "t_ell_real_entries": None if p.t_ell is None else valid(p.t_ell),
+                       "band_csr_bytes": nbytes(p.t_rowptr, p.t_rows),
+                       "band_csr_build_s": p.band_csr_seconds,
+                       "backward_design": designs[r]}
              for r, p in pairs.items()}})
     if pairs[256].t_ell is not None or pairs[512].t_ell is None:
-        raise AssertionError("R = 256 must take the band CSR, R = 512 t_ell")
+        raise AssertionError("R = 256 must have bit planes, R = 512 t_ell")
+    if any(p.t_rows is None for p in pairs.values()) or any(
+            d != "windows" for per in designs.values() for d, *_ in per.values()):
+        raise AssertionError(f"every pair must take the window kernels: {designs}")
 
     # -- 11. attention kernels at full width ---------------------------------
     def check(name, got, want, magnitude, what):
@@ -513,7 +535,6 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
         b_ms, o_ms = nb / hbm * 1e3, ops / H100_F32_OPS * 1e3
         return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
-    layers = {"layer0": (TF.HEADS, TF.HIDDEN // TF.HEADS), "layer1": (1, TF.CLASSES)}
     names = ("slab_attention_fwd", "slab_attention_bwd_onepass", "slab_attention_bwd",
              "slab_attention_bwd_mh")
     timing = {k: [] for k in names}
@@ -524,9 +545,13 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
         e_all = valid(graph.ell) + valid(graph.fb_src)
         # index bytes: the real entries of the ELLs (not their -1 padding)
         graph_bytes = 4 * e_all + nbytes(graph.fb_rowptr)
-        t_bytes = (4 * (valid(pair.fb_t_dst) + (0 if pair.t_ell is None else valid(pair.t_ell)))
-                   + nbytes(pair.t_rowptr, pair.t_rows, pair.fb_t_rowptr))
         for layer, (h, f) in layers.items():
+            # the transpose index the backward reads: the band CSR by source
+            # (window kernels) or t_ell's real entries, and the fallback CSR
+            design, chunk, tile = designs[r_blk][layer]
+            t_bytes = (4 * valid(pair.fb_t_dst) + nbytes(pair.fb_t_rowptr)
+                       + (nbytes(pair.t_rowptr, pair.t_rows) if design == "windows"
+                          else 4 * valid(pair.t_ell)))
             x = torch.randn((n, h, f), generator=gen, device=dev)
             ad, as_ = (torch.randn((n, h), generator=gen, device=dev) for _ in range(2))
             g = torch.randn((n, h, f), generator=gen, device=dev)
@@ -565,6 +590,7 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
                 _same_bits(key, a, b, what)
             del got
             emit({"phase": "attention_kernel_check", "case": what,
+                  "backward_design": design, "chunk_elements": chunk, "tile_rows": tile,
                   "max_abs_err": {"slab_attention_fwd": e_f, key: e_b},
                   "tolerance": "1e-5 abs + 1e-5 x the terms' magnitude sum; "
                                "m equal, s within 1e-5"})
@@ -590,6 +616,8 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
                 b_ms, b_by = bound(nb, ops)
                 row = {"kernel": name, "block_rows": r_blk, "layer": layer, "heads": h,
                        "f": f, "dtype": "float32", "edges": e_all,
+                       **({} if name == "slab_attention_fwd" else
+                          {"design": design, "chunk_elements": chunk, "tile_rows": tile}),
                        "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=3, warmup=1),
                        "library_ms": None, "bytes": nb, "operations": ops,
                        "bound_ms": b_ms, "bound_by": b_by}
@@ -599,7 +627,7 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
             torch.cuda.empty_cache()
 
     # -- 11b. the one-pass backward's phase probe (row 15) --------------------
-    probe = attn_bwd_probe(dev, emit, cuda_ms, pairs[256])
+    probe = attn_bwd_probe(dev, emit, cuda_ms, pairs[256], pairs[512])
 
     # -- 12. small input, GAT: card against CPU -------------------------------
     small = TF.make_synthetic_banded(3, "cpu", num_nodes=3000, deg=8, band=100,
@@ -666,20 +694,25 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
             totals[k] += launches[k]
         return model, opt
 
-    model, opt = train(fbg, 4, {"slab_attention_spmm_mh": 2, "onepass_bwd": 2}, "R256")
-    emit({"phase": "full_batch_stages", "model": "gat",
-          "ms": {**_staged_step(model, opt, x, fbg, labels, F,
-                                method="attention_spmm_mh", label="attention"),
-                 "fallback": "inside the attention kernels"}})
-    with torch.no_grad():
-        logits = model.full_graph(x, fbg)
-    if logits.shape != (n, TF.CLASSES) or not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"gat: logits {tuple(logits.shape)} not finite")
-    del model, opt, logits
-    torch.cuda.empty_cache()
-    model, opt = train(fbg512, 1, {"slab_attention_spmm_mh": 2, "slab_attention_bwd": 1,
-                                   "slab_attention_bwd_mh": 1}, "R512")
-    del model, opt, fbg512
+    # R = 256 (bit planes: onepass_bwd) and R = 512 (t_ell pairs: the H = 1
+    # and multi-head wrappers, over the window kernels); each 1 warm-up and 3
+    # timed steps, then one step stage by stage
+    for tag, graph, want_per_step in (
+            ("R256", fbg, {"slab_attention_spmm_mh": 2, "onepass_bwd": 2}),
+            ("R512", fbg512, {"slab_attention_spmm_mh": 2, "slab_attention_bwd": 1,
+                              "slab_attention_bwd_mh": 1})):
+        model, opt = train(graph, 4, want_per_step, tag)
+        emit({"phase": "full_batch_stages", "model": "gat", "graph": tag,
+              "ms": {**_staged_step(model, opt, x, graph, labels, F,
+                                    method="attention_spmm_mh", label="attention"),
+                     "fallback": "inside the attention kernels"}})
+        with torch.no_grad():
+            logits = model.full_graph(x, graph)
+        if logits.shape != (n, TF.CLASSES) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"gat {tag}: logits {tuple(logits.shape)} not finite")
+        del model, opt, logits
+        torch.cuda.empty_cache()
+    del fbg512
     torch.cuda.empty_cache()
 
     def kernel_row(name, replaces, counter):
@@ -688,11 +721,8 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
                 "source": "cugraph_gnn_tpu_torch/csrc/" + (
                     "slab_attn_fwd.cu" if name == "slab_attention_fwd" else "slab_attn_bwd.cu"),
                 "replaces": replaces, "launches": totals[counter],
-                "max_abs_err": errs[name], "ms": sum(r["ms"] for r in rows),
-                "plain_ms": sum(r["plain_ms"] for r in rows),
-                "bound_ms": sum(r["bound_ms"] for r in rows),
-                "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
-                else "operations", "library_ms": None}
+                "max_abs_err": errs[name], **_summed(rows, totals[counter]),
+                "library_ms": None}
 
     # row 15, the probe: its every-phase time at row 6's two calls, beside
     # row 6's bound and plain version (the same function); it is no kernel
@@ -724,15 +754,33 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
     ], probe_row
 
 
-# the probe's variants (phase 11b): name -> mask of slab_attn_grad.PROBE_*
+def _summed(rows, launches):
+    """A ``kernels`` row's numbers over its timed calls ``rows`` (one step's
+    calls): ms, plain_ms and bound_ms added, what bounds them, the calls,
+    the gap launches * (ms - bound) / calls, and, where the calls report
+    it, the backward design each layer took."""
+    ms, bound = sum(r["ms"] for r in rows), sum(r["bound_ms"] for r in rows)
+    out = {"ms": ms, "plain_ms": sum(r["plain_ms"] for r in rows), "bound_ms": bound,
+           "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+           else "operations", "calls": len(rows), "gap_ms": launches * (ms - bound) / len(rows)}
+    if "design" in rows[0]:
+        out["design"] = {r["layer"]: [r["design"], r["chunk_elements"], r["tile_rows"]]
+                         for r in rows}
+    return out
+
+
+# the probe's variants (phase 11b): name -> mask of slab_attn_grad.PROBE_*;
+# at R = 512 (256-row tiles) the passes alone with every other phase on
 PROBE_VARIANTS = {"full": 15, "dst": 13, "src": 14, "dst_no_exp": 9, "dst_no_dots": 5,
                   "dst_memory": 1, "src_no_exp": 10, "src_no_dots": 6, "src_memory": 2}
+PROBE_VARIANTS_512 = {"full": 15, "dst": 13, "src": 14}
 
 
-def attn_bwd_probe(dev, emit, cuda_ms, pair):
+def attn_bwd_probe(dev, emit, cuda_ms, pair, pair512=None):
     """Phase 11b (see the module docstring): the one-pass backward's phase
     probe on ``pair`` (R = 256, the band CSR by source) at GAT's two
-    layers' shapes.  Returns {layer: {variant: ms}}."""
+    layers' shapes, and on ``pair512``'s band CSR (its t_ell left out).
+    Returns {layer: {variant: ms}} of ``pair``."""
     import torch
 
     from cugraph_gnn_tpu_torch import train_full as TF
@@ -740,29 +788,41 @@ def attn_bwd_probe(dev, emit, cuda_ms, pair):
     from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import slab_attention_spmm_mh
 
     t0 = time.perf_counter()
-    n = pair.fwd.num_rows
     gen = torch.Generator(device=dev).manual_seed(13)
     split = {}
-    for layer, (h, f) in {"layer0": (TF.HEADS, TF.HIDDEN // TF.HEADS),
-                          "layer1": (1, TF.CLASSES)}.items():
-        x, g = (torch.randn((n, h, f), generator=gen, device=dev) for _ in range(2))
-        ad, as_ = (torch.randn((n, h), generator=gen, device=dev) for _ in range(2))
-        out, m, s = slab_attention_spmm_mh(pair.fwd, x, ad, as_, return_stats=True)
-        t = (g * out).sum(-1)
-        del out
-        args = (pair, x, ad, as_, m, s, t, g)
-        # every phase on is the kernel's own code: bit for bit its result
-        for a, b in zip(AG.onepass_bwd_probe(*args), AG.onepass_bwd(*args)):
-            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-                raise AssertionError(f"probe {layer}: all phases differ from the kernel")
-        split[layer] = {name: cuda_ms(lambda p=p: AG.onepass_bwd_probe(*args, phases=p),
-                                      iters=10, warmup=2)
-                        for name, p in PROBE_VARIANTS.items()}
-        emit({"phase": "attn_bwd_probe", "layer": layer, "heads": h, "f": f,
-              "dtype": "float32", "block_rows": pair.fwd.block_rows, "ms": split[layer],
-              "masks": PROBE_VARIANTS, "bit_equal_all_phases": True})
-        del x, g, ad, as_, m, s, t, args
-        torch.cuda.empty_cache()
+    runs = [(pair, pair, PROBE_VARIANTS)]
+    if pair512 is not None:
+        runs.append((pair512._replace(t_ell=None), pair512, PROBE_VARIANTS_512))
+    for p_, real, variants in runs:
+        n = p_.fwd.num_rows
+        r_blk = p_.fwd.block_rows
+        for layer, (h, f) in {"layer0": (TF.HEADS, TF.HIDDEN // TF.HEADS),
+                              "layer1": (1, TF.CLASSES)}.items():
+            x, g = (torch.randn((n, h, f), generator=gen, device=dev) for _ in range(2))
+            ad, as_ = (torch.randn((n, h), generator=gen, device=dev) for _ in range(2))
+            out, m, s = slab_attention_spmm_mh(p_.fwd, x, ad, as_, return_stats=True)
+            t = (g * out).sum(-1)
+            del out
+            args = (p_, x, ad, as_, m, s, t, g)
+            # every phase on is the kernel's own code: bit for bit the result
+            # of the path's wrapper on the pair
+            got = AG.onepass_bwd_probe(*args)
+            for a, b in zip(got, AG.slab_attention_bwd_mh(real, *args[1:])):
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    raise AssertionError(f"probe R={r_blk} {layer}: the kernel's code "
+                                         f"and the probe's differ")
+            del got
+            ms = {name: cuda_ms(lambda p=p: AG.onepass_bwd_probe(*args, phases=p),
+                                iters=10, warmup=2)
+                  for name, p in variants.items()}
+            if r_blk == pair.fwd.block_rows:
+                split[layer] = ms
+            emit({"phase": "attn_bwd_probe", "layer": layer, "heads": h, "f": f,
+                  "dtype": "float32", "block_rows": r_blk,
+                  "design": AG.backward_design(p_, f), "ms": ms, "masks": variants,
+                  "bit_equal_all_phases": True})
+            del x, g, ad, as_, m, s, t, args
+            torch.cuda.empty_cache()
     emit({"phase": "attn_bwd_probe_done", "seconds": time.perf_counter() - t0})
     return split
 
@@ -912,6 +972,7 @@ def shard_kernels(dev, emit, world=4, n=100_000):
 
     # rows 10-14: the attention pair at R = 256 (bit planes) and 512 (t_ell)
     layers = {"layer0": (4, 64), "layer1": (1, 47)}
+    designs = {}
     for r_blk in (256, 512):
         rs, n_pad = split(r_blk)
         pair = AG.build_attention_slab_pair(indptr, indices, block_rows=r_blk, device="cpu")
@@ -921,6 +982,10 @@ def shard_kernels(dev, emit, world=4, n=100_000):
         band = whole._replace(fwd=whole.fwd._replace(fb_src=none, fb_dst=none, fb_rowptr=ptr),
                               fb_t_rowptr=ptr, fb_t_dst=none)
         shards = [DF.shard_attention_pair(pair, w, rs, n_pad, dev) for w in range(world)]
+        designs[r_blk] = {layer: AG.backward_design(shards[0], f)
+                          for layer, (_, f) in layers.items()}
+        if any(d != "windows" for d, *_ in designs[r_blk].values()):
+            raise AssertionError(f"R={r_blk} shards must take the window kernels: {designs}")
         for layer, (h, f) in layers.items():
             x, gg = pad(randn(n, h, f), n_pad), pad(randn(n, h, f), n_pad)
             ad, as_, t = (pad(randn(n, h), n_pad) for _ in range(3))
@@ -976,7 +1041,7 @@ def shard_kernels(dev, emit, world=4, n=100_000):
     emit({"phase": "shard_kernel_check", "world": world, "nodes": n,
           "edges": g.num_edges, "fallback_fraction": fb_fraction,
           "max_abs_err": errs, "max_abs_diff_from_whole_graph_kernel": vs_whole,
-          "seconds": time.perf_counter() - t0,
+          "backward_design": designs, "seconds": time.perf_counter() - t0,
           "tolerance": "1e-5 abs + 1e-5 x the terms' magnitude sum"})
     return errs
 
@@ -1122,12 +1187,16 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
         del model, opt, logits
         torch.cuda.empty_cache()
         dfbg512 = graph(512)
-        model, opt = train(gat, dfbg512, node_arrays(dfbg512)[0], 1,
+        x512, labels512, valid512 = node_arrays(dfbg512)
+        model, opt = train(gat, dfbg512, x512, 4,
                            {"slab_attention_spmm_mh_shard": 1, "slab_attention_spmm_shard": 1,
                             "slab_attention_bwd_mh_shard": 1, "slab_attention_bwd_shard": 1,
                             "csr_spmm": 10},
                            "gat_R512")
-        del model, opt
+        emit({"phase": "dist_full_batch_stages", "model": "gat", "graph": "R512",
+              "ms": _staged_step(model, opt, x512, dfbg512, labels512, F, valid=valid512,
+                                 method="attention_spmm_mh", label="attention")})
+        del model, opt, x512, labels512, valid512
         torch.cuda.empty_cache()
 
         # reproducibility: one step twice from the same weights and inputs
@@ -1272,10 +1341,13 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
             pair = g._attn_structs()["pair"]
             rs = g.rows_per_rank
             e_band = int((pair.fwd.ell >= 0).sum())
-            # real entries of the band by source (a shard has no fallback)
-            t_bytes = (4 * int((pair.t_ell >= 0).sum()) if pair.t_ell is not None
-                       else nbytes(pair.t_rowptr, pair.t_rows))
             for layer, (h, f) in layers.items():
+                # the band by source the kernel reads (a shard has no
+                # fallback): the band CSR (window kernels) or t_ell's real
+                # entries
+                design, chunk, tile = AG.backward_design(pair, f)
+                t_bytes = (nbytes(pair.t_rowptr, pair.t_rows) if design == "windows"
+                           else 4 * int((pair.t_ell >= 0).sum()))
                 x, gg = (torch.randn((rs, h, f), generator=gen, device=dev) for _ in range(2))
                 ad, as_, t = (torch.randn((rs, h), generator=gen, device=dev)
                               for _ in range(3))
@@ -1327,6 +1399,8 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
                     b_ms, b_by = bound(nb, ops)
                     row = {"kernel": name, "block_rows": r_blk, "layer": layer, "heads": h,
                            "f": f, "dtype": "float32", "band_edges": e_band,
+                           **({"design": design, "chunk_elements": chunk, "tile_rows": tile}
+                              if "bwd" in name else {}),
                            "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=3, warmup=1),
                            "library_ms": None, "bytes": nb, "operations": ops,
                            "bound_ms": b_ms, "bound_by": b_by}
@@ -1450,10 +1524,7 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
                 "launches": totals[counter],
                 "max_abs_err": max(errs[name], full_errs[name]),
                 "max_abs_err_4_ranks": errs[name], "max_abs_err_world_1": full_errs[name],
-                "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
-                "bound_ms": sum(r["bound_ms"] for r in rows),
-                "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
-                else "operations",
+                **_summed(rows, totals[counter]),
                 "library_ms": (None if rows[0]["library_ms"] is None
                                else sum(r["library_ms"] for r in rows))}
 
@@ -1651,7 +1722,8 @@ def main() -> None:
         return sorted(a.elapsed_time(b) for a, b in ev)[iters // 2]
 
     if probe_only:
-        # the probe phase alone, on phase 6's graph and its R = 256 pair
+        # the probe phase alone, on phase 6's graph and its pairs at R = 256
+        # and 512
         from cugraph_gnn_tpu_torch import train_full as TF
         from cugraph_gnn_tpu_torch.ops.full_batch import FullBatchGraph
 
@@ -1660,10 +1732,12 @@ def main() -> None:
         fbg = FullBatchGraph.from_coo(g.src, g.dst, g.num_nodes, reorder="none",
                                       block_rows=TF.BLOCK_ROWS, device=dev)
         pair = fbg.attention_pair
+        indptr, indices, _ = _native.build_csr(g.dst, g.src, g.num_nodes)
+        pair512 = AG.build_attention_slab_pair(indptr, indices, block_rows=512, device=dev)
         del g
         torch.cuda.synchronize()
         emit({"phase": "probe_data", "seconds": time.perf_counter() - t0})
-        attn_bwd_probe(dev, emit, cuda_ms, pair)
+        attn_bwd_probe(dev, emit, cuda_ms, pair, pair512)
         print(smi)
         return
 

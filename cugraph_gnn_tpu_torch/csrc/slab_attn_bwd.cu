@@ -10,7 +10,8 @@
 // alpha_src, st) hold x_rows rows with node i at row i + col_offset: a whole
 // graph passes col_offset 0 and x_rows n, a row shard its halo-extended
 // inputs, col_offset R and x_rows n + 2R, with the band edges of its sources
-// (t_ell, or t_rows as halo-extended row ids) and no fallback edges.
+// (t_rows as halo-extended row ids, and t_ell rows where the pair has them)
+// and no fallback edges.
 //
 // Replaces, in one source, the three TPU backward kernels of
 // cugraph_gnn_tpu/ops/pallas/slab_attn_grad.py: _onepass_bwd (:333;
@@ -26,9 +27,11 @@
 // (_attn_bwd_sharded_onepass :679, pallas_call :735; _attn_bwd_sharded :818,
 // :886; _attn_bwd_sharded_mh :1071, :1131).  Hopper blocks run in no order, so the
 // column sums come from a second pass over a transpose index instead of
-// from atomics: the pair's t_ell where it has one, else a host-built CSR of
-// the same band edges by source; the fallback edges ride both passes, by
-// the forward's fallback row pointer and a source-major fallback CSR.
+// from atomics: a host-built CSR of the band edges by source (every pair
+// has it; a t_ell pair's holds exactly t_ell's edges, each column's in
+// t_ell's slot order), or, where the window below does not fit, the pair's
+// t_ell; the fallback edges ride both passes, by the forward's fallback row
+// pointer and a source-major fallback CSR.
 //
 // Bound on the H100: bytes.  A call must read x, g, alpha_src, the stats,
 // the forward ELL and the transpose index and both fallback indexes once,
@@ -45,26 +48,40 @@
 // summed once per node, not once per edge.  No atomics; every sum runs in a
 // fixed order, so two launches agree bit for bit.
 //
-// Design for pairs with bit planes (the band CSR by source): the
-// band edges over shared memory, the fallback edges in the same passes.
+// Design for every pair whose window fits (the band kernels): the band
+// edges over shared memory, the fallback edges in the same passes.  They run
+// all three TPU kernels above: pairs with bit planes (R <= 341) and t_ell
+// pairs up to R = 526, where a 3R-row window of 32-element chunks still
+// fits the H100's 232,448 bytes of shared memory a block (band_smem:
+// 226,048 at R = 512).
 // - Every band edge of a row in block b has its source in the 3R-row
 //   window [(b-1)R, (b+2)R), and every band in-edge of a column in block b
 //   comes from a destination row in the same window.  So the dst pass
 //   stages x (and alpha_src) of the window in shared memory and the src
 //   pass g (and the 16-byte stats); each source row is read from the L2 or
-//   HBM once per tile instead of once per edge (a warp per node, as the t_ell
-//   pairs below still run, reads 65 GB from the L2 at layer 0's shape; the
-//   phase probe put its FMA chain at ~45% of its time and expf at < 2%).
-// - A tile is one head of one row block (F <= 64 in one chunk: F = 64 at R
-//   = 256 is a 196 KB window; wider heads, or R = 341, in even chunks whose
-//   dot parts are added in chunk order).  One CTA of 1024 threads a
-//   multiprocessor, persistent over (head, row block) tiles in order; the
-//   window is a ring of three R-row slots filled by cp.async (16-byte, or
-//   4-byte for rows that are not 16-byte aligned such as F = 47; plain
-//   loads for bfloat16 x), so moving from block b to b + 1 stages one new
-//   slot and x and g are read from HBM about once per head.  Window rows
-//   keep their 16-byte quads rotated by the row index, so that rows read
-//   together spread over the banks.
+//   HBM once per tile instead of once per edge (a warp per node, the design
+//   below, reads 65 GB from the L2 at layer 0's shape; the phase probe put
+//   its FMA chain at ~45% of its time and expf at < 2%).
+// - A tile is one head of R rows (F <= 64 in one chunk: F = 64 at R = 256
+//   is a 196 KB window; wider heads in even chunks of at most 64, whose dot
+//   parts are added in chunk order).  Where a whole head's window of 3R
+//   rows does not fit (t_ell pairs at R = 512), a tile holds fewer rows,
+//   256 (the most whose window fits), and its window 768: a band edge that
+//   reaches past it (only where |c - r| > 256: at R = 512 the banded
+//   graph's uniform sources that land within 512 rows, a few thousandths
+//   of its band) reads its row from global memory in the same walk (kFar),
+//   after the window edges of its round of 8.  Bit-plane pairs at 274 < R
+//   <= 341 take such tiles too, which then may span two of the pair's
+//   blocks.  Tried on the H100 and slower at R = 512: tiles of R rows in
+//   32-element chunks (layer 0 in 8 (head, chunk) passes), in either order
+//   (a chunk's tiles, or a tile's chunks with its window restaged for each).
+//   One CTA of 1024 threads a multiprocessor, persistent over (head, row
+//   block) tiles in order; the window is a ring of three slots of a tile's
+//   rows filled by cp.async (16-byte, or 4-byte for rows that are not
+//   16-byte aligned such as F = 47; plain loads for bfloat16 x), so moving
+//   from one tile to the next stages one new slot and x and g are read from
+//   HBM about once per head.  Window rows keep their 16-byte quads rotated
+//   by the row index, so that rows read together spread over the banks.
 // - A team of 8 threads owns a row (column), each thread 1 to 2 quads of
 //   the chunk (neighbouring quads across the team: coalesced row reads and
 //   shared loads).  The row's ids (the band CSR's slice), stats and own row
@@ -80,13 +97,17 @@
 //   fixed share, the shares summed by a fixed tree and then warp by warp.
 // - Tried on the H100 and slower: 2 or 4 threads a row (4 spill at the 64
 //   registers that 1024 threads allow), one thread a row in two CTAs of 256
-//   threads a multiprocessor (32-element chunks), and 32-element chunks
-//   with 512 or 1024 threads.
-// Pairs with t_ell (3R > 1024: the window does not fit) keep the first design
-// for both passes: one warp per node, g[r] (dst) or x[c] (src) in
-// registers, the edges' source rows read from the L2, lanes splitting H*F
-// (4 consecutive elements each where F % 4 == 0 and aligned, else 1), four
-// rows in flight per warp.
+//   threads a multiprocessor (32-element chunks), and, at R = 256 where a
+//   64-element chunk fits, 32-element chunks with 512 or 1024 threads.
+// Pairs whose 3R-row window does not fit even at 32-element chunks (R >=
+// 527 on the H100; only t_ell pairs get there) keep the first design for
+// both passes: their band edges may reach R rows, so shorter tiles would
+// read a large share of them from global memory.  One warp per node, g[r] (dst)
+// or x[c] (src) in registers, the edges' source rows read from the L2,
+// lanes splitting H*F (4 consecutive elements each where F % 4 == 0 and
+// aligned, else 1), four rows in flight per warp.  Which design runs is
+// decided by shape before any launch (choose_design; the query entry
+// slab_attn_bwd_design reports it).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -195,7 +216,6 @@ attn_bwd_src_kernel(const TX* __restrict__ x, const float* __restrict__ g,
                     int64_t n, int64_t col_offset, int64_t x_rows, int64_t heads,
                     int64_t f, float slope, const int32_t* __restrict__ t_ell,
                     int64_t t_width, int64_t block_rows,
-                    const int64_t* __restrict__ t_rowptr, const int32_t* __restrict__ t_rows,
                     const int64_t* __restrict__ fbt_rowptr,
                     const int32_t* __restrict__ fbt_dst, float* __restrict__ dx,
                     float* __restrict__ das) {
@@ -248,10 +268,7 @@ attn_bwd_src_kernel(const TX* __restrict__ x, const float* __restrict__ g,
           }
         }
       };
-      if (t_ell != nullptr)
-        attn::ell_edges(lane, t_ell + c * t_width, t_width, base, x_rows, visit);
-      else
-        attn::csr_edges(lane, t_rows, t_rowptr[c], t_rowptr[c + 1], x_rows, visit);
+      attn::ell_edges(lane, t_ell + c * t_width, t_width, base, x_rows, visit);
       attn::csr_edges(lane, fbt_dst, fbt_rowptr[c], fbt_rowptr[c + 1], x_rows, visit);
       if (active) row_io::store_row<kPer>(dx + c * hf + j, acc);
       const float part = d - (active && j % f == 0 ? wt_sum : 0.0f);
@@ -274,10 +291,12 @@ struct Args {
 
 // -- band kernels over shared-memory windows (pairs with the band CSR) ------
 // A team of kSub threads owns a row (dst pass) or a column (src pass) of a
-// row block; the window of the block's 3R rows for one head (or one chunk
-// of it) is in shared memory; one CTA of 1024 threads a multiprocessor,
-// persistent over (head, row block) tiles in order, so that the 3-slot ring
-// of R-row window blocks keeps two of them from one tile to the next.
+// tile of R rows (in the kernels R is the tile's height: the pair's block
+// rows, or fewer with kFar); the window of the tile's 3R rows for one head
+// (or one chunk of it) is in shared memory; one CTA of 1024 threads a
+// multiprocessor, persistent over (head, tile) pairs in order, so that the
+// 3-slot ring of R-row window blocks keeps two of them from one tile to the
+// next.
 constexpr int kBandThreads = 1024;
 constexpr int kBandWarps = kBandThreads / 32;
 constexpr int kSub = 8;                       // threads a row (column): a team
@@ -296,7 +315,9 @@ struct BandArgs {
   const float* g;
   const float* as;
   const float4* st;
-  int64_t n, col_offset, x_rows, heads, f, R;
+  int64_t n, col_offset, x_rows, heads, f;
+  int64_t R;       // rows of a tile: a window slot
+  int64_t ell_R;   // the pair's block rows (the forward ELL's ids are local to them)
   float slope;
   const int32_t* ell;
   int64_t k_width;
@@ -412,7 +433,7 @@ __device__ __forceinline__ float team_sum(float v) {
 // fallback edges (read from global memory), one chunk of F at a time (the
 // dot parts added in chunk order in dad).  Team thread s holds the row's ids
 // s, s + kSub, ... and computes their weights, which the team shares.
-template <typename TX, int kNQT, bool kExp, bool kDots>
+template <typename TX, int kNQT, bool kExp, bool kDots, bool kFar = false>
 __global__ void __launch_bounds__(kBandThreads, 1) band_dst_kernel(BandArgs a) {
   constexpr int kNQ = kSub * kNQT, kFC = 4 * kNQ, kIds = kMaxIds / kSub;
   extern __shared__ __align__(16) float smem[];
@@ -425,6 +446,8 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_dst_kernel(BandArgs a) {
   const int64_t n_blocks = (a.n + R - 1) / R;
   const int64_t tiles = n_blocks * a.heads;
   const int64_t p0 = tiles * blockIdx.x / gridDim.x, p1 = tiles * (blockIdx.x + 1) / gridDim.x;
+  // chunk-major: every chunk walks all of the CTA's tiles, so the ring keeps
+  // two slots from one tile to the next
   for (int k = 0; k < a.n_chunks; ++k) {
     const int fcv = (int)(a.f - (int64_t)k * kFC < kFC ? a.f - (int64_t)k * kFC : kFC);
     const bool last = k == a.n_chunks - 1;
@@ -433,6 +456,12 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_dst_kernel(BandArgs a) {
       const int64_t h = p / n_blocks, b = p % n_blocks;
       const int64_t base = (b - 1) * R + a.col_offset;   // input row of window id 0
       const int b3 = (int)(b % 3);
+      // kFar: the ELL's ids are local to the pair's blocks of ell_R rows;
+      // a row's ids plus rofs0 (plus ell_R from tile row bnd on) are ids of
+      // this tile's window
+      const int64_t eb = kFar ? b * R / a.ell_R : 0;
+      const int rofs0 = kFar ? (int)((eb - 1) * a.ell_R - (b - 1) * R) : 0;
+      const int bnd = kFar ? (int)((eb + 1) * a.ell_R - b * R) : 0;
       const int64_t col0 = h * a.f + (int64_t)k * kFC;
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
@@ -488,10 +517,23 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_dst_kernel(BandArgs a) {
         // the first round of fallback sources, in flight during the band
         const int32_t fb_first = fp0 + s < fp1 ? a.fb_src[fp0 + s] : -1;
         float d = 0.0f, w_sum = 0.0f;   // this thread's parts
+        const int rofs = kFar ? rofs0 + (i >= bnd ? (int)a.ell_R : 0) : 0;
         auto band_round = [&](int32_t id) {
-          int idx = -1;
+          int idx = -1;   // window row; kFar: -2 - input row of a source past the window
           float w = 0.0f;
-          if (id >= 0 && base + id >= 0 && base + id < a.x_rows) {
+          if constexpr (kFar) {
+            const int j = id + rofs;
+            if (id >= 0 && base + j >= 0 && base + j < a.x_rows) {
+              if (j < 3 * R && j >= 0) {
+                idx = window_index(j, R, b3);
+                float aa;
+                edge_weights<kExp>(sr, as_s[idx], a.slope, aa, w);
+                w_sum += w;
+              } else {
+                idx = -2 - (int)(base + j);   // its weight below
+              }
+            }
+          } else if (id >= 0 && base + id >= 0 && base + id < a.x_rows) {
             idx = window_index(id, R, b3);
             float aa;
             edge_weights<kExp>(sr, as_s[idx], a.slope, aa, w);
@@ -517,6 +559,26 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_dst_kernel(BandArgs a) {
               }
             }
             d = fmaf(wu, dot, d);
+          }
+          // kFar: the round's sources past the window (rare), after its
+          // window sources: every team thread computes the weight (thread 0
+          // adds it to w_sum) and reads its part of the row from global memory
+          if (kFar && __any_sync(row_io::team_mask<kSub>(), idx < -1)) {
+#pragma unroll 1
+            for (int u = 0; u < kSub; ++u) {
+              const int iu = from_team(idx, u);
+              if (iu >= -1) continue;
+              const int64_t c = -2 - iu;
+              float aa, wu;
+              edge_weights<kExp>(sr, __ldg(a.as + c * a.heads + h), a.slope, aa, wu);
+              if (s == 0) w_sum += wu;
+              float xf[4 * kNQT];
+              load_team_chunk<kNQT>(x + c * hf + col0, s, fcv, a.x_vec, xf);
+              float dot = 0.0f;
+#pragma unroll
+              for (int q = 0; q < 4 * kNQT; ++q) dot = fmaf(cur.gv[q], xf[q], dot);
+              d = fmaf(wu, dot, d);
+            }
           }
         };
 #pragma unroll
@@ -568,7 +630,7 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_dst_kernel(BandArgs a) {
 // in-edges (global memory; a column with more than kLongFb of them is taken
 // by the whole CTA, its shares added in a fixed order).  Team thread s
 // reads in-edges s, s + kSub, ... and computes their weights.
-template <typename TX, int kNQT, bool kExp, bool kDots>
+template <typename TX, int kNQT, bool kExp, bool kDots, bool kFar = false>
 __global__ void __launch_bounds__(kBandThreads, 1) band_src_kernel(BandArgs a) {
   constexpr int kNQ = kSub * kNQT, kFC = 4 * kNQ;
   extern __shared__ __align__(16) float smem[];
@@ -584,6 +646,8 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_src_kernel(BandArgs a) {
   const int64_t n_blocks = (a.n + R - 1) / R;
   const int64_t tiles = n_blocks * a.heads;
   const int64_t p0 = tiles * blockIdx.x / gridDim.x, p1 = tiles * (blockIdx.x + 1) / gridDim.x;
+  // chunk-major: every chunk walks all of the CTA's tiles, so the ring keeps
+  // two slots from one tile to the next
   for (int k = 0; k < a.n_chunks; ++k) {
     const int fcv = (int)(a.f - (int64_t)k * kFC < kFC ? a.f - (int64_t)k * kFC : kFC);
     const bool last = k == a.n_chunks - 1;
@@ -657,16 +721,21 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_src_kernel(BandArgs a) {
           if (!kDots) sink<4 * kNQT>(gq);
           d = fmaf(wu, dot, d);
         };
-        // band in-edges: destination rows in c's window
+        // band in-edges: destination rows in c's window (kFar: or past it)
         for (int64_t e0 = tp0; e0 < tp1; e0 += kSub) {
           const int32_t q = e0 + s < tp1 ? a.t_rows[e0 + s] : -1;
           int idx = -1;
           float aa = 0.0f, w = 0.0f;
           if (q >= 0 && q < a.x_rows) {
-            idx = window_index((int)(q - base), R, b3);
-            const float4 s4 = st_s[idx];
-            edge_weights<kExp>(s4, as_c, a.slope, aa, w);
-            wt_sum = fmaf(w, s4.w, wt_sum);
+            const int j = (int)(q - base);
+            if (!kFar || (j >= 0 && j < 3 * R)) {
+              idx = window_index(j, R, b3);
+              const float4 s4 = st_s[idx];
+              edge_weights<kExp>(s4, as_c, a.slope, aa, w);
+              wt_sum = fmaf(w, s4.w, wt_sum);
+            } else {   // kFar: a destination row past the window, below
+              idx = -2 - q;
+            }
           }
 #pragma unroll
           for (int u = 0; u < kSub; ++u) {
@@ -683,6 +752,25 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_src_kernel(BandArgs a) {
               gq[4 * j + 3] = v.w;
             }
             add(au, wu, gq);
+          }
+          // kFar: the round's destinations past the window (rare), after
+          // its window destinations: every team thread computes the weights
+          // (thread 0 adds to wt_sum) and reads its part of the row from
+          // global memory
+          if (kFar && __any_sync(row_io::team_mask<kSub>(), idx < -1)) {
+#pragma unroll 1
+            for (int u = 0; u < kSub; ++u) {
+              const int iu = from_team(idx, u);
+              if (iu >= -1) continue;
+              const int64_t r = -2 - iu;
+              const float4 s4 = __ldg(a.st + r * a.heads + h);
+              float au, wu;
+              edge_weights<kExp>(s4, as_c, a.slope, au, wu);
+              if (s == 0) wt_sum = fmaf(wu, s4.w, wt_sum);
+              float gq[4 * kNQT];
+              load_team_chunk<kNQT>(a.g + r * hf + col0, s, fcv, a.g_vec, gq);
+              add(au, wu, gq);
+            }
           }
         }
         const bool is_long = fb1 - fb0 > kLongFb;
@@ -813,15 +901,66 @@ inline size_t band_smem(int64_t R, int kNQ) {
   return sizeof(float) * (3 * R * 4 * kNQ + 3 * R * 4 + kBandWarps * (4 * kNQ + 2)) + R;
 }
 
+// Quads a team thread holds in a chunk of the band kernels (a chunk is
+// 32 kNQT elements): 2 where the whole head (F <= 64), or an even part of a
+// wider one, takes more than 32 elements, else 1.
+inline int band_quads(int64_t f) {
+  const int64_t chunks = (f + kMaxChunk - 1) / kMaxChunk;
+  return (int)(((f + chunks - 1) / chunks + 4 * kSub - 1) / (4 * kSub));
+}
 
-// Probe phases (slab_attn_bwd_probe): which passes run and whether the
+// The kernels a pair takes, decided by shape before any launch.
+// - The band kernels over shared-memory windows where the pair has the
+//   band CSR by source and a window of 3R rows fits the device's shared
+//   memory a block at 32-element chunks (R <= 526 on the H100): tiles of R
+//   rows with the head in chunks of 32 nqt elements where that window fits
+//   (R <= 274 at 64-element chunks on the H100; F = 64 at R = 256: 196 KB),
+//   else (such as R = 512) tiles of the largest multiple of 32 rows whose
+//   window fits the chunk (256 on the H100), at most R, so that a tile
+//   spans at most two of the pair's blocks: the band edges that reach past
+//   a tile's window (|c - r| > its rows; a few thousandths of the banded
+//   graph's at R = 512) read their rows from global memory.
+// - Else the warp-per-node kernels where the pair has t_ell, else none.
+enum Design { kNoDesign = 0, kWindows = 1, kWarpPerNode = 2 };
+
+struct Plan {
+  Design design = kNoDesign;
+  int nqt = 0;        // quads a team thread (window kernels)
+  int64_t tile = 0;   // rows a tile (window kernels)
+};
+
+int choose_design(int64_t R, int64_t f, bool band_csr, bool t_ell, Plan* plan) {
+  int device = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  const auto fits = [&](int64_t rows, int nqt) {
+    return band_smem(rows, kSub * nqt) <= (size_t)smem_max;
+  };
+  *plan = Plan{};
+  if (band_csr && fits(R, 1)) {
+    const int nqt = band_quads(f);
+    if (fits(R, nqt)) {
+      *plan = Plan{kWindows, nqt, R};
+    } else {
+      int64_t tile = R / 32 * 32;
+      while (tile > 32 && !fits(tile, nqt)) tile -= 32;
+      *plan = Plan{kWindows, nqt, tile};
+    }
+  } else if (t_ell) {
+    plan->design = kWarpPerNode;
+  }
+  return 0;
+}
+
+// Probe phases (slab_attn_bwd_probe): which passes run, and whether the
 // edge weights take expf and the per-edge FMAs run.  The real entry runs
 // every phase.
 constexpr int kDstPass = 1, kSrcPass = 2, kExpPhase = 4, kDotPhase = 8;
 constexpr int kAllPhases = kDstPass | kSrcPass | kExpPhase | kDotPhase;
 
-// The warp-per-node kernels: the whole backward over a pair's t_ell, or
-// (k_width 0, no band index) the fallback edges after the band kernels.
+// The warp-per-node kernels: the whole backward over a pair's t_ell.
 template <typename TX, int kPer, bool kExp, bool kDots>
 int launch_passes(const Args& a, int phases, cudaStream_t stream) {
   int64_t blocks = (a.n + kWarpsPerBlock - 1) / kWarpsPerBlock;
@@ -843,22 +982,22 @@ int launch_passes(const Args& a, int phases, cudaStream_t stream) {
     attn_bwd_src_kernel<TX, kPer, kExp, kDots><<<(unsigned)blocks, kThreads, 0, stream>>>(
         x, g, as, st, a.n, a.col_offset, a.x_rows, a.heads, a.f, a.slope,
         static_cast<const int32_t*>(a.t_ell),
-        a.t_width, a.block_rows, static_cast<const int64_t*>(a.t_rowptr),
-        static_cast<const int32_t*>(a.t_rows), static_cast<const int64_t*>(a.fbt_rowptr),
+        a.t_width, a.block_rows, static_cast<const int64_t*>(a.fbt_rowptr),
         static_cast<const int32_t*>(a.fbt_dst), static_cast<float*>(a.dx),
         static_cast<float*>(a.das));
   }
   return (int)cudaGetLastError();
 }
 
-// One band kernel (the src pass where kSrc, else the dst pass), kNQT quads
-// a team thread, so 16 kNQT elements a chunk.
-template <typename TX, int kNQT, bool kSrc, bool kExp, bool kDots>
-int launch_band(const Args& a, cudaStream_t stream) {
+// One band kernel (the src pass where kSrc, else the dst pass) over tiles
+// of ``tile`` rows, kNQT quads a team thread, so 32 kNQT elements a chunk;
+// kFar where tiles are shorter than the pair's blocks.
+template <typename TX, int kNQT, bool kSrc, bool kExp, bool kDots, bool kFar = false>
+int launch_band(const Args& a, int64_t tile, cudaStream_t stream) {
   constexpr int kFC = 4 * kSub * kNQT;
   const BandArgs b{a.x, static_cast<const float*>(a.g), static_cast<const float*>(a.as),
                    static_cast<const float4*>(a.st), a.n, a.col_offset, a.x_rows, a.heads,
-                   a.f, a.block_rows, a.slope, static_cast<const int32_t*>(a.ell),
+                   a.f, tile, a.block_rows, a.slope, static_cast<const int32_t*>(a.ell),
                    a.k_width, static_cast<const int64_t*>(a.t_rowptr),
                    static_cast<const int32_t*>(a.t_rows),
                    static_cast<const int64_t*>(a.fb_rowptr),
@@ -869,7 +1008,7 @@ int launch_band(const Args& a, cudaStream_t stream) {
                    (int)((a.f + kFC - 1) / kFC),
                    a.f % 4 == 0 && row_io::aligned(a.x, 4 * sizeof(TX)),
                    a.f % 4 == 0 && row_io::aligned(a.g, 16) && row_io::aligned(a.dx, 16)};
-  const size_t smem = band_smem(a.block_rows, kSub * kNQT);
+  const size_t smem = band_smem(tile, kSub * kNQT);
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -877,9 +1016,9 @@ int launch_band(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   void (*kernel)(BandArgs);
   if constexpr (kSrc)
-    kernel = band_src_kernel<TX, kNQT, kExp, kDots>;
+    kernel = band_src_kernel<TX, kNQT, kExp, kDots, kFar>;
   else
-    kernel = band_dst_kernel<TX, kNQT, kExp, kDots>;
+    kernel = band_dst_kernel<TX, kNQT, kExp, kDots, kFar>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int per_sm = 0;
   if (err == cudaSuccess)
@@ -887,7 +1026,7 @@ int launch_band(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   // persistent: as many CTAs as are resident at once
-  const int64_t tiles = (a.n + a.block_rows - 1) / a.block_rows * a.heads;
+  const int64_t tiles = (a.n + tile - 1) / tile * a.heads;
   const int64_t resident = (int64_t)per_sm * sms;
   const unsigned grid = (unsigned)(tiles < resident ? tiles : resident);
   kernel<<<grid, kBandThreads, smem, stream>>>(b);
@@ -904,9 +1043,10 @@ struct OldPasses {
 
 template <typename TX, int kNQT, bool kSrc>
 struct BandPass {
+  int64_t tile;
   template <bool kExp, bool kDots>
-  static int run(const Args& a, int, cudaStream_t s) {
-    return launch_band<TX, kNQT, kSrc, kExp, kDots>(a, s);
+  int run(const Args& a, int, cudaStream_t s) const {
+    return launch_band<TX, kNQT, kSrc, kExp, kDots>(a, tile, s);
   }
 };
 
@@ -934,47 +1074,41 @@ int launch_old(const Args& a, int phases, cudaStream_t stream) {
              : by_phases<TX>(OldPasses<TX, 1>(), a, phases, stream);
 }
 
-// The band CSR by source: the band kernels, fallback edges included.  A
-// chunk of F is 16, 32, 48 or 64 elements (one to four quads a team
-// thread): the whole head where F <= 64 and the window fits (F = 64 at R =
-// 256: 196 KB; F = 47: 48), else even chunks of at most 64.
+// One band kernel (the band CSR by source, fallback edges included) by
+// ``plan``.  Tiles shorter than the pair's blocks (kFar) exist with every
+// phase on.
 template <typename TX, bool kSrc>
-int launch_pass(const Args& a, int phases, cudaStream_t stream) {
-  int device = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t chunks = (a.f + kMaxChunk - 1) / kMaxChunk;
-  int nqt = (int)(((a.f + chunks - 1) / chunks + 4 * kSub - 1) / (4 * kSub));
-  while (nqt > 1 && band_smem(a.block_rows, kSub * nqt) > (size_t)smem_max) --nqt;
-  if (band_smem(a.block_rows, kSub * nqt) > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  if (nqt == 1) return by_phases<TX>(BandPass<TX, 1, kSrc>(), a, phases, stream);
-  if (nqt == 2) return by_phases<TX>(BandPass<TX, 2, kSrc>(), a, phases, stream);
-  if (nqt == 3) return by_phases<TX>(BandPass<TX, 3, kSrc>(), a, phases, stream);
-  return by_phases<TX>(BandPass<TX, 4, kSrc>(), a, phases, stream);
+int launch_pass(const Args& a, const Plan& plan, int phases, cudaStream_t stream) {
+  if (plan.tile < a.block_rows) {
+    if (!(phases & kExpPhase) || !(phases & kDotPhase)) return (int)cudaErrorInvalidValue;
+    return plan.nqt == 1 ? launch_band<TX, 1, kSrc, true, true, true>(a, plan.tile, stream)
+                         : launch_band<TX, 2, kSrc, true, true, true>(a, plan.tile, stream);
+  }
+  return plan.nqt == 1 ? by_phases<TX>(BandPass<TX, 1, kSrc>{plan.tile}, a, phases, stream)
+                       : by_phases<TX>(BandPass<TX, 2, kSrc>{plan.tile}, a, phases, stream);
 }
 
 template <typename TX>
-int launch_slab(const Args& a, int phases, cudaStream_t stream) {
+int launch(const Args& a, int phases, cudaStream_t stream) {
+  Plan plan;
+  // t_rows is null where the pair has no band edges (a shard of padding rows)
+  const int err = choose_design(a.block_rows, a.f, a.t_rowptr != nullptr, a.t_ell != nullptr,
+                                &plan);
+  if (err != 0) return err;
+  if (plan.design == kWarpPerNode) return launch_old<TX>(a, phases, stream);
+  if (plan.design != kWindows) return (int)cudaErrorInvalidValue;
   if (phases & kDstPass) {
-    const int err = launch_pass<TX, false>(a, phases, stream);
-    if (err != 0) return err;
+    const int e = launch_pass<TX, false>(a, plan, phases, stream);
+    if (e != 0) return e;
   }
-  if (phases & kSrcPass) return launch_pass<TX, true>(a, phases, stream);
+  if (phases & kSrcPass) return launch_pass<TX, true>(a, plan, phases, stream);
   return 0;
 }
 
 int run(const Args& a, int x_dtype, int phases, cudaStream_t stream) {
-  if (!row_io::aligned(a.st, 16) ||
-      (a.t_ell == nullptr && (a.t_rowptr == nullptr || a.t_rows == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  if (x_dtype == 0)
-    return a.t_ell != nullptr ? launch_old<float>(a, phases, stream)
-                              : launch_slab<float>(a, phases, stream);
-  if (x_dtype == 1)
-    return a.t_ell != nullptr ? launch_old<__nv_bfloat16>(a, phases, stream)
-                              : launch_slab<__nv_bfloat16>(a, phases, stream);
+  if (!row_io::aligned(a.st, 16)) return (int)cudaErrorInvalidValue;
+  if (x_dtype == 0) return launch<float>(a, phases, stream);
+  if (x_dtype == 1) return launch<__nv_bfloat16>(a, phases, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -984,15 +1118,16 @@ int run(const Args& a, int x_dtype, int phases, cudaStream_t stream) {
 // (x_rows, heads, f); alpha_src float32 (x_rows, heads); stats float32
 // (x_rows, heads, 4) = (alpha_dst, m, max(s, 1e-16), t), 16-byte aligned;
 // ell int32 (>= n rows, k_width) and fb_rowptr int64 (n + 1) over fb_src:
-// the forward's edges by destination; t_ell int32 (>= n rows, t_width)
-// window-local destination rows, or (t_ell null) t_rowptr int64 (n + 1) over
-// t_rows int32 destination rows of the per-node inputs: the band edges by
-// source; fb_t_rowptr int64 (n + 1) over fb_t_dst int32: the fallback edges
-// by source.  Node i sits at row i + col_offset of the per-node inputs (0
-// for a whole graph, x_rows = n; block_rows for a shard's halo-extended
-// inputs).  dx float32 (n, heads, f) is written; dad and das float32 (n,
-// heads) must hold zeros.  Returns cudaGetLastError() after the launches (0
-// on success).
+// the forward's edges by destination; t_rowptr int64 (n + 1) over t_rows
+// int32 destination rows of the per-node inputs (the band edges by source),
+// t_ell int32 (>= n rows, t_width) window-local destination rows of the
+// same edges (either may be null; slab_attn_bwd_design says which one a
+// pair's shape takes); fb_t_rowptr int64 (n + 1) over fb_t_dst int32: the
+// fallback edges by source.  Node i sits at row i + col_offset of the
+// per-node inputs (0 for a whole graph, x_rows = n; block_rows for a
+// shard's halo-extended inputs).  dx float32 (n, heads, f) is written; dad
+// and das float32 (n, heads) must hold zeros.  Returns cudaGetLastError()
+// after the launches (0 on success).
 extern "C" int slab_attn_bwd(const void* x, int x_dtype, const void* g,
                              const void* alpha_src, const void* stats, int64_t n,
                              int64_t col_offset, int64_t x_rows, int64_t heads,
@@ -1009,14 +1144,32 @@ extern "C" int slab_attn_bwd(const void* x, int x_dtype, const void* g,
   return run(a, x_dtype, kAllPhases, static_cast<cudaStream_t>(stream));
 }
 
+// Which kernels slab_attn_bwd launches for a pair of ``block_rows`` rows a
+// block and heads of ``f`` elements on the current device, given whether
+// the pair has the band CSR by source and t_ell: *design 1 = the band
+// kernels over shared-memory windows, *chunk elements of a head at a time
+// over tiles of *tile rows; 2 = the warp-per-node kernels over t_ell
+// (*chunk and *tile 0); 0 = none.  Returns a CUDA error code (0 on
+// success).
+extern "C" int slab_attn_bwd_design(int64_t block_rows, int64_t f, int has_band_csr,
+                                    int has_t_ell, int* design, int* chunk, int64_t* tile) {
+  Plan plan;
+  const int err = choose_design(block_rows, f, has_band_csr != 0, has_t_ell != 0, &plan);
+  if (err != 0) return err;
+  *design = (int)plan.design;
+  *chunk = 4 * kSub * plan.nqt;
+  *tile = plan.tile;
+  return 0;
+}
+
 // The phase probe (the counterpart of the JAX package's
 // benchmarks/bwd_kernel_anatomy.py and benchmarks/attn_bwd_probe.py): the
 // same arguments as slab_attn_bwd plus ``phases``, a mask of 1 (the dst
 // pass), 2 (the src pass), 4 (expf in the edge weights; without it the
 // exponent itself) and 8 (the per-edge dot and FMA work; without it the
-// loaded rows are only kept alive).  Memory traffic is the real kernels'
-// in every variant; phases 15 runs exactly slab_attn_bwd's code.  Outputs
-// of a variant other than 15 are meaningless.
+// loaded rows are only kept alive).  Memory traffic is the real kernels' in
+// every variant; phases 15 runs exactly slab_attn_bwd's code.  Outputs of
+// a variant other than 15 are meaningless.
 extern "C" int slab_attn_bwd_probe(const void* x, int x_dtype, const void* g,
                                    const void* alpha_src, const void* stats, int64_t n,
                                    int64_t col_offset, int64_t x_rows, int64_t heads,
@@ -1032,6 +1185,7 @@ extern "C" int slab_attn_bwd_probe(const void* x, int x_dtype, const void* g,
                k_width, block_rows,
                fb_rowptr, fb_src, t_ell, t_width, t_rowptr, t_rows, fb_t_rowptr,
                fb_t_dst, dx, dad, das};
-  if (phases < 0 || phases > kAllPhases) return (int)cudaErrorInvalidValue;
+  if (phases < 0 || phases > kAllPhases)
+    return (int)cudaErrorInvalidValue;
   return run(a, x_dtype, phases, static_cast<cudaStream_t>(stream));
 }

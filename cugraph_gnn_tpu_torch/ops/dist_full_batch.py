@@ -236,19 +236,19 @@ def shard_slab(ell: np.ndarray, ell_w: Optional[np.ndarray], w: int, rs: int,
 def shard_attention_pair(pair: AG.AttnSlabPair, w: int, rs: int, n_pad: int,
                          device) -> AG.AttnSlabPair:
     """Rank w's part of a whole graph's attention pair (host tensors): its
-    band by destination, its band by source (``t_ell`` rows, or the band
-    CSR by source with destination rows shifted into the halo-extended
-    numbering: global row - (w*rs - R)), no fallback edges."""
+    band by destination, its band by source (the band CSR by source with
+    destination rows shifted into the halo-extended numbering: global row -
+    (w*rs - R); and ``t_ell`` rows where the pair has them), no fallback
+    edges."""
     r_blk, n = pair.fwd.block_rows, pair.fwd.num_rows
     fwd = shard_slab(_padded(pair.fwd.ell.cpu().numpy(), n_pad, -1), None, w, rs,
                      r_blk, device)
     no_edges = torch.zeros(0, dtype=torch.int32, device=device)
     empty_ptr = torch.zeros(rs + 1, dtype=torch.int64, device=device)
+    t_ell = None
     if pair.t_ell is not None:
-        t_ell = _padded(pair.t_ell.cpu().numpy(), n_pad, -1)[w * rs:(w + 1) * rs]
-        return AG.AttnSlabPair(fwd=fwd, fb_t_rowptr=empty_ptr, fb_t_dst=no_edges,
-                               t_ell=torch.as_tensor(np.ascontiguousarray(t_ell),
-                                                     device=device))
+        t_ell = torch.as_tensor(np.ascontiguousarray(
+            _padded(pair.t_ell.cpu().numpy(), n_pad, -1)[w * rs:(w + 1) * rs]), device=device)
     ptr = pair.t_rowptr.cpu().numpy()
     lo, hi = min(w * rs, n), min((w + 1) * rs, n)
     e0, e1 = int(ptr[lo]), int(ptr[hi])
@@ -256,7 +256,7 @@ def shard_attention_pair(pair: AG.AttnSlabPair, w: int, rs: int, n_pad: int,
     t_ptr[:hi - lo + 1] = ptr[lo:hi + 1] - e0
     t_rows = (pair.t_rows.cpu().numpy()[e0:e1].astype(np.int64)
               - (w * rs - r_blk)).astype(np.int32)
-    return AG.AttnSlabPair(fwd=fwd, fb_t_rowptr=empty_ptr, fb_t_dst=no_edges,
+    return AG.AttnSlabPair(fwd=fwd, fb_t_rowptr=empty_ptr, fb_t_dst=no_edges, t_ell=t_ell,
                            t_rowptr=torch.as_tensor(t_ptr, device=device),
                            t_rows=torch.as_tensor(t_rows, device=device))
 

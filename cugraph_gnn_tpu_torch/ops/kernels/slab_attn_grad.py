@@ -13,19 +13,23 @@ a = exp(e - m) / max(s, 1e-16) the normalised attention of the forward
 over every edge, band and fallback.  ``csrc/slab_attn_bwd.cu`` computes the
 row sums in a pass over the destination rows (the forward ELL and the
 fallback's ``fb_rowptr``) and dx and the column sums in a pass over the
-source columns, through a transpose index of exactly the same edges: the
-pair's ``t_ell`` where it has one (no bit planes, 3R > 1024), else a
-host-built CSR of the band edges by source (``t_rowptr``/``t_rows``), and
-always a source-major CSR of the fallback edges (``fb_t_rowptr``/
-``fb_t_dst``).  The three wrappers mirror the JAX package's three kernels
-and count their own launches: ``onepass_bwd`` (pairs with bit planes),
-``slab_attention_bwd`` (H = 1 over ``t_ell``) and ``slab_attention_bwd_mh``
-(H > 1 over ``t_ell``; H = 1 goes to ``slab_attention_bwd``).  CPU tensors
-run ``slab_attention_bwd_ref``.  Their ``_shard`` twins run the same kernel
+source columns, through a transpose index of exactly the same edges: a
+host-built CSR of the band edges by source (``t_rowptr``/``t_rows``, every
+pair) where the kernel's shared-memory window fits (block_rows <= 526 on
+an H100), else the pair's ``t_ell`` (no bit planes, 3R > 1024); and always
+a source-major CSR of the fallback edges (``fb_t_rowptr``/``fb_t_dst``).
+:func:`backward_design` says which one a pair's shape takes.  The three
+wrappers mirror the JAX package's three kernels and count their own
+launches: ``onepass_bwd`` (pairs with bit planes), ``slab_attention_bwd``
+(H = 1, pairs with ``t_ell``) and ``slab_attention_bwd_mh`` (H > 1, pairs
+with ``t_ell``; H = 1 goes to ``slab_attention_bwd``).  CPU tensors run
+``slab_attention_bwd_ref``, which walks ``t_ell`` where the pair has it (the
+TPU kernels' walk).  Their ``_shard`` twins run the same kernel
 on one row shard of a graph (``ops/dist_full_batch.py``, the JAX package's
 sharded backwards): per-node inputs with an R-row halo on each side, the
-shard's band by source with halo-extended destination rows, the fallback
-edges left to the caller; each counts its own launches.  The JAX package's
+shard's band by source (halo-extended destination rows, and ``t_ell``
+rows where the pair has them), the fallback edges left to the caller; each
+counts its own launches.  The JAX package's
 VMEM devices (G-stacking, margin planes, packed stat lanes) have no
 counterpart; ``MAX_PACKED_HEADS`` stays as the head-group size of
 ``FullBatchGraph.attention_spmm_mh`` and ``DistFullBatchGraph``'s.
@@ -34,6 +38,7 @@ counterpart; ``MAX_PACKED_HEADS`` stays as the head-group size of
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -79,9 +84,12 @@ class AttnSlabPair(NamedTuple):
     Port-only transpose indexes for the backward's source pass (device
     tensors, built on the host):
     t_rowptr/t_rows: (N + 1,) int64 / (E_band,) int32, the band edges by
-                     source with global destination rows; only where
-                     ``t_ell`` is None.
-    fb_t_rowptr/fb_t_dst: the same for the fallback edges, always.
+                     source with global destination rows, every pair
+                     (with ``t_ell``: exactly its edges, each column's in
+                     its slot order).
+    fb_t_rowptr/fb_t_dst: the same for the fallback edges.
+    band_csr_seconds: host seconds of the ``t_rowptr``/``t_rows`` build
+                      (0.0 for a pair that was not built from a CSR).
     """
 
     fwd: SlabGraph
@@ -90,6 +98,7 @@ class AttnSlabPair(NamedTuple):
     t_ell: Optional[torch.Tensor] = None
     t_rowptr: Optional[torch.Tensor] = None
     t_rows: Optional[torch.Tensor] = None
+    band_csr_seconds: float = 0.0
 
     def to(self, device) -> "AttnSlabPair":
         """The same pair with its tensors on ``device``."""
@@ -104,8 +113,10 @@ def build_attention_slab_pair(indptr, indices, *, block_rows: int = 256,
     attention kernels (one-time host preprocessing; tensors on ``device``,
     default the card).  With bit planes (3R <= 1024) the forward rank cap
     alone decides the band; otherwise the cap applies in both orientations
-    and ``t_ell`` covers exactly the band edges.  Parallel band edges keep
-    their first instance; the rest ride the fallback."""
+    and ``t_ell`` covers exactly the band edges.  Every pair also gets the
+    band edges by source as a CSR (``t_rowptr``/``t_rows``), which the
+    backward kernel reads wherever its window fits.  Parallel band edges
+    keep their first instance; the rest ride the fallback."""
     dev = resolve_device(device)
     indptr = np.asarray(indptr, np.int64)
     indices = np.asarray(indices, np.int32)
@@ -170,13 +181,15 @@ def build_attention_slab_pair(indptr, indices, *, block_rows: int = 256,
         fb_w=None, degrees=t(np.bincount(rows[valid], minlength=n).astype(np.int32)),
         num_rows=n, block_rows=r_blk, n_blocks=n_blocks,
         fb_rowptr=fallback.rowptr, ell_bits=ell_bits, ell_len=ell_lengths(t(ell)))
-    # source-major indexes (build_csr groups by its first argument)
+    # source-major indexes (build_csr groups by its first argument, stably:
+    # a column's band edges keep their CSR order, which is t_ell's slot order)
     fbt_ptr, fbt_dst, _ = _native.build_csr(cols[fb], rows[fb], n)
-    t_ptr = t_rows = None
-    if t_ell is None:
-        t_ptr, t_rows, _ = _native.build_csr(cols[keep], rows[keep], n)
+    t0 = time.perf_counter()
+    t_ptr, t_rows, _ = _native.build_csr(cols[keep], rows[keep], n)
+    band_csr_s = time.perf_counter() - t0
     return AttnSlabPair(fwd=fwd, fb_t_rowptr=t(fbt_ptr), fb_t_dst=t(fbt_dst),
-                        t_ell=t(t_ell), t_rowptr=t(t_ptr), t_rows=t(t_rows))
+                        t_ell=t(t_ell), t_rowptr=t(t_ptr), t_rows=t(t_rows),
+                        band_csr_seconds=band_csr_s)
 
 
 def _check(pair: AttnSlabPair, x, stats, g, col_offset: int) -> None:
@@ -204,7 +217,8 @@ def _bwd_ref(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
              negative_slope, col_offset):
     """The kernel's two passes in plain PyTorch: dalpha_dst over each row's
     edges by destination (band ELL, fallback), dx and dalpha_src over each
-    column's edges by source (``t_ell`` or the band CSR, fallback CSR)."""
+    column's edges by source (``t_ell`` where the pair has it, else the band
+    CSR; then the fallback CSR)."""
     _check(pair, x, (alpha_dst, alpha_src, m, s, t), g, col_offset)
     graph = pair.fwd
     n = graph.num_rows
@@ -319,6 +333,36 @@ def _launch(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
     return dx, dad, das
 
 
+_DESIGNS = {1: "windows", 2: "warp_per_node"}
+
+
+def backward_design(pair: AttnSlabPair, f: int):
+    """Which kernels the backward launches for ``pair`` (on the card) at
+    heads of ``f`` elements, as the kernel decides it by shape before any
+    launch: ("windows", chunk, tile) for the band kernels over shared-memory
+    windows, ``chunk`` elements of a head at a time over tiles of ``tile``
+    rows (fewer than the pair's block rows where a whole head's window does
+    not fit), or ("warp_per_node", 0, 0) for the kernels over ``t_ell`` (a
+    window of 32-element chunks does not fit the device).  Raises where the
+    pair fits neither."""
+    if pair.fwd.ell.device.type != "cuda":
+        raise ValueError(f"no kernel for device {pair.fwd.ell.device}")
+    out = ctypes.POINTER(ctypes.c_int)
+    fn = _build.function("slab_attn_bwd", [_I64, _I64, ctypes.c_int, ctypes.c_int, out, out,
+                                           ctypes.POINTER(ctypes.c_int64)],
+                         symbol="slab_attn_bwd_design")
+    design, chunk, tile = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int64(0)
+    with torch.cuda.device(pair.fwd.ell.device):
+        status = fn(pair.fwd.block_rows, int(f), pair.t_rows is not None,
+                    pair.t_ell is not None, ctypes.byref(design), ctypes.byref(chunk),
+                    ctypes.byref(tile))
+    _build.check(status, "slab_attn_bwd_design")
+    if design.value not in _DESIGNS:
+        raise ValueError(f"no backward kernel takes a pair of block_rows "
+                         f"{pair.fwd.block_rows} without t_ell")
+    return _DESIGNS[design.value], chunk.value, tile.value
+
+
 def _run(counter, pair, args, negative_slope, col_offset):
     """The plain version for CPU tensors, else the kernel, counted."""
     x = args[0]
@@ -410,8 +454,10 @@ def onepass_bwd_probe(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g, *
     ``PROBE_DST``, ``PROBE_SRC``, ``PROBE_EXP``, ``PROBE_DOTS``): a timing
     probe on the card, not part of any path.  ``PROBE_ALL`` runs exactly the
     kernel's code and returns its (dx, dalpha_dst, dalpha_src); other masks
-    take float32 x only and return meaningless values.  CUDA tensors only;
-    counts ``onepass_bwd_probe.launches``."""
+    take float32 x only and return meaningless values (tiles shorter than
+    the pair's block rows, such as R = 512's, take only a pass alone with
+    both other phases on).  CUDA tensors only; counts
+    ``onepass_bwd_probe.launches``."""
     _check(pair, x, (alpha_dst, alpha_src, m, s, t), g, 0)
     if not 0 <= phases <= PROBE_ALL:
         raise ValueError(f"phases must be a mask within {PROBE_ALL}, got {phases}")
@@ -429,8 +475,8 @@ onepass_bwd_probe.launches = 0
 # -- one row shard -----------------------------------------------------------
 # The same kernel with col_offset R over a shard's pair (``ops/dist_full_batch.py``):
 # the rs rows of the shard's band by destination (forward ELL) and by source
-# (``t_ell`` rows, or the band CSR by source with halo-extended destination
-# rows), no fallback edges (the caller adds theirs); every per-node input
+# (the band CSR by source with halo-extended destination rows, and ``t_ell``
+# rows where the pair has them), no fallback edges (the caller adds theirs); every per-node input
 # (x, g, alpha_*, m, s, t) holds rs + 2R rows, the shard's with the R rows
 # before and after it; the gradients cover the rs rows.
 

@@ -15,6 +15,7 @@ from cugraph_gnn_tpu.ops import sddmm as jax_sddmm
 from cugraph_gnn_tpu.ops.pallas import slab_attn_grad as jax_grad
 from cugraph_gnn_tpu.ops.pallas import slab_kernel as jax_slab
 from cugraph_gnn_tpu_torch import _native
+from cugraph_gnn_tpu_torch.ops import dist_full_batch as DF
 from cugraph_gnn_tpu_torch.ops import sddmm
 from cugraph_gnn_tpu_torch.ops.full_batch import FullBatchGraph
 from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as grad
@@ -73,7 +74,16 @@ def test_pair_matches_jax(r_blk):
     assert (got.t_ell is None) == (want.t_ell is None)
     if r_blk == 512:
         np.testing.assert_array_equal(got.t_ell.numpy(), want.t_ell)
-        assert got.t_rows is None
+        # the band CSR by source holds exactly t_ell's edges, each column's
+        # in t_ell's slot order (global destination rows)
+        ptr, rows, t_ell = got.t_rowptr.numpy(), got.t_rows.numpy(), got.t_ell.numpy()
+        assert ptr.shape == (n + 1,) and ptr[0] == 0 and ptr[-1] == len(rows)
+        assert not (t_ell[n:] >= 0).any()
+        for c in range(n):
+            slots = t_ell[c][t_ell[c] >= 0]
+            assert (t_ell[c][len(slots):] < 0).all()     # no holes between slots
+            np.testing.assert_array_equal(rows[ptr[c]:ptr[c + 1]],
+                                          slots + (c // r_blk) * r_blk - r_blk)
     else:
         np.testing.assert_array_equal(got.fwd.ell_bits, want.fwd.ell_bits)
         # at R <= 341 the forward split is the plain slab split
@@ -101,6 +111,42 @@ def test_pair_matches_jax(r_blk):
     rptr = got.fwd.fb_rowptr.numpy()
     np.testing.assert_array_equal(
         np.repeat(np.arange(n), np.diff(rptr)), got.fwd.fb_dst.numpy()[ok])
+
+
+@pytest.mark.parametrize("r_blk", [128, 512])
+def test_shard_pair_carries_band_csr(r_blk):
+    """Each rank's shard of a pair (``shard_attention_pair``, 4 ranks, the
+    last ones past the graph's end) carries the band CSR by source of its
+    own columns with destination rows shifted into the halo-extended
+    numbering (global row - (w rs - R)); at R = 512 also its rows of
+    ``t_ell``, whose window-local entries name the same rows in the same
+    order."""
+    n = 2100 if r_blk == 512 else 600
+    rng = np.random.default_rng(r_blk + 1)
+    _, _, indptr, indices = attention_graph(n, 5, r_blk // 2, rng)
+    pair = grad.build_attention_slab_pair(indptr, indices, block_rows=r_blk, max_k=8,
+                                          device="cpu")
+    world = 4
+    nb = -(-(-(-n // r_blk)) // world) * world
+    rs, n_pad = nb // world * r_blk, nb * r_blk
+    ptr, rows = pair.t_rowptr.numpy(), pair.t_rows.numpy()
+    t_ell = None if pair.t_ell is None else DF._padded(pair.t_ell.numpy(), n_pad, -1)
+    for w in range(world):
+        sp = DF.shard_attention_pair(pair, w, rs, n_pad, "cpu")
+        sptr, srows = sp.t_rowptr.numpy(), sp.t_rows.numpy()
+        assert sptr.shape == (rs + 1,) and sptr[0] == 0 and sptr[-1] == len(srows)
+        assert sp.fb_t_dst.numel() == 0 and not sp.fb_t_rowptr.any()
+        for c in range(rs):
+            gc = w * rs + c
+            want = rows[ptr[gc]:ptr[gc + 1]] - (w * rs - r_blk) if gc < n else []
+            np.testing.assert_array_equal(srows[sptr[c]:sptr[c + 1]], want)
+        assert (sp.t_ell is None) == (r_blk == 128)
+        if r_blk == 512:
+            own = sp.t_ell.numpy()
+            np.testing.assert_array_equal(own, t_ell[w * rs:(w + 1) * rs])
+            for c in range(rs):
+                np.testing.assert_array_equal(own[c][own[c] >= 0] + (c // r_blk) * r_blk,
+                                              srows[sptr[c]:sptr[c + 1]])
 
 
 def _stats_close(m, s, m_want, s_want):

@@ -616,9 +616,10 @@ def test_csr_spmm_long_rows_and_repeat(card, f, x_dtype, weighted):
 
 
 def _ends_pair(card, r_blk=256, n=1100):
-    """A bit-plane pair (R = 256) whose first and last blocks have clipped
-    windows (n is not a multiple of R), with edges at rows 0 and n - 1,
-    fallback edges and a spilled row."""
+    """A pair (bit planes where 3R <= 1024, such as R = 256 and 320; else
+    t_ell, such as R = 512 and 1024; always the band CSR by source) whose
+    first and last blocks have clipped windows (n is not a multiple of R),
+    with edges at rows 0 and n - 1, fallback edges and a spilled row."""
     rng = np.random.default_rng(77)
     dst = np.repeat(np.arange(n), 7)
     src = np.clip(dst + rng.integers(-250, 251, n * 7), 0, n - 1)
@@ -629,7 +630,8 @@ def _ends_pair(card, r_blk=256, n=1100):
                                            np.concatenate([src, extra_src]), n)
     pair = attn_grad.build_attention_slab_pair(indptr, indices, block_rows=r_blk,
                                                max_k=24, device=card)
-    assert pair.t_ell is None and 0.0 < pair.fwd.band_fraction < 1.0
+    assert (pair.t_ell is None) == (3 * r_blk <= 1024) and pair.t_rows is not None
+    assert 0.0 < pair.fwd.band_fraction < 1.0
     return pair
 
 
@@ -677,6 +679,112 @@ def test_onepass_bwd_shard_repeat(card):
     for a, b in zip(attn_grad.onepass_bwd_shard(shard, *ext),
                     attn_grad.onepass_bwd_shard(shard, *ext)):
         assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("heads,f", SHARD_ATTN_SHAPES)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_t_ell_bwd_windows_repeat(card, heads, f, x_dtype):
+    """A t_ell pair at R = 512 takes the window kernels (256-row tiles, band
+    edges that reach past a tile's window read from global memory):
+    ``slab_attention_bwd`` (H = 1) or ``slab_attention_bwd_mh`` with clipped
+    windows at both graph ends against its plain version (within 1e-5 plus
+    1e-5 of the sums over every term's magnitude); two launches bit for bit
+    equal."""
+    pair = _ends_pair(card, r_blk=512)
+    assert attn_grad.backward_design(pair, f) == ("windows", 64, 256)
+    # band edges longer than a tile (the far path)
+    ptr, rows = pair.t_rowptr.cpu().numpy(), pair.t_rows.cpu().numpy()
+    assert (np.abs(rows - np.repeat(np.arange(len(ptr) - 1), np.diff(ptr))) > 256).any()
+    n = pair.fwd.num_rows
+    x, ad, as_, g = _attn_inputs(n, heads, f, x_dtype, card, seed=16)
+    _, m, s = slab_attention_spmm_mh(pair.fwd, x, ad, as_, return_stats=True)
+    t = torch.randn((n, heads), generator=torch.Generator(card).manual_seed(17), device=card)
+    args = (pair, x, ad, as_, m, s, t, g)
+    counter = attn_grad.slab_attention_bwd if heads == 1 else attn_grad.slab_attention_bwd_mh
+    before = counter.launches
+    got = attn_grad.slab_attention_bwd_mh(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = attn_grad.slab_attention_bwd_ref(*args)
+    mag = attn_grad.slab_attention_bwd_ref(pair, x.float().abs(), ad, as_, m, s, -t.abs(),
+                                           g.abs())
+    for a, b, c in zip(got, want, mag):
+        _assert_close_to(a, b, c)
+    for a, b in zip(got, attn_grad.slab_attention_bwd_mh(*args)):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("heads,f", SHARD_ATTN_SHAPES)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_onepass_bwd_tiles_across_blocks(card, heads, f, x_dtype):
+    """A bit-plane pair at R = 320, whose window of 64-element chunks does
+    not fit: 256-row tiles that span two of the pair's blocks, band edges
+    past a tile's window read from global memory.  ``onepass_bwd`` with
+    clipped windows at both graph ends, and ``onepass_bwd_shard`` on each
+    shard of a 4-rank split (three blocks a shard; the last one padding
+    rows only, with no band edges), against their plain versions (within
+    1e-5 plus 1e-5 of the sums over every term's magnitude); each launched
+    twice, bit for bit equal."""
+    r_blk = 320
+    pair = _ends_pair(card, r_blk=r_blk, n=2600)
+    assert attn_grad.backward_design(pair, f) == ("windows", 64, 256)
+    ptr, rows = pair.t_rowptr.cpu().numpy(), pair.t_rows.cpu().numpy()
+    assert (np.abs(rows - np.repeat(np.arange(len(ptr) - 1), np.diff(ptr))) > 256).any()
+    n = pair.fwd.num_rows
+    x, ad, as_, g = _attn_inputs(n, heads, f, x_dtype, card, seed=20)
+    _, m, s = slab_attention_spmm_mh(pair.fwd, x, ad, as_, return_stats=True)
+    t = torch.randn((n, heads), generator=torch.Generator(card).manual_seed(21), device=card)
+    args = (pair, x, ad, as_, m, s, t, g)
+    before = attn_grad.onepass_bwd.launches
+    got = attn_grad.onepass_bwd(*args)
+    torch.cuda.synchronize()
+    assert attn_grad.onepass_bwd.launches == before + 1
+    want = attn_grad.slab_attention_bwd_ref(*args)
+    mag = attn_grad.slab_attention_bwd_ref(pair, x.float().abs(), ad, as_, m, s, -t.abs(),
+                                           g.abs())
+    for a, b, c in zip(got, want, mag):
+        _assert_close_to(a, b, c)
+    for a, b in zip(got, attn_grad.onepass_bwd(*args)):
+        assert torch.equal(_bits(a), _bits(b))
+    rs, n_pad = _split(n, r_blk)
+    assert rs == 3 * r_blk
+    _, m, s = slab_attention_spmm_mh(_band_only(pair).fwd, x, ad, as_, return_stats=True)
+    per_node = [_pad(a, n_pad) for a in (x, ad, as_, m, s, t, g)]
+    per_node[4][n:] = 1e-16      # padded rows, as the halo exchange leaves them
+    for rank in range(WORLD):
+        shard = DF.shard_attention_pair(pair, rank, rs, n_pad, card)
+        assert (shard.t_rows.numel() == 0) == (rank == WORLD - 1)
+        ext = [DF.halo_rows(a, rank, rs, r_blk) for a in per_node]
+        before = attn_grad.onepass_bwd_shard.launches
+        got = attn_grad.onepass_bwd_shard(shard, *ext)
+        torch.cuda.synchronize()
+        assert attn_grad.onepass_bwd_shard.launches == before + 1
+        want = attn_grad.slab_attention_bwd_shard_ref(shard, *ext)
+        mag = attn_grad.slab_attention_bwd_shard_ref(
+            shard, ext[0].float().abs(), *ext[1:5], -ext[5].abs(), ext[6].abs())
+        for a, b, c in zip(got, want, mag):
+            _assert_close_to(a, b, c)
+        for a, b in zip(got, attn_grad.onepass_bwd_shard(shard, *ext)):
+            assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("heads,f", SHARD_ATTN_SHAPES)
+def test_t_ell_bwd_warp_per_node_past_the_window(card, heads, f):
+    """At R = 1024 the window of 32-element chunks does not fit, so the t_ell
+    pair takes the warp-per-node kernels; against the plain version (stats
+    from the plain forward, whose kernel's window does not fit either)."""
+    pair = _ends_pair(card, r_blk=1024, n=2500)
+    assert attn_grad.backward_design(pair, f) == ("warp_per_node", 0, 0)
+    n = pair.fwd.num_rows
+    x, ad, as_, g = _attn_inputs(n, heads, f, torch.float32, card, seed=18)
+    _, m, s = slab_attention_spmm_mh_ref(pair.fwd, x, ad, as_, return_stats=True)
+    t = torch.randn((n, heads), generator=torch.Generator(card).manual_seed(19), device=card)
+    args = (pair, x, ad, as_, m, s, t, g)
+    got = attn_grad.slab_attention_bwd_mh(*args)
+    want = attn_grad.slab_attention_bwd_ref(*args)
+    mag = attn_grad.slab_attention_bwd_ref(pair, x.abs(), ad, as_, m, s, -t.abs(), g.abs())
+    for a, b, c in zip(got, want, mag):
+        _assert_close_to(a, b, c)
 
 
 @pytest.mark.parametrize("heads,f", SHARD_ATTN_SHAPES)
@@ -743,19 +851,28 @@ def test_slab_spmm_hub_rows(card, f, x_dtype, reduce):
         assert torch.equal(_bits(got), _bits(slab_spmm(g, x, reduce, torch.float32)))
 
 
+@pytest.mark.parametrize("r_blk", [128, 512])
 @pytest.mark.parametrize("heads,f", SHARD_ATTN_SHAPES)
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-def test_attention_hub_row_and_column(card, heads, f, x_dtype):
-    """The hub graph at R = 128 (the band CSR by source): the forward (a row
-    of more than 64 fallback edges) against its plain version, and
-    ``onepass_bwd`` (a column of more than 64 fallback in-edges, taken by the
-    whole CTA) against ``slab_attention_bwd_ref``, each within 1e-5 plus
-    1e-5 of the sums over every term's magnitude; each launched twice, bit
-    for bit equal."""
+def test_attention_hub_row_and_column(card, r_blk, heads, f, x_dtype):
+    """The hub graph at R = 128 (bit planes: ``onepass_bwd``) and R = 512
+    (t_ell: ``slab_attention_bwd(_mh)``, also over the window kernels): the
+    forward (at R = 128 a row of more than 64 fallback edges) against its
+    plain version, and the backward (a column of more than 64 fallback
+    in-edges, taken by the whole CTA) against ``slab_attention_bwd_ref``,
+    each within 1e-5 plus 1e-5 of the sums over every term's magnitude;
+    each launched twice, bit for bit equal."""
     indptr, indices = _hub_csr()
-    pair = attn_grad.build_attention_slab_pair(indptr, indices, block_rows=128, device=card)
-    assert pair.t_ell is None
-    assert int((pair.fwd.fb_rowptr[701] - pair.fwd.fb_rowptr[700]).cpu()) > 64
+    pair = attn_grad.build_attention_slab_pair(indptr, indices, block_rows=r_blk,
+                                               device=card)
+    if r_blk == 128:
+        assert pair.t_ell is None
+        assert int((pair.fwd.fb_rowptr[701] - pair.fwd.fb_rowptr[700]).cpu()) > 64
+        counter = attn_grad.onepass_bwd
+    else:
+        assert pair.t_ell is not None
+        assert attn_grad.backward_design(pair, f) == ("windows", 64, 256)
+        counter = attn_grad.slab_attention_bwd if heads == 1 else attn_grad.slab_attention_bwd_mh
     assert int((pair.fb_t_rowptr[301] - pair.fb_t_rowptr[300]).cpu()) > 64
     n = pair.fwd.num_rows
     x, ad, as_, g = _attn_inputs(n, heads, f, x_dtype, card, seed=14)
@@ -770,13 +887,16 @@ def test_attention_hub_row_and_column(card, heads, f, x_dtype):
         assert torch.equal(_bits(a), _bits(b))
     t = torch.randn((n, heads), generator=torch.Generator(card).manual_seed(15), device=card)
     args = (pair, x, ad, as_, m, s, t, g)
-    got = attn_grad.onepass_bwd(*args)
+    before = counter.launches
+    got = attn_grad.slab_attention_bwd_mh(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
     ref = attn_grad.slab_attention_bwd_ref(*args)
     mag = attn_grad.slab_attention_bwd_ref(pair, x.float().abs(), ad, as_, m, s, -t.abs(),
                                            g.abs())
     for a, b, c in zip(got, ref, mag):
         _assert_close_to(a, b, c)
-    for a, b in zip(got, attn_grad.onepass_bwd(*args)):
+    for a, b in zip(got, attn_grad.slab_attention_bwd_mh(*args)):
         assert torch.equal(_bits(a), _bits(b))
 
 
