@@ -96,21 +96,26 @@ Phases (any failure raises and exits non-zero):
     (R = 256 with bit planes, R = 512 with ``t_ell``); each shard's inputs
     are the whole arrays' rows with an R-row halo on each side (zeros past
     the ends), so the kernels run with nonzero offsets and real halos.
-    Every shard wrapper (rows 9-14: the band SpMM over the graph and its
-    transpose at F = 128 bf16 and F = 256 f32, the attention forward and
-    backward at GAT's two layers' shapes) against its plain version, and
-    against the whole graph's single-graph kernel on the shard's rows
-    (band edges only): within 1e-5 absolute plus 1e-5 of the same sums over
-    the terms' magnitudes; each backward launched twice, bit for bit equal;
-    every shard's backward takes the window kernels, or the phase fails.
+    Every shard wrapper (rows 9-14: the whole SpMM on each shard's table of
+    halo and remote rows, 'mean' over the graph and 'sum' over its
+    transpose, and its band-only mode, at F = 128 bf16 and F = 256 f32; the
+    attention forward and backward at GAT's two layers' shapes) against its
+    plain version, and against the whole graph's single-graph kernel on the
+    shard's rows (the whole ``slab_spmm``; band edges only for the
+    band-only mode and the attention): within 1e-5 absolute plus 1e-5 of
+    the same sums over the terms' magnitudes, a bf16 output one bf16 ulp
+    more; the SpMM and each backward launched twice, bit for bit equal;
+    every shard reads remote rows; every shard's backward takes the window
+    kernels, or the phase fails.
 15. row-sharded training at world size 1 over NCCL (``tcp://localhost``):
     ``DistFullBatchGraph`` of phase 6's graph (R = 256, then R = 512);
     GCN (bf16 activations) and ``gat4h``, 1 warm-up and 3 timed
     ``dist_full_batch_step``s each at R = 256 and GAT's at R = 512;
-    finite losses; per step 3 launches of row 9 and 3 of the CSR kernel (the
-    fallback sums) (GCN), and 1 of row 13, 1 of row 10, 2 of row 11 and 10
-    of the CSR kernel (GAT, R = 256) or 1 each of rows 13, 10, 14 and 12 and
-    10 of the CSR kernel (R = 512), no other kernel; one step of each timed
+    finite losses; per step 3 launches of row 9 (the whole SpMM: band,
+    fallback, divide and cast) and none of the CSR kernel (GCN), and 1 of
+    row 13, 1 of row 10, 2 of row 11 and 10 of the CSR kernel (the
+    attention's fallback sums) (GAT, R = 256) or 1 each of rows 13, 10, 14
+    and 12 and 10 of the CSR kernel (R = 512), no other kernel; one step of each timed
     stage by stage (GAT at both R).  Reproducibility: GCN and GAT each take one step twice
     from the same weights and inputs; losses and every gradient bit for bit
     equal (every sum of the sharded step has a fixed order).  Agreement:
@@ -121,23 +126,29 @@ Phases (any failure raises and exits non-zero):
     the parameters after the step within 1e-4 where the gradient is at least
     1e-5 (Adam's first update, lr * g / (|g| + 1e-8), turns sum-order noise
     in a small g into up to lr).
-16. row 3 at the world-1 path's calls: every ``segment_add`` of one GCN
-    step (3) and one GAT step (10), on the plans, values (bf16 or f32) and
-    widths (1 to 256) the path builds, against ``csr_spmm_ref`` on the same
-    inputs (phase 7's tolerance), launched twice more bit for bit equal, and
-    timed beside ``index_add_``.  Rows 9-14 at the world-1 path's calls:
-    each kernel against its plain version on the same inputs (the tolerance
-    of phase 14) and launched twice, bit for bit equal; then CUDA-event
-    times of kernel, plain version and, for row 9, ``torch.sparse.mm`` over
-    the shard's band CSR, with the byte and operation counts that bound
-    them (an ELL's bytes are its real entries, not its -1 padding).
+16. row 3 at the world-1 path's calls: every ``segment_add`` of one GAT
+    step (10; a GCN step makes none), on the plans, values (bf16 or f32)
+    and widths (1 to 256) the path builds, against ``csr_spmm_ref`` on the
+    same inputs (phase 7's tolerance), launched twice more bit for bit
+    equal, and timed beside ``index_add_``.  Rows 9-14 at the world-1
+    path's calls: each kernel against its plain version on the same inputs
+    (the tolerance of phase 14; row 9 on bf16 and f32 x) and launched twice,
+    bit for bit equal; then CUDA-event times of kernel, plain version and,
+    for row 9, ``torch.sparse.mm`` over the shard's whole CSR into its
+    table and the band-only mode's time, with the byte and operation counts
+    that bound them (an ELL's bytes are its real entries, not its -1
+    padding).
+    Where a sharded call's time goes: GCN layer 1's forward SpMM (whole
+    call, halo exchange, remote-row exchange, kernel) and GAT layer 0's
+    attention forward and backward.
 17. the ``kernels`` summary line (rows 1-14, then the probe, which the
     main path launches no time; rows 5-14 also carry their timed calls, the
     gap launches * (ms - bound) / calls and, for the backward rows, the
-    design each layer took; row 3's launches and numbers are the
-    sharded path's, phase 16's, beside phase 7's one-card numbers under
-    ``*_one_card``: the one-card path no longer runs it), and last the
-    ``ok`` line.
+    design each layer took; row 9 also the band-only mode's time at the same
+    calls; row 3's launches and
+    numbers are the sharded path's (the GAT step's), phase 16's, beside
+    phase 7's one-card numbers under ``*_one_card``: the one-card path no
+    longer runs it), and last the ``ok`` line.
 
 Every JSON line carries the card's name and power limit.
 """
@@ -829,8 +840,8 @@ def attn_bwd_probe(dev, emit, cuda_ms, pair, pair512=None):
 
 # rows 9-14 of the TPU-kernel table: name -> (CUDA source, TPU kernel, counter)
 SHARD_ROWS = {
-    "slab_spmm_shard": ("slab_spmm.cu", "cugraph_gnn_tpu/ops/dist_full_batch.py:178",
-                        "slab_spmm_band_shard"),
+    "slab_spmm_shard": ("slab_spmm_shard.cu", "cugraph_gnn_tpu/ops/dist_full_batch.py:178",
+                        "slab_spmm_shard"),
     "slab_attention_fwd_shard": ("slab_attn_fwd.cu",
                                  "cugraph_gnn_tpu/ops/dist_full_batch.py:585",
                                  "slab_attention_spmm_shard"),
@@ -916,9 +927,12 @@ def shard_kernels(dev, emit, world=4, n=100_000):
     from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_kernel as AK
     from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
         build_slab_graph,
+        slab_spmm,
         slab_spmm_band,
         slab_spmm_band_shard,
         slab_spmm_band_shard_ref,
+        slab_spmm_shard,
+        slab_spmm_shard_ref,
     )
 
     t0 = time.perf_counter()
@@ -930,6 +944,7 @@ def shard_kernels(dev, emit, world=4, n=100_000):
     gen = torch.Generator(device=dev).manual_seed(21)
     errs = {k: 0.0 for k in SHARD_ROWS}
     vs_whole = {k: 0.0 for k in SHARD_ROWS}
+    band_errs = {"max_abs_err": 0.0, "vs_whole_graph": 0.0}
 
     def split(r_blk):
         nb = -(-(-(-n // r_blk)) // world) * world
@@ -943,32 +958,60 @@ def shard_kernels(dev, emit, world=4, n=100_000):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    # row 9: the band of the graph and of its transpose
+    # row 9: the whole function on each shard's table (its halos and the
+    # remote rows its fallback edges read, taken from the whole x), 'mean'
+    # over the graph and 'sum' over its transpose, against its plain version
+    # and the one-card slab_spmm on the shard's rows; the band-only mode
+    # (the balanced plan's) against its plain version and the whole graph's
+    # band-only kernel
     r_blk = TF.BLOCK_ROWS
     rs, n_pad = split(r_blk)
-    fb_fraction = {}
+    fb_fraction, tail_rows = {}, {}
     for orient, (ip, ix) in {"graph": (indptr, indices),
                              "transpose": (t_indptr, t_indices)}.items():
         slab = build_slab_graph(ip, ix, block_rows=r_blk, device="cpu")
         fb_fraction[orient] = 1.0 - slab.band_fraction
+        reduce = "mean" if orient == "graph" else "sum"
         ell = DF._padded(slab.ell.numpy(), n_pad, -1)
         whole_slab = slab.to(dev)
+        tables = [DF.shard_table_graph(slab, w, rs, n_pad, world, dev) for w in range(world)]
+        tail_rows[orient] = [len(t) for _, t in tables]
         for f, dt in ((128, torch.bfloat16), (256, torch.float32)):
             x = pad(randn(n, f).to(dt), n_pad)
             whole = pad(slab_spmm_band(whole_slab, x[:n].contiguous(), torch.float32), n_pad)
+            whole_fn = pad(slab_spmm(whole_slab, x[:n].contiguous(), reduce, torch.float32),
+                           n_pad)
             for w in range(world):
+                own = slice(w * rs, (w + 1) * rs)
                 shard = DF.shard_slab(ell, None, w, rs, r_blk, dev)
                 x_ext = DF.halo_rows(x, w, rs, r_blk)
                 got = slab_spmm_band_shard(shard, x_ext, torch.float32)
                 mag = slab_spmm_band_shard_ref(shard, x_ext.float().abs(), torch.float32)
                 what = f"{orient} F={f} {dt} shard {w}"
-                errs["slab_spmm_shard"] = max(errs["slab_spmm_shard"], _close(
-                    "slab_spmm_shard", got,
+                band_errs["max_abs_err"] = max(band_errs["max_abs_err"], _close(
+                    "slab_spmm_band_shard", got,
                     slab_spmm_band_shard_ref(shard, x_ext, torch.float32), mag, what))
-                vs_whole["slab_spmm_shard"] = max(vs_whole["slab_spmm_shard"], _close(
-                    "slab_spmm_shard", got, whole[w * rs:(w + 1) * rs], mag,
-                    what + " vs the whole graph"))
-        del whole_slab, x, whole
+                band_errs["vs_whole_graph"] = max(band_errs["vs_whole_graph"], _close(
+                    "slab_spmm_band_shard", got, whole[own], mag, what + " vs the whole graph"))
+                graph, tail = tables[w]
+                parts = (x[own], x_ext[:r_blk], x_ext[-r_blk:],
+                         x[torch.as_tensor(tail, device=dev)])
+                got = slab_spmm_shard(graph, *parts, reduce, torch.float32)
+                f32 = [a.float() for a in parts]
+                mag = slab_spmm_shard_ref(graph, *[a.abs() for a in f32], reduce, torch.float32)
+                what = f"{orient} {reduce} F={f} {dt} shard {w}"
+                e = _check_sum("slab_spmm_shard", got,
+                               slab_spmm_shard_ref(graph, *f32, reduce, torch.float32), mag, what)
+                e_w = _check_sum("slab_spmm_shard", got, whole_fn[own].float(), mag,
+                                 what + " vs the whole graph")
+                if e is not None:
+                    errs["slab_spmm_shard"] = max(errs["slab_spmm_shard"], e)
+                    vs_whole["slab_spmm_shard"] = max(vs_whole["slab_spmm_shard"], e_w)
+                _same_bits("slab_spmm_shard", got,
+                           slab_spmm_shard(graph, *parts, reduce, torch.float32), what)
+        del whole_slab, x, whole, whole_fn, tables
+    if not all(min(v) > 0 for v in tail_rows.values()):
+        raise AssertionError(f"the 4-rank shards read no remote rows: {tail_rows}")
 
     # rows 10-14: the attention pair at R = 256 (bit planes) and 512 (t_ell)
     layers = {"layer0": (4, 64), "layer1": (1, 47)}
@@ -1040,6 +1083,7 @@ def shard_kernels(dev, emit, world=4, n=100_000):
         torch.cuda.empty_cache()
     emit({"phase": "shard_kernel_check", "world": world, "nodes": n,
           "edges": g.num_edges, "fallback_fraction": fb_fraction,
+          "remote_rows_per_shard": tail_rows, "band_only_shard": band_errs,
           "max_abs_err": errs, "max_abs_diff_from_whole_graph_kernel": vs_whole,
           "backward_design": designs, "seconds": time.perf_counter() - t0,
           "tolerance": "1e-5 abs + 1e-5 x the terms' magnitude sum"})
@@ -1073,7 +1117,8 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
     from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_kernel as AK
     from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
         slab_spmm_band_shard,
-        slab_spmm_band_shard_ref,
+        slab_spmm_shard,
+        slab_spmm_shard_ref,
     )
     from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import csr_spmm, csr_spmm_ref
     from cugraph_gnn_tpu_torch.store import dist_array as DA
@@ -1160,12 +1205,13 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
 
         # -- 15. GCN (bf16), gat4h at R = 256 and R = 512 -------------------
         xb = x32.to(torch.bfloat16)
-        # the fallback sums go through the CSR kernel (store/dist_array.py
-        # segment_add): one a SpMM; two a forward attention call (out, s)
-        # and three a backward one (dx, dalpha_src, dalpha_dst's scatter-add)
+        # a SpMM is one launch of the shard kernel (band, fallback, divide,
+        # cast); the attention's fallback sums go through the CSR kernel
+        # (store/dist_array.py segment_add): two a forward call (out, s) and
+        # three a backward one (dx, dalpha_src, dalpha_dst's scatter-add)
         model, opt = train(lambda: GCN(TF.FEAT_DIM, TF.HIDDEN, TF.CLASSES,
                                        dtype=torch.bfloat16, device=dev),
-                           dfbg, xb, 4, {"slab_spmm_band_shard": 3, "csr_spmm": 3}, "gcn")
+                           dfbg, xb, 4, {"slab_spmm_shard": 3}, "gcn")
         emit({"phase": "dist_full_batch_stages", "model": "gcn",
               "ms": _staged_step(model, opt, xb, dfbg, labels, F, valid=valid)})
         del model, opt
@@ -1233,10 +1279,10 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
         def nbytes(*ts):
             return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
-        # row 3 at its world-1 calls: every segment_add of one GCN step and
-        # one GAT step (R = 256), on the plans, values and widths the path
-        # builds, held against its plain version on the same inputs, launched
-        # twice more bit for bit, and timed beside index_add_
+        # row 3 at its world-1 calls: every segment_add of one GAT step (R =
+        # 256; a GCN step makes none), on the plans, values and widths the
+        # path builds, held against its plain version on the same inputs,
+        # launched twice more bit for bit, and timed beside index_add_
         seg_rows = []
         real_add = DA.segment_add
 
@@ -1285,9 +1331,7 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
 
         DF.segment_add = DA.segment_add = held
         try:
-            for seg_tag, make, xr in (("gcn", lambda: GCN(TF.FEAT_DIM, TF.HIDDEN, TF.CLASSES,
-                                                          dtype=torch.bfloat16, device=dev),
-                                       xb), ("gat", gat, x32)):
+            for seg_tag, make, xr in (("gat", gat, x32),):
                 torch.manual_seed(0)
                 mdl = make()
                 TF.dist_full_batch_step(mdl, torch.optim.Adam(mdl.parameters(), lr=TF.LR),
@@ -1296,7 +1340,7 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
         finally:
             DF.segment_add = DA.segment_add = real_add
         torch.cuda.synchronize()
-        if [r["step"] for r in seg_rows] != ["gcn"] * 3 + ["gat"] * 10:
+        if [r["step"] for r in seg_rows] != ["gat"] * 10:
             raise AssertionError(f"world-1 segment_add calls: "
                                  f"{[(r['step'], r['width']) for r in seg_rows]}")
         torch.cuda.empty_cache()
@@ -1306,36 +1350,65 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
         gen = torch.Generator(device=dev).manual_seed(31)
         r_blk, rs = dfbg._r_blk, dfbg.rows_per_rank
         xs = {128: x32, 256: torch.randn((rs, 256), generator=gen, device=dev)}
+        # row 9 at a GCN step's three calls ('sum', bf16 x): the whole
+        # function on the table the path builds (world 1: zero halos, no
+        # remote rows), held against its plain version (also on float32 x,
+        # for a float32 error) and launched twice bit for bit; timed beside
+        # the band-only mode and torch.sparse.mm over the shard's whole CSR
         for orient, f in (("graph", 128), ("graph", 256), ("transpose", 256)):
             band = dfbg._spmm[orient == "transpose"].band
-            x_ext = DF._halo_exchange(xs[f].to(torch.bfloat16), r_blk, mesh)
+            what = f"world 1 {orient} F={f}"
+            for dt in (torch.float32, torch.bfloat16):
+                x = xs[f].to(dt)
+                prev, nxt = DF._halo_pair(x, r_blk, mesh)
+                parts = (x, prev, nxt, x.new_zeros((0, f)))
+                got = slab_spmm_shard(band, *parts, "sum", torch.float32)
+                f32 = [a.float() for a in parts]
+                e = _check_sum("slab_spmm_shard", got,
+                               slab_spmm_shard_ref(band, *f32, "sum", torch.float32),
+                               slab_spmm_shard_ref(band, *[a.abs() for a in f32], "sum",
+                                                   torch.float32), f"{what} {dt}")
+                if e is not None:
+                    full_errs["slab_spmm_shard"] = max(full_errs["slab_spmm_shard"], e)
+                _same_bits("slab_spmm_shard", got,
+                           slab_spmm_shard(band, *parts, "sum", torch.float32), what)
+                del got
+            table = torch.cat(parts)
+            # the shard's whole CSR over the table: band and fallback edges
             ell = band.ell.long()
             ok = ell >= 0
-            cols = ((torch.arange(rs, device=dev) // r_blk) * r_blk)[:, None] + ell
+            rows_b = torch.arange(rs, device=dev)[:, None].expand_as(ell)
+            cols_b = (rows_b // r_blk) * r_blk + ell
+            x_rows = table.shape[0]
+            key = torch.cat([rows_b[ok] * x_rows + cols_b[ok],
+                             band.fb_dst.long() * x_rows + band.fb_src.long()]).sort().values
             crow = torch.zeros(rs + 1, dtype=torch.int64, device=dev)
-            crow[1:] = ok.sum(1).cumsum(0)
-            a_band = torch.sparse_csr_tensor(crow, cols[ok], torch.ones(int(crow[-1]),
-                                             dtype=torch.bfloat16, device=dev),
-                                             (rs, x_ext.shape[0]))
-            full_errs["slab_spmm_shard"] = max(full_errs["slab_spmm_shard"], _close(
-                "slab_spmm_shard", slab_spmm_band_shard(band, x_ext, torch.float32),
-                slab_spmm_band_shard_ref(band, x_ext, torch.float32),
-                slab_spmm_band_shard_ref(band, x_ext.float().abs(), torch.float32),
-                f"world 1 {orient} F={f} bf16"))
-            # the band's real entries (the ELL's -1 padding is not needed)
-            nb = 4 * int(crow[-1]) + nbytes(x_ext) + rs * f * 4
-            b_ms, b_by = bound(nb, int(crow[-1]) * f)
-            row = {"kernel": "slab_spmm_shard", "orientation": orient, "f": f,
-                   "dtype": "bfloat16", "band_edges": int(crow[-1]),
-                   "ms": cuda_ms(lambda: slab_spmm_band_shard(band, x_ext, torch.float32)),
-                   "plain_ms": cuda_ms(lambda: slab_spmm_band_shard_ref(band, x_ext,
-                                                                        torch.float32),
-                                       iters=5),
-                   "library_ms": cuda_ms(lambda: torch.sparse.mm(a_band, x_ext)),
+            crow[1:] = torch.bincount(key // x_rows, minlength=rs).cumsum(0)
+            a_all = torch.sparse_csr_tensor(crow, key % x_rows,
+                                            torch.ones(key.numel(), dtype=x.dtype, device=dev),
+                                            (rs, x_rows))
+            nnz_band, n_fb = int(ok.sum()), int(band.fb_src.numel())
+            del key, rows_b, cols_b, ok, ell
+            # the ELL's real entries, X once, the fallback row pointer and ids,
+            # the output once in x's type ('sum': no degrees)
+            el = x.element_size()
+            nb = (4 * nnz_band + x_rows * f * el + band.fb_rowptr.numel() * 8 + 4 * n_fb
+                  + rs * f * el)
+            b_ms, b_by = bound(nb, (nnz_band + n_fb) * f)
+            x_ext = torch.cat(parts[1:2] + parts[:1] + parts[2:3])
+            row = {"kernel": "slab_spmm_shard", "orientation": orient, "f": f, "reduce": "sum",
+                   "dtype": "bfloat16", "band_edges": nnz_band, "fallback_edges": n_fb,
+                   "remote_rows": 0,
+                   "ms": cuda_ms(lambda: slab_spmm_shard(band, *parts, "sum", torch.float32)),
+                   "band_only_ms": cuda_ms(lambda: slab_spmm_band_shard(band, x_ext,
+                                                                        torch.float32)),
+                   "plain_ms": cuda_ms(lambda: slab_spmm_shard_ref(band, *parts, "sum",
+                                                                   torch.float32), iters=5),
+                   "library_ms": cuda_ms(lambda: torch.sparse.mm(a_all, table)),
                    "bytes": nb, "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
             timing["slab_spmm_shard"].append(row)
-            del a_band, x_ext
+            del a_all, table, x_ext, parts, x, prev, nxt, f32
         layers = {"layer0": (TF.HEADS, TF.HIDDEN // TF.HEADS), "layer1": (1, TF.CLASSES)}
         for r_blk, g in ((256, dfbg), (512, dfbg512)):
             pair = g._attn_structs()["pair"]
@@ -1419,19 +1492,17 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
         # 4, F = 64) at R = 256
         st = dfbg._spmm[False]
         xb = xs[256].to(torch.bfloat16)
-        x_ext = DF._halo_exchange(xb, TF.BLOCK_ROWS, mesh)
-        rows = DF._dist_gather_shard(xb, st.fb_src, book=dfbg._book, mesh=mesh)
-        acc = torch.zeros((dfbg.rows_per_rank, 256), device=dev)
+        prev, nxt = DF._halo_pair(xb, TF.BLOCK_ROWS, mesh)
+        empty = xb.new_zeros((0, 256))
         emit({"phase": "dist_call_breakdown", "call": "gcn layer1 spmm forward",
-              "whole_ms": cuda_ms(lambda: dfbg._spmm_sharded(xb, transpose=False,
+              "whole_ms": cuda_ms(lambda: dfbg._spmm_sharded(xb, transpose=False, reduce="sum",
                                                              compute_dtype=torch.float32)),
-              "halo_exchange_ms": cuda_ms(lambda: DF._halo_exchange(xb, TF.BLOCK_ROWS, mesh)),
-              "band_kernel_ms": cuda_ms(lambda: slab_spmm_band_shard(st.band, x_ext,
-                                                                     torch.float32)),
-              "fallback_gather_ms": cuda_ms(lambda: DF._dist_gather_shard(
-                  xb, st.fb_src, book=dfbg._book, mesh=mesh)),
-              "fallback_segment_add_ms": cuda_ms(lambda: DF.segment_add(acc, st.fb_plan, rows))})
-        del x_ext, rows, acc
+              "halo_exchange_ms": cuda_ms(lambda: DF._halo_pair(xb, TF.BLOCK_ROWS, mesh)),
+              "remote_exchange_ms": (0.0 if st.route is None else cuda_ms(
+                  lambda: DF._dist_gather_planned(xb, st.route, mesh=mesh))),
+              "kernel_ms": cuda_ms(lambda: slab_spmm_shard(st.band, xb, prev, nxt, empty, "sum",
+                                                           torch.float32))})
+        del prev, nxt, empty
         a_st = dfbg._attn_structs()
         rs = dfbg.rows_per_rank
         x, gg = (torch.randn((rs, 4, 64), generator=gen, device=dev) for _ in range(2))
@@ -1519,19 +1590,23 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
     def kernel_row(name):
         source, replaces, counter = SHARD_ROWS[name]
         rows = timing[name]
-        return {"name": name, "route": "cuda",
-                "source": "cugraph_gnn_tpu_torch/csrc/" + source, "replaces": replaces,
-                "launches": totals[counter],
-                "max_abs_err": max(errs[name], full_errs[name]),
-                "max_abs_err_4_ranks": errs[name], "max_abs_err_world_1": full_errs[name],
-                **_summed(rows, totals[counter]),
-                "library_ms": (None if rows[0]["library_ms"] is None
-                               else sum(r["library_ms"] for r in rows))}
+        out = {"name": name, "route": "cuda",
+               "source": "cugraph_gnn_tpu_torch/csrc/" + source, "replaces": replaces,
+               "launches": totals[counter],
+               "max_abs_err": max(errs[name], full_errs[name]),
+               "max_abs_err_4_ranks": errs[name], "max_abs_err_world_1": full_errs[name],
+               **_summed(rows, totals[counter]),
+               "library_ms": (None if rows[0]["library_ms"] is None
+                              else sum(r["library_ms"] for r in rows))}
+        if "band_only_ms" in rows[0]:
+            out["band_only_ms"] = sum(r["band_only_ms"] for r in rows)
+        return out
 
-    # row 9: one GCN step's three calls added; rows 10 and 13: the R = 256
-    # step's call each; row 11: its two calls; rows 12 and 14: the R = 512
-    # step's call each.  Also the CSR kernel's launches on this path and its
-    # numbers at one GCN step's and one GAT step's calls, added.
+    # row 9: one GCN step's three calls added (the whole function; beside it
+    # the band-only mode's time);
+    # rows 10 and 13: the R = 256 step's call each; row 11: its two calls;
+    # rows 12 and 14: the R = 512 step's call each.  Also the CSR kernel's
+    # launches on this path and its numbers at one GAT step's calls, added.
     csr = {"launches": totals["csr_spmm"], "calls": len(seg_rows),
            "max_abs_err": max(r["max_abs_err"] for r in seg_rows),
            **{k: sum(r[k] for r in seg_rows)
@@ -1666,6 +1741,7 @@ def main() -> None:
         slab_spmm,
         slab_spmm_band,
         slab_spmm_band_shard,
+        slab_spmm_shard,
     )
     from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import csr_spmm
 
@@ -1690,8 +1766,8 @@ def main() -> None:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build(["gather_rows", "uniform_sample", "slab_spmm", "csr_spmm",
-                          "slab_attn_fwd", "slab_attn_bwd"])
+    built = _build.build(["gather_rows", "uniform_sample", "slab_spmm", "slab_spmm_shard",
+                          "csr_spmm", "slab_attn_fwd", "slab_attn_bwd"])
     wall = time.perf_counter() - t0
     for name, b in built.items():
         print(f"build {name}: {b.seconds:.1f} s -> {b.path.name}")
@@ -1871,7 +1947,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     counters = (gather_rows, fused_uniform_sample, slab_spmm, slab_spmm_band, csr_spmm,
                 slab_attention_spmm_mh, AG.onepass_bwd, AG.slab_attention_bwd,
-                AG.slab_attention_bwd_mh, slab_spmm_band_shard,
+                AG.slab_attention_bwd_mh, slab_spmm_shard, slab_spmm_band_shard,
                 AK.slab_attention_spmm_shard, AG.onepass_bwd_shard,
                 AG.slab_attention_bwd_shard, AK.slab_attention_spmm_mh_shard,
                 AG.slab_attention_bwd_mh_shard, AG.onepass_bwd_probe)

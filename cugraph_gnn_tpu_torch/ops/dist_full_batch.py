@@ -7,14 +7,23 @@ for its band edges, so each rank gets ONE R-row halo from each neighbour
 (``_halo_exchange``: ``batch_isend_irecv`` with ranks w - 1 and w + 1; the end
 ranks get zeros) and runs the single-graph kernels on its rows with a column
 offset of R (the ``*_shard`` wrappers).  The fallback edges (off-band,
-duplicate, past ``max_k``) stay outside the kernels, as in the JAX package:
-bucketed on the host by destination rank (or, when those counts are skewed,
-in even chunks with global destination ids, ``_plan_fallback``), their
-source rows fetched by the store's distributed gather
-(``store/dist_array.py``) and summed in a fixed order (``segment_add``: the
-CSR SpMM kernel over a destination-sorted plan built once per graph), or
-returned to their owners by a distributed scatter-add, so that two runs of a
-step agree bit for bit.
+duplicate, past ``max_k``) are bucketed on the host by destination rank (or,
+when those counts are skewed, in even chunks with global destination ids,
+``_plan_fallback``).  Bucketed, the SpMM's are planned once per graph and
+orientation (``plan_fallback_table``): each rank's fallback sources become
+rows of its table X = [previous rank's last R rows | its own rows | next
+rank's first R rows | the U remote rows they need, one each, grouped by
+owner], a CSR by local row into X in a fixed order; the remote rows' route
+is exchanged once (``store/dist_array.py::gather_plan``).  A call then
+exchanges the halos and the remote rows (one all-to-all of rows, nothing
+read back to the host) and runs the whole function, band, fallback, 'mean'
+and cast, in one launch (``slab_spmm_shard``), as on one card.  In the
+balanced plan the band kernel runs alone and the fallback rows, fetched by
+the store's distributed gather, return to their owners by a distributed
+scatter-add.  The attention's fallback edges stay outside its kernels, as
+in the JAX package, summed in a fixed order (``segment_add``: the CSR SpMM
+kernel over a destination-sorted plan built once per graph), so that two
+runs of a step agree bit for bit.
 
 Gradients: d/dx (A x) = A^T g, and the transpose of a banded graph is banded
 with the same bandwidth, so ``spmm``'s backward is the same sharded routine
@@ -36,7 +45,7 @@ model's parameters are replicated (``train_full.dist_full_batch_step``).
 from __future__ import annotations
 
 import time
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,14 +63,17 @@ from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
     build_slab_graph,
     ell_lengths,
     slab_spmm_band_shard,
+    slab_spmm_shard,
 )
 from cugraph_gnn_tpu_torch.ops.reorder import reorder_csr
 from cugraph_gnn_tpu_torch.parallel.mesh import Mesh
-from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import PaddedCSR
 from cugraph_gnn_tpu_torch.store.dist_array import (
+    GatherPlan,
     ScatterAddPlan,
+    _dist_gather_planned,
     _dist_gather_shard,
     _dist_scatter_add,
+    gather_plan,
     put_global,
     scatter_add_plan,
     segment_add,
@@ -155,9 +167,9 @@ def _p2p(mesh: Mesh, sends, recvs) -> None:
             req.wait()
 
 
-def _halo_exchange(x_local: torch.Tensor, r_blk: int, mesh: Mesh) -> torch.Tensor:
-    """x_ext = [previous rank's last R rows | x_local | next rank's first R
-    rows]; the end ranks get zeros for the missing side."""
+def _halo_pair(x_local: torch.Tensor, r_blk: int, mesh: Mesh):
+    """(previous rank's last R rows, next rank's first R rows) of x; the end
+    ranks get zeros for the missing side."""
     w, world = mesh.rank, mesh.world
     prev = x_local.new_zeros((r_blk,) + tuple(x_local.shape[1:]))
     nxt = torch.zeros_like(prev)
@@ -169,6 +181,13 @@ def _halo_exchange(x_local: torch.Tensor, r_blk: int, mesh: Mesh) -> torch.Tenso
         sends.append((x_local[:r_blk].contiguous(), w - 1))
         recvs.append((prev, w - 1))
     _p2p(mesh, sends, recvs)
+    return prev, nxt
+
+
+def _halo_exchange(x_local: torch.Tensor, r_blk: int, mesh: Mesh) -> torch.Tensor:
+    """x_ext = [previous rank's last R rows | x_local | next rank's first R
+    rows]; the end ranks get zeros for the missing side."""
+    prev, nxt = _halo_pair(x_local, r_blk, mesh)
     return torch.cat([prev, x_local, nxt])
 
 
@@ -261,38 +280,81 @@ def shard_attention_pair(pair: AG.AttnSlabPair, w: int, rs: int, n_pad: int,
                            t_rows=torch.as_tensor(t_rows, device=device))
 
 
-def _shard_spmm_body(band: SlabGraph, x_local, fb_src, fb_dst, fb_w=None, *, mesh: Mesh,
-                     book: PartitionBook, compute_dtype, fb_balanced: bool, has_fb: bool,
-                     fb_plan: Union[PaddedCSR, ScatterAddPlan, None] = None):
-    """One rank's sum aggregation, float32 (rs, F): halo exchange, the band
-    kernel over the shard, then the fallback edges: their source rows by
-    the distributed gather, summed into the local rows (``fb_dst`` local)
-    or, balanced, returned to their owners by a distributed scatter-add
-    (``fb_dst`` global), in the order of ``fb_plan`` (``segment_plan(fb_dst,
-    rs, fb_w)``, balanced ``scatter_add_plan(fb_dst, rs)``; built here when
-    not given).  ``has_fb``: whether the graph has fallback edges at all
-    (every rank takes part in the exchange, with or without edges of its
-    own)."""
-    x_ext = _halo_exchange(x_local, band.block_rows, mesh)
-    out = slab_spmm_band_shard(band, x_ext, compute_dtype)
-    if has_fb:
-        rows = _dist_gather_shard(x_local, fb_src, book=book, mesh=mesh, fill=0)
-        rs = out.shape[0]
-        if fb_balanced:
-            rows = rows.float()
-            if fb_w is not None:
-                rows = rows * fb_w[:, None]
-            plan = fb_plan if fb_plan is not None else scatter_add_plan(fb_dst, rs, book=book,
-                                                                        mesh=mesh)
-            out = _dist_scatter_add(out, rows, plan, mesh=mesh)
-        else:
-            segment_add(out, fb_plan if fb_plan is not None else segment_plan(fb_dst, rs, fb_w),
-                        rows)
-    return out
+class FallbackTable(NamedTuple):
+    """One rank's bucketed fallback edges planned against its table X =
+    [previous rank's last R rows | its rs rows | next rank's first R rows |
+    tail], host arrays."""
+
+    rowptr: np.ndarray        # (rs + 1,) int64: the slots of local row r
+    x_ids: np.ndarray         # (E,) int32: each slot's row of X
+    dst: np.ndarray           # (E,) int32: each slot's local row
+    weights: Optional[np.ndarray]   # (E,) float32 in slot order, or None
+    tail: np.ndarray          # (U,) int64: the tail's global rows, sorted
+
+
+def plan_fallback_table(fb_src, fb_dst, fb_w=None, *, rank: int, rows_per_rank: int,
+                        block_rows: int) -> FallbackTable:
+    """Plan rank ``rank``'s fallback edges (global sources ``fb_src``, local
+    destinations ``fb_dst`` in [0, rows_per_rank), optional weights; other
+    slots dropped) as a CSR by local row into its table X: a source within
+    the halo-extended rows [rank*rs - R, (rank+1)*rs + R) is its row there,
+    ``src - rank*rs + R``; any other source is a tail row, one for each
+    distinct remote source, the tail sorted (so grouped by owner, in rank
+    order) after the rs + 2R halo-extended rows.  A row's slots keep the
+    order of ``fb_dst`` (a stable sort, ``segment_plan``'s order)."""
+    rs, r_blk = int(rows_per_rank), int(block_rows)
+    src = np.asarray(fb_src, np.int64)
+    dst = np.asarray(fb_dst, np.int64)
+    keep = (src >= 0) & (dst >= 0) & (dst < rs)
+    order = np.nonzero(keep)[0][np.argsort(dst[keep], kind="stable")]
+    src, dst = src[order], dst[order]
+    lo = rank * rs - r_blk
+    near = (src >= lo) & (src < lo + rs + 2 * r_blk)
+    tail = np.unique(src[~near])
+    x_ids = np.where(near, src - lo, rs + 2 * r_blk + np.searchsorted(tail, src))
+    return FallbackTable(
+        rowptr=np.searchsorted(dst, np.arange(rs + 1)).astype(np.int64),
+        x_ids=x_ids.astype(np.int32), dst=dst.astype(np.int32),
+        weights=None if fb_w is None else np.asarray(fb_w, np.float32)[order],
+        tail=tail)
+
+
+def with_table(band: SlabGraph, table: FallbackTable, degrees, device) -> SlabGraph:
+    """A shard's band (``shard_slab``) with its planned fallback edges and
+    its degrees: the input of ``slab_spmm_shard``."""
+    def t(a):
+        return None if a is None else torch.as_tensor(a, device=device)
+
+    return band._replace(fb_src=t(table.x_ids), fb_dst=t(table.dst), fb_w=t(table.weights),
+                         fb_rowptr=t(table.rowptr),
+                         degrees=t(np.asarray(degrees, np.int32)))
+
+
+def shard_table_graph(slab: SlabGraph, w: int, rs: int, n_pad: int, world: int, device):
+    """Rank w's input of ``slab_spmm_shard`` for a whole graph's host slab,
+    with no process group (the bucketed plan, as ``DistFullBatchGraph``
+    builds it when the fallback counts are even): (SlabGraph, the tail's
+    global rows)."""
+    fb_w = None if slab.fb_w is None else slab.fb_w.numpy()
+    planned = _bucket_fallback(slab.fb_src.numpy(), slab.fb_dst.numpy(), rs, world, fb_w=fb_w)
+    cap = len(planned[0]) // world
+    mine = [a[w * cap:(w + 1) * cap] for a in planned]
+    table = plan_fallback_table(*mine, rank=w, rows_per_rank=rs,
+                                block_rows=slab.block_rows)
+    band = shard_slab(_padded(slab.ell.numpy(), n_pad, -1),
+                      None if slab.ell_w is None else _padded(slab.ell_w.numpy(), n_pad, 0),
+                      w, rs, slab.block_rows, device)
+    deg = _padded(slab.degrees.numpy(), n_pad, 0)[w * rs:(w + 1) * rs]
+    return with_table(band, table, deg, device), table.tail
 
 
 class _ShardSpmm(NamedTuple):
-    """One orientation's SpMM structures on this rank."""
+    """One orientation's SpMM structures on this rank: the shard's band
+    (with, bucketed, its fallback CSR into the table and its degrees), the
+    bucketed fallback edges as planned (global sources; local destinations,
+    or global ones when balanced), and the route of the table's remote rows
+    (None at world 1 or without fallback edges) or the balanced plan's
+    scatter-add."""
 
     band: SlabGraph
     fb_src: torch.Tensor
@@ -300,22 +362,49 @@ class _ShardSpmm(NamedTuple):
     fb_w: Optional[torch.Tensor]
     balanced: bool
     has_fb: bool
-    fb_plan: Union[PaddedCSR, ScatterAddPlan]   # the fallback sums' order
+    route: Optional[GatherPlan]
+    scatter: Optional[ScatterAddPlan]
+
+
+def _shard_spmm_body(st: _ShardSpmm, x_local, *, reduce: str, compute_dtype, mesh: Mesh,
+                     book: PartitionBook):
+    """One rank's sum/mean aggregation, in x's dtype (rs, F).  Bucketed:
+    the halo exchange and, at world > 1, one all-to-all of the table's
+    remote rows, then ``slab_spmm_shard`` (band, fallback, divide, cast in
+    one launch).  Balanced: the band kernel over the halo-extended x, the
+    fallback rows by the distributed gather, returned to their owners by the
+    distributed scatter-add, then the divide and the cast.  Every rank calls
+    it together (with or without fallback edges of its own)."""
+    r_blk = st.band.block_rows
+    if not st.balanced:
+        prev, nxt = _halo_pair(x_local, r_blk, mesh)
+        tail = (x_local.new_zeros((0, x_local.shape[1])) if st.route is None
+                else _dist_gather_planned(x_local, st.route, mesh=mesh))
+        return slab_spmm_shard(st.band, x_local, prev, nxt, tail, reduce, compute_dtype)
+    out = slab_spmm_band_shard(st.band, _halo_exchange(x_local, r_blk, mesh), compute_dtype)
+    if st.has_fb:
+        rows = _dist_gather_shard(x_local, st.fb_src, book=book, mesh=mesh, fill=0).float()
+        if st.fb_w is not None:
+            rows = rows * st.fb_w[:, None]
+        plan = st.scatter if st.scatter is not None else scatter_add_plan(
+            st.fb_dst, out.shape[0], book=book, mesh=mesh)
+        out = _dist_scatter_add(out, rows, plan, mesh=mesh)
+    if reduce == "mean":
+        out = out / st.band.degrees.clamp(min=1)[:, None].to(out.dtype)
+    return out.to(x_local.dtype)
 
 
 class _DistSpmm(torch.autograd.Function):
-    """Forward: the sharded SpMM, 'mean' divided by max(degree, 1), cast to
-    x's dtype.  Backward: g / degree for 'mean', then the sharded SpMM over
-    the transposed structures, as ``FullBatchGraph``'s."""
+    """Forward: the sharded SpMM ('mean' divided by max(degree, 1)) in x's
+    dtype.  Backward: g / degree for 'mean', then the sharded 'sum' over the
+    transposed structures, as ``FullBatchGraph``'s."""
 
     @staticmethod
     def forward(ctx, x, graph, reduce, compute_dtype):
         ctx.graph, ctx.reduce, ctx.compute_dtype = graph, reduce, compute_dtype
         ctx.x_dtype = x.dtype
-        out = graph._spmm_sharded(x, transpose=False, compute_dtype=compute_dtype)
-        if reduce == "mean":
-            out = out / graph.degrees.clamp(min=1)[:, None].to(out.dtype)
-        return out.to(x.dtype)
+        return graph._spmm_sharded(x, transpose=False, reduce=reduce,
+                                   compute_dtype=compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -323,7 +412,8 @@ class _DistSpmm(torch.autograd.Function):
         g = g.contiguous()
         if ctx.reduce == "mean":
             g = g / graph.degrees.clamp(min=1)[:, None].to(g.dtype)
-        gx = graph._spmm_sharded(g, transpose=True, compute_dtype=ctx.compute_dtype)
+        gx = graph._spmm_sharded(g, transpose=True, reduce="sum",
+                                 compute_dtype=ctx.compute_dtype)
         return gx.to(ctx.x_dtype), None, None, None
 
 
@@ -428,15 +518,37 @@ class DistFullBatchGraph:
 
     # -- placement ---------------------------------------------------------
 
-    def _local_edges(self, *arrays) -> Tuple[torch.Tensor, ...]:
+    def _local_np(self, *arrays):
         """This rank's slice of planned fallback arrays ((world * cap,)
-        each), without its -1 padding, on its device (ids int64)."""
+        each), without its -1 padding (host arrays)."""
         cap = len(arrays[0]) // self._world
         sl = slice(self.mesh.rank * cap, (self.mesh.rank + 1) * cap)
         keep = (arrays[0][sl] >= 0) & (arrays[1][sl] >= 0)
-        return tuple(torch.as_tensor(a[sl][keep].astype(np.int64 if a.dtype.kind == "i"
-                                                        else np.float32),
-                                     device=self.mesh.device) for a in arrays)
+        return tuple(a[sl][keep] for a in arrays)
+
+    def _local_edges(self, *arrays) -> Tuple[torch.Tensor, ...]:
+        """:meth:`_local_np` on this rank's device (ids int64)."""
+        return tuple(torch.as_tensor(a.astype(np.int64 if a.dtype.kind == "i" else np.float32),
+                                     device=self.mesh.device)
+                     for a in self._local_np(*arrays))
+
+    def _table_structs(self, band: SlabGraph, src, dst, w, degrees,
+                       has_fb: bool) -> _ShardSpmm:
+        """The bucketed plan of this rank's fallback edges (host arrays:
+        global sources, local destinations, weights or None); the remote
+        rows' route is exchanged here (every rank calls it together)."""
+        table = plan_fallback_table(src, dst, w, rank=self.mesh.rank, rows_per_rank=self._rs,
+                                    block_rows=self._r_blk)
+        dev = self.mesh.device
+        route = None
+        if self._world > 1 and has_fb:
+            route = gather_plan(torch.as_tensor(table.tail, device=dev), book=self._book,
+                                mesh=self.mesh)
+        return _ShardSpmm(band=with_table(band, table, degrees, dev),
+                          fb_src=torch.as_tensor(np.asarray(src, np.int64), device=dev),
+                          fb_dst=torch.as_tensor(np.asarray(dst, np.int64), device=dev),
+                          fb_w=None if w is None else torch.as_tensor(w, device=dev),
+                          balanced=False, has_fb=has_fb, route=route, scatter=None)
 
     def _spmm_structs(self, slab: SlabGraph) -> _ShardSpmm:
         ell = _padded(slab.ell.numpy(), self._n_pad, -1)
@@ -444,15 +556,19 @@ class DistFullBatchGraph:
         fb_w = None if slab.fb_w is None else slab.fb_w.numpy()
         *planned, balanced = _plan_fallback(slab.fb_src.numpy(), slab.fb_dst.numpy(),
                                             self._rs, self._world, fb_w=fb_w)
+        rank, rs = self.mesh.rank, self._rs
+        band = shard_slab(ell, ell_w, rank, rs, self._r_blk, self.mesh.device)
+        deg = _padded(slab.degrees.numpy(), self._n_pad, 0)[rank * rs:(rank + 1) * rs]
+        has_fb = len(planned[0]) > 0
+        if not balanced:
+            src, dst, *w = self._local_np(*planned)
+            return self._table_structs(band, src, dst, w[0] if w else None, deg, has_fb)
         fb = self._local_edges(*planned)
-        fb_w = fb[2] if len(fb) > 2 else None
-        return _ShardSpmm(band=shard_slab(ell, ell_w, self.mesh.rank, self._rs,
-                                          self._r_blk, self.mesh.device),
-                          fb_src=fb[0], fb_dst=fb[1], fb_w=fb_w,
-                          balanced=bool(balanced), has_fb=len(planned[0]) > 0,
-                          fb_plan=(scatter_add_plan(fb[1], self._rs, book=self._book,
-                                                    mesh=self.mesh) if balanced
-                                   else segment_plan(fb[1], self._rs, fb_w)))
+        deg = torch.as_tensor(deg, device=self.mesh.device)
+        return _ShardSpmm(band=band._replace(degrees=deg),
+                          fb_src=fb[0], fb_dst=fb[1], fb_w=fb[2] if len(fb) > 2 else None,
+                          balanced=True, has_fb=has_fb, route=None,
+                          scatter=scatter_add_plan(fb[1], rs, book=self._book, mesh=self.mesh))
 
     @property
     def n_pad(self) -> int:
@@ -503,19 +619,22 @@ class DistFullBatchGraph:
 
     def spmm_with_arrays(self, x, ell, fb_s, fb_d, *, compute_dtype=torch.float32):
         """Forward-only, unweighted sum aggregation with this graph's
-        structure arrays passed explicitly (see :meth:`spmm_arrays`)."""
-        return self._spmm_sharded(x, transpose=False, compute_dtype=compute_dtype,
-                                  arrays=(ell, fb_s, fb_d))
+        structure arrays passed explicitly (see :meth:`spmm_arrays`), in x's
+        dtype: its fallback plan is built from them here, by the route and in
+        the order of :meth:`spmm` (every rank calls it together)."""
+        st = self._spmm[False]
+        band = st.band.with_ell(ell)
+        if st.balanced:
+            st = st._replace(band=band, fb_src=fb_s, fb_dst=fb_d, fb_w=None, scatter=None)
+        else:
+            st = self._table_structs(band, fb_s.cpu().numpy(), fb_d.cpu().numpy(), None,
+                                     st.band.degrees.cpu().numpy(), st.has_fb)
+        return _shard_spmm_body(st, x.contiguous(), reduce="sum", compute_dtype=compute_dtype,
+                                mesh=self.mesh, book=self._book)
 
-    def _spmm_sharded(self, x, *, transpose: bool, compute_dtype, arrays=None):
-        st = self._spmm[transpose]
-        band, fb_s, fb_d, fb_w, plan = st.band, st.fb_src, st.fb_dst, st.fb_w, st.fb_plan
-        if arrays is not None:
-            band = band.with_ell(arrays[0])
-            fb_s, fb_d, fb_w, plan = arrays[1], arrays[2], None, None
-        return _shard_spmm_body(band, x.contiguous(), fb_s, fb_d, fb_w, mesh=self.mesh,
-                                book=self._book, compute_dtype=compute_dtype,
-                                fb_balanced=st.balanced, has_fb=st.has_fb, fb_plan=plan)
+    def _spmm_sharded(self, x, *, transpose: bool, reduce: str, compute_dtype):
+        return _shard_spmm_body(self._spmm[transpose], x.contiguous(), reduce=reduce,
+                                compute_dtype=compute_dtype, mesh=self.mesh, book=self._book)
 
     def spmm(self, x, reduce: str = "mean", *, compute_dtype=torch.float32):
         """out[r] = reduce over row r's in-neighbors of w * x[c]; x and out

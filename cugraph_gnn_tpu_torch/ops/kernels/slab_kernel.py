@@ -13,13 +13,18 @@ after them; its header says what bounds it on the H100 and how its
 shared-memory window design meets that): the band, the fallback edges
 (where the JAX package uses XLA's ``segment_spmm``), the 'mean' divide and
 the cast to x's dtype.  It runs ``slab_spmm_ref`` for CPU tensors and counts
-``slab_spmm.launches``.  ``slab_spmm_band`` launches the same source's
-band-only mode (float32 output, no fallback, no divide; one warp a row, the
-faster design for that function), runs ``slab_spmm_band_ref`` for CPU
-tensors, and counts ``slab_spmm_band.launches``.  ``slab_spmm_band_shard``
-launches the band-only mode on one row shard of a graph
-(``ops/dist_full_batch.py``), whose x carries one R-row halo on each side,
-and counts its own launches.
+``slab_spmm.launches``.  ``slab_spmm_shard`` launches the same function on
+one row shard of a graph (``ops/dist_full_batch.py``): its rows read a table
+X of the previous rank's last R rows, its own rows, the next rank's first R
+rows and the remote rows its fallback edges need, passed as four tensors
+and read in place; it counts ``slab_spmm_shard.launches``.
+``slab_spmm_band`` launches the same source's band-only mode (float32
+output, no fallback, no divide; one warp a row, the faster design for that
+function), runs ``slab_spmm_band_ref`` for CPU tensors, and counts
+``slab_spmm_band.launches``.  ``slab_spmm_band_shard`` launches the
+band-only mode on one row shard, whose x carries one R-row halo on each
+side (the sharded graph's balanced fallback plan), and counts its own
+launches.
 
 Unlike the JAX package, a bfloat16 result is rounded once, after the band,
 the fallback and the divide are summed in float32 (the JAX bit-plane path
@@ -51,6 +56,12 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
              ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
+# x, x_prev, x_next, x_tail, x dtype, n, tail_rows, ell, ell_w, ell_len,
+# k_width, block_rows, round_bf16, fb_rowptr, fb_src, fb_w, degrees, out, f,
+# stream
+_SHARD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64, ctypes.c_int64] + [
+    ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int] + [
+    ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p]
 _FB_TILE = 128   # fallback COO padding, as in the JAX package
 
 
@@ -373,3 +384,94 @@ def slab_spmm(graph: SlabGraph, x, reduce: str = "sum",
 
 
 slab_spmm.launches = 0
+
+
+def _check_shard_parts(graph: SlabGraph, x, prev, nxt, tail) -> None:
+    r_blk = graph.block_rows
+    for name, t, rows in (("halo_prev", prev, r_blk), ("halo_next", nxt, r_blk),
+                          ("tail", tail, None)):
+        if (t.dim() != 2 or t.shape[1] != x.shape[1] or t.dtype != x.dtype
+                or t.device != x.device or (rows is not None and t.shape[0] != rows)):
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on {t.device} does not "
+                             f"match x {tuple(x.shape)} {x.dtype} and R = {r_blk}")
+
+
+def _launch_shard(graph: SlabGraph, x, prev, nxt, tail, reduce, compute_dtype):
+    """``csrc/slab_spmm_shard.cu`` on the card (inputs already checked):
+    the four parts read in place, the output in x's dtype.  No launch when
+    there is nothing to compute."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if not all(t.is_contiguous() for t in (x, prev, nxt, tail)):
+        raise ValueError("x and its table's parts must be contiguous")
+    n, f = x.shape
+    x_rows = n + prev.shape[0] + nxt.shape[0] + tail.shape[0]
+    if x_rows >= 2**31 or graph.fb_src.shape[0] >= 2**31:
+        raise ValueError(f"{x_rows} rows or {graph.fb_src.shape[0]} fallback slots do "
+                         f"not fit int32 ids")
+    out = torch.empty((n, f), dtype=x.dtype, device=x.device)
+    if n == 0 or f == 0:
+        return out
+    fn = _build.function("slab_spmm_shard", _SHARD_ARGTYPES)
+    fb = graph.fb_src.shape[0] > 0
+
+    def ptr(t, use=True):
+        return t.data_ptr() if use and t is not None and t.numel() else None
+
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(x.data_ptr(), prev.data_ptr(), nxt.data_ptr(), ptr(tail),
+                    _FLOAT_CODES[x.dtype], n, tail.shape[0], graph.ell.data_ptr(),
+                    ptr(graph.ell_w), graph.ell_len.data_ptr(), graph.ell.shape[1],
+                    graph.block_rows, int(compute_dtype == torch.bfloat16),
+                    ptr(graph.fb_rowptr, fb), ptr(graph.fb_src, fb), ptr(graph.fb_w, fb),
+                    ptr(graph.degrees, reduce == "mean"), out.data_ptr(), f, stream)
+    _build.check(status, "slab_spmm_shard")
+    return out
+
+
+def slab_spmm_shard_ref(graph: SlabGraph, x, halo_prev, halo_next, tail, reduce: str = "sum",
+                        compute_dtype=torch.bfloat16):
+    """Plain PyTorch version of :func:`slab_spmm_shard`: builds X, sums the
+    band and the fallback in float32, divides, rounds once to x's dtype."""
+    _check_reduce(reduce)
+    _check(graph, x, compute_dtype, 0)
+    _check_shard_parts(graph, x, halo_prev, halo_next, tail)
+    r_blk = graph.block_rows
+    table = torch.cat([halo_prev, x, halo_next, tail])
+    out = _band_ref(graph, table[:x.shape[0] + 2 * r_blk], compute_dtype, r_blk)
+    if graph.fb_src.shape[0]:
+        csr_spmm_ref(graph.fallback, table, out=out)
+    if reduce == "mean":
+        out.div_(graph.degrees.clamp(min=1)[:, None])
+    return out.to(x.dtype)
+
+
+def slab_spmm_shard(graph: SlabGraph, x, halo_prev, halo_next, tail, reduce: str = "sum",
+                    compute_dtype=torch.bfloat16):
+    """One row shard's whole slab SpMM, in x's dtype (rs, F): out[r] =
+    reduce over local row r's band and fallback edges of w * X[.], where X =
+    [halo_prev | x | halo_next | tail] is the shard's table: the previous
+    rank's last R rows (R, F), this rank's rows x (rs, F), the next rank's
+    first R rows (R, F; zeros past the graph's ends) and the U remote rows
+    its fallback edges read (U, F).  ``graph`` holds the shard's rs rows: its
+    ELL rows (row r reads ``X[(r//R)*R + ell[r, k]]``), its fallback edges as
+    a CSR by local row into X (``fb_rowptr``, ``fb_src``, ``fb_w``) and its
+    degrees for 'mean'.  The band honours ``compute_dtype``, the fallback
+    reads X as it is, as in :func:`slab_spmm`.
+
+    CUDA tensors launch the kernel once on the current stream without
+    synchronising, reading the four parts in place; CPU tensors run
+    :func:`slab_spmm_shard_ref`.  Counts ``slab_spmm_shard.launches``."""
+    _check_reduce(reduce)
+    _check(graph, x, compute_dtype, 0)
+    _check_shard_parts(graph, x, halo_prev, halo_next, tail)
+    if x.device.type == "cpu":
+        return slab_spmm_shard_ref(graph, x, halo_prev, halo_next, tail, reduce, compute_dtype)
+    out = _launch_shard(graph, x, halo_prev, halo_next, tail, reduce, compute_dtype)
+    if out.numel():
+        slab_spmm_shard.launches += 1
+    return out
+
+
+slab_spmm_shard.launches = 0

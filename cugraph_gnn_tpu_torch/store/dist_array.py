@@ -24,7 +24,10 @@ kernel in accumulate mode (``ops/kernels/spmm_kernel.py``; its plain version
 on the CPU).  ``index_add_`` on a card adds with atomics, whose order, and
 so whose rounding, changes from run to run.  Where the ids of a scatter-add
 are fixed, :func:`scatter_add_plan` does its id exchange and sort once, and
-:func:`_dist_scatter_add` then moves and sums only the values.
+:func:`_dist_scatter_add` then moves and sums only the values; likewise
+:func:`gather_plan` exchanges a fixed gather's ids once, and
+:func:`_dist_gather_planned` then moves only the rows, reading nothing back
+to the host.
 """
 
 from __future__ import annotations
@@ -141,6 +144,37 @@ def _dist_gather_shard(table: torch.Tensor, ids: torch.Tensor, *, book: Partitio
     out = table.new_full((ids.shape[0],) + tuple(table.shape[1:]), fill)
     out[perm[:n_send]] = back
     return out
+
+
+class GatherPlan(NamedTuple):
+    """A gather of fixed global ids: the local rows this rank sends to each
+    peer, peer by peer, and the sizes of the one exchange."""
+
+    send_rows: torch.Tensor       # local offsets, the peers' requests in rank order
+    send_sizes: List[int]
+    recv_sizes: List[int]         # the ids' count at each owner
+
+
+def gather_plan(ids: torch.Tensor, *, book: PartitionBook, mesh: Mesh) -> GatherPlan:
+    """The plan of :func:`_dist_gather_planned` for this rank's ``ids``
+    (global, valid, grouped by owner in rank order, as a sorted array is):
+    the ids go to their owners once, here; every rank calls it together."""
+    owner = book.owner_of(ids)
+    if ids.numel() and bool((owner[1:] < owner[:-1]).any()):
+        raise ValueError("gather_plan needs ids grouped by owner in rank order")
+    counts = torch.bincount(owner, minlength=book.world_size)[:book.world_size]
+    req, my_sizes, peer_sizes = _ragged_a2a(ids, counts, mesh)
+    ok, local = _owned_local(req, book, mesh)
+    if not bool(ok.all()):
+        raise ValueError("gather_plan: an id is outside its owner's rows")
+    return GatherPlan(local, peer_sizes, my_sizes)
+
+
+def _dist_gather_planned(table: torch.Tensor, plan: GatherPlan, *, mesh: Mesh) -> torch.Tensor:
+    """rows = global_table[ids] for the ids of ``plan``, in their order, each
+    rank with its shard ``table``: one exchange of rows; every rank calls it
+    together."""
+    return alltoallv(table[plan.send_rows], plan.send_sizes, plan.recv_sizes, mesh)
 
 
 class ScatterAddPlan(NamedTuple):

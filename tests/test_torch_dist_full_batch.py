@@ -5,7 +5,11 @@ jitted): ``spmm`` forward and gradient (sum and mean, weighted, and a hub
 graph whose fallback edges take the balanced regime at 4 ranks), the
 attention forward and gradients (H = 1 and H = 3, with bit planes at R = 128
 and with ``t_ell`` at R = 512, and the port's head groups), the RCM order, and three
-chained GCN and GAT training steps against the optax steps.
+chained GCN and GAT training steps against the optax steps.  The SpMM's
+bucketed fallback plan (each rank's table of halo and remote rows) is held
+by a numpy test of its plan at worlds 1, 2 and 4, and its plain version
+(``slab_spmm_shard_ref``, which the gloo worlds run) against the JAX
+``spmm`` on each rank's table as the exchanges built it.
 
 Each world is spawned once (a module fixture) and runs every case; each rank
 computes its rows and rank 0 saves the gathered results.  Each JAX reference
@@ -23,6 +27,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from cugraph_gnn_tpu_torch import train_full as TF
@@ -103,10 +108,15 @@ def _worker(rank, world, store, out_dir):
     """One rank of a gloo world: every case on this rank's rows; rank 0
     saves the gathered results to ``out_dir/out.npz``."""
     from cugraph_gnn_tpu_torch.models.convert import gat_from_flax, gcn_from_flax
+    from cugraph_gnn_tpu_torch.ops import dist_full_batch as DF
     from cugraph_gnn_tpu_torch.ops.dist_full_batch import DistFullBatchGraph
     from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as AG
     from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_kernel as AK
-    from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import slab_spmm_band_shard
+    from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
+        slab_spmm_band_shard,
+        slab_spmm_shard,
+        slab_spmm_shard_ref,
+    )
     from cugraph_gnn_tpu_torch.utils import distributed as D
 
     torch.set_num_threads(1)     # the ranks share the CPU cores
@@ -136,6 +146,16 @@ def _worker(rank, world, store, out_dir):
         xs = g.shard(inp["x"])
         res["spmm_with_arrays"] = g.unshard(
             g.spmm_with_arrays(xs, *g.spmm_arrays())).numpy()
+        # the bucketed plan's plain version on this rank's table, as the
+        # halo exchange and the planned gather of remote rows build it
+        st = g._spmm[False]
+        prev, nxt = DF._halo_pair(xs, R_BITS, mesh)
+        tail = DF._dist_gather_planned(xs, st.route, mesh=mesh)
+        res["spmm_table_ref_mean"] = g.unshard(slab_spmm_shard_ref(
+            st.band, xs, prev, nxt, tail, "mean", torch.float32)).numpy()
+        sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(world)]
+        dist.all_gather(sizes, torch.tensor([tail.shape[0]]), group=mesh.group)
+        res["spmm_table_tail_rows"] = torch.cat(sizes).numpy()
 
         for case in ATTN_CASES:
             g = graph("a", _graph_kw(case)["block_rows"])
@@ -171,7 +191,7 @@ def _worker(rank, world, store, out_dir):
                 for _ in range(STEPS)])
             for key, p in model.state_dict().items():
                 res[f"{name}_param/{key}"] = p.numpy()
-        counters = (slab_spmm_band_shard, AK.slab_attention_spmm_shard,
+        counters = (slab_spmm_band_shard, slab_spmm_shard, AK.slab_attention_spmm_shard,
                     AK.slab_attention_spmm_mh_shard, AG.onepass_bwd_shard,
                     AG.slab_attention_bwd_shard, AG.slab_attention_bwd_mh_shard)
         res["launches"] = np.array([fn.launches for fn in counters])
@@ -301,6 +321,79 @@ def test_spmm_matches_jax(got, want, case):
 def test_spmm_with_arrays_is_the_sum(got):
     res, _ = got
     np.testing.assert_allclose(res["spmm_with_arrays"], res["spmm_sum"], rtol=0, atol=0)
+
+
+def test_shard_table_plain_matches_jax(got, want):
+    """The bucketed plan's plain version (``slab_spmm_shard_ref``) on each
+    rank's table (halos by the halo exchange, remote rows by one planned
+    all-to-all) within 1e-5 of the JAX sharded 'mean' SpMM; every rank but
+    one reads remote rows."""
+    res, world = got
+    np.testing.assert_allclose(res["spmm_table_ref_mean"], want["spmm_mean"], rtol=1e-5,
+                               atol=1e-5)
+    assert len(res["spmm_table_tail_rows"]) == world
+    assert (res["spmm_table_tail_rows"] > 0).sum() >= world - 1
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_plan_fallback_table(world):
+    """The host plan of each rank's bucketed fallback edges, no process
+    group: every slot reads, through the table, the global row that
+    ``_dist_gather_shard`` would fetch for it (halo-extended rows in place,
+    remote rows from the tail), each remote row is in the tail once (none at
+    world 1), the slots of a row keep their bucketed order; the plan's
+    plain SpMM on a table built from the whole x equals the one-card
+    ``slab_spmm_ref`` on the rank's rows (sum and mean, weighted)."""
+    from cugraph_gnn_tpu_torch.ops import dist_full_batch as DF
+    from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
+        build_slab_graph,
+        slab_spmm_ref,
+        slab_spmm_shard_ref,
+    )
+    from cugraph_gnn_tpu_torch import _native
+
+    gr = _graphs()
+    indptr, indices, perm = _native.build_csr(gr["a"][1], gr["a"][0], N)
+    slab = build_slab_graph(indptr, indices, gr["w"][perm], block_rows=R_BITS, device="cpu")
+    nb = -(-slab.n_blocks // world) * world
+    rs, n_pad = nb // world * R_BITS, nb * R_BITS
+    fb_s, fb_d, fb_w = DF._bucket_fallback(slab.fb_src.numpy(), slab.fb_dst.numpy(), rs, world,
+                                           fb_w=slab.fb_w.numpy())
+    cap = len(fb_s) // world
+    x = torch.as_tensor(_inputs()["x"])
+    x_pad = torch.cat([x, x.new_zeros((n_pad - N, F))])
+    for w in range(world):
+        mine = slice(w * cap, (w + 1) * cap)
+        ok = fb_s[mine] >= 0
+        src, dst, wt = fb_s[mine][ok], fb_d[mine][ok], fb_w[mine][ok]
+        t = DF.plan_fallback_table(src, dst, wt, rank=w, rows_per_rank=rs, block_rows=R_BITS)
+        order = np.argsort(dst, kind="stable")
+        np.testing.assert_array_equal(t.dst, dst[order])
+        np.testing.assert_array_equal(t.weights, wt[order])
+        np.testing.assert_array_equal(t.rowptr, np.searchsorted(dst[order], np.arange(rs + 1)))
+        ext = rs + 2 * R_BITS
+        assert (t.x_ids >= 0).all() and (t.x_ids < ext + len(t.tail)).all()
+        remote = np.append(t.tail, -1)[np.where(t.x_ids < ext, len(t.tail), t.x_ids - ext)]
+        read = np.where(t.x_ids < ext, t.x_ids.astype(np.int64) + w * rs - R_BITS, remote)
+        np.testing.assert_array_equal(read, src[order])
+        assert (np.diff(t.tail) > 0).all()
+        assert not ((t.tail >= w * rs - R_BITS) & (t.tail < (w + 1) * rs + R_BITS)).any()
+        assert set(t.tail) == set(src[(src < w * rs - R_BITS) | (src >= (w + 1) * rs + R_BITS)])
+        if world == 1:
+            assert len(t.tail) == 0
+        graph, tail = DF.shard_table_graph(slab, w, rs, n_pad, world, "cpu")
+        np.testing.assert_array_equal(tail, t.tail)
+        parts = [DF.halo_rows(x_pad, w, rs, R_BITS)[:R_BITS], x_pad[w * rs:(w + 1) * rs],
+                 DF.halo_rows(x_pad, w, rs, R_BITS)[-R_BITS:], x_pad[torch.as_tensor(tail)]]
+        for reduce in ("sum", "mean"):
+            got = slab_spmm_shard_ref(graph, parts[1], parts[0], parts[2], parts[3], reduce,
+                                      torch.float32)
+            whole = slab_spmm_ref(slab, x, reduce, torch.float32)
+            hi = min((w + 1) * rs, N)
+            if hi > w * rs:
+                torch.testing.assert_close(got[:hi - w * rs], whole[w * rs:hi], rtol=1e-5,
+                                           atol=1e-5)
+            assert not got[max(hi - w * rs, 0):].any()
 
 
 @pytest.mark.parametrize("case", ATTN_CASES)

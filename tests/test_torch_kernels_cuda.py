@@ -3,8 +3,9 @@ the row gather, the fused sampler, the slab SpMM (the whole function and
 its band-only mode), the CSR SpMM kernel, and the fused slab attention's
 forward and backward kernels, each of the last three also on the row shards
 of a 4-rank split (the shard wrappers of ``ops/dist_full_batch.py``,
-halo-extended inputs).  Kernels without atomics are launched twice on the
-same inputs and held bit for bit equal.
+halo-extended inputs; the slab SpMM's whole function on each shard's table
+of halo and remote rows, and at world 1 over NCCL).  Kernels without
+atomics are launched twice on the same inputs and held bit for bit equal.
 
 Marked ``cuda``: each test asks the ``card`` fixture for a device and skips
 without one.  The file imports no JAX, so on the machine with the card it
@@ -38,6 +39,8 @@ from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
     slab_spmm_band_shard,
     slab_spmm_band_shard_ref,
     slab_spmm_ref,
+    slab_spmm_shard,
+    slab_spmm_shard_ref,
 )
 from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import (
     build_padded_blocks,
@@ -469,6 +472,100 @@ def test_slab_spmm_band_shard_matches_plain(card, x_dtype, weighted, f):
             assert torch.equal(_bits(got), _bits(slab_spmm_band_shard(shard, x_ext, compute)))
             torch.testing.assert_close(got, whole[rank * rs:(rank + 1) * rs], rtol=1e-5,
                                        atol=1e-5)
+
+
+def _shard_case(weighted):
+    """A 4-rank geometry at R = 128 with fallback edges: the hub graph of
+    ``_hub_csr`` at 1100 nodes (a row and a column of 80 fallback edges; 12
+    blocks a world, so the last shard is padding rows only) and its
+    transpose, as (indptr, indices, weights or None) each."""
+    indptr, indices = _hub_csr(n=1100)
+    n = len(indptr) - 1
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    t_indptr, t_indices, perm = _native.build_csr(indices, rows, n)
+    w = np.random.default_rng(5).uniform(0.5, 2.0, len(indices)).astype(np.float32)
+    return {"graph": (indptr, indices, w if weighted else None),
+            "transpose": (t_indptr, t_indices, w[perm] if weighted else None)}
+
+
+@pytest.mark.parametrize("orient", ["graph", "transpose"])
+@pytest.mark.parametrize("x_dtype,f", [(torch.bfloat16, 128), (torch.float32, 256)])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+def test_slab_spmm_shard_matches_plain(card, orient, x_dtype, f, weighted, reduce):
+    """Each shard of a 4-rank split: ``slab_spmm_shard`` over its table (the
+    halos and the remote rows its fallback edges read, built from the whole
+    x, both nonzero) against its plain version and against the one-card
+    ``slab_spmm`` on the shard's rows, within the float32 sum's tolerance
+    (``_assert_sum_close``), both compute dtypes; a shard with a row of
+    more than 64 fallback slots and a shard of padding rows only (no band
+    edges, nothing to read); one launch each, no other kernel; two launches
+    bit for bit equal."""
+    indptr, indices, w = _shard_case(weighted)[orient]
+    n = len(indptr) - 1
+    slab = build_slab_graph(indptr, indices, w, block_rows=128, device="cpu")
+    rs, n_pad = _split(n, 128)
+    x = _pad(_x(np.random.default_rng(f + weighted), n, f, x_dtype, card), n_pad)
+    long_rows = tails = 0
+    for compute in (torch.float32, torch.bfloat16):
+        whole = slab_spmm(slab.to(card), x[:n], reduce, compute)
+        for rank in range(WORLD):
+            graph, tail = DF.shard_table_graph(slab, rank, rs, n_pad, WORLD, card)
+            ext = DF.halo_rows(x, rank, rs, 128)
+            parts = (x[rank * rs:(rank + 1) * rs], ext[:128], ext[-128:],
+                     x[torch.as_tensor(tail, device=card)])
+            slots = graph.fb_rowptr[1:] - graph.fb_rowptr[:-1]
+            long_rows += int((slots > 64).sum())
+            tails += len(tail)
+            if rank == WORLD - 1:
+                assert not bool((graph.ell >= 0).any()) and graph.fb_src.numel() == 0
+            counts = (slab_spmm_shard.launches, slab_spmm.launches, csr_spmm.launches,
+                      slab_spmm_band_shard.launches)
+            got = slab_spmm_shard(graph, *parts, reduce, compute)
+            torch.cuda.synchronize()
+            assert (slab_spmm_shard.launches, slab_spmm.launches, csr_spmm.launches,
+                    slab_spmm_band_shard.launches) == (counts[0] + 1,) + counts[1:]
+            assert got.dtype == x_dtype and got.shape == (rs, f)
+            f32 = [p.float() for p in parts]
+            mag = slab_spmm_shard_ref(graph, *[p.abs() for p in f32], reduce, torch.float32)
+            _assert_sum_close(got, slab_spmm_shard_ref(graph, *f32, reduce, compute), mag)
+            hi = max(min(n - rank * rs, rs), 0)
+            _assert_sum_close(got[:hi], whole[rank * rs:rank * rs + hi].float(), mag[:hi])
+            assert not bool((got[hi:] != 0).any())
+            assert torch.equal(_bits(got), _bits(slab_spmm_shard(graph, *parts, reduce, compute)))
+    assert long_rows > 0 and tails > 0
+
+
+def test_slab_spmm_shard_world1(world1):
+    """At world 1 over NCCL: ``DistFullBatchGraph``'s sharded SpMM (the
+    graph, 'mean', and the transpose, 'sum', bf16 x) launches the shard
+    kernel once a call and no other kernel, and agrees with
+    ``slab_spmm_shard_ref`` on the table the path builds (the halos zero, no
+    remote rows) within the sum tolerance; two calls bit for bit equal."""
+    card = world1.device
+    rng = np.random.default_rng(12)
+    indptr, indices, _ = _csr(rng, 3000, 9, 200, far=0.1)
+    g = DF.DistFullBatchGraph(indptr, indices, world1, reorder="none", block_rows=128)
+    rs = g.rows_per_rank
+    x = g.shard(rng.standard_normal((3000, 96)).astype(np.float32), torch.bfloat16)
+    for transpose, reduce in ((False, "mean"), (True, "sum")):
+        st = g._spmm[transpose]
+        assert not st.balanced and st.route is None and st.band.fb_src.numel() > 0
+        counts = (slab_spmm_shard.launches, csr_spmm.launches, slab_spmm_band_shard.launches)
+        got = g._spmm_sharded(x, transpose=transpose, reduce=reduce,
+                              compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert (slab_spmm_shard.launches, csr_spmm.launches,
+                slab_spmm_band_shard.launches) == (counts[0] + 1,) + counts[1:]
+        zeros = x.new_zeros((128, 96))
+        parts = [x.float(), zeros.float(), zeros.float(), x.new_zeros((0, 96)).float()]
+        want = slab_spmm_shard_ref(st.band, *parts, reduce, torch.float32)
+        mag = slab_spmm_shard_ref(st.band, *[p.abs() for p in parts], reduce, torch.float32)
+        assert got.dtype == torch.bfloat16 and got.shape == (rs, 96)
+        _assert_sum_close(got, want, mag)
+        again = g._spmm_sharded(x, transpose=transpose, reduce=reduce,
+                                compute_dtype=torch.float32)
+        assert torch.equal(_bits(got), _bits(again))
 
 
 def _band_only(pair):
