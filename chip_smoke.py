@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``cugraph_gnn_tpu_torch``) on one
 NVIDIA GPU: builds the kernels, holds each against its plain PyTorch version
 at the training paths' shapes and times it, then trains sampled GraphSAGE at
-the full width of ``bench.py``'s configuration, and full-batch GraphSAGE,
+the full width of ``bench.py``'s configuration, directly and through the
+``GraphStore`` / ``FeatureStore`` / ``NeighborLoader`` path, and full-batch GraphSAGE,
 GCN and 4-head GAT over a banded graph at ogbn-products scale.
 
     python3 chip_smoke.py            # every phase, on one card
@@ -17,9 +18,13 @@ Phases (any failure raises and exits non-zero):
    121,124,824 edges, mean degree ~49.5), the fused sampler at hop 0 (10,240
    seeds) and hop 1 (112,640 seeds), k = 10, and the row gather (123,904 ids
    into the 2,449,029 x 128 f32 table, to bf16 and to f32), each bit-equal
-   to its plain version on the same inputs; then CUDA-event times of kernel,
-   plain version and, where one exists, the single PyTorch call that
-   computes the same function, with the L2 cache flushed before each launch.
+   to its plain version on the same inputs (the sampler also between two
+   launches, and at k = 16, 17 and 33 on 10,007 seeds and on one hub
+   seed); then CUDA-event times of kernel, plain version and, where one
+   exists, the single PyTorch call that computes the same function, with
+   the L2 cache flushed before each launch.  The sampler's byte bound
+   counts its random reads at 4 bytes; its sector floor at 32 bytes for
+   each distinct ``indptr`` and ``indices`` sector the call reads.
 4. small-input agreement: one small graph trained for three f32 steps on the
    card (kernels) and on the CPU (plain versions) from the same weights and
    draws; samples and gathered rows bit-equal, losses within 1e-4.
@@ -27,6 +32,23 @@ Phases (any failure raises and exits non-zero):
    10/10, hidden 256, 47 classes, bf16 activations, Adam 1e-3); losses must
    be finite and each kernel's launch count must match the path (gather 10,
    sampler 2 per block).  Then one block timed stage by stage.
+5b. loader path: the same graph put into a ``GraphStore`` (edges neighbor
+   -> row, so its reversed CSR is the graph's CSR, checked) and its
+   features and labels into a ``FeatureStore`` (host seconds of the build,
+   as set-up); ``NeighborLoader`` (batch 1024, fanouts 10/10, shuffled)
+   with ``dedup=True`` trains GraphSAGE (128 -> 256 -> 47, bf16
+   activations, Adam 1e-3) for 12 batches (2 warm-up), then with
+   ``dedup=False`` for 6 (2 warm-up): per batch the loss (finite), ms,
+   sampled edges, nodes and slots per level and peak memory; per batch 2
+   sampler launches and 1 row-gather launch, no other kernel.  Then one
+   more batch of each timed stage by stage (sample, feature gather, label
+   gather, model step), and, with ``dedup=True``, the sampler alone at that
+   batch's two hops (1,024 and 11,264 slots): bit-equal to its plain
+   version, timed, with its byte bound and sector floor.
+5c. small-input agreement, sampler: ``NeighborSampler(dedup=True)`` on the
+   card and on the CPU, on phase 4's 2,000-node graph with the same
+   uniforms, uncapped and with ``max_unique_per_hop``: every level, map and
+   count equal.
 6. full-batch data: the banded graph of ``train_full`` (2,449,029 nodes, 12
    in-band sources within +-256 and 1 uniform source per node: 31,837,377
    edges) and its ``FullBatchGraph`` (reorder "none", R = 256) with the
@@ -142,7 +164,11 @@ Phases (any failure raises and exits non-zero):
     call, halo exchange, remote-row exchange, kernel) and GAT layer 0's
     attention forward and backward.
 17. the ``kernels`` summary line (rows 1-14, then the probe, which the
-    main path launches no time; rows 5-14 also carry their timed calls, the
+    main path launches no time; rows 1 and 2 count the launches of phases
+    5 and 5b, row 2 also carries its time per hop and its sector floor, at
+    phase 3's block hops and at phase 5b's loader hops, its launches split
+    by path, and a gap that prices each path's launches at its own hops;
+    rows 5-14 also carry their timed calls, the
     gap launches * (ms - bound) / calls and, for the backward rows, the
     design each layer took; row 9 also the band-only mode's time at the same
     calls; row 3's launches and
@@ -160,12 +186,207 @@ import sys
 import time
 
 
+def _sampler_bytes(indptr, seeds, k, out):
+    """The bytes the fused sampler must move for one call, counted two ways:
+    (the byte bound: each input read once at its size, each output written
+    once; the sector floor: the same, but 32 bytes for each distinct
+    ``indptr`` and ``indices`` sector the call reads, counted on the host
+    from the seeds and the sampled positions).  Both count the uniforms of
+    the seeds of degree > k only, and ``indices`` reads where a slot is
+    sampled."""
+    import numpy as np
+
+    n = indptr.numel() - 1
+    sd = seeds.cpu().numpy().astype(np.int64)
+    valid = sd >= 0
+    ip = indptr.cpu().numpy()
+    lo = np.minimum(sd[valid], n)
+    hi = np.minimum(sd[valid] + 1, n)
+    deg = ip[hi] - ip[lo]
+    e = out.edge_ids.cpu().numpy()
+    e = e[e >= 0].astype(np.int64)
+    coalesced = 4 * sd.size + 4 * k * int((deg > k).sum()) + (8 * k + 4) * sd.size
+    nbytes = coalesced + 8 * int(valid.sum()) + 4 * e.size
+    sectors = np.unique(np.concatenate([lo, hi]) // 8).size + np.unique(e // 8).size
+    return nbytes, coalesced + 32 * sectors
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 H100_F32_OPS = 67e12   # H100 SXM float32 outside the tensor cores (data sheet)
+
+
+def _loader_step(model, opt, batch) -> "torch.Tensor":
+    """One Adam step on a loader batch: masked mean cross-entropy of the
+    valid seeds against the batch's labels.  Returns the loss (f32, on the
+    device)."""
+    import torch
+    from torch.nn import functional as F
+
+    opt.zero_grad(set_to_none=True)
+    valid = batch.seeds >= 0
+    logits = model(batch.x, batch.sample).float()
+    ls = F.cross_entropy(logits, batch.y, reduction="none")
+    loss = torch.where(valid, ls, 0).sum() / valid.sum().clamp(min=1)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def loader_path(dev, emit, graph, small_cpu, counters, cuda_ms, hbm):
+    """Phases 5b and 5c (see the module docstring).  Returns each kernel's
+    launches over the loader runs of phase 5b, and the sampler's timed rows
+    at a loader batch's two hops."""
+    import numpy as np
+    import torch
+
+    from cugraph_gnn_tpu_torch import train as T
+    from cugraph_gnn_tpu_torch.data import FeatureStore, GraphStore
+    from cugraph_gnn_tpu_torch.loader import NeighborLoader, NodeBatch
+    from cugraph_gnn_tpu_torch.loader.node_loader import gather_node_features
+    from cugraph_gnn_tpu_torch.models.zoo import GraphSAGE
+    from cugraph_gnn_tpu_torch.ops.kernels.sample_kernel import (
+        fused_uniform_sample,
+        fused_uniform_sample_ref,
+    )
+    from cugraph_gnn_tpu_torch.sampler.neighbor_sampler import NeighborSampler
+
+    # -- 5b. the loader path at full width ---------------------------------
+    t0 = time.perf_counter()
+    n = graph.num_nodes
+    indptr = graph.indptr.cpu().numpy()
+    rows = np.repeat(np.arange(n, dtype=np.int32), np.diff(indptr))
+    # edge (neighbor -> row): the store's reversed CSR is the graph's CSR
+    gs = GraphStore(device=dev)
+    gs.put_edge_index((graph.indices.cpu().numpy(), rows), ("node", "to", "node"),
+                      num_nodes=(n, n))
+    del rows
+    t1 = time.perf_counter()
+    csr = gs.finalize().homogeneous_csr()
+    fs = FeatureStore(device=dev)
+    fs["x"] = graph.feats
+    fs["y"] = graph.labels
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not (torch.equal(csr[0], graph.indptr) and torch.equal(csr[1], graph.indices)):
+        raise AssertionError("the graph store's reversed CSR differs from the graph's CSR")
+    emit({"phase": "loader_stores", "setup_s": t2 - t0, "put_edge_index_s": t1 - t0,
+          "finalize_and_features_s": t2 - t1, "nodes": n, "edges": int(csr[1].numel())})
+    gs_csr = (graph.indptr, graph.indices)   # equal to the store's, checked above
+    del csr
+
+    torch.manual_seed(0)
+    model = GraphSAGE(T.FEAT_DIM, T.HIDDEN, T.CLASSES, num_layers=len(T.FANOUTS),
+                      dtype=torch.bfloat16, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    total = {fn.__name__: 0 for fn in counters}
+    for dedup, batches, warmup in ((True, 12, 2), (False, 6, 2)):
+        loader = NeighborLoader((fs, gs), num_neighbors=T.FANOUTS, batch_size=T.BATCH,
+                                shuffle=True, dedup=dedup)
+        batch_iter = iter(loader)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters:
+            fn.launches = 0
+        ms = []
+        for i in range(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = next(batch_iter)
+            loss = _loader_step(model, opt, batch)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            if i >= warmup:
+                ms.append(dt)
+            loss = float(loss)
+            if not math.isfinite(loss):
+                raise AssertionError(f"non-finite loader loss {loss} (dedup={dedup})")
+            caps = [int(lv.numel()) for lv in batch.sample.levels]
+            emit({"phase": "loader_train", "dedup": dedup, "batch": i,
+                  "warmup": i < warmup, "loss": loss, "ms": dt,
+                  "sampled_edges": int(sum(hop.mask.sum() for hop in batch.sample.hops)),
+                  "nodes_per_level": [int(c) for c in batch.sample.level_counts],
+                  "slots_per_level": caps,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        launches = {fn.__name__: fn.launches for fn in counters}
+        want = {**{fn.__name__: 0 for fn in counters},
+                "gather_rows": batches, "fused_uniform_sample": 2 * batches}
+        emit({"phase": "loader_launch_counts", "dedup": dedup, "batches": batches,
+              "launches": launches, "expected": want,
+              "ms_per_batch": sum(ms) / len(ms), "batches_timed": len(ms)})
+        if launches != want:
+            raise AssertionError(f"loader kernel launches {launches}, expected {want}")
+        for k, v in launches.items():
+            total[k] += v
+        # one more batch stage by stage (CUDA events; each stage synchronised)
+        seeds = torch.as_tensor(loader.input_nodes[:T.BATCH].astype(np.int32), device=dev)
+        ev = {}
+
+        def timed(name, fn):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            r = fn()
+            b.record()
+            torch.cuda.synchronize()
+            ev[name] = a.elapsed_time(b)
+            return r
+
+        sample = timed("sample", lambda: loader.sampler.sample(seeds))
+        x = timed("feature_gather", lambda: gather_node_features(fs, gs, "x", sample.input_nodes))
+        y = timed("label_gather", lambda: fs.get_tensor("", "y", ids=seeds))
+        timed("model", lambda: _loader_step(model, opt, NodeBatch(sample, x, y, seeds, seeds,
+                                                                   T.BATCH)))
+        emit({"phase": "loader_stages", "dedup": dedup, "ms": ev})
+        if dedup:
+            # the sampler at this batch's two hops (1,024 and 11,264 slots, as
+            # with dedup=False), so that row 2 prices the loader's launches
+            # at their own size
+            g_u = torch.Generator(device=dev).manual_seed(2)
+            sampler_rows = []
+            for h, (sd, kf) in enumerate(zip(sample.levels, T.FANOUTS)):
+                u = torch.rand((sd.numel(), kf), generator=g_u, device=dev)
+                got = fused_uniform_sample(gs_csr[0], gs_csr[1], sd, u, kf)
+                want = fused_uniform_sample_ref(gs_csr[0], gs_csr[1], sd, u, kf)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"sampler at the loader's hop {h} differs "
+                                         f"from the plain version")
+                nbytes, floor_bytes = _sampler_bytes(gs_csr[0], sd, kf, want)
+                row = {"kernel": "uniform_sample", "path": "loader", "hop": h,
+                       "seeds": sd.numel(), "k": kf,
+                       "ms": cuda_ms(lambda: fused_uniform_sample(
+                           gs_csr[0], gs_csr[1], sd, u, kf)),
+                       "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3,
+                       "sector_floor_ms": floor_bytes / hbm * 1e3, "bit_equal": True}
+                emit(row)
+                sampler_rows.append(row)
+        del loader, batch_iter, batch, sample, x, y
+
+    # -- 5c. NeighborSampler(dedup=True): card against CPU -------------------
+    g_cpu = torch.Generator().manual_seed(6)
+    seeds = torch.randint(0, small_cpu.num_nodes, (64,), generator=g_cpu, dtype=torch.int32)
+    seeds[::9] = -1
+    for caps in (None, (300, 1500)):
+        kw = dict(dedup=True, max_unique_per_hop=caps)
+        s_cpu = NeighborSampler(small_cpu.indptr, small_cpu.indices, (10, 10), device="cpu", **kw)
+        s_gpu = NeighborSampler(small_cpu.indptr, small_cpu.indices, (10, 10), device=dev, **kw)
+        lv = s_cpu.level_caps(seeds.numel())
+        us = [torch.rand((lv[h], 10), generator=g_cpu) for h in range(2)]
+        a = s_cpu.sample(seeds, u=us)
+        b = s_gpu.sample(seeds, u=us)
+        same = all(torch.equal(x, y.cpu()) for x, y in
+                   zip(a.levels + a.level_counts + [a.seed_count],
+                       b.levels + b.level_counts + [b.seed_count]))
+        same &= all(torch.equal(x, y.cpu()) for ha, hb in zip(a.hops, b.hops)
+                    for x, y in zip(ha, hb))
+        if not same:
+            raise AssertionError(f"NeighborSampler(dedup=True, caps={caps}): card and CPU differ")
+        emit({"phase": "small_input_agreement_sampler", "dedup": True, "caps": caps,
+              "slots_per_level": lv, "nodes_per_level": [int(c) for c in a.level_counts],
+              "equal": True})
+    return total, sampler_rows
 
 
 def full_batch(dev, emit, cuda_ms, hbm, counters):
@@ -1842,24 +2063,20 @@ def main() -> None:
     hbm = 3.35e12   # H100 SXM HBM3 bytes/s (data sheet)
     kernels = []
 
-    # B: fused sampler, bit equality and timing per hop
+    # B: fused sampler, bit equality (and two launches bit for bit) and
+    # timing per hop
     b_rows = []
     for h, (sd, u) in enumerate(hop_inputs):
         kf = u.shape[1]
         got = fused_uniform_sample(graph.indptr, graph.indices, sd, u, kf)
+        again = fused_uniform_sample(graph.indptr, graph.indices, sd, u, kf)
         want = fused_uniform_sample_ref(graph.indptr, graph.indices, sd, u, kf)
         torch.cuda.synchronize()
-        for name, g, w in zip(("neighbors", "edge_ids", "num_sampled"), got, want):
-            if not torch.equal(g, w):
+        for name, g, g2, w in zip(("neighbors", "edge_ids", "num_sampled"), got, again, want):
+            if not (torch.equal(g, w) and torch.equal(g, g2)):
                 raise AssertionError(f"sampler hop {h} {name} differs from the "
-                                     f"plain version")
-        valid = sd >= 0
-        safe = sd.clamp(min=0).long()
-        deg = (graph.indptr[safe + 1] - graph.indptr[safe])[valid]
-        nbytes = (4 * sd.numel() + 8 * int(valid.sum())
-                  + 4 * kf * int((deg > kf).sum())
-                  + 4 * int(deg.clamp(max=kf).sum())
-                  + (8 * kf + 4) * sd.numel())
+                                     f"plain version or between two launches")
+        nbytes, floor_bytes = _sampler_bytes(graph.indptr, sd, kf, want)
         row = {
             "kernel": "uniform_sample", "hop": h, "seeds": sd.numel(), "k": kf,
             "ms": cuda_ms(lambda: fused_uniform_sample(
@@ -1867,10 +2084,28 @@ def main() -> None:
             "plain_ms": cuda_ms(lambda: fused_uniform_sample_ref(
                 graph.indptr, graph.indices, sd, u, kf), iters=5),
             "library_ms": None, "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3,
+            "sector_floor_bytes": floor_bytes, "sector_floor_ms": floor_bytes / hbm * 1e3,
             "launches_per_step": 2 / T.REPS, "max_abs_err": 0, "bit_equal": True,
         }
         emit(row)
         b_rows.append(row)
+    # the kernel's other shapes: k = 16 and 17 (the last k whose lane groups
+    # share a warp, and the first that takes a warp alone), 33 (one thread a
+    # seed), on a batch that is not a multiple of 32, and a batch of one seed
+    hub = int(torch.argmax(graph.indptr[1:] - graph.indptr[:-1]))
+    cases = [(kc, sample.levels[1].reshape(-1)[:10_007]) for kc in (16, 17, 33)]
+    cases.append((10, torch.tensor([hub], dtype=torch.int32, device=dev)))
+    for kc, sd in cases:
+        u = torch.rand((sd.numel(), kc), generator=gen, device=dev)
+        got = fused_uniform_sample(graph.indptr, graph.indices, sd, u, kc)
+        again = fused_uniform_sample(graph.indptr, graph.indices, sd, u, kc)
+        want = fused_uniform_sample_ref(graph.indptr, graph.indices, sd, u, kc)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) and torch.equal(g, g2)
+                   for g, g2, w in zip(got, again, want)):
+            raise AssertionError(f"sampler at k = {kc}, {sd.numel()} seeds differs from "
+                                 f"the plain version or between two launches")
+        emit({"phase": "sampler_case", "k": kc, "seeds": sd.numel(), "bit_equal": True})
 
     # A: row gather, bit equality for both output types, timing to bf16
     for out_dtype in (torch.bfloat16, torch.float32):
@@ -1997,7 +2232,13 @@ def main() -> None:
     assert logits.shape == (T.BATCH, T.CLASSES) and bool(torch.isfinite(logits).all())
     emit({"phase": "stages", "ms_per_step": stages})
     sampled_launches = launches
-    del graph, sample, blk_sample, hop_inputs, ids, seeds, u0, u1, x, st, logits
+    del sample, blk_sample, hop_inputs, ids, seeds, u0, u1, x, st, logits, model, opt
+    loader_launches, loader_b_rows = loader_path(dev, emit, graph, small_cpu, counters,
+                                                 cuda_ms, hbm)
+    block_sampler_launches = sampled_launches["fused_uniform_sample"]
+    for name in ("gather_rows", "fused_uniform_sample"):
+        sampled_launches[name] += loader_launches[name]
+    del graph
     torch.cuda.empty_cache()
 
     reused, fb_rows = full_batch(dev, emit, cuda_ms, hbm, counters)
@@ -2031,7 +2272,12 @@ def main() -> None:
         "ms": a_row["ms"], "plain_ms": a_row["plain_ms"],
         "bound_ms": a_row["bound_ms"], "bound_by": "bytes",
         "library_ms": a_row["library_ms"]})
-    # the sampler's numbers are one block's two launches (hop 0 + hop 1)
+    # the sampler's numbers are one block's two launches (hop 0 + hop 1); its
+    # gap prices the block's launches at the block's hops and the loader's
+    # at a loader batch's hops
+    def sampler_gap(launches, rows):
+        return launches * sum(r["ms"] - r["bound_ms"] for r in rows) / len(rows)
+
     kernels.append({
         "name": "uniform_sample", "route": "cuda",
         "source": "cugraph_gnn_tpu_torch/csrc/uniform_sample.cu",
@@ -2040,7 +2286,15 @@ def main() -> None:
         "ms": sum(r["ms"] for r in b_rows),
         "plain_ms": sum(r["plain_ms"] for r in b_rows),
         "bound_ms": sum(r["bound_ms"] for r in b_rows), "bound_by": "bytes",
-        "library_ms": None})
+        "sector_floor_ms": sum(r["sector_floor_ms"] for r in b_rows),
+        "ms_per_hop": [r["ms"] for r in b_rows], "library_ms": None,
+        "launches_block": block_sampler_launches,
+        "launches_loader": loader_launches["fused_uniform_sample"],
+        "ms_per_hop_loader": [r["ms"] for r in loader_b_rows],
+        "bound_ms_loader": sum(r["bound_ms"] for r in loader_b_rows),
+        "sector_floor_ms_loader": sum(r["sector_floor_ms"] for r in loader_b_rows),
+        "gap_ms": sampler_gap(block_sampler_launches, b_rows)
+        + sampler_gap(loader_launches["fused_uniform_sample"], loader_b_rows)})
     kernels += fb_rows + gat_rows + dist_rows + [probe_row]
     emit({"phase": "wall", "seconds": time.perf_counter() - wall0})
     print(smi)

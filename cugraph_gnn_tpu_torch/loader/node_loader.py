@@ -1,0 +1,164 @@
+"""NodeLoader / NeighborLoader: seed-batched sampling loaders.
+
+Counterpart of ``cugraph_gnn_tpu/loader/node_loader.py`` for homogeneous
+graphs and uniform sampling: the input nodes are shuffled per epoch (numpy's
+``default_rng(epoch + 12345)``, as in JAX), cut into fixed-size batches (the
+last one padded with -1 seeds, or dropped with ``drop_last``), sampled by a
+``NeighborSampler`` built from the graph store, and joined with their
+features and labels from the feature store.  The draws come from a
+``torch.Generator`` seeded with ``seed``, which every batch advances.
+
+Hetero graphs, weighted and temporal sampling, disjoint subgraphs and the
+``"auto"`` level caps are not ported yet (ROADMAP Queue 1 item 4): asking
+for them raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from cugraph_gnn_tpu_torch.data.feature_store import FeatureStore
+from cugraph_gnn_tpu_torch.data.graph_store import GraphStore
+from cugraph_gnn_tpu_torch.sampler.neighbor_sampler import NeighborSampler
+from cugraph_gnn_tpu_torch.sampler.output import MultihopBatch
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item 4)")
+
+
+@dataclasses.dataclass
+class NodeBatch:
+    """One sampled training batch."""
+
+    sample: MultihopBatch
+    x: Optional[torch.Tensor]       # (S_L, F) features of sample.input_nodes
+    y: Optional[torch.Tensor]       # (B,) labels of the seeds
+    seeds: torch.Tensor             # (B,) int32 global seed ids, -1 padded
+    input_id: torch.Tensor          # (B,) int64 positions in input_nodes, -1 padded
+    batch_size: int
+
+    @property
+    def num_valid(self):
+        return self.sample.seed_count
+
+
+class NodeLoader:
+    """Shuffling and fixed-size seed batches over ``sampler``; the batches
+    live on the graph store's device."""
+
+    def __init__(self, data: Tuple[FeatureStore, GraphStore], sampler, input_nodes=None,
+                 batch_size: int = 512, shuffle: bool = False, drop_last: bool = False,
+                 x_attr: str = "x", y_attr: str = "y", input_time=None, seed: int = 0):
+        self.feature_store, self.graph_store = data
+        if isinstance(input_nodes, tuple):
+            raise _not_ported("typed (hetero) input nodes")
+        if input_time is not None:
+            raise _not_ported("temporal sampling (input_time)")
+        self.sampler = sampler
+        if input_nodes is None:
+            input_nodes = np.arange(self.graph_store.num_nodes())
+        elif isinstance(input_nodes, torch.Tensor):
+            input_nodes = input_nodes.cpu().numpy()
+        self.input_nodes = np.asarray(input_nodes).astype(np.int64)
+        self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.x_attr = x_attr
+        self.y_attr = y_attr
+        self.device = self.graph_store.device
+        self._epoch = 0
+        self._generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def __len__(self):
+        n = len(self.input_nodes)
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def _epoch_order(self) -> np.ndarray:
+        order = np.arange(len(self.input_nodes))
+        if self.shuffle:
+            np.random.default_rng(self._epoch + 12345).shuffle(order)
+        return order
+
+    def __iter__(self) -> Iterator[NodeBatch]:
+        order = self._epoch_order()
+        self._epoch += 1
+        b = self.batch_size
+        for i in range(len(self)):
+            sel = order[i * b:(i + 1) * b]
+            input_id = np.full((b,), -1, np.int64)
+            input_id[:len(sel)] = sel
+            seeds = np.full((b,), -1, np.int32)
+            seeds[:len(sel)] = self.input_nodes[sel]
+            seeds_t = torch.as_tensor(seeds, device=self.device)
+            sample = self.sampler.sample(seeds_t, generator=self._generator)
+            yield NodeBatch(sample=sample,
+                            x=gather_node_features(self.feature_store, self.graph_store,
+                                                   self.x_attr, sample.input_nodes),
+                            y=self._gather_y(seeds_t), seeds=seeds_t,
+                            input_id=torch.as_tensor(input_id, device=self.device),
+                            batch_size=b)
+
+    def _gather_y(self, seeds):
+        if ("", self.y_attr) not in self.feature_store:
+            return None
+        return self.feature_store.get_tensor("", self.y_attr, ids=seeds)
+
+
+def gather_node_features(feature_store, graph_store, x_attr, input_nodes):
+    """The features of a sampled node set: one (S, F) gather (zero rows for
+    -1 slots), or None when the store has no ``x_attr``."""
+    if not graph_store.is_homogeneous:
+        raise _not_ported("the feature join of a hetero graph")
+    if ("", x_attr) not in feature_store:
+        return None
+    return feature_store.get_tensor("", x_attr, ids=input_nodes)
+
+
+class NeighborLoader(NodeLoader):
+    """NodeLoader whose sampler is built from the graph store: uniform
+    sampling with ``num_neighbors`` per hop, deduplicated levels by default
+    (``dedup=False``: the static layout), ``max_unique_per_hop`` capping
+    them."""
+
+    def __init__(self, data: Tuple[FeatureStore, GraphStore], num_neighbors: Sequence[int],
+                 input_nodes=None, batch_size: int = 512, shuffle: bool = False,
+                 drop_last: bool = False, weight_attr: Optional[str] = None,
+                 time_attr: Optional[str] = None, input_time=None, seed: int = 0,
+                 dedup: bool = True, max_unique_per_hop: Optional[Sequence[int]] = None,
+                 disjoint: bool = False, **kwargs):
+        feature_store, graph_store = data
+        sampler = build_neighbor_sampler(
+            feature_store, graph_store, num_neighbors, weight_attr=weight_attr,
+            time_attr=time_attr, dedup=dedup, max_unique_per_hop=max_unique_per_hop,
+            disjoint=disjoint)
+        super().__init__(data, sampler, input_nodes=input_nodes, batch_size=batch_size,
+                         shuffle=shuffle, drop_last=drop_last, input_time=input_time,
+                         seed=seed, **kwargs)
+
+
+def build_neighbor_sampler(feature_store, graph_store, num_neighbors, weight_attr=None,
+                           time_attr=None, dedup: bool = True, max_unique_per_hop=None,
+                           disjoint: bool = False) -> NeighborSampler:
+    """The uniform ``NeighborSampler`` over a homogeneous graph store's
+    sampling CSR, on the store's device."""
+    if weight_attr is not None:
+        raise _not_ported("weighted sampling (weight_attr)")
+    if time_attr is not None:
+        raise _not_ported("temporal sampling (time_attr)")
+    if disjoint:
+        raise _not_ported("disjoint sampling")
+    if isinstance(max_unique_per_hop, str):
+        raise _not_ported(f"max_unique_per_hop={max_unique_per_hop!r}")
+    graph = graph_store.finalize()
+    if not graph.is_homogeneous:
+        raise _not_ported("sampling a hetero graph")
+    indptr, indices = graph.homogeneous_csr()
+    return NeighborSampler(indptr, indices, num_neighbors, dedup=dedup,
+                           max_unique_per_hop=max_unique_per_hop, device=graph.device)

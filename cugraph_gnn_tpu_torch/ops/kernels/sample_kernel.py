@@ -2,11 +2,14 @@
 
 Replaces ``cugraph_gnn_tpu/ops/pallas/sample_kernel.py::window_select_neighbors``
 (the neighbor-id read, for rows of degree <= 128) and fuses in
-``ops/sample.py::floyd_positions``: one thread per seed maps (seed, u) to its
-neighbors, edge ids and count in one pass, at any degree.  Source:
+``ops/sample.py::floyd_positions``: one launch maps (seed, u) to the
+neighbors, edge ids and counts, at any degree.  Source:
 ``csrc/uniform_sample.cu``, whose header says what bounds it on the H100
-(~176 bytes per seed, but dependent random reads, so latency in practice) and
-what the design does about it.
+(~176 bytes a seed counted at 4 bytes a read, but the random reads move
+32-byte sectors and wait on each other) and what the design does about it:
+a group of k lanes a seed (k <= 32), so that the uniforms and the output rows
+move as contiguous spans and small batches still fill the card; one thread a
+seed beyond k = 32.
 
 ``fused_uniform_sample`` runs the kernel for CUDA tensors and the plain
 version, ``fused_uniform_sample_ref``, for CPU tensors;

@@ -1,7 +1,7 @@
 """Sampler output structures: fixed-shape tensors padded with -1.
 
-Counterpart of ``cugraph_gnn_tpu/sampler/output.py`` (the COO/CSC
-conversions come with a later slice).  Layout ("multihop ELL"):
+Counterpart of ``cugraph_gnn_tpu/sampler/output.py``.  Layout ("multihop
+ELL"):
 
 - ``levels[0]`` are the seeds; ``levels[l+1]`` holds the targets of hop l
   (``levels[l]``, as a prefix) and then the nodes sampled from them.
@@ -11,13 +11,16 @@ conversions come with a later slice).  Layout ("multihop ELL"):
 A 2-layer GNN then runs input-side first:
 ``h_1 = conv(x[levels[2]], hops[1])``, ``h_0 = conv(h_1, hops[0])``.
 Slots that are -1 carry garbage rows downstream; consumers mask with
-``HopBlock.mask``.
+``HopBlock.mask``.  :func:`to_coo` and :func:`to_csc` give PyG-style views
+with per-hop counts.  Edge ids are int32: the high plane of 64-bit edge ids
+(``edge_hi``) comes with ``ops/edge_ids.py`` (ROADMAP Queue 1 item 4) and is
+None until then.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -121,3 +124,75 @@ def shard_gather(h, neigh_local, num_shards: int = 1):
     t_l = s_l // num_shards
     off = (torch.arange(s_l, device=h.device) // t_l) * t_next
     return h[safe + off[:, None]]
+
+
+class COOSample(NamedTuple):
+    """PyG-style flattened sample: renumbered edges over the unique node
+    list (the deepest level)."""
+
+    node: torch.Tensor               # (N,) global node ids, -1 pad
+    row: torch.Tensor                # (E,) local dst index, -1 pad
+    col: torch.Tensor                # (E,) local src index, -1 pad
+    edge: torch.Tensor               # (E,) global edge ids, -1 pad
+    num_sampled_nodes: torch.Tensor  # (L+1,) nodes discovered per level
+    num_sampled_edges: torch.Tensor  # (L,) valid edges per hop
+    edge_hi: Optional[torch.Tensor] = None
+
+
+class CSCSample(NamedTuple):
+    """PyG-style CSC sample: per hop, the valid entries compacted to the
+    front column by column; fixed-fanout rows compress to a ``colptr`` of
+    the per-target counts."""
+
+    node: torch.Tensor               # (N,) global node ids, -1 pad
+    colptr: List[torch.Tensor]       # per hop: (S_l + 1,)
+    row: List[torch.Tensor]          # per hop: (S_l * k_l,) local src ids
+    edge: List[torch.Tensor]         # per hop: (S_l * k_l,) global edge ids
+    num_sampled_nodes: torch.Tensor
+    num_sampled_edges: torch.Tensor
+    edge_hi: Optional[List[torch.Tensor]] = None
+
+
+def _level_growth(batch: MultihopBatch) -> torch.Tensor:
+    """Valid nodes per level that the level before did not hold."""
+    counts = [batch.level_counts[0]] + [
+        batch.level_counts[i + 1] - batch.level_counts[i]
+        for i in range(batch.num_hops)]
+    return torch.stack(counts)
+
+
+def to_csc(batch: MultihopBatch) -> CSCSample:
+    """CSC view of a one-step multihop batch (dst-major).  Valid entries are
+    moved to the front by a stable sort, so ``row[colptr[i]:colptr[i+1]]``
+    are column i's sources in slot order; slots past ``colptr[-1]`` are
+    -1."""
+    colptrs, rows, edges, n_edges = [], [], [], []
+    for hop in batch.hops:
+        m = hop.mask
+        cnt = m.sum(dim=1, dtype=torch.int32)
+        colptrs.append(torch.cat([cnt.new_zeros(1), torch.cumsum(cnt, 0, dtype=torch.int32)]))
+        flat_m = m.reshape(-1)
+        order = torch.argsort((~flat_m).to(torch.int8), stable=True)
+        rows.append(torch.where(flat_m, hop.neigh_local.reshape(-1), -1)[order])
+        edges.append(torch.where(flat_m, hop.edge_ids.reshape(-1), -1)[order])
+        n_edges.append(m.sum(dtype=torch.int32))
+    return CSCSample(node=batch.levels[-1], colptr=colptrs, row=rows, edge=edges,
+                     num_sampled_nodes=_level_growth(batch),
+                     num_sampled_edges=torch.stack(n_edges))
+
+
+def to_coo(batch: MultihopBatch) -> COOSample:
+    """A one-step multihop batch as PyG-style COO with per-hop counts: hop
+    by hop, every slot row-major, -1 where masked."""
+    rows, cols, edges, n_edges = [], [], [], []
+    for hop in batch.hops:
+        s, k = hop.neigh_local.shape
+        m = hop.mask
+        dst = torch.arange(s, dtype=torch.int32, device=m.device)[:, None].expand(s, k)
+        rows.append(torch.where(m, dst, -1).reshape(-1))
+        cols.append(torch.where(m, hop.neigh_local, -1).reshape(-1))
+        edges.append(torch.where(m, hop.edge_ids, -1).reshape(-1))
+        n_edges.append(m.sum(dtype=torch.int32))
+    return COOSample(node=batch.levels[-1], row=torch.cat(rows), col=torch.cat(cols),
+                     edge=torch.cat(edges), num_sampled_nodes=_level_growth(batch),
+                     num_sampled_edges=torch.stack(n_edges))

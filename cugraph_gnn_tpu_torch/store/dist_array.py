@@ -13,8 +13,10 @@ sizes come from a one-element-per-peer exchange first, so each call reads
 two small tensors back to the host.  Only the actual rows cross (the TPU's
 ragged all-to-all semantics; the JAX package's CPU path pads every peer's
 slot to the whole batch).  Ids of -1 are not sent: their rows are ``fill``
-(gather) or dropped (scatter).  The ``DistArray`` class and the bounded
-multi-round gather come with the modules that need them.
+(gather) or dropped (scatter).  :class:`DistArray` holds one row-sharded
+array and runs these routines on it.  The bounded multi-round gather
+(``recv_cap``) and ``DistArray.from_file`` are not ported yet (ROADMAP
+Queue 1 items 6 and 7).
 
 Sums of rows keyed by ids (the scatter's "add", and the sharded SpMM's and
 attention's fallback edges in ``ops/dist_full_batch.py``) take a fixed
@@ -32,7 +34,7 @@ to the host.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -237,3 +239,91 @@ def _dist_scatter_shard(table: torch.Tensor, ids: torch.Tensor, values: torch.Te
     else:   # integers: exact in any order
         out.index_add_(0, safe, vals)
     return out[:rows]
+
+
+class DistArray:
+    """A row-sharded array over a mesh (the JAX package's ``DistArray``):
+    rank r holds rows [r * shard_size, (r + 1) * shard_size) of the padded
+    array in ``data``, on ``mesh.device``.  Every method that exchanges rows
+    runs on every rank together, each rank with its own ids, as the JAX
+    methods run under ``shard_map``."""
+
+    def __init__(self, data: torch.Tensor, book: PartitionBook, mesh: Mesh):
+        self.data = data
+        self.book = book
+        self.mesh = mesh
+
+    @staticmethod
+    def create(shape, dtype: torch.dtype, mesh: Mesh,
+               book: Optional[PartitionBook] = None) -> "DistArray":
+        """Zeros of global ``shape`` (rows first) in ``dtype``."""
+        total, *feat = shape
+        book = book or PartitionBook.even(total, mesh.world)
+        data = torch.zeros((book.shard_size, *feat), dtype=dtype, device=mesh.device)
+        return DistArray(data, book, mesh)
+
+    @staticmethod
+    def from_array(host_array, mesh: Mesh, book: Optional[PartitionBook] = None,
+                   dtype: Optional[torch.dtype] = None) -> "DistArray":
+        """This rank's shard of a whole (replicated) host array or tensor,
+        padded to ``world * shard_size`` rows."""
+        host = torch.as_tensor(host_array)
+        if dtype is not None:
+            host = host.to(dtype)
+        book = book or PartitionBook.even(host.shape[0], mesh.world)
+        lo = min(mesh.rank * book.shard_size, book.total)
+        rows = host[lo:min(lo + book.shard_size, book.total)]
+        data = torch.zeros((book.shard_size, *host.shape[1:]), dtype=host.dtype,
+                           device=mesh.device)
+        data[:rows.shape[0]] = rows.to(mesh.device)
+        return DistArray(data, book, mesh)
+
+    @property
+    def shape(self):
+        return (self.book.total,) + tuple(self.data.shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def world(self) -> int:
+        return self.mesh.world
+
+    def local_shard(self, rank: int) -> torch.Tensor:
+        """The logical (unpadded) rows that ``rank`` owns; only this rank's
+        are held here."""
+        if rank != self.mesh.rank:
+            raise ValueError(f"rank {self.mesh.rank} holds its own shard, not rank {rank}'s")
+        return self.data[:int(self.book.counts[rank])]
+
+    def gather(self, ids, fill=0) -> torch.Tensor:
+        """rows = self[ids] for this rank's ``ids`` (B,), -1 giving ``fill``
+        rows, through the exchange of :func:`_dist_gather_shard`."""
+        ids = torch.as_tensor(ids, device=self.mesh.device)
+        return _dist_gather_shard(self.data, ids, book=self.book, mesh=self.mesh, fill=fill)
+
+    def scatter(self, ids, values) -> None:
+        """self[ids] = values for this rank's ``ids`` (-1 dropped)."""
+        self._scatter(ids, values, "set")
+
+    def scatter_add(self, ids, values) -> None:
+        """self[ids] += values for this rank's ``ids`` (-1 dropped; repeated
+        ids accumulate in a fixed order)."""
+        self._scatter(ids, values, "add")
+
+    def _scatter(self, ids, values, mode: str) -> None:
+        ids = torch.as_tensor(ids, device=self.mesh.device)
+        values = torch.as_tensor(values, device=self.mesh.device)
+        self.data = _dist_scatter_shard(self.data, ids, values, book=self.book,
+                                        mesh=self.mesh, mode=mode)
+
+    def to_global(self) -> torch.Tensor:
+        """The whole (unpadded) array, gathered from every rank, on the
+        host: a test and debugging helper."""
+        if self.mesh.world == 1:
+            shards = [self.data]
+        else:
+            shards = [torch.empty_like(self.data) for _ in range(self.mesh.world)]
+            dist.all_gather(shards, self.data.contiguous(), group=self.mesh.group)
+        return torch.cat(shards)[:self.book.total].cpu()

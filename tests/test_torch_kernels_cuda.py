@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the row gather, the fused sampler, the slab SpMM (the whole function and
+the row gather, the fused sampler (and, around them, ``append_unique`` and
+one ``NeighborLoader`` batch against the CPU on the same draws), the slab SpMM (the whole function and
 its band-only mode), the CSR SpMM kernel, and the fused slab attention's
 forward and backward kernels, each of the last three also on the row shards
 of a 4-rank split (the shard wrappers of ``ops/dist_full_batch.py``,
@@ -19,6 +20,8 @@ import pytest
 import torch
 
 from cugraph_gnn_tpu_torch import _native
+from cugraph_gnn_tpu_torch.data import FeatureStore, GraphStore
+from cugraph_gnn_tpu_torch.loader import NeighborLoader
 from cugraph_gnn_tpu_torch.ops import dist_full_batch as DF
 from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import gather_rows, gather_rows_ref
 from cugraph_gnn_tpu_torch.ops.kernels.sample_kernel import (
@@ -47,6 +50,7 @@ from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import (
     csr_spmm,
     csr_spmm_ref,
 )
+from cugraph_gnn_tpu_torch.ops.unique import append_unique
 
 pytestmark = pytest.mark.cuda
 
@@ -89,34 +93,45 @@ def test_gather_rows_bit_equal(card, table_dtype, out_dtype, ids_dtype, f):
 
 
 def _graph(rng, n=600):
+    """Degrees 0, at most 10, up to 29, hubs of 129-2999 and one of 17,000
+    (the synthetic products graph's cap)."""
     deg = rng.integers(0, 30, n)
     deg[::50] = 0
     deg[1::97] = rng.integers(129, 3000, deg[1::97].shape[0])
+    deg[7] = 17_000
     indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
     indices = rng.integers(0, n, int(indptr[-1])).astype(np.int32)
     return indptr, indices
 
 
-@pytest.mark.parametrize("k", [1, 10, 16, 17, 40])
-def test_uniform_sample_bit_equal(card, k):
-    rng = np.random.default_rng(k)
+# k = 1..32 take the kernel's lane groups (32 // k seeds a warp), 33 and 40
+# one thread a seed; batches of one seed, of 33 (not a multiple of 32) and
+# hop 0's 10,240
+@pytest.mark.parametrize("s", [1, 33, 10_240])
+@pytest.mark.parametrize("k", [1, 10, 16, 17, 25, 32, 33, 40])
+def test_uniform_sample_bit_equal(card, k, s):
+    rng = np.random.default_rng(k * 7 + s)
     indptr, indices = _graph(rng)
     n = indptr.shape[0] - 1
-    seeds = rng.integers(0, n, 4000).astype(np.int32)
-    seeds[::11] = -1
-    seeds[3] = n + 5           # past the end: degree 0
-    u = rng.random((seeds.shape[0], k), dtype=np.float32)
+    seeds = rng.integers(0, n, s).astype(np.int32)
+    seeds[2::11] = -1
+    seeds[1::5] = 7            # the 17,000-slot hub
+    if s > 3:
+        seeds[3] = n + 5       # past the end: degree 0
+    u = rng.random((s, k), dtype=np.float32)
     args = [torch.as_tensor(a, device=card) for a in (indptr, indices, seeds, u)]
     before = fused_uniform_sample.launches
     out = fused_uniform_sample(*args, k)
+    again = fused_uniform_sample(*args, k)
     want = fused_uniform_sample_ref(*args, k)
     host = fused_uniform_sample_ref(
         *[torch.as_tensor(a) for a in (indptr, indices, seeds, u)], k)
     torch.cuda.synchronize()
-    assert fused_uniform_sample.launches == before + 1
-    for got, ref, ref_host in zip(out, want, host):
+    assert fused_uniform_sample.launches == before + 2
+    for got, got2, ref, ref_host in zip(out, again, want, host):
         assert got.dtype == torch.int32
         assert torch.equal(got, ref)
+        assert torch.equal(got, got2)
         assert torch.equal(got.cpu(), ref_host)
 
 
@@ -129,6 +144,69 @@ def test_uniform_sample_empty_graph(card):
     assert torch.equal(out.neighbors.cpu(), torch.full((3, 4), -1, dtype=torch.int32))
     assert torch.equal(out.edge_ids.cpu(), torch.full((3, 4), -1, dtype=torch.int32))
     assert torch.equal(out.num_sampled.cpu(), torch.zeros(3, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("budget", ["full", "clamped"])
+def test_append_unique_card_matches_cpu(card, budget):
+    rng = np.random.default_rng(len(budget))
+    targets = rng.choice(200_000, 5000, replace=False).astype(np.int32)
+    neighbors = rng.integers(0, 200_000, 50_000).astype(np.int32)
+    neighbors[::7] = -1
+    neighbors[1::9] = targets[rng.integers(0, 5000, neighbors[1::9].shape[0])]
+    max_unique = 55_000 if budget == "full" else 20_000
+    got = append_unique(torch.as_tensor(targets, device=card),
+                        torch.as_tensor(neighbors, device=card), max_unique=max_unique)
+    want = append_unique(torch.as_tensor(targets), torch.as_tensor(neighbors),
+                         max_unique=max_unique)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g.cpu(), w)
+
+
+class _FixedDraws:
+    """A loader's sampler whose draws are given: batch after batch, the
+    same CPU uniforms on either device."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def sample(self, seeds, generator=None):
+        g = torch.Generator().manual_seed(11)
+        caps = self.inner.level_caps(seeds.shape[0])
+        u = [torch.rand((caps[h], k), generator=g) for h, k in enumerate(self.inner.fanouts)]
+        return self.inner.sample(seeds, u=u)
+
+
+def test_neighbor_loader_batch_card_matches_cpu(card):
+    rng = np.random.default_rng(5)
+    indptr, indices = _graph(rng, n=3000)
+    n = indptr.shape[0] - 1
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    x = rng.standard_normal((n, 40)).astype(np.float32)
+    y = rng.integers(0, 7, n)
+    batches = []
+    for dev in (card, torch.device("cpu")):
+        gs, fs = GraphStore(device=dev), FeatureStore(device=dev)
+        gs.put_edge_index((indices, rows), ("n", "to", "n"), num_nodes=(n, n))
+        fs["x"] = x
+        fs["y"] = y
+        loader = NeighborLoader((fs, gs), (10, 5), batch_size=512, shuffle=True)
+        loader.sampler = _FixedDraws(loader.sampler)
+        before = (gather_rows.launches, fused_uniform_sample.launches)
+        batches.append(next(iter(loader)))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (gather_rows.launches, fused_uniform_sample.launches) == (
+                before[0] + 1, before[1] + 2)
+    got, want = batches
+    assert not got.sample.static_layout
+    for a, b in zip([got.seeds, got.input_id, got.x, got.y] + got.sample.levels
+                    + got.sample.level_counts,
+                    [want.seeds, want.input_id, want.x, want.y] + want.sample.levels
+                    + want.sample.level_counts):
+        assert torch.equal(a.cpu(), b)
+    for ha, hb in zip(got.sample.hops, want.sample.hops):
+        for a, b in zip(ha, hb):
+            assert torch.equal(a.cpu(), b)
 
 
 def _csr(rng, n, deg, band, far=0.0, weighted=False, shift=None):

@@ -1,6 +1,8 @@
-"""Port parity: multi-hop uniform sampling in the static (dedup=False)
-layout, PyTorch port against the JAX package, replaying the JAX draws
-(one ``fold_in(key, h)`` stream per hop).  Exact equality."""
+"""Port parity: multi-hop uniform sampling in the static (dedup=False) and
+the deduplicated layout, the ``NeighborSampler`` class (with capped levels)
+and the COO / CSC views of its batches, PyTorch port against the JAX
+package, replaying the JAX draws (one ``fold_in(key, h)`` stream per hop).
+Exact equality."""
 
 import jax
 import jax.numpy as jnp
@@ -14,7 +16,9 @@ from cugraph_gnn_tpu.ops.window_gather import (
     pad_to_lines,
 )
 from cugraph_gnn_tpu.sampler import neighbor_sampler as jax_ns
+from cugraph_gnn_tpu.sampler import output as jax_out
 from cugraph_gnn_tpu_torch.sampler import neighbor_sampler as port_ns
+from cugraph_gnn_tpu_torch.sampler import output as port_out
 
 FANOUTS = (4, 3)
 S, B = 3, 12
@@ -38,19 +42,16 @@ def _seeds(shape, n, seed=1):
     return seeds
 
 
-def _replayed_draws(key, batch, fanouts):
+def _replayed_draws(key, batch, fanouts, caps=None):
     """The uniforms the JAX sampler draws for hop h: fold_in(key, h) over
-    the flattened frontier of that hop."""
-    us, t = [], batch
-    for h, k in enumerate(fanouts):
-        us.append(np.array(jax.random.uniform(jax.random.fold_in(key, h),
-                                              (t, k))))
-        t *= k + 1
-    return us
+    the flattened frontier of that hop (``caps[h]`` targets when given)."""
+    caps = caps or jax_ns.level_capacities(batch, fanouts)
+    return [np.array(jax.random.uniform(jax.random.fold_in(key, h), (caps[h], k)))
+            for h, k in enumerate(fanouts)]
 
 
 def _assert_same(port, ref):
-    assert port.static_layout and ref.static_layout
+    assert port.static_layout == ref.static_layout
     for a, b in zip(port.levels, ref.levels):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     for a, b in zip(port.level_counts, ref.level_counts):
@@ -103,14 +104,75 @@ def test_multihop_single_matches_jax():
         B, FANOUTS)
 
 
-def test_multihop_dedup_waits_and_generator_draws():
-    indptr, indices = _graph(4)
-    seeds = _seeds((B,), indptr.shape[0] - 1)
-    with pytest.raises(NotImplementedError, match="append_unique"):
-        port_ns.multihop_uniform(indptr, indices, seeds, FANOUTS, device="cpu")
+# NeighborSampler configurations: (dedup, max_unique_per_hop); (30, 60)
+# caps both levels below their 36 and 144 slots, so new nodes are dropped
+SAMPLER_CASES = {"dedup": (True, None), "static": (False, None),
+                 "capped": (True, (30, 60))}
+
+
+@pytest.fixture(scope="module")
+def sampled():
+    """The graph, seeds and key, and each configuration's JAX sample and the
+    port's on the same draws, computed once."""
+    indptr, indices = _graph(7)
+    seeds = _seeds((B,), indptr.shape[0] - 1, seed=8)
+    key = jax.random.PRNGKey(21)
+    out = {}
+    for name, (dedup, caps) in SAMPLER_CASES.items():
+        ref = jax_ns.NeighborSampler(indptr, indices, FANOUTS, dedup=dedup,
+                                     max_unique_per_hop=caps).sample(key, jnp.asarray(seeds))
+        sampler = port_ns.NeighborSampler(indptr, indices, FANOUTS, dedup=dedup,
+                                          max_unique_per_hop=caps, device="cpu")
+        lv = sampler.level_caps(B)
+        assert lv == [int(a.shape[0]) for a in ref.levels]
+        out[name] = ref, sampler.sample(seeds, u=_replayed_draws(key, B, FANOUTS, lv))
+    return (indptr, indices, seeds, key), out
+
+
+def test_multihop_dedup_and_generator_draws(sampled):
+    (indptr, indices, seeds, key), out = sampled
+    # JAX's multihop_uniform(dedup=True) is its uncapped NeighborSampler
+    port = port_ns.multihop_uniform(indptr, indices, seeds, FANOUTS, device="cpu",
+                                    u=_replayed_draws(key, B, FANOUTS))
+    assert not port.static_layout
+    _assert_same(port, out["dedup"][0])
     # without u, the draws come from the generator: same seed, same sample
-    a, b = (port_ns.multihop_uniform(
-        indptr, indices, seeds, FANOUTS, dedup=False, device="cpu",
-        generator=torch.Generator().manual_seed(9)) for _ in range(2))
-    for x, y in zip(a.levels, b.levels):
-        assert torch.equal(x, y)
+    for dedup in (False, True):
+        a, b = (port_ns.multihop_uniform(
+            indptr, indices, seeds, FANOUTS, dedup=dedup, device="cpu",
+            generator=torch.Generator().manual_seed(9)) for _ in range(2))
+        for x, y in zip(a.levels, b.levels):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("name", sorted(SAMPLER_CASES))
+def test_neighbor_sampler_matches_jax(sampled, name):
+    ref, port = sampled[1][name]
+    _assert_same(port, ref)
+    if name == "capped":   # the caps really dropped nodes
+        assert bool((port.hops[1].neigh_global >= 0).sum() > port.hops[1].mask.sum())
+
+
+@pytest.mark.parametrize("name", sorted(SAMPLER_CASES))
+def test_to_coo_and_csc_match_jax(sampled, name):
+    ref, port = sampled[1][name]
+    for got, want in ((port_out.to_coo(port), jax_out.to_coo(ref)),
+                      (port_out.to_csc(port), jax_out.to_csc(ref))):
+        assert got.edge_hi is None and want.edge_hi is None
+        for field in got._fields[:-1]:
+            g, w = getattr(got, field), getattr(want, field)
+            for a, b in (zip(g, w) if isinstance(g, list) else [(g, w)]):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=field)
+
+
+def test_neighbor_sampler_refuses_what_waits():
+    indptr, indices = _graph(1)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        port_ns.NeighborSampler(indptr, indices, FANOUTS, weights=np.ones(len(indices)),
+                                device="cpu")
+    sampler = port_ns.NeighborSampler(indptr, indices, FANOUTS, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        sampler.sample(np.zeros(4, np.int32), node_times=np.zeros(4))
+    with pytest.raises(ValueError, match="smaller than"):
+        port_ns.NeighborSampler(indptr, indices, FANOUTS, max_unique_per_hop=(5, 60),
+                                device="cpu").sample(np.zeros(B, np.int32))
