@@ -49,6 +49,48 @@ Phases (any failure raises and exits non-zero):
    card and on the CPU, on phase 4's 2,000-node graph with the same
    uniforms, uncapped and with ``max_unique_per_hop``: every level, map and
    count equal.
+5d. small-input agreement, embeddings: on phase 4's graph, a 2,000 x 32
+   table, GraphSAGE 32 -> 32 -> 5 and ``NeighborSampler(dedup=True)`` with
+   the same uniforms, three f32 steps (gather, forward and backward, Adam,
+   ``add_gradients``, ``apply_gradients``) of ``CachedHostEmbedding``
+   (adagrad, 256 slots: it evicts) and of ``DistEmbedding`` (lazy_adam, world
+   1: NCCL on the card, a gloo group on the CPU) on the card and on the CPU:
+   losses within 1e-4, the cache's host metadata (tags, counters, modified
+   bits, hits, misses) equal after every step, the table after ``flush`` and
+   the optimizer state within 1e-5; then two runs of two ``apply_gradients``
+   from one state on the card, bit for bit equal, for each.
+5e. embedding training at full width (``examples/cached_embedding_training.py``
+   on phase 3's graph): a learnable 2,449,029 x 128 f32 table in host memory
+   (0.05 * N(0, 1), numpy seed 0) behind ``CachedHostEmbedding(adagrad,
+   cache_ratio=0.2, ways=8)`` (489,800 slots, 251 MB of rows on the card;
+   AdaGrad's state on the host), ``NeighborSampler`` (batch 1024, fanouts
+   10/10, dedup), GraphSAGE 128 -> 256 -> 47 in bf16 with Adam 1e-3, the
+   embedding's lr 3e-3: 2 warm-up and 10 timed steps, then ``DistEmbedding``
+   (lazy_adam, world 1 over NCCL, the same initial table in device memory)
+   for 2 + 5.  Per step: the loss (finite), ms, peak memory, the hit rate,
+   rows uploaded and dirty rows written back, each stage (sample; the
+   lookup; the model; the apply: dedup, state streamed up and down,
+   optimizer, cache update; and the two gathers' (the lookup's and the
+   apply's) host plans and upload + combine, with its writeback) by CUDA
+   events and host clocks between synchronisations, and the
+   launches of rows 1, 2 and 3, which must be what the path makes (row 1:
+   two cache reads and one per writeback, or one lookup; row 2: two; row 3:
+   one dedup, or two) and no other kernel.  Afterwards rows that no step
+   touched are bit-equal to the initial table, and, after ``flush``, a
+   fresh ``HostManagedCache`` over the host table gathers the last step's
+   rows bit-equal to the trained cache; row 1 at the cache's slot read and
+   at the ``DistEmbedding`` lookup (f32): bit-equal to its plain version,
+   timed beside it and ``index_select``.
+5f. the loader over host-located features: phase 5b's stores with ``x`` at
+   ``location="host"`` (``CachePolicy()``: 32 ways, 20% of the rows), the
+   labels on the card; ``NeighborLoader(dedup=True)`` trains GraphSAGE for 2
+   warm-up and 4 batches: per batch the ms, hit rate, loss (finite) and the
+   rows bit-equal to the device-located store's for the same ids; 1 row-gather
+   (and one per writeback: none, nothing is dirty) and 2 sampler launches.
+5g. row 3 at the dedup's shape: ``segment_add`` over the last cached step's
+   ~125,000 input-node ids x 128 f32 gradients (the dedup's plan) against
+   ``csr_spmm_ref`` (phase 7's tolerance), launched twice bit for bit, timed
+   beside ``index_add_`` with its byte bound.
 6. full-batch data: the banded graph of ``train_full`` (2,449,029 nodes, 12
    in-band sources within +-256 and 1 uniform source per node: 31,837,377
    edges) and its ``FullBatchGraph`` (reorder "none", R = 256) with the
@@ -165,7 +207,8 @@ Phases (any failure raises and exits non-zero):
     attention forward and backward.
 17. the ``kernels`` summary line (rows 1-14, then the probe, which the
     main path launches no time; rows 1 and 2 count the launches of phases
-    5 and 5b, row 2 also carries its time per hop and its sector floor, at
+    5, 5b, 5e and 5f, split by path (row 1 also timed at 5e's two shapes),
+    row 2 also carries its time per hop and its sector floor, at
     phase 3's block hops and at phase 5b's loader hops, its launches split
     by path, and a gap that prices each path's launches at its own hops;
     rows 5-14 also carry their timed calls, the
@@ -174,7 +217,8 @@ Phases (any failure raises and exits non-zero):
     calls; row 3's launches and
     numbers are the sharded path's (the GAT step's), phase 16's, beside
     phase 7's one-card numbers under ``*_one_card``: the one-card path no
-    longer runs it), and last the ``ok`` line.
+    longer runs it; its embedding launches and phase 5g's numbers under
+    ``launches_embedding`` and ``*_dedup``), and last the ``ok`` line.
 
 Every JSON line carries the card's name and power limit.
 """
@@ -386,7 +430,469 @@ def loader_path(dev, emit, graph, small_cpu, counters, cuda_ms, hbm):
         emit({"phase": "small_input_agreement_sampler", "dedup": True, "caps": caps,
               "slots_per_level": lv, "nodes_per_level": [int(c) for c in a.level_counts],
               "equal": True})
-    return total, sampler_rows
+    return total, sampler_rows, gs
+
+
+class _Stages:
+    """Device (CUDA events) and host-clock milliseconds of named stages:
+    ``wrap`` replaces an attribute by a call timed between two
+    synchronisations, so that nested stages time their own work."""
+
+    def __init__(self):
+        self.ms, self.host_ms, self.calls = {}, {}, {}
+
+    def run(self, stage, fn, *args, **kw):
+        import torch
+
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        out = fn(*args, **kw)
+        b.record()
+        torch.cuda.synchronize()
+        self.host_ms[stage] = self.host_ms.get(stage, 0.0) + (time.perf_counter() - t0) * 1e3
+        self.ms[stage] = self.ms.get(stage, 0.0) + a.elapsed_time(b)
+        self.calls[stage] = self.calls.get(stage, 0) + 1
+        return out
+
+    def wrap(self, obj, name, stage):
+        fn = getattr(obj, name)
+        setattr(obj, name, lambda *a, **kw: self.run(stage, fn, *a, **kw))
+
+    def take(self):
+        out = {"ms": self.ms, "host_ms": self.host_ms, "calls": self.calls}
+        self.ms, self.host_ms, self.calls = {}, {}, {}
+        return out
+
+
+def _count_writebacks(cache):
+    """Make ``cache`` count its writebacks that read slots (each one launch
+    of the row gather) in ``cache.writeback_reads``."""
+    inner = cache._writeback
+    cache.writeback_reads = 0
+
+    def counted(s, w, ids):
+        cache.writeback_reads += int(len(ids) > 0)
+        return inner(s, w, ids)
+
+    cache._writeback = counted
+
+
+def _emb_step(model, opt, emb, sample, seeds, labels, lr, stages=None):
+    """One step of the example's loop: the rows of the sample's input nodes
+    through ``emb`` (a ``DistEmbedding``'s lookup, a ``CachedHostEmbedding``'s
+    gather) plus a tap, the model's Adam step, then the rows' gradients (the
+    tap's) applied by the embedding's sparse optimizer; with ``stages`` (a
+    ``_Stages``) the three parts timed as "lookup", "model" and "apply".
+    Returns the loss (a float: the step synchronises) and the tap's
+    gradient."""
+    from cugraph_gnn_tpu_torch.loader import NodeBatch
+
+    def run(stage, fn, *args):
+        return fn(*args) if stages is None else stages.run(stage, fn, *args)
+
+    tap = emb.make_tap(sample.input_nodes.shape[0])
+    if hasattr(emb, "lookup"):
+        x = run("lookup", emb.lookup, tap, sample.input_nodes)
+    else:
+        x = run("lookup", emb.gather, sample.input_nodes) + tap
+    y = labels[seeds.clamp(min=0).long()]
+    loss = run("model", _loader_step, model, opt,
+               NodeBatch(sample, x, y, seeds, seeds, seeds.numel()))
+    emb.add_gradients(sample.input_nodes, tap.grad)
+    run("apply", emb.apply_gradients, lr)
+    return float(loss), tap.grad
+
+
+def _bits_equal(a, b) -> bool:
+    import numpy as np
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return a.dtype == b.dtype and np.array_equal(a.view(np.int32), b.view(np.int32))
+
+
+EMB_DIM, EMB_LR = 128, 3e-3
+
+
+def embedding_paths(dev, emit, graph, small_cpu, counters, cuda_ms, hbm, gs):
+    """Phases 5d-5g (see the module docstring).  Returns each kernel's
+    launches on each new path and row 3's numbers at the dedup's shape."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cugraph_gnn_tpu_torch import train as T
+    from cugraph_gnn_tpu_torch.data import FeatureStore
+    from cugraph_gnn_tpu_torch.embedding import CachedHostEmbedding, DistEmbedding, HostManagedCache
+    from cugraph_gnn_tpu_torch.embedding import cached as cached_mod
+    from cugraph_gnn_tpu_torch.embedding import embedding as emb_mod
+    from cugraph_gnn_tpu_torch.loader import NeighborLoader
+    from cugraph_gnn_tpu_torch.models.zoo import GraphSAGE
+    from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import gather_rows_ref
+    from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import csr_spmm_ref
+    from cugraph_gnn_tpu_torch.parallel.mesh import create_store_mesh
+    from cugraph_gnn_tpu_torch.sampler.neighbor_sampler import NeighborSampler
+    from cugraph_gnn_tpu_torch.store.dist_array import DistArray, segment_add
+    from cugraph_gnn_tpu_torch.utils import distributed as D
+
+    names = [fn.__name__ for fn in counters]
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def read():
+        return {fn.__name__: fn.launches for fn in counters}
+
+    def expect(gather, sample, dedup):
+        return {**{n: 0 for n in names}, "gather_rows": gather,
+                "fused_uniform_sample": sample, "csr_spmm": dedup}
+
+    launches = {}
+    mesh = D.init(init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        _require_nccl(mesh)
+        cpu_mesh = create_store_mesh("cpu", group=dist.new_group([0], backend="gloo"))
+
+        # -- 5d. small input, embeddings: card against CPU ---------------------
+        t0 = time.perf_counter()
+        dim, n_small, batch = 32, small_cpu.num_nodes, 64
+        host0 = (0.05 * np.random.default_rng(7).standard_normal((n_small, dim))).astype(
+            np.float32)
+        g_u = torch.Generator().manual_seed(8)
+        seeds_s = [torch.randint(0, n_small, (batch,), generator=g_u, dtype=torch.int32)
+                   for _ in range(3)]
+        s_cpu = NeighborSampler(small_cpu.indptr, small_cpu.indices, (10, 10), device="cpu")
+        s_gpu = NeighborSampler(small_cpu.indptr, small_cpu.indices, (10, 10), device=dev)
+        lv = s_cpu.level_caps(batch)
+        us = [[torch.rand((lv[h], 10), generator=g_u) for h in range(2)] for _ in range(3)]
+        report = {}
+        for kind in ("cached", "dist"):
+            sides = {}
+            for where, sampler, dmesh in (("cpu", s_cpu, cpu_mesh), ("card", s_gpu, mesh)):
+                d = torch.device("cpu") if where == "cpu" else dev
+                torch.manual_seed(9)
+                model = GraphSAGE(dim, 32, 5, device="cpu").to(d)
+                opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+                if kind == "cached":
+                    emb = CachedHostEmbedding(host0.copy(), optimizer="adagrad", capacity=256,
+                                              ways=8, device=d)
+                else:
+                    emb = DistEmbedding(DistArray.from_array(host0, dmesh),
+                                        optimizer="lazy_adam")
+                losses, metas = [], []
+                for i in range(3):
+                    smp = sampler.sample(seeds_s[i], u=us[i])
+                    loss, _ = _emb_step(model, opt, emb, smp, seeds_s[i].to(d),
+                                        small_cpu.labels.to(d), EMB_LR)
+                    losses.append(loss)
+                    if kind == "cached":
+                        c = emb.cache
+                        metas.append((c.tags.copy(), c.freq.copy(), c.modified.copy(),
+                                      c.hits, c.misses))
+                if kind == "cached":
+                    emb.flush()
+                    table, state = emb.host_table, emb._state
+                else:
+                    table = emb.table.to_global().numpy()
+                    state = {k: v.cpu().numpy() for k, v in emb._state.items()}
+                sides[where] = (losses, metas, table, state)
+            (lc, mc, tc, sc), (lg, mg, tg, sg) = sides["cpu"], sides["card"]
+            loss_diff = max(abs(a - b) for a, b in zip(lc, lg))
+            meta_equal = all(all(np.array_equal(np.asarray(x), np.asarray(y))
+                                 for x, y in zip(a, b)) for a, b in zip(mc, mg))
+            table_diff = float(np.abs(tc - tg).max())
+            state_diff = max([float(np.abs(sc[k] - sg[k]).max()) for k in sc] or [0.0])
+            if not (loss_diff <= 1e-4 and meta_equal and table_diff <= 1e-5
+                    and state_diff <= 1e-5):
+                raise AssertionError(f"{kind} embedding, card vs CPU: losses {loss_diff}, "
+                                     f"metadata equal {meta_equal}, table {table_diff}, "
+                                     f"state {state_diff}")
+            report[kind] = {"max_loss_abs_diff": loss_diff, "metadata_equal": meta_equal,
+                            "table_max_abs_diff": table_diff,
+                            "state_max_abs_diff": state_diff}
+        # two apply_gradients from one state, on the card: bit for bit
+        smp = s_gpu.sample(seeds_s[0], u=us[0])
+        g = torch.Generator(device=dev).manual_seed(10)
+        grads = torch.randn((smp.input_nodes.numel(), dim), generator=g, device=dev)
+        runs = {}
+        for kind in ("cached", "dist"):
+            out = []
+            for _ in range(2):
+                if kind == "cached":
+                    emb = CachedHostEmbedding(host0.copy(), optimizer="adagrad", capacity=256,
+                                              ways=8, device=dev)
+                    emb.gather(smp.input_nodes)
+                else:
+                    emb = DistEmbedding(DistArray.from_array(host0, mesh),
+                                        optimizer="lazy_adam")
+                for _ in range(2):
+                    emb.add_gradients(smp.input_nodes, grads)
+                    emb.apply_gradients(EMB_LR)
+                if kind == "cached":
+                    emb.flush()
+                    out.append([emb.host_table] + list(emb._state.values()))
+                else:
+                    out.append([emb.table.data] + [emb._state[k] for k in sorted(emb._state)])
+            runs[kind] = all(_bits_equal(a, b) for a, b in zip(*out))
+        if not all(runs.values()):
+            raise AssertionError(f"two apply_gradients from one state differ: {runs}")
+        emit({"phase": "small_input_agreement_embeddings", "steps": 3, "nodes": n_small,
+              "dim": dim, **report, "loss_tolerance": 1e-4, "table_state_tolerance": 1e-5,
+              "apply_bit_equal": runs, "seconds": time.perf_counter() - t0})
+
+        # -- 5e. embedding training at full width ------------------------------
+        n = graph.num_nodes
+        t0 = time.perf_counter()
+        host = np.random.default_rng(0).standard_normal((n, EMB_DIM), dtype=np.float32)
+        host *= np.float32(0.05)
+        initial = host.copy()
+        t_table = time.perf_counter() - t0
+        sampler = NeighborSampler(graph.indptr, graph.indices, T.FANOUTS, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        path_launches = {}
+
+        def train(kind, emb, warmup, timed):
+            torch.manual_seed(0)
+            model = GraphSAGE(EMB_DIM, T.HIDDEN, T.CLASSES, num_layers=len(T.FANOUTS),
+                              dtype=torch.bfloat16, device=dev)
+            opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+            st = _Stages()
+            dedup_fn = emb_mod.dedup_ids_grads
+            c = emb.cache if kind == "cached" else None
+            if c is not None:
+                # inside "lookup" and "apply": the host plan, the writeback of
+                # dirty slots inside the upload + combine, the state streams,
+                # the optimizer and the cache's update
+                _count_writebacks(c)
+                for name, stage in (("_plan", "plan_host"), ("_apply_plan", "upload_combine"),
+                                    ("_writeback", "writeback"), ("update", "cache_update")):
+                    st.wrap(c, name, stage)
+                for name, stage in (("_state_rows", "state_stream_up"),
+                                    ("_store_state", "state_stream_down"),
+                                    ("_update_fn", "optimizer")):
+                    st.wrap(emb, name, stage)
+                st.wrap(cached_mod, "dedup_ids_grads", "dedup")
+            else:
+                st.wrap(emb_mod, "dedup_ids_grads", "dedup")
+            touched = np.zeros(n, bool)
+            ms, total = [], {k: 0 for k in names}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                for i in range(warmup + timed):
+                    seeds = torch.randint(0, n, (T.BATCH,), generator=gen, device=dev,
+                                          dtype=torch.int32)
+                    if c is not None:
+                        before = (c.hits, c.misses, c.uploaded, c.written_back,
+                                  c.writeback_reads)
+                    torch.cuda.synchronize()
+                    reset()
+                    t1 = time.perf_counter()
+                    smp = st.run("sample", sampler.sample, seeds, generator=gen)
+                    loss, grad = _emb_step(model, opt, emb, smp, seeds, graph.labels, EMB_LR,
+                                           stages=st)
+                    torch.cuda.synchronize()
+                    dt = (time.perf_counter() - t1) * 1e3
+                    got = read()
+                    if i >= warmup:
+                        ms.append(dt)
+                    if not math.isfinite(loss):
+                        raise AssertionError(f"non-finite {kind} embedding loss {loss}")
+                    ids = smp.input_nodes.cpu().numpy()
+                    touched[ids[ids >= 0]] = True
+                    stages = st.take()
+                    row = {"phase": "embedding_train", "path": kind, "step": i,
+                           "warmup": i < warmup, "loss": loss, "ms": dt,
+                           "input_nodes": int((ids >= 0).sum()),
+                           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                           "stages": stages, "launches": got}
+                    if c is not None:
+                        hits, misses, up, wb, reads = (
+                            a - b for a, b in zip((c.hits, c.misses, c.uploaded,
+                                                   c.written_back, c.writeback_reads), before))
+                        want = expect(2 + reads, 2, 1)
+                        row.update(hit_rate=hits / max(hits + misses, 1), rows_uploaded=up,
+                                   rows_written_back=wb, writeback_reads=reads)
+                    else:
+                        want = expect(1, 2, 2)
+                    row["expected"] = want
+                    emit(row)
+                    if got != want:
+                        raise AssertionError(f"{kind} embedding step {i}: launches {got}, "
+                                             f"expected {want}")
+                    for k, v in got.items():
+                        total[k] += v
+            finally:
+                setattr(emb_mod, "dedup_ids_grads", dedup_fn)
+                setattr(cached_mod, "dedup_ids_grads", dedup_fn)
+            path_launches[kind] = total
+            return ms, touched, smp, grad
+
+        t0 = time.perf_counter()
+        emb = CachedHostEmbedding(host, optimizer="adagrad", cache_ratio=0.2, ways=8,
+                                  device=dev)
+        c = emb.cache
+        emit({"phase": "embedding_setup", "path": "cached", "rows": n, "dim": EMB_DIM,
+              "table_bytes": host.nbytes, "table_draw_s": t_table,
+              "capacity": int(n * 0.2), "sets": c.sets, "ways": c.ways,
+              "slots": c.sets * c.ways, "cache_bytes": c.rows.numel() * 4,
+              "host_state_bytes": sum(v.nbytes for v in emb._state.values()),
+              "setup_s": time.perf_counter() - t0})
+        ms, touched, smp, grad = train("cached", emb, 2, 10)
+        # row 1 at the cache's slot read: the last step's input nodes at the
+        # slots the metadata gives them (read, not planned), f32 out
+        ids_np = smp.input_nodes.cpu().numpy().astype(np.int64)
+        sv = c._set_of(np.maximum(ids_np, 0))
+        eq = c.tags[sv] == ids_np[:, None]
+        hit = eq.any(1) & (ids_np >= 0)
+        slot = torch.as_tensor(np.where(hit, sv * c.ways + eq.argmax(1), -1), device=dev)
+        read_rows_at = {"cache_read": _gather_row(emit, c._flat, slot, int(hit.sum()), cuda_ms,
+                                                  hbm, "cached embedding: cache slots")}
+        t0 = time.perf_counter()
+        reset()
+        emb.flush()
+        flush_reads = read()["gather_rows"]
+        flush_s = time.perf_counter() - t0
+        untouched_equal = _bits_equal(host[~touched], initial[~touched])
+        fresh = HostManagedCache(host, c.sets * c.ways, ways=c.ways, device=dev)
+        ids = smp.input_nodes
+        same_rows = _bits_equal(emb.gather(ids), fresh.gather(ids))
+        emit({"phase": "embedding_train_summary", "path": "cached", "steps_timed": len(ms),
+              "ms_per_step": sum(ms) / len(ms), "hit_rate_overall": c.hit_rate,
+              "flush_s": flush_s, "flush_gather_launches": flush_reads,
+              "rows_touched": int(touched.sum()), "untouched_rows_bit_equal": untouched_equal,
+              "fresh_cache_rows_bit_equal": same_rows})
+        if not (untouched_equal and same_rows):
+            raise AssertionError(f"cached embedding: untouched rows equal {untouched_equal}, "
+                                 f"a fresh cache's rows equal {same_rows}")
+        dedup_ids, dedup_grads = smp.input_nodes, grad
+        del emb, fresh, c, host
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        demb = DistEmbedding(DistArray.from_array(initial, mesh), optimizer="lazy_adam")
+        torch.cuda.synchronize()
+        emit({"phase": "embedding_setup", "path": "dist", "world": mesh.world,
+              "backend": mesh.backend, "table_bytes": demb.table.data.numel() * 4,
+              "state_bytes": sum(v.numel() * 4 for v in demb._state.values()),
+              "setup_s": time.perf_counter() - t0})
+        ms, touched, smp, _ = train("dist", demb, 2, 5)
+        ids = smp.input_nodes
+        read_rows_at["dist_lookup"] = _gather_row(
+            emit, demb.table.data, ids, int(torch.unique(ids[ids >= 0]).numel()), cuda_ms, hbm,
+            "DistEmbedding at world 1: the local read")
+        table = demb.table.to_global().numpy()
+        untouched_equal = _bits_equal(table[~touched], initial[~touched])
+        emit({"phase": "embedding_train_summary", "path": "dist", "steps_timed": len(ms),
+              "ms_per_step": sum(ms) / len(ms), "rows_touched": int(touched.sum()),
+              "untouched_rows_bit_equal": untouched_equal})
+        if not untouched_equal:
+            raise AssertionError("DistEmbedding changed rows that no step touched")
+        del demb, table, initial
+        torch.cuda.empty_cache()
+    finally:
+        D.finalize()
+    launches.update(path_launches)
+
+    # -- 5f. the loader over host-located features -----------------------------
+    t0 = time.perf_counter()
+    fs = FeatureStore(device=dev)
+    fs.put_tensor(graph.feats.cpu().numpy(), "", "x", location="host")
+    fs["y"] = graph.labels
+    cache = fs._store[("", "x")][1][1]
+    emit({"phase": "host_loader_stores", "setup_s": time.perf_counter() - t0,
+          "sets": cache.sets, "ways": cache.ways, "slots": cache.sets * cache.ways})
+    _count_writebacks(cache)
+    torch.manual_seed(0)
+    model = GraphSAGE(T.FEAT_DIM, T.HIDDEN, T.CLASSES, num_layers=len(T.FANOUTS),
+                      dtype=torch.bfloat16, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    loader = NeighborLoader((fs, gs), num_neighbors=T.FANOUTS, batch_size=T.BATCH,
+                            shuffle=True, dedup=True)
+    it = iter(loader)
+    ms, total = [], {k: 0 for k in names}
+    for i in range(6):
+        hm0, reads0 = (cache.hits, cache.misses), cache.writeback_reads
+        torch.cuda.synchronize()
+        reset()
+        t1 = time.perf_counter()
+        batch = next(it)
+        loss = float(_loader_step(model, opt, batch))
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t1) * 1e3
+        got = read()
+        if i >= 2:
+            ms.append(dt)
+        want = expect(1 + cache.writeback_reads - reads0, 2, 0)
+        same = _bits_equal(batch.x, gather_rows_ref(graph.feats, batch.sample.input_nodes))
+        hits, misses = cache.hits - hm0[0], cache.misses - hm0[1]
+        emit({"phase": "host_loader_train", "batch": i, "warmup": i < 2, "loss": loss,
+              "ms": dt, "hit_rate": hits / max(hits + misses, 1),
+              "rows_bit_equal_device_store": same, "launches": got, "expected": want,
+              "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        if not (math.isfinite(loss) and same and got == want):
+            raise AssertionError(f"host-located loader batch {i}: loss {loss}, rows equal "
+                                 f"{same}, launches {got}, expected {want}")
+        for k, v in got.items():
+            total[k] += v
+    emit({"phase": "host_loader_summary", "batches_timed": len(ms),
+          "ms_per_batch": sum(ms) / len(ms), "hit_rate_overall": cache.hit_rate})
+    launches["host_loader"] = total
+    del loader, it, batch, fs, cache, model, opt
+
+    # -- 5g. row 3 at the dedup's shape ------------------------------------------
+    uids, plan = emb_mod.dedup_plan(dedup_ids)
+    grads = dedup_grads.contiguous()
+    u, f = plan.num_rows, grads.shape[1]
+    got = segment_add(torch.zeros((u, f), device=dev), plan, grads)
+    again = segment_add(torch.zeros((u, f), device=dev), plan, grads)
+    want = csr_spmm_ref(plan, grads, out=torch.zeros((u, f), device=dev))
+    mag = csr_spmm_ref(plan, grads.abs(), out=torch.zeros((u, f), device=dev))
+    err = float((got - want).abs().max())
+    ok = bool(((got - want).abs() <= 1e-5 + 1e-5 * mag).all())
+    if not (ok and _bits_equal(got, again)):
+        raise AssertionError(f"row 3 at the dedup's shape: max abs err {err}, within "
+                             f"tolerance {ok}, two launches equal {_bits_equal(got, again)}")
+    slots = int(plan.rowptr[-1])
+    nbytes = slots * (4 + 4 * f) + (u + 1) * 8 + 2 * u * f * 4
+    out = torch.zeros((u, f), device=dev)
+    valid = plan.rows >= 0
+    idx, vals = plan.rows[valid].long(), grads[plan.cols[valid].long()]
+    dedup_row = {
+        "kernel": "csr_spmm", "path": "dedup", "ids": int(dedup_ids.numel()),
+        "unique": int((uids >= 0).sum()), "slots": slots, "f": f,
+        "ms": cuda_ms(lambda: segment_add(out, plan, grads)),
+        "plain_ms": cuda_ms(lambda: csr_spmm_ref(plan, grads, out=out), iters=5),
+        "library_ms": cuda_ms(lambda: out.index_add_(0, idx, vals)),
+        "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3, "max_abs_err": err,
+        "bit_equal_two_launches": True}
+    emit(dedup_row)
+    return launches, {"dedup": dedup_row, **read_rows_at}
+
+
+def _gather_row(emit, table, ids, distinct, cuda_ms, hbm, what):
+    """Row 1 on ``table`` (f32 to f32) at ``ids``, ``distinct`` of them
+    valid and distinct: bit-equal to its plain version, timed beside it and
+    ``index_select``, with its byte bound."""
+    import torch
+
+    from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import gather_rows, gather_rows_ref
+
+    if not _bits_equal(gather_rows(table, ids), gather_rows_ref(table, ids)):
+        raise AssertionError(f"row gather ({what}) differs from the plain version")
+    f = table.shape[1]
+    nbytes = ids.element_size() * ids.numel() + 4 * f * distinct + 4 * f * ids.numel()
+    row = {"kernel": "gather_rows", "path": what, "ids": ids.numel(), "table": list(table.shape),
+           "out_dtype": "float32", "ms": cuda_ms(lambda: gather_rows(table, ids)),
+           "plain_ms": cuda_ms(lambda: gather_rows_ref(table, ids)),
+           "library_ms": cuda_ms(lambda: torch.index_select(table, 0, ids.clamp(min=0))),
+           "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3, "bit_equal": True}
+    emit(row)
+    return row
 
 
 def full_batch(dev, emit, cuda_ms, hbm, counters):
@@ -2233,12 +2739,15 @@ def main() -> None:
     emit({"phase": "stages", "ms_per_step": stages})
     sampled_launches = launches
     del sample, blk_sample, hop_inputs, ids, seeds, u0, u1, x, st, logits, model, opt
-    loader_launches, loader_b_rows = loader_path(dev, emit, graph, small_cpu, counters,
-                                                 cuda_ms, hbm)
-    block_sampler_launches = sampled_launches["fused_uniform_sample"]
+    loader_launches, loader_b_rows, gs = loader_path(dev, emit, graph, small_cpu, counters,
+                                                     cuda_ms, hbm)
+    emb_launches, emb_rows = embedding_paths(dev, emit, graph, small_cpu, counters, cuda_ms,
+                                             hbm, gs)
+    block_launches = dict(sampled_launches)
     for name in ("gather_rows", "fused_uniform_sample"):
-        sampled_launches[name] += loader_launches[name]
-    del graph
+        sampled_launches[name] += loader_launches[name] + sum(
+            v[name] for v in emb_launches.values())
+    del graph, gs
     torch.cuda.empty_cache()
 
     reused, fb_rows = full_batch(dev, emit, cuda_ms, hbm, counters)
@@ -2262,6 +2771,15 @@ def main() -> None:
                                                    "library_ms")},
                    launches=csr_row["launches"] + sharded_csr["launches"],
                    max_abs_err=max(csr_row["max_abs_err"], sharded_csr["max_abs_err"]))
+    # and the embeddings' dedup sums (phases 5e, 5g): one launch a
+    # CachedHostEmbedding step, two a DistEmbedding step
+    dd = emb_rows["dedup"]
+    emb_csr = sum(v["csr_spmm"] for v in emb_launches.values())
+    csr_row.update(launches_embedding=emb_csr, launches=csr_row["launches"] + emb_csr,
+                   max_abs_err=max(csr_row["max_abs_err"], dd["max_abs_err"]),
+                   **{f"{k}_dedup": dd[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                     "bound_ms", "library_ms", "slots")},
+                   gap_ms_dedup=emb_csr * (dd["ms"] - dd["bound_ms"]))
 
     # -- 17. summary --------------------------------------------------------
     kernels.append({
@@ -2271,7 +2789,21 @@ def main() -> None:
         "launches": sampled_launches["gather_rows"], "max_abs_err": a_err,
         "ms": a_row["ms"], "plain_ms": a_row["plain_ms"],
         "bound_ms": a_row["bound_ms"], "bound_by": "bytes",
-        "library_ms": a_row["library_ms"]})
+        "library_ms": a_row["library_ms"],
+        # launches by path; the gap prices the block's and the loader's at
+        # the block's shape, the cache reads (cached embedding, host-located
+        # loader) and the DistEmbedding lookup at their own shapes
+        "launches_block": block_launches["gather_rows"],
+        "launches_loader": loader_launches["gather_rows"],
+        **{f"launches_{k}": v["gather_rows"] for k, v in emb_launches.items()},
+        **{f"{k}_{at}": emb_rows[at][k] for at in ("cache_read", "dist_lookup")
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "gap_ms": (block_launches["gather_rows"] + loader_launches["gather_rows"])
+        * (a_row["ms"] - a_row["bound_ms"])
+        + (emb_launches["cached"]["gather_rows"] + emb_launches["host_loader"]["gather_rows"])
+        * (emb_rows["cache_read"]["ms"] - emb_rows["cache_read"]["bound_ms"])
+        + emb_launches["dist"]["gather_rows"]
+        * (emb_rows["dist_lookup"]["ms"] - emb_rows["dist_lookup"]["bound_ms"])})
     # the sampler's numbers are one block's two launches (hop 0 + hop 1); its
     # gap prices the block's launches at the block's hops and the loader's
     # at a loader batch's hops
@@ -2288,13 +2820,15 @@ def main() -> None:
         "bound_ms": sum(r["bound_ms"] for r in b_rows), "bound_by": "bytes",
         "sector_floor_ms": sum(r["sector_floor_ms"] for r in b_rows),
         "ms_per_hop": [r["ms"] for r in b_rows], "library_ms": None,
-        "launches_block": block_sampler_launches,
+        "launches_block": block_launches["fused_uniform_sample"],
         "launches_loader": loader_launches["fused_uniform_sample"],
+        **{f"launches_{k}": v["fused_uniform_sample"] for k, v in emb_launches.items()},
         "ms_per_hop_loader": [r["ms"] for r in loader_b_rows],
         "bound_ms_loader": sum(r["bound_ms"] for r in loader_b_rows),
         "sector_floor_ms_loader": sum(r["sector_floor_ms"] for r in loader_b_rows),
-        "gap_ms": sampler_gap(block_sampler_launches, b_rows)
-        + sampler_gap(loader_launches["fused_uniform_sample"], loader_b_rows)})
+        "gap_ms": sampler_gap(block_launches["fused_uniform_sample"], b_rows)
+        + sampler_gap(loader_launches["fused_uniform_sample"] + sum(
+            v["fused_uniform_sample"] for v in emb_launches.values()), loader_b_rows)})
     kernels += fb_rows + gat_rows + dist_rows + [probe_row]
     emit({"phase": "wall", "seconds": time.perf_counter() - wall0})
     print(smi)

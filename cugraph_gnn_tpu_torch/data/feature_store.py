@@ -9,8 +9,14 @@ float32 or bfloat16 table runs the row-gather kernel
 tables (labels, integer columns) are indexed plainly.  Ids of -1 give zero
 rows; ids past the end read the last row, as the JAX gather clamps them.
 
-Host-located tensors behind a device cache (``location="host"``) come with
-the embedding cache (ROADMAP Queue 1 item 5).
+``location="host"`` keeps a tensor in host memory (a numpy array) behind a
+``embedding.cached.HostManagedCache`` on the store's device, sized by a
+``embedding.cache.CachePolicy`` (kinds ``host``, and ``host1d`` for a 1-D
+tensor held as one column): the reference's host-memory features with a
+device cache, for tables larger than the card.  Its id gathers go through
+the cache (ids past the end give zero rows there, as in JAX); ``prefetch``
+plans the next gather in a worker thread.  A policy of kind ``"none"``
+gives no cache: gathers index the host array.
 """
 
 from __future__ import annotations
@@ -21,21 +27,14 @@ import numpy as np
 import torch
 
 from cugraph_gnn_tpu_torch._device import resolve_device
-from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import gather_rows
+from cugraph_gnn_tpu_torch.embedding.cache import CachePolicy
+from cugraph_gnn_tpu_torch.embedding.cached import HostManagedCache
+from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import read_rows
 from cugraph_gnn_tpu_torch.parallel.mesh import Mesh
 from cugraph_gnn_tpu_torch.store.dist_array import DistArray
 from cugraph_gnn_tpu_torch.store.partition import PartitionBook
 
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _local_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """table[ids] with zero rows for ids < 0 and the last row past the end."""
-    if table.dim() == 2 and table.dtype in _KERNEL_DTYPES:
-        return gather_rows(table, ids)
-    rows = table[ids.clamp(0, table.shape[0] - 1).long()]
-    ok = (ids >= 0).view(ids.shape + (1,) * (rows.dim() - ids.dim()))
-    return torch.where(ok, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+_HOST_KINDS = ("host", "host1d")
 
 
 class FeatureStore:
@@ -66,19 +65,29 @@ class FeatureStore:
     # -- PyG FeatureStore surface -------------------------------------------
 
     def put_tensor(self, tensor, group_name: Optional[str], attr_name: str,
-                   book: Optional[PartitionBook] = None, location: str = "device"):
-        """Store ``tensor`` (numpy or torch) under (group_name, attr_name);
-        only ``location="device"`` is ported."""
-        if location != "device":
-            raise NotImplementedError(
-                "host-located tensors behind a device cache come with the "
-                "embedding cache (ROADMAP Queue 1 item 5)")
+                   book: Optional[PartitionBook] = None, location: str = "device",
+                   cache_policy: Optional[CachePolicy] = None):
+        """Store ``tensor`` (numpy or torch) under (group_name, attr_name):
+        on the device (``location="device"``; row-sharded with a mesh), or
+        in host memory behind a device cache (``location="host"``, sized by
+        ``cache_policy``, default ``CachePolicy()``)."""
+        if location not in ("device", "host"):
+            raise ValueError(f"location must be 'device' or 'host', got {location!r}")
         key = self._key(group_name, attr_name)
         t = tensor if isinstance(tensor, torch.Tensor) else torch.as_tensor(np.asarray(tensor))
         if self.pad_features_to and t.dim() == 2 and t.shape[1] % self.pad_features_to:
             self._logical_width[key] = t.shape[1]
             t = torch.nn.functional.pad(t, (0, -t.shape[1] % self.pad_features_to))
-        if self.mesh is None:
+        if location == "host":
+            host = t.cpu().numpy()
+            kind = "host1d" if host.ndim == 1 else "host"
+            host = host[:, None] if kind == "host1d" else host
+            policy = cache_policy or CachePolicy()
+            cap = policy.capacity_for(host.shape[0])
+            cache = (HostManagedCache(host, cap, ways=policy.ways, device=self.device)
+                     if cap else None)
+            self._store[key] = (kind, (host, cache))
+        elif self.mesh is None:
             self._store[key] = ("local", t.to(self.device).contiguous())
         elif t.dim() == 1:
             self._store[key] = ("1d", DistArray.from_array(t[:, None], self.mesh, book=book))
@@ -92,25 +101,46 @@ class FeatureStore:
         key = self._key(group_name, attr_name)
         kind, val = self._store[key]
         if ids is None:
-            out = val if kind == "local" else val.to_global().to(self.device)
-            if kind == "1d":
+            if kind == "local":
+                out = val
+            elif kind in _HOST_KINDS:
+                out = torch.from_numpy(val[0]).to(self.device)
+            else:
+                out = val.to_global().to(self.device)
+            if kind in ("1d", "host1d"):
                 out = out[:, 0]
             elif key in self._logical_width:
                 out = out[:, :self._logical_width[key]]
             return out
+        if kind in _HOST_KINDS:
+            host, cache = val
+            if cache is not None:
+                rows = cache.gather(ids)
+            else:
+                ids = torch.as_tensor(ids).cpu()
+                rows = read_rows(torch.from_numpy(host), ids).to(self.device)
+            return rows[:, 0] if kind == "host1d" else rows
         ids = torch.as_tensor(ids, device=self.device)
         if kind == "local":
-            return _local_gather(val, ids)
+            return read_rows(val, ids)
         rows = val.gather(ids)
         return rows[:, 0] if kind == "1d" else rows
+
+    def prefetch(self, group_name: Optional[str], attr_name: str, ids) -> None:
+        """Start the host side (plan and row fetch) of the next
+        ``get_tensor(ids=ids)`` of a host-located tensor in a worker thread;
+        nothing for device tensors."""
+        kind, val = self._store[self._key(group_name, attr_name)]
+        if kind in _HOST_KINDS and val[1] is not None:
+            val[1].prefetch(ids)
 
     def remove_tensor(self, group_name: Optional[str], attr_name: str):
         self._store.pop(self._key(group_name, attr_name), None)
 
     def get_tensor_size(self, group_name: Optional[str], attr_name: str):
         kind, val = self._store[self._key(group_name, attr_name)]
-        shape = tuple(val.shape)
-        return shape[:1] if kind == "1d" else shape
+        shape = tuple(val[0].shape if kind in _HOST_KINDS else val.shape)
+        return shape[:1] if kind in ("1d", "host1d") else shape
 
     def get_all_tensor_attrs(self):
         return list(self._store.keys())

@@ -10,7 +10,8 @@ asks for.
 
 ``gather_rows`` runs the kernel for CUDA tensors and the plain version,
 ``gather_rows_ref``, for CPU tensors; ``gather_rows.launches`` counts kernel
-launches.
+launches.  ``read_rows`` is the dispatch by dtype of the stores and caches:
+the kernel for 2-D float32 and bfloat16 tables, plain indexing for others.
 """
 
 from __future__ import annotations
@@ -79,3 +80,18 @@ def gather_rows(table, ids, out_dtype=None):
 
 
 gather_rows.launches = 0
+
+KERNEL_DTYPES = tuple(_FLOAT_CODES)
+
+
+def read_rows(table, ids):
+    """table[ids] in the table's dtype, a zero row where ids[i] < 0 and the
+    last row past the end: :func:`gather_rows` for a 2-D float32 or bfloat16
+    table, plain indexing for any other (labels, integer columns, 3-D
+    tables).  The choice is by dtype and shape, never a fallback on a
+    failure."""
+    if table.dim() == 2 and table.dtype in KERNEL_DTYPES:
+        return gather_rows(table, ids)
+    rows = table[ids.clamp(0, table.shape[0] - 1).long()]
+    ok = (ids >= 0).view(ids.shape + (1,) * (rows.dim() - ids.dim()))
+    return torch.where(ok, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))

@@ -130,18 +130,28 @@ def _owned_local(req_ids: torch.Tensor, book: PartitionBook, mesh: Mesh):
 
 
 def _dist_gather_shard(table: torch.Tensor, ids: torch.Tensor, *, book: PartitionBook,
-                       mesh: Mesh, fill=0) -> torch.Tensor:
+                       mesh: Mesh, fill=0, read=None) -> torch.Tensor:
     """rows = global_table[ids], each rank with its own ``ids`` (B,) and its
     shard ``table`` (shard_size, ...).  Ids of -1, and ids that no rank
-    holds, give ``fill`` rows.  Returns (B, ...) in the order of ``ids``."""
+    holds, give ``fill`` rows.  Returns (B, ...) in the order of ``ids``.
+
+    ``read(table, local)``, where given, reads the requested rows of the
+    shard (``local``: offsets, -1 where this rank holds no row, which must
+    give a zero row) in place of indexing: the embedding lookup passes the
+    row-gather kernel.  It needs ``fill`` 0."""
+    if read is not None and fill != 0:
+        raise ValueError("a read function gives zero rows: fill must be 0")
     sorted_ids, perm, counts = _bucket_by_owner(ids, book)
     req, send_sizes, recv_sizes = _ragged_a2a(sorted_ids, counts, mesh)
     n_send = sum(send_sizes)
     ok, local = _owned_local(req, book, mesh)
-    rows = table[torch.where(ok, local, 0)]
-    keep = ok.view((-1,) + (1,) * (table.dim() - 1))
-    rows = torch.where(keep, rows, torch.as_tensor(fill, dtype=rows.dtype,
-                                                   device=rows.device))
+    if read is not None:
+        rows = read(table, torch.where(ok, local, -1))
+    else:
+        rows = table[torch.where(ok, local, 0)]
+        keep = ok.view((-1,) + (1,) * (table.dim() - 1))
+        rows = torch.where(keep, rows, torch.as_tensor(fill, dtype=rows.dtype,
+                                                       device=rows.device))
     back = alltoallv(rows, recv_sizes, send_sizes, mesh)
     out = table.new_full((ids.shape[0],) + tuple(table.shape[1:]), fill)
     out[perm[:n_send]] = back

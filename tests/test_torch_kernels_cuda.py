@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the row gather, the fused sampler (and, around them, ``append_unique`` and
-one ``NeighborLoader`` batch against the CPU on the same draws), the slab SpMM (the whole function and
+one ``NeighborLoader`` batch against the CPU on the same draws; the
+embeddings' dedup sums, cache slot reads and a cache round against the CPU), the slab SpMM (the whole function and
 its band-only mode), the CSR SpMM kernel, and the fused slab attention's
 forward and backward kernels, each of the last three also on the row shards
 of a 4-rank split (the shard wrappers of ``ops/dist_full_batch.py``,
@@ -1164,3 +1165,84 @@ def test_dist_scatter_add_matches_plain(world1, width, table_dtype):
     want = table.to(torch.float32, copy=True).index_add_(0, ids[ok], terms)
     mag = table.float().abs().index_add_(0, ids[ok], terms.abs())
     _assert_sum_close(got, want, mag)
+
+
+# -- the embeddings: dedup sums (row 3) and cache slot reads (row 1) ----------------
+
+@pytest.mark.parametrize("f", [128, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dedup_ids_grads_matches_plain(card, f, dtype):
+    """``dedup_ids_grads`` on the card (the CSR kernel through
+    ``segment_add``) against its plain version on the CPU: ids equal, -1
+    ignored, one hot id repeated 10,000 times; sums within the sum
+    tolerance; two launches bit for bit equal."""
+    from cugraph_gnn_tpu_torch.embedding import dedup_ids_grads
+
+    rng = np.random.default_rng(f)
+    ids = rng.integers(0, 50_000, 30_000)
+    ids[:10_000] = 7
+    ids[10_000:12_000] = -1
+    ids = torch.as_tensor(rng.permutation(ids))
+    grads = torch.as_tensor(rng.standard_normal((30_000, f)), dtype=torch.float32).to(dtype)
+    want_ids, want = dedup_ids_grads(ids, grads.float())
+    _, mag = dedup_ids_grads(ids, grads.float().abs())
+    csr_spmm.launches = 0
+    got_ids, got = dedup_ids_grads(ids.to(card), grads.to(card))
+    _, again = dedup_ids_grads(ids.to(card), grads.to(card))
+    assert csr_spmm.launches == 2
+    assert torch.equal(got_ids.cpu(), want_ids) and int((got_ids >= 0).sum()) < 30_000
+    assert got.dtype == dtype and torch.equal(_bits(got), _bits(again))
+    _assert_sum_close(got.cpu(), want, mag)
+
+
+def test_cache_slot_read_bit_equal(card):
+    """A ``HostManagedCache``'s slot read: the row-gather kernel over the
+    rows viewed as (sets * ways, F), -1 a zero row, bit-equal to indexing;
+    an int64 column is read by indexing (no launch)."""
+    from cugraph_gnn_tpu_torch.embedding import HostManagedCache
+    from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import read_rows
+
+    rng = np.random.default_rng(1)
+    host = rng.standard_normal((5000, 128)).astype(np.float32)
+    cache = HostManagedCache(host, 1024, ways=8, device=card)
+    cache.gather(rng.integers(0, 5000, 3000))
+    slots = torch.as_tensor(rng.integers(-1, cache.sets * cache.ways, 4001), device=card)
+    gather_rows.launches = 0
+    got = read_rows(cache._flat, slots)
+    assert gather_rows.launches == 1
+    want = torch.where((slots >= 0)[:, None], cache._flat[slots.clamp(min=0)], 0)
+    assert torch.equal(_bits(got), _bits(want))
+    labels = HostManagedCache(rng.integers(0, 2**40, (5000, 1)), 256, device=card)
+    ids = rng.integers(-1, 5000, 700)
+    np.testing.assert_array_equal(labels.gather(ids).cpu().numpy()[:, 0],
+                                  np.where(ids >= 0, labels.host_rows[ids, 0], 0))
+    assert gather_rows.launches == 1
+
+
+def test_host_managed_cache_card_matches_cpu(card):
+    """A cache round on the card and on the CPU: batches that evict, an
+    update that dirties cached rows and writes others through, a prefetched
+    gather, a flush: equal rows, metadata and host rows."""
+    from cugraph_gnn_tpu_torch.embedding import HostManagedCache
+
+    rng = np.random.default_rng(2)
+    host = rng.standard_normal((4000, 64)).astype(np.float32)
+    caches = [HostManagedCache(host.copy(), 512, ways=8, device=d) for d in ("cpu", card)]
+    for step in range(6):
+        ids = rng.integers(-1, 2000, 900)
+        new = rng.standard_normal((300, 64)).astype(np.float32)
+        upd = rng.choice(2000, 300, replace=False)
+        rows = []
+        for c in caches:
+            if step % 2:
+                c.prefetch(torch.as_tensor(ids, device=c.device))
+            rows.append(c.gather(torch.as_tensor(ids, device=c.device)).cpu())
+            c.update(upd, torch.as_tensor(new, device=c.device))
+        assert torch.equal(_bits(rows[0]), _bits(rows[1]))
+        for name in ("tags", "freq", "modified"):
+            np.testing.assert_array_equal(getattr(caches[0], name), getattr(caches[1], name))
+        assert caches[0].hits == caches[1].hits and caches[0].misses == caches[1].misses
+    assert caches[1].written_back > 0
+    for c in caches:
+        c.flush()
+    np.testing.assert_array_equal(caches[0].host_rows, caches[1].host_rows)

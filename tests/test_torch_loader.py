@@ -141,8 +141,11 @@ def test_feature_store_gathers_match_jax(mesh, where):
         assert pfs[attr].device == got.device == torch.device(pfs.device)
         assert pfs.get_tensor_size("", attr) == jfs.get_tensor_size("", attr)
     assert ("", "x") in pfs and "z" not in pfs
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pfs.put_tensor(x, "", "h", location="host")
+    # host-located tensors (tests/test_torch_cache.py holds them against JAX)
+    pfs.put_tensor(x, "", "h", location="host")
+    np.testing.assert_array_equal(pfs.get_tensor("", "h", ids=torch.as_tensor(IDS)).numpy(),
+                                  np.asarray(jfs.get_tensor("", "x", ids=jnp.asarray(IDS)))
+                                  * ((IDS < N)[:, None]))
 
 
 def test_dist_array_world_1(mesh):

@@ -3,7 +3,7 @@
 - No module of ``cugraph_gnn_tpu_torch/``, nor ``chip_smoke.py``, imports
   JAX, flax, optax or the JAX package.
 - CPU tensors take the plain versions: the kernels' launch counters stay 0,
-  on the sampled and the full-batch training paths.
+  on the sampled and the full-batch training paths and the embeddings.
 - Entry points given no device run on the card, and raise without one.
 - A gloo mesh refuses the card and the row-sharded step, at one rank on the
   CPU, launches no kernel.
@@ -29,6 +29,10 @@ from cugraph_gnn_tpu_torch.models.convert import (
     gcn_from_flax,
     graphsage_from_flax,
 )
+from cugraph_gnn_tpu_torch.data import FeatureStore
+from cugraph_gnn_tpu_torch.embedding import CachedHostEmbedding, HostManagedCache
+from cugraph_gnn_tpu_torch.embedding.cache import DeviceLFUCache
+from cugraph_gnn_tpu_torch.embedding.convert import embedding_from_jax_arrays
 from cugraph_gnn_tpu_torch.models.zoo import GAT, GCN, GraphSAGE
 from cugraph_gnn_tpu_torch.ops.full_batch import FullBatchGraph
 from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as attn_grad
@@ -84,6 +88,25 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     assert int(edges) > 0
     assert gather_rows.launches == 0
     assert fused_uniform_sample.launches == 0
+
+
+def test_cpu_embeddings_leave_launch_counters_at_zero():
+    """A CachedHostEmbedding step and a host-located store's gather on the
+    CPU take the plain versions of the row gather and the dedup sum."""
+    gather_rows.launches = 0
+    csr_spmm.launches = 0
+    rng = np.random.default_rng(0)
+    emb = CachedHostEmbedding(rng.standard_normal((50, 4)).astype(np.float32),
+                              optimizer="adagrad", capacity=16, device="cpu")
+    ids = torch.as_tensor(rng.integers(-1, 50, 30))
+    rows = emb.gather(ids)
+    emb.add_gradients(ids, torch.ones_like(rows))
+    emb.apply_gradients(0.1)
+    emb.flush()
+    fs = FeatureStore(device="cpu")
+    fs.put_tensor(rng.standard_normal((50, 4)).astype(np.float32), "", "x", location="host")
+    assert fs.get_tensor("", "x", ids=ids).shape == (30, 4)
+    assert gather_rows.launches == 0 and csr_spmm.launches == 0
 
 
 ATTN_COUNTERS = (slab_attention_spmm_mh, attn_grad.onepass_bwd,
@@ -178,6 +201,12 @@ ENTRY_POINTS = {
     "EllBuckets": lambda: EllBuckets(_INDPTR, _INDICES),
     "distributed.init": lambda: D.init(init_method="tcp://localhost:1", world_size=1),
     "create_store_mesh": create_store_mesh,
+    "HostManagedCache": lambda: HostManagedCache(np.zeros((4, 2), np.float32), 8),
+    "CachedHostEmbedding": lambda: CachedHostEmbedding(np.zeros((4, 2), np.float32)),
+    "DeviceLFUCache": lambda: DeviceLFUCache(np.zeros((4, 2), np.float32), 8),
+    "embedding_from_jax_arrays": lambda: embedding_from_jax_arrays(
+        np.zeros((4, 2), np.float32), {}, "sgd"),
+    "FeatureStore": lambda: FeatureStore(),
 }
 
 
