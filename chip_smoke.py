@@ -3,8 +3,10 @@
 NVIDIA GPU: builds the kernels, holds each against its plain PyTorch version
 at the training paths' shapes and times it, then trains sampled GraphSAGE at
 the full width of ``bench.py``'s configuration, directly and through the
-``GraphStore`` / ``FeatureStore`` / ``NeighborLoader`` path, and full-batch GraphSAGE,
-GCN and 4-head GAT over a banded graph at ogbn-products scale.
+``GraphStore`` / ``FeatureStore`` / ``NeighborLoader`` path, link prediction
+through ``LinkNeighborLoader``, GIN through the loader, and full-batch
+GraphSAGE, GCN, GIN and 4-head GAT over a banded graph at ogbn-products
+scale.
 
     python3 chip_smoke.py            # every phase, on one card
     python3 chip_smoke.py --probe    # phases 1, 2 and 11b alone
@@ -91,6 +93,30 @@ Phases (any failure raises and exits non-zero):
    ~125,000 input-node ids x 128 f32 gradients (the dedup's plan) against
    ``csr_spmm_ref`` (phase 7's tolerance), launched twice bit for bit, timed
    beside ``index_add_`` with its byte bound.
+5h. link path (``examples/link_prediction.py`` at phase 5b's scale): 196,608
+   of the graph's edges (a fixed draw) as positives, ``LinkNeighborLoader``
+   (binary negatives, amount 1, rejecting true edges, batch 1024, fanouts
+   10/10, shuffled: 4,096 seeds a batch, levels of 4,096 / 45,056 / 495,616
+   slots), GraphSAGE 128 -> 256 -> 16 in bf16, Adam 1e-3, ``train_link.
+   link_step``: 12 binary batches (2 warm-up), then 4 triplet batches (1
+   warm-up); per batch the loss (finite), ms, valid positives and
+   negatives, negatives re-drawn and left unresolved, nodes and slots per
+   level, peak memory; exactly 2 sampler and 1 row-gather launches a batch.
+   One more batch stage by stage (negatives, sample, feature gather, the
+   whole batch, ``link_step``; an epoch's second batch, past its shuffle), the AUC over 4 evaluation batches (printed,
+   not gated), and rows 1 and 2 at that batch's shapes: bit-equal to their
+   plain versions, timed, with their byte bounds.
+5i. small-input agreement, link path: on phase 4's graph, 600 of its edges
+   through ``LinkNeighborLoader`` on the card and on the CPU with the same
+   negatives' candidates and uniforms: seeds, labels, levels, maps and
+   gathered rows bit-equal over three batches; three f32 ``link_step``
+   losses within 1e-4.
+5j. GIN through ``NeighborLoader`` (128 -> 256 -> 47, bf16, Adam 1e-3): 6
+   batches (2 warm-up), launches as in 5b.
+5k. ``DeviceLFUCache`` (100,000 x 128 f32 host rows, 512 sets of 8 ways)
+   with 32 misses a batch in one set and -1 pads, six batches: every
+   gathered row and a later gather of every cached id (all hits) equal the
+   host rows; two runs bit for bit equal.
 6. full-batch data: the banded graph of ``train_full`` (2,449,029 nodes, 12
    in-band sources within +-256 and 1 uniform source per node: 31,837,377
    edges) and its ``FullBatchGraph`` (reorder "none", R = 256) with the
@@ -117,6 +143,13 @@ Phases (any failure raises and exits non-zero):
    each; finite losses, and 3 ``slab_spmm`` launches per step (two forward
    aggregations and one backward: layer 0's input needs no gradient), no
    band-only or CSR-kernel launch.  Then one step timed stage by stage.
+9b. full-batch GIN (128 -> 256 -> 47, MLP width 256, bf16, Adam 5e-3), 1
+   warm-up and 3 timed steps: finite losses, per step 3 ``slab_spmm``
+   launches (2 'sum' over the graph forward, 1 'sum' over the transpose
+   backward) and no other kernel; one step stage by stage; then row 4's
+   'sum' over the graph at GIN's two forward shapes (F = 128 and 256, bf16
+   and f32 x) against its plain version (phase 7's tolerance), twice bit for
+   bit, timed beside ``torch.sparse.mm`` with its byte bound.
 10. attention pairs: the graph's (R = 256, bit planes) and a second
     ``FullBatchGraph`` of the same graph at R = 512 (no bit planes: ``t_ell``),
     each with the band CSR by source; host seconds of each, the bytes of
@@ -207,7 +240,9 @@ Phases (any failure raises and exits non-zero):
     attention forward and backward.
 17. the ``kernels`` summary line (rows 1-14, then the probe, which the
     main path launches no time; rows 1 and 2 count the launches of phases
-    5, 5b, 5e and 5f, split by path (row 1 also timed at 5e's two shapes),
+    5, 5b, 5e, 5f, 5h and 5j, split by path (row 1 also timed at 5e's two
+    shapes and at 5h's; row 2 also at 5h's hops), row 4 those of 9b beside
+    GIN's 'sum' calls,
     row 2 also carries its time per hop and its sector floor, at
     phase 3's block hops and at phase 5b's loader hops, its launches split
     by path, and a gap that prices each path's launches at its own hops;
@@ -424,7 +459,7 @@ def loader_path(dev, emit, graph, small_cpu, counters, cuda_ms, hbm):
                    zip(a.levels + a.level_counts + [a.seed_count],
                        b.levels + b.level_counts + [b.seed_count]))
         same &= all(torch.equal(x, y.cpu()) for ha, hb in zip(a.hops, b.hops)
-                    for x, y in zip(ha, hb))
+                    for x, y in zip(ha[:3], hb[:3]))
         if not same:
             raise AssertionError(f"NeighborSampler(dedup=True, caps={caps}): card and CPU differ")
         emit({"phase": "small_input_agreement_sampler", "dedup": True, "caps": caps,
@@ -874,6 +909,344 @@ def embedding_paths(dev, emit, graph, small_cpu, counters, cuda_ms, hbm, gs):
     return launches, {"dedup": dedup_row, **read_rows_at}
 
 
+LINK_EDGES = 196_608   # bench.py's seed split, as the link path's positives
+LINK_OUT = 16          # examples/link_prediction.py's embedding width
+
+
+def _link_negatives(loader, stats=None, draws_from=None):
+    """Replace ``loader._negatives`` by the same draw made in two visible
+    steps: the candidates (from the loader's generator, or from a fresh CPU
+    generator seeded ``draws_from`` every batch, moved to the loader's
+    device), then ``draw_negatives`` on them.  With ``stats``, appends per
+    batch (pairs that hit a true edge at the first draw, pairs left -1) as
+    device tensors."""
+    import torch
+
+    from cugraph_gnn_tpu_torch.loader.link_loader import draw_negatives
+    from cugraph_gnn_tpu_torch.sampler.negative import NegativeDraws, draw_candidates, is_edge
+
+    triplet = loader.neg.mode == "triplet"
+    table = loader._edge_key_sorted
+
+    def negatives(ps, n_neg):
+        if draws_from is None:
+            gen, where = loader._generator, loader.device
+        else:
+            gen, where = torch.Generator().manual_seed(draws_from), torch.device("cpu")
+        draws = draw_candidates(loader.num_src, loader.num_dst, n_neg, loader.neg,
+                                pinned_src=triplet, rejection=table is not None,
+                                generator=gen, device=where)
+        draws = NegativeDraws(*(None if d is None else d.to(loader.device) for d in draws))
+        ns, nd = draw_negatives(ps, n_neg, loader.num_src, loader.num_dst, loader.neg,
+                                table, draws=draws, device=loader.device)
+        if stats is not None:
+            src = ps.repeat_interleave(max(int(loader.neg.amount), 1))[:n_neg] if triplet \
+                else draws.src
+            stats.append((is_edge(table, src, draws.dst).sum(), (nd < 0).sum()))
+        return ns, nd
+
+    loader._negatives = negatives
+
+
+def link_paths(dev, emit, graph, small_cpu, counters, cuda_ms, hbm, gs):
+    """Phases 5h-5k (see the module docstring).  Returns each kernel's
+    launches on the link path (5h) and on GIN's loader path (5j), and rows 1
+    and 2 timed at a link batch's shapes."""
+    import numpy as np
+    import torch
+
+    from cugraph_gnn_tpu_torch import train as T
+    from cugraph_gnn_tpu_torch import train_link as TL
+    from cugraph_gnn_tpu_torch.data import FeatureStore, GraphStore
+    from cugraph_gnn_tpu_torch.loader import LinkNeighborLoader, NeighborLoader
+    from cugraph_gnn_tpu_torch.loader import link_loader as LL
+    from cugraph_gnn_tpu_torch.models.zoo import GIN, GraphSAGE
+    from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import gather_rows, gather_rows_ref
+    from cugraph_gnn_tpu_torch.ops.kernels.sample_kernel import (
+        fused_uniform_sample,
+        fused_uniform_sample_ref,
+    )
+
+    names = [fn.__name__ for fn in counters]
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def check_launches(what, batches):
+        got = {fn.__name__: fn.launches for fn in counters}
+        want = {**{n: 0 for n in names}, "gather_rows": batches,
+                "fused_uniform_sample": 2 * batches}
+        if got != want:
+            raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
+        return got
+
+    fs = FeatureStore(device=dev)
+    fs["x"] = graph.feats
+    fs["y"] = graph.labels
+
+    # -- 5h. the link path at full width -------------------------------------
+    t0 = time.perf_counter()
+    n = graph.num_nodes
+    indptr = graph.indptr.cpu().numpy()
+    e = int(indptr[-1])
+    rng = np.random.default_rng(0)
+    pos = rng.permutation(np.unique(rng.integers(0, e, LINK_EDGES + LINK_EDGES // 50)))
+    pos = pos[:LINK_EDGES]
+    # edge (neighbor -> row), as the graph store holds it
+    eli = np.stack([graph.indices[torch.as_tensor(pos, device=dev)].cpu().numpy(),
+                    np.searchsorted(indptr, pos, side="right") - 1]).astype(np.int64)
+    kw = dict(num_neighbors=T.FANOUTS, edge_label_index=eli, batch_size=T.BATCH,
+              shuffle=True, reject_true_edges=True)
+    loader = LinkNeighborLoader((fs, gs), neg_sampling="binary", **kw)
+    triplet = LinkNeighborLoader((fs, gs), neg_sampling=dict(mode="triplet", amount=1),
+                                 seed=1, **kw)
+    torch.cuda.synchronize()
+    emit({"phase": "link_setup", "positives": LINK_EDGES, "batches_per_epoch": len(loader),
+          "level_caps": loader.sampler.level_caps(4 * T.BATCH),
+          "setup_s": time.perf_counter() - t0})
+    torch.manual_seed(0)
+    model = GraphSAGE(T.FEAT_DIM, T.HIDDEN, LINK_OUT, num_layers=len(T.FANOUTS),
+                      dtype=torch.bfloat16, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    launches = {}
+    summary = {}
+    for mode, ld, batches, warmup in (("binary", loader, 12, 2), ("triplet", triplet, 4, 1)):
+        stats = []
+        _link_negatives(ld, stats)
+        it = iter(ld)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        ms = []
+        for i in range(batches):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            batch = next(it)
+            loss = TL.link_step(model, opt, batch)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t1) * 1e3
+            if i >= warmup:
+                ms.append(dt)
+            loss = float(loss)
+            if not math.isfinite(loss):
+                raise AssertionError(f"non-finite link loss {loss} ({mode}, batch {i})")
+            b, sd = T.BATCH, batch.seeds
+            nn_ = sd.numel() // 2 - b
+            hit, unresolved = stats[-1]
+            emit({"phase": "link_train", "mode": mode, "batch": i, "warmup": i < warmup,
+                  "loss": loss, "ms": dt,
+                  "valid_positives": int((sd[:b] >= 0).sum()),
+                  "valid_negatives": int(((sd[2 * b:2 * b + nn_] >= 0)
+                                          & (sd[2 * b + nn_:] >= 0)).sum()),
+                  "negatives_redrawn": int(hit), "negatives_unresolved": int(unresolved),
+                  "nodes_per_level": [int(c) for c in batch.sample.level_counts],
+                  "slots_per_level": [int(lv.numel()) for lv in batch.sample.levels],
+                  "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        launches[mode] = check_launches(f"link path ({mode})", batches)
+        summary[mode] = {"batches_timed": len(ms), "ms_per_batch": sum(ms) / len(ms),
+                         "ms_min": min(ms), "ms_max": max(ms)}
+    emit({"phase": "link_launch_counts", "launches": launches, **summary})
+
+    # one batch stage by stage (CUDA events and host clocks; each stage
+    # synchronised)
+    stages = _Stages()
+    negatives = loader._negatives
+    stages.wrap(loader, "_negatives", "negatives")
+    stages.wrap(loader.sampler, "sample", "sample")
+    orig_gather = LL.gather_node_features
+    LL.gather_node_features = lambda *a: stages.run("feature_gather", orig_gather, *a)
+    try:
+        it = iter(loader)
+        next(it)          # the epoch's first batch also shuffles the positives
+        stages.take()
+        batch = stages.run("batch", next, it)
+        stages.run("link_step", TL.link_step, model, opt, batch)
+    finally:
+        LL.gather_node_features = orig_gather
+        loader._negatives = negatives
+        del loader.sampler.sample
+    emit({"phase": "link_stages", **stages.take()})
+
+    # the AUC over 4 evaluation batches (printed, not gated)
+    reset()
+    scores, labels = [], []
+    for _, b in zip(range(4), iter(loader)):
+        s, lab = TL.link_eval_scores(model, b)
+        scores.append(s)
+        labels.append(lab)
+    launches["eval"] = check_launches("link evaluation", 4)
+    emit({"phase": "link_auc", "batches": 4, "pairs": int(sum(len(s) for s in scores)),
+          "auc": TL.link_auc(np.concatenate(scores), np.concatenate(labels))})
+
+    # rows 1 and 2 at this batch's shapes: the sampler at its two hops
+    # (4,096 and 45,056 slots) and the gather of its 495,616-slot level
+    g_u = torch.Generator(device=dev).manual_seed(3)
+    rows = {"sampler": []}
+    for h, (sd, kf) in enumerate(zip(batch.sample.levels, T.FANOUTS)):
+        u = torch.rand((sd.numel(), kf), generator=g_u, device=dev)
+        got = fused_uniform_sample(graph.indptr, graph.indices, sd, u, kf)
+        want = fused_uniform_sample_ref(graph.indptr, graph.indices, sd, u, kf)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"sampler at the link batch's hop {h} differs from the "
+                                 f"plain version")
+        nbytes, floor_bytes = _sampler_bytes(graph.indptr, sd, kf, want)
+        row = {"kernel": "uniform_sample", "path": "link", "hop": h, "seeds": sd.numel(),
+               "valid_seeds": int((sd >= 0).sum()), "k": kf,
+               "ms": cuda_ms(lambda: fused_uniform_sample(graph.indptr, graph.indices, sd,
+                                                          u, kf)),
+               "plain_ms": cuda_ms(lambda: fused_uniform_sample_ref(
+                   graph.indptr, graph.indices, sd, u, kf), iters=5),
+               "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3,
+               "sector_floor_ms": floor_bytes / hbm * 1e3, "bit_equal": True}
+        emit(row)
+        rows["sampler"].append(row)
+    ids = batch.sample.input_nodes
+    got = gather_rows(graph.feats, ids, torch.bfloat16)
+    if not torch.equal(got.view(torch.int16),
+                       gather_rows_ref(graph.feats, ids, torch.bfloat16).view(torch.int16)):
+        raise AssertionError("row gather at the link batch differs from the plain version")
+    f = graph.feats.shape[1]
+    uniq = int(torch.unique(ids[ids >= 0]).numel())
+    nbytes = 4 * ids.numel() + 4 * f * uniq + 2 * f * ids.numel()
+    rows["gather"] = {
+        "kernel": "gather_rows", "path": "link", "ids": ids.numel(), "distinct": uniq,
+        "out_dtype": "bfloat16",
+        "ms": cuda_ms(lambda: gather_rows(graph.feats, ids, torch.bfloat16)),
+        "plain_ms": cuda_ms(lambda: gather_rows_ref(graph.feats, ids, torch.bfloat16)),
+        "library_ms": cuda_ms(lambda: torch.index_select(
+            graph.feats, 0, ids.clamp(min=0)).to(torch.bfloat16)),
+        "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3, "bit_equal": True}
+    emit(rows["gather"])
+    del loader, triplet, it, batch, model, opt, got
+
+    # -- 5i. small input, the link path: card against CPU ----------------------
+    sm = small_cpu
+    rows_s = np.repeat(np.arange(sm.num_nodes), np.diff(sm.indptr.numpy()))
+    pick = np.random.default_rng(5).choice(len(rows_s), 600, replace=False)
+    eli_s = np.stack([sm.indices.numpy()[pick], rows_s[pick]])
+    sides = {}
+    for where in ("cpu", "card"):
+        d = torch.device("cpu") if where == "cpu" else dev
+        gs_s, fs_s = GraphStore(device=d), FeatureStore(device=d)
+        gs_s.put_edge_index((sm.indices.numpy(), rows_s), ("n", "to", "n"),
+                            num_nodes=(sm.num_nodes, sm.num_nodes))
+        fs_s["x"] = sm.feats
+        ld = LinkNeighborLoader((fs_s, gs_s), (10, 10), eli_s, neg_sampling="binary",
+                                batch_size=64, shuffle=True, reject_true_edges=True)
+        _link_negatives(ld, draws_from=12)
+        inner = ld.sampler
+
+        class Fixed:
+            fanouts = inner.fanouts
+
+            def sample(self, seeds, generator=None):
+                g = torch.Generator().manual_seed(13)
+                caps = inner.level_caps(seeds.shape[0])
+                return inner.sample(seeds, u=[torch.rand((caps[h], k), generator=g)
+                                              for h, k in enumerate(inner.fanouts)])
+
+        ld.sampler = Fixed()
+        torch.manual_seed(7)
+        m = GraphSAGE(sm.feats.shape[1], 32, 8, device="cpu").to(d)
+        o = torch.optim.Adam(m.parameters(), lr=1e-3)
+        out = []
+        for _, b in zip(range(3), ld):
+            out.append((b, float(TL.link_step(m, o, b))))
+        sides[where] = out
+    equal, loss_diff = True, 0.0
+    for (bc, lc), (bg, lg) in zip(sides["cpu"], sides["card"]):
+        a = [bc.seeds, bc.edge_label, bc.x] + bc.sample.levels + bc.sample.level_counts + [
+            t for hop in bc.sample.hops for t in hop[:3]]
+        b = [bg.seeds, bg.edge_label, bg.x] + bg.sample.levels + bg.sample.level_counts + [
+            t for hop in bg.sample.hops for t in hop[:3]]
+        equal &= all(_bits_equal(x.cpu(), y.cpu()) if x.is_floating_point()
+                     else torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+        loss_diff = max(loss_diff, abs(lc - lg))
+    if not (equal and loss_diff <= 1e-4):
+        raise AssertionError(f"small link path, card vs CPU: batches equal {equal}, "
+                             f"losses differ by {loss_diff}")
+    emit({"phase": "small_input_agreement_link", "batches": 3, "equal": True,
+          "max_loss_abs_diff": loss_diff, "tolerance": 1e-4})
+
+    # -- 5j. GIN through NeighborLoader at full width ---------------------------
+    torch.manual_seed(0)
+    model = GIN(T.FEAT_DIM, T.HIDDEN, T.CLASSES, num_layers=len(T.FANOUTS),
+                dtype=torch.bfloat16, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    it = iter(NeighborLoader((fs, gs), num_neighbors=T.FANOUTS, batch_size=T.BATCH,
+                             shuffle=True))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    ms = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = float(_loader_step(model, opt, next(it)))
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t1) * 1e3
+        if i >= 2:
+            ms.append(dt)
+        if not math.isfinite(loss):
+            raise AssertionError(f"non-finite GIN loader loss {loss} at batch {i}")
+        emit({"phase": "gin_loader_train", "batch": i, "warmup": i < 2, "loss": loss,
+              "ms": dt, "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    launches["gin_loader"] = check_launches("GIN loader path", 6)
+    emit({"phase": "gin_loader_launch_counts", "launches": launches["gin_loader"],
+          "batches_timed": len(ms), "ms_per_batch": sum(ms) / len(ms)})
+    del model, opt, it
+
+    # -- 5k. DeviceLFUCache with an overfilled set, on the card ------------------
+    device_cache_check(dev, emit)
+    return launches, rows
+
+
+def device_cache_check(dev, emit):
+    """Phase 5k: ``DeviceLFUCache`` with more than ``ways`` misses in one
+    set and -1 pads on the card: every gathered row and a later hit equal
+    the host rows, and two runs are bit for bit equal."""
+    import numpy as np
+    import torch
+
+    from cugraph_gnn_tpu_torch.embedding.cache import DeviceLFUCache
+
+    host = np.random.default_rng(3).standard_normal((100_000, 128)).astype(np.float32)
+    runs = []
+    for _ in range(2):
+        cache = DeviceLFUCache(host, capacity=4096, ways=8, device=dev)
+        crowded = np.nonzero(cache._set_of(torch.arange(100_000)).numpy() == 0)[0]
+        rng = np.random.default_rng(4)
+        rows = []
+        for _ in range(6):
+            ids = np.concatenate([rng.choice(crowded, 4 * cache.ways, replace=False),
+                                  rng.integers(0, 100_000, 3000), [-1] * 100])
+            ids[::7] = -1
+            ids = torch.as_tensor(rng.permutation(ids), device=dev)
+            got = cache.gather(ids)
+            want = torch.as_tensor(host[ids.clamp(min=0).cpu().numpy()], device=dev)
+            want[ids < 0] = 0
+            tags = cache.tags[cache.tags >= 0]
+            hits = cache.hits
+            again = cache.gather(tags)
+            if not (torch.equal(got, want) and cache.hits == hits + tags.numel()
+                    and torch.equal(again, torch.as_tensor(host[tags.cpu().numpy()],
+                                                           device=dev))):
+                raise AssertionError("DeviceLFUCache with an overfilled set returned "
+                                     "rows other than the host rows")
+            rows.append(got)
+        runs.append((rows, cache.rows.clone(), cache.tags.clone(), cache.freq.clone(),
+                     cache.hits, cache.misses))
+    (r1, rows1, tags1, freq1, h1, m1), (r2, rows2, tags2, freq2, h2, m2) = runs
+    same = (all(_bits_equal(a, b) for a, b in zip(r1, r2)) and _bits_equal(rows1, rows2)
+            and torch.equal(tags1, tags2) and torch.equal(freq1, freq2) and (h1, m1) == (h2, m2))
+    if not same:
+        raise AssertionError("two DeviceLFUCache runs on the card differ")
+    emit({"phase": "device_lfu_cache_check", "sets": cache.sets, "ways": cache.ways,
+          "batches": 6, "misses_in_set_0_per_batch": 4 * cache.ways,
+          "hit_rate": cache.hit_rate, "rows_equal_host": True, "bit_equal_two_runs": True})
+
+
 def _gather_row(emit, table, ids, distinct, cuda_ms, hbm, what):
     """Row 1 on ``table`` (f32 to f32) at ``ids``, ``distinct`` of them
     valid and distinct: bit-equal to its plain version, timed beside it and
@@ -904,7 +1277,8 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
     from torch.nn import functional as F
 
     from cugraph_gnn_tpu_torch import train_full as TF
-    from cugraph_gnn_tpu_torch.models.zoo import GCN, GraphSAGE
+    from cugraph_gnn_tpu_torch.models.zoo import GCN, GIN, GraphSAGE
+    from cugraph_gnn_tpu_torch.ops import full_batch as FB
     from cugraph_gnn_tpu_torch.ops.full_batch import FullBatchGraph
     from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import (
         slab_spmm,
@@ -1181,6 +1555,103 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
             raise AssertionError(f"{name}: logits {tuple(logits.shape)} not finite")
         del model, opt, logits
 
+    # -- 9b. full-batch GIN at full width --------------------------------------
+    # the step's slab SpMM calls, by orientation and reduction
+    kernel, calls = FB.slab_spmm, []
+
+    def recording(slab, xs_, reduce, compute_dtype):
+        calls.append(("graph" if slab is fbg.slab else
+                      "transpose" if slab is fbg.slab_t else "other", reduce))
+        return kernel(slab, xs_, reduce, compute_dtype)
+
+    torch.manual_seed(0)
+    model = GIN(TF.FEAT_DIM, TF.HIDDEN, TF.CLASSES, dtype=torch.bfloat16, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=TF.LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    timed = []
+    FB.slab_spmm = recording
+    try:
+        for step in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = TF.full_batch_step(model, opt, x, fbg, labels)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            v = float(loss)
+            if not math.isfinite(v):
+                raise AssertionError(f"gin: non-finite loss at step {step}")
+            if step:
+                timed.append(dt)
+            emit({"phase": "full_batch_train", "model": "gin", "step": step,
+                  "warmup": step == 0, "loss": v, "ms_per_step": dt * 1e3,
+                  "edges_per_s": edges / dt})
+    finally:
+        FB.slab_spmm = kernel
+    launches = {fn.__name__: fn.launches for fn in counters}
+    want = {**{fn.__name__: 0 for fn in counters}, "slab_spmm": 3 * steps}
+    want_calls = [("graph", "sum"), ("graph", "sum"), ("transpose", "sum")] * steps
+    emit({"phase": "full_batch_launch_counts", "model": "gin", "steps": steps,
+          "launches": launches, "expected": want, "calls_per_step": calls[:3],
+          "ms_per_step": sum(timed) * 1e3 / len(timed),
+          "edges_per_s": edges * len(timed) / sum(timed),
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    if launches != want or calls != want_calls:
+        raise AssertionError(f"gin: kernel launches {launches} / calls {calls[:3]}, "
+                             f"expected {want} / {want_calls[:3]}")
+    totals["slab_spmm"] += launches["slab_spmm"]
+    gin_launches = launches["slab_spmm"]
+    emit({"phase": "full_batch_stages", "model": "gin",
+          "ms": _staged_step(model, opt, x, fbg, labels, F)})
+    with torch.no_grad():
+        logits = model.full_graph(x, fbg)
+    if logits.shape != (n, TF.CLASSES) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"gin: logits {tuple(logits.shape)} not finite")
+    del model, opt, logits
+    # row 4's 'sum' over the graph at GIN's two forward shapes (bf16 x, F =
+    # 128 and 256), against the plain version's float32 sums, then timed
+    gin_rows, gin_err = [], 0.0
+    slab = fbg.slab
+    nnz_band = int((slab.ell[:n] >= 0).sum())
+    nv = fb_edges["graph"]
+    x256 = torch.randn((n, 256), generator=gen, device=dev).to(torch.bfloat16)
+    for f, xf in ((128, x), (256, x256)):
+        for dt in (torch.float32, torch.bfloat16):
+            xd = xf.to(dt)
+            got = slab_spmm(slab, xd, "sum", torch.float32)
+            err = check("slab_spmm", got, slab_spmm_ref(slab, xd.float(), "sum", torch.float32),
+                        slab_spmm_ref(slab, xd.float().abs(), "sum", torch.float32),
+                        f"graph F={f} {dt} sum")
+            _same_bits("slab_spmm", got, slab_spmm(slab, xd, "sum", torch.float32),
+                       f"graph F={f} {dt} sum")
+            if err is not None:
+                gin_err = max(gin_err, err)
+            del got
+        el = xf.element_size()
+        all_bytes = (4 * nnz_band + xf.numel() * el + slab.fallback.rowptr.numel() * 8
+                     + nv * 4 + n * f * el)
+        b_ms, b_by = bound(all_bytes, (nnz_band + nv) * f)
+        a_all = whole_csr(slab, xf.dtype, "sum")
+        row = {"kernel": "slab_spmm", "path": "gin", "orientation": "graph", "f": f,
+               "reduce": "sum", "dtype": "bfloat16", "band_edges": nnz_band,
+               "fallback_edges": nv,
+               "ms": cuda_ms(lambda: slab_spmm(slab, xf, "sum", torch.float32)),
+               "plain_ms": cuda_ms(lambda: slab_spmm_ref(slab, xf, "sum", torch.float32),
+                                   iters=5),
+               "library_ms": cuda_ms(lambda: torch.sparse.mm(a_all, xf)),
+               "bytes": all_bytes, "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        gin_rows.append(row)
+        del a_all
+    emit({"phase": "full_batch_kernel_check", "model": "gin", "orientation": "graph",
+          "reduce": "sum", "max_abs_err_f32": gin_err,
+          "tolerance": "1e-5 abs + 1e-5 x the terms' magnitude sum; "
+                       "bf16 outputs one bf16 ulp more"})
+    errs["slab_spmm"] = max(errs["slab_spmm"], gin_err)
+    del x256
+
     def kernel_row(name, source, replaces, launches, err):
         rows = timing[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1192,11 +1663,16 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
                 else "operations",
                 "library_ms": sum(r["library_ms"] for r in rows)}
 
-    # each row's times are one training step's three calls added together
+    # each row's times are one training step's three calls added together;
+    # row 4 also carries GIN's 'sum' calls over the graph (9b)
+    row4 = kernel_row("slab_spmm", "cugraph_gnn_tpu_torch/csrc/slab_spmm.cu",
+                      "cugraph_gnn_tpu/ops/pallas/slab_kernel.py:267",
+                      totals["slab_spmm"], errs["slab_spmm"])
+    row4.update(launches_gin=gin_launches,
+                **{f"{k}_gin_sum": [r[k] for r in gin_rows]
+                   for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
     return reused, [
-        kernel_row("slab_spmm", "cugraph_gnn_tpu_torch/csrc/slab_spmm.cu",
-                   "cugraph_gnn_tpu/ops/pallas/slab_kernel.py:267",
-                   totals["slab_spmm"], errs["slab_spmm"]),
+        row4,
         kernel_row("csr_spmm", "cugraph_gnn_tpu_torch/csrc/csr_spmm.cu",
                    "cugraph_gnn_tpu/ops/pallas/spmm_kernel.py:90",
                    totals["csr_spmm"], errs["csr_spmm"]),
@@ -2743,10 +3219,16 @@ def main() -> None:
                                                      cuda_ms, hbm)
     emb_launches, emb_rows = embedding_paths(dev, emit, graph, small_cpu, counters, cuda_ms,
                                              hbm, gs)
+    link_launches, link_rows = link_paths(dev, emit, graph, small_cpu, counters, cuda_ms,
+                                          hbm, gs)
+    # the link path's training, triplet and evaluation batches; GIN's loader
+    link_total = {name: sum(link_launches[k][name] for k in ("binary", "triplet", "eval"))
+                  for name in ("gather_rows", "fused_uniform_sample")}
+    gin_loader = link_launches["gin_loader"]
     block_launches = dict(sampled_launches)
     for name in ("gather_rows", "fused_uniform_sample"):
         sampled_launches[name] += loader_launches[name] + sum(
-            v[name] for v in emb_launches.values())
+            v[name] for v in emb_launches.values()) + link_total[name] + gin_loader[name]
     del graph, gs
     torch.cuda.empty_cache()
 
@@ -2798,8 +3280,16 @@ def main() -> None:
         **{f"launches_{k}": v["gather_rows"] for k, v in emb_launches.items()},
         **{f"{k}_{at}": emb_rows[at][k] for at in ("cache_read", "dist_lookup")
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-        "gap_ms": (block_launches["gather_rows"] + loader_launches["gather_rows"])
-        * (a_row["ms"] - a_row["bound_ms"])
+        # the link path's at a link batch's 495,616-slot level, GIN's loader
+        # batches at the block's shape
+        "launches_link": link_total["gather_rows"],
+        "launches_gin_loader": gin_loader["gather_rows"],
+        **{f"{k}_link": link_rows["gather"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "gap_ms": (block_launches["gather_rows"] + loader_launches["gather_rows"]
+                   + gin_loader["gather_rows"]) * (a_row["ms"] - a_row["bound_ms"])
+        + link_total["gather_rows"] * (link_rows["gather"]["ms"]
+                                       - link_rows["gather"]["bound_ms"])
         + (emb_launches["cached"]["gather_rows"] + emb_launches["host_loader"]["gather_rows"])
         * (emb_rows["cache_read"]["ms"] - emb_rows["cache_read"]["bound_ms"])
         + emb_launches["dist"]["gather_rows"]
@@ -2826,9 +3316,17 @@ def main() -> None:
         "ms_per_hop_loader": [r["ms"] for r in loader_b_rows],
         "bound_ms_loader": sum(r["bound_ms"] for r in loader_b_rows),
         "sector_floor_ms_loader": sum(r["sector_floor_ms"] for r in loader_b_rows),
+        "launches_link": link_total["fused_uniform_sample"],
+        "launches_gin_loader": gin_loader["fused_uniform_sample"],
+        "ms_per_hop_link": [r["ms"] for r in link_rows["sampler"]],
+        "plain_ms_link": sum(r["plain_ms"] for r in link_rows["sampler"]),
+        "bound_ms_link": sum(r["bound_ms"] for r in link_rows["sampler"]),
+        "sector_floor_ms_link": sum(r["sector_floor_ms"] for r in link_rows["sampler"]),
         "gap_ms": sampler_gap(block_launches["fused_uniform_sample"], b_rows)
         + sampler_gap(loader_launches["fused_uniform_sample"] + sum(
-            v["fused_uniform_sample"] for v in emb_launches.values()), loader_b_rows)})
+            v["fused_uniform_sample"] for v in emb_launches.values())
+            + gin_loader["fused_uniform_sample"], loader_b_rows)
+        + sampler_gap(link_total["fused_uniform_sample"], link_rows["sampler"])})
     kernels += fb_rows + gat_rows + dist_rows + [probe_row]
     emit({"phase": "wall", "seconds": time.perf_counter() - wall0})
     print(smi)

@@ -16,8 +16,11 @@ in int64 as ``((ids * 0x9E3779B1) & 0xFFFFFFFF) >> 8``, then ``% sets``.
 Tags are int64.  Hit rows are read by the row-gather kernel
 (``read_rows``: float tables) over the rows viewed as (sets * ways, F).
 
-When more than ``ways`` misses land in one set in a batch, ``rank % ways``
-names one slot twice and which write wins is unspecified (as in XLA).
+A set's valid misses are ranked in batch order, and ranks >= ``ways``
+bypass the cache for that batch, as ``HostManagedCache`` does: every insert
+of a batch has its own (set, way), so the row and tag writes are defined on
+the card too.  The JAX cache ranks the -1 entries with the misses and wraps
+the rank (``rank % ways``), which can name one slot twice.
 """
 
 from __future__ import annotations
@@ -84,15 +87,20 @@ class DeviceLFUCache:
         self.freq.index_put_((s, hit_way), hit.to(torch.int32), accumulate=True)
         return out, hit
 
-    def _insert(self, ids: torch.Tensor, new_rows: torch.Tensor) -> None:
-        """Insert the rows of ids >= 0 (the misses; others -1): each takes
-        the (occurrence rank % ways)-th coldest way of its set, if that way
-        is cold (aged counter <= 1)."""
+    def _insert_slots(self, ids: torch.Tensor):
+        """Age the sets the misses ``ids`` (>= 0; others -1) touch and
+        choose their slots: a set's valid misses are ranked in batch order,
+        and the rank-th takes the rank-th coldest way of its set if that way
+        is cold (aged counter <= 1).  Ranks >= ``ways`` bypass the cache for
+        this batch, so no two chosen slots of a batch are the same.
+        Returns (eligible mask, their sets, their ways)."""
         s = self._set_of(ids)
         ok = ids >= 0
         s_safe = torch.where(ok, s, 0)
-        order = torch.argsort(s, stable=True)
-        s_sorted = s[order]
+        # ids < 0 rank in a set of their own, past the real ones
+        s_key = torch.where(ok, s, self.sets)
+        order = torch.argsort(s_key, stable=True)
+        s_sorted = s_key[order]
         first = torch.searchsorted(s_sorted, s_sorted, side="left")
         rank = torch.empty_like(order)
         rank[order] = torch.arange(s.numel(), device=s.device) - first
@@ -101,9 +109,15 @@ class DeviceLFUCache:
         self.freq.index_add_(0, s_safe, -dec[:, None].expand(-1, self.ways))
         self.freq.clamp_(min=0)
         way_order = torch.argsort(self.freq[s_safe], dim=1, stable=True)
-        way = way_order.gather(1, (rank % self.ways)[:, None])[:, 0]
-        eligible = ok & (self.freq[s_safe, way] <= 1)
-        es, ew = s_safe[eligible], way[eligible]
+        in_set = ok & (rank < self.ways)
+        way = way_order.gather(1, torch.where(in_set, rank, 0)[:, None])[:, 0]
+        eligible = in_set & (self.freq[s_safe, way] <= 1)
+        return eligible, s_safe[eligible], way[eligible]
+
+    def _insert(self, ids: torch.Tensor, new_rows: torch.Tensor) -> None:
+        """Insert the rows of the misses ``ids`` (others -1) into their
+        slots (``_insert_slots``)."""
+        eligible, es, ew = self._insert_slots(ids)
         self.rows[es, ew] = new_rows[eligible].to(self.rows.dtype)
         self.tags[es, ew] = ids[eligible]
         self.freq[es, ew] = 1

@@ -1,3 +1,5 @@
+from cugraph_gnn_tpu_torch.loader.link_loader import LinkBatch, LinkLoader, LinkNeighborLoader
 from cugraph_gnn_tpu_torch.loader.node_loader import NeighborLoader, NodeBatch, NodeLoader
 
-__all__ = ["NeighborLoader", "NodeBatch", "NodeLoader"]
+__all__ = ["LinkBatch", "LinkLoader", "LinkNeighborLoader", "NeighborLoader", "NodeBatch",
+           "NodeLoader"]

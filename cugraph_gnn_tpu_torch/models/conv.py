@@ -1,10 +1,11 @@
 """Graph convolution layers (torch.nn).
 
 Counterpart of ``cugraph_gnn_tpu/models/conv.py``: ``SAGEConv``,
-``GCNConv`` and ``GATConv``, each with the sampled path (``forward`` over the
-fixed-fanout layout), the full-batch COO path (``full``) and the full-batch
-path through a ``FullBatchGraph`` (``full_graph``, the slab kernels).  The
-other convs come with later slices.
+``GCNConv``, ``GATConv`` and ``GINConv``, each with the sampled path
+(``forward`` over the fixed-fanout layout), the full-batch COO path
+(``full``) and the full-batch path through a ``FullBatchGraph``
+(``full_graph``, the slab kernels).  ``RGCNConv`` comes with the hetero
+slice (ROADMAP Queue 1 item 4).
 
 ``dtype`` computes as flax's ``Dense(dtype=...)`` does: parameters stay float32
 and are cast, together with the input, at each call, and the bias is added
@@ -214,3 +215,47 @@ class GATConv(nn.Module):
         agg = fbg.attention_spmm_mh(wx, a_d.float(), a_n.float(),
                                     negative_slope=self.negative_slope).to(wx.dtype)
         return self._out(agg)
+
+
+class GINConv(nn.Module):
+    """Graph isomorphism network convolution (PyG GINConv semantics):
+
+    h = MLP((1 + eps) * x_dst + sum_{j in N(dst)} x_j)
+
+    The MLP is Linear-ReLU-Linear (``mlp_1``: in -> hidden, ``mlp_2``:
+    hidden -> out, hidden defaulting to out).  ``eps`` is a trainable scalar
+    (initially 0) with ``train_eps``, else 0.  The sum is formed as flax
+    forms it: in the promotion of the aggregate's and ``x_dst``'s dtypes,
+    and in float32 when ``eps`` is a parameter.
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 hidden_features: Optional[int] = None, train_eps: bool = False,
+                 bias: bool = True, dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        hid = hidden_features or out_features
+        self.dtype = dtype
+        self.mlp_1 = nn.Linear(in_features, hid, bias=bias, device=device)
+        self.mlp_2 = nn.Linear(hid, out_features, bias=bias, device=device)
+        self.eps = nn.Parameter(torch.zeros((), device=device)) if train_eps else None
+
+    def _mlp(self, x_dst, agg):
+        if self.eps is None:
+            z = x_dst + agg
+        else:
+            dt = torch.promote_types(torch.promote_types(agg.dtype, self.eps.dtype),
+                                     x_dst.dtype)
+            z = (1 + self.eps).to(dt) * x_dst.to(dt) + agg.to(dt)
+        return dense(self.mlp_2, torch.relu(dense(self.mlp_1, z, self.dtype)), self.dtype)
+
+    def forward(self, x_dst, x_neigh, mask):
+        return self._mlp(x_dst, fanout_aggregate(x_neigh, mask, "sum"))
+
+    def full(self, x, src, dst, num_nodes: int):
+        """Full batch over COO edges src -> dst (-1 padded)."""
+        return self._mlp(x[:num_nodes], segment_spmm(x, src, dst, num_nodes, reduce="sum"))
+
+    def full_graph(self, x, fbg):
+        """Full batch through ``fbg``, x in its graph order: the sum by the
+        slab SpMM kernel."""
+        return self._mlp(x, fbg.spmm(x, reduce="sum").to(x.dtype))

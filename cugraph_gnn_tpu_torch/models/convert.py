@@ -11,7 +11,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cugraph_gnn_tpu_torch.models.zoo import GAT, GCN, GraphSAGE
+from cugraph_gnn_tpu_torch.models.zoo import GAT, GCN, GIN, GraphSAGE
 
 
 def graphsage_from_flax(params, model: Optional[GraphSAGE] = None, *,
@@ -82,6 +82,50 @@ def gat_from_flax(params, model: Optional[GAT] = None, *, device=None) -> GAT:
             _copy(conv.att_dst, np.asarray(p["att_dst"]))
             _copy(conv.bias, np.asarray(p["bias"]))
     return model
+
+
+def gin_from_flax(params, model: Optional[GIN] = None, *,
+                  dtype: Optional[torch.dtype] = None, device=None) -> GIN:
+    """A GIN holding the weights of the flax tree ``params``
+    (``{'params': {'conv_<i>': {'mlp_1': {'kernel', 'bias'}, 'mlp_2':
+    {'kernel', 'bias'}, ['eps']}}}``), copied into ``model`` when given (any
+    model of ``GINConv``s; a tree with ``eps`` needs convs built with
+    ``train_eps``), else into a new one built with ``dtype`` on ``device``
+    (default: the card)."""
+    convs = _convs(params)
+    if model is None:
+        k1 = [np.asarray(c["mlp_1"]["kernel"]) for c in convs]
+        k2 = np.asarray(convs[-1]["mlp_2"]["kernel"])
+        model = GIN(k1[0].shape[0], k1[0].shape[1], k2.shape[1], num_layers=len(convs),
+                    dtype=dtype, device=device)
+    _check_depth(model, convs)
+    with torch.no_grad():
+        for conv, p in zip(model.convs, convs):
+            for name in ("mlp_1", "mlp_2"):
+                lin = getattr(conv, name)
+                _copy(lin.weight, np.asarray(p[name]["kernel"]).T)
+                _copy(lin.bias, np.asarray(p[name]["bias"]))
+            if ("eps" in p) != (conv.eps is not None):
+                raise ValueError("the flax tree and the model disagree on a trainable eps")
+            if conv.eps is not None:
+                _copy(conv.eps, np.asarray(p["eps"]))
+    return model
+
+
+_FROM_FLAX = {"sage": graphsage_from_flax, "gcn": gcn_from_flax, "gat": gat_from_flax,
+              "gin": gin_from_flax}
+
+
+def model_from_flax(model_type: str, params, model=None, *, dtype=None, device=None):
+    """The weights of a flax tree of the JAX builder's ``model_type``
+    (sage / gcn / gat / gin) in a port model (``model``, or a new one on
+    ``device``, default the card; GAT takes no ``dtype``)."""
+    kind = model_type.lower()
+    if kind not in _FROM_FLAX:
+        raise ValueError(f"no flax conversion for model_type {model_type!r}; "
+                         f"expected one of {tuple(_FROM_FLAX)}")
+    kw = {} if kind == "gat" else {"dtype": dtype}
+    return _FROM_FLAX[kind](params, model, device=device, **kw)
 
 
 def _convs(params):

@@ -1,9 +1,15 @@
 """Model zoo over sampled multihop batches and full graphs (torch.nn).
 
 Counterpart of ``cugraph_gnn_tpu/models/zoo.py``: ``MultihopModel`` (the
-sampled forward, ``full`` and ``full_graph``), ``GraphSAGE``, ``GCN`` and
-``GAT``.
-Dropout, degree inputs and the other models come with later slices.
+sampled forward, ``full`` and ``full_graph``, with dropout between layers
+and, in the sampled forward, degree inputs for ``GCNConv``), ``GraphSAGE``,
+``GCN``, ``GIN`` and ``GAT``.  ``RGCN`` comes with the hetero slice (ROADMAP
+Queue 1 item 4).
+
+Dropout is flax's: at ``train=True`` each entry is kept with probability
+1 - p and scaled by 1 / (1 - p), the keep mask drawn from the ``generator``
+the caller passes (as flax's ``apply`` takes a dropout key); at
+``train=False`` nothing is drawn.
 """
 
 from __future__ import annotations
@@ -14,50 +20,80 @@ import torch
 from torch import nn
 
 from cugraph_gnn_tpu_torch._device import resolve_device
-from cugraph_gnn_tpu_torch.models.conv import GATConv, GCNConv, SAGEConv
+from cugraph_gnn_tpu_torch.models.conv import GATConv, GCNConv, GINConv, SAGEConv
 from cugraph_gnn_tpu_torch.sampler.output import MultihopBatch
 
 
 class MultihopModel(nn.Module):
     """Runs ``convs`` input-side first over a MultihopBatch.  Activations
     shrink level by level; levels[l] is a prefix of levels[l+1], so the
-    target rows are a slice."""
+    target rows are a slice.  ``dropout``: the drop probability after each
+    hidden layer's ReLU."""
 
-    def __init__(self, convs):
+    def __init__(self, convs, dropout: float = 0.0):
         super().__init__()
         self.convs = nn.ModuleList(convs)
+        self.dropout = float(dropout)
 
-    def forward(self, x_input, batch: MultihopBatch):
+    def _hidden(self, h, train: bool, generator):
+        h = torch.relu(h)
+        if self.dropout <= 0 or not train:
+            return h
+        if generator is None:
+            raise ValueError("dropout at train=True draws its mask from a generator: "
+                             "pass generator=")
+        keep_prob = 1.0 - self.dropout
+        keep = torch.rand(h.shape, generator=generator, device=h.device) < keep_prob
+        return torch.where(keep, h / keep_prob, 0)
+
+    def forward(self, x_input, batch: MultihopBatch, *, train: bool = False,
+                deg_input=None, generator: Optional[torch.Generator] = None):
+        """deg_input: optional (S_L,) raw global in-degrees aligned with the
+        rows of ``x_input``; ``GCNConv`` layers then compute the exact
+        symmetric normalization instead of the mean approximation."""
         h = x_input
+        d = None if deg_input is None else deg_input.reshape(-1, 1).float()
         num_hops = batch.num_hops
         if num_hops != len(self.convs):
             raise ValueError(f"batch has {num_hops} hops, model has "
                              f"{len(self.convs)} layers")
         for li in range(num_hops - 1, -1, -1):
             conv = self.convs[num_hops - 1 - li]
-            h = conv(batch.dst_activations(h, li),
-                     batch.gather_neighbors(h, li), batch.hops[li].mask)
+            x_dst = batch.dst_activations(h, li)
+            x_neigh = batch.gather_neighbors(h, li)
+            mask = batch.hops[li].mask
+            if d is not None and isinstance(conv, GCNConv):
+                d_dst = batch.dst_activations(d, li)
+                h = conv(x_dst, x_neigh, mask, d_dst[:, 0],
+                         batch.gather_neighbors(d, li)[..., 0])
+                d = d_dst
+            else:
+                if d is not None:
+                    d = batch.dst_activations(d, li)
+                h = conv(x_dst, x_neigh, mask)
             if li != 0:
-                h = torch.relu(h)
+                h = self._hidden(h, train, generator)
         return h
 
-    def full(self, x, src, dst, num_nodes: int):
+    def full(self, x, src, dst, num_nodes: int, *, train: bool = False,
+             generator: Optional[torch.Generator] = None):
         """Full batch over COO edges src -> dst."""
         h = x
         for i, conv in enumerate(self.convs):
             h = conv.full(h, src, dst, num_nodes)
             if i != len(self.convs) - 1:
-                h = torch.relu(h)
+                h = self._hidden(h, train, generator)
         return h
 
-    def full_graph(self, x, fbg):
+    def full_graph(self, x, fbg, *, train: bool = False,
+                   generator: Optional[torch.Generator] = None):
         """Full batch through ``fbg`` (an ``ops.full_batch.FullBatchGraph``);
         x in its graph order."""
         h = x
         for i, conv in enumerate(self.convs):
             h = conv.full_graph(h, fbg)
             if i != len(self.convs) - 1:
-                h = torch.relu(h)
+                h = self._hidden(h, train, generator)
         return h
 
 
@@ -73,12 +109,12 @@ class GraphSAGE(MultihopModel):
     def __init__(self, in_features: int, hidden_features: int = 256,
                  out_features: int = 64, num_layers: int = 2,
                  aggr: str = "mean", dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 dropout: float = 0.0, device=None):
         dev = resolve_device(device)
         dims = _dims(in_features, hidden_features, out_features, num_layers)
         super().__init__([
             SAGEConv(dims[i], dims[i + 1], aggr=aggr, dtype=dtype, device=dev)
-            for i in range(num_layers)])
+            for i in range(num_layers)], dropout)
 
 
 class GCN(MultihopModel):
@@ -88,12 +124,30 @@ class GCN(MultihopModel):
 
     def __init__(self, in_features: int, hidden_features: int = 256,
                  out_features: int = 64, num_layers: int = 2,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.0,
+                 device=None):
         dev = resolve_device(device)
         dims = _dims(in_features, hidden_features, out_features, num_layers)
         super().__init__([
             GCNConv(dims[i], dims[i + 1], dtype=dtype, device=dev)
-            for i in range(num_layers)])
+            for i in range(num_layers)], dropout)
+
+
+class GIN(MultihopModel):
+    """``num_layers`` GINConvs: in -> hidden -> ... -> out, each MLP's
+    hidden width ``hidden_features``.  Layer i is ``convs[i]`` (flax's
+    ``conv_<i>``).  Built on ``device`` (default: the card)."""
+
+    def __init__(self, in_features: int, hidden_features: int = 256,
+                 out_features: int = 64, num_layers: int = 2,
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.0,
+                 device=None):
+        dev = resolve_device(device)
+        dims = _dims(in_features, hidden_features, out_features, num_layers)
+        super().__init__([
+            GINConv(dims[i], dims[i + 1], hidden_features=hidden_features,
+                    dtype=dtype, device=dev)
+            for i in range(num_layers)], dropout)
 
 
 class GAT(MultihopModel):
@@ -106,7 +160,7 @@ class GAT(MultihopModel):
 
     def __init__(self, in_features: int, hidden_features: int = 256,
                  out_features: int = 64, num_layers: int = 2, heads: int = 4,
-                 device=None):
+                 dropout: float = 0.0, device=None):
         dev = resolve_device(device)
         convs, width = [], in_features
         for i in range(num_layers):
@@ -115,4 +169,4 @@ class GAT(MultihopModel):
             h = 1 if last else heads
             convs.append(GATConv(width, f, heads=h, concat=not last, device=dev))
             width = h * f
-        super().__init__(convs)
+        super().__init__(convs, dropout)

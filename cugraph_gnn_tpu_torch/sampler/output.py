@@ -12,9 +12,10 @@ A 2-layer GNN then runs input-side first:
 ``h_1 = conv(x[levels[2]], hops[1])``, ``h_0 = conv(h_1, hops[0])``.
 Slots that are -1 carry garbage rows downstream; consumers mask with
 ``HopBlock.mask``.  :func:`to_coo` and :func:`to_csc` give PyG-style views
-with per-hop counts.  Edge ids are int32: the high plane of 64-bit edge ids
-(``edge_hi``) comes with ``ops/edge_ids.py`` (ROADMAP Queue 1 item 4) and is
-None until then.
+with per-hop counts.  Edge ids are int32; graphs beyond 2**31 edges carry
+a high plane ``edge_hi`` beside them (``ops/edge_ids.py``: id = edge_hi *
+2**30 + edge_ids), which the views carry along and ``edge_ids64`` combines
+on the host.  It is None on 32-bit graphs, where ``edge_ids`` is the id.
 """
 
 from __future__ import annotations
@@ -22,7 +23,17 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
+
+from cugraph_gnn_tpu_torch.ops.edge_ids import to_int64_np
+
+
+def _int64_ids(hi, lo) -> np.ndarray:
+    lo = lo.cpu().numpy()
+    if hi is None:
+        return lo.astype(np.int64)
+    return to_int64_np(hi.cpu().numpy(), lo)
 
 
 class HopBlock(NamedTuple):
@@ -32,10 +43,16 @@ class HopBlock(NamedTuple):
     neigh_local: torch.Tensor   # (S_l, k_l) int32 index into levels[l+1], -1 pad
     neigh_global: torch.Tensor  # (S_l, k_l) int32 global node ids, -1 pad
     edge_ids: torch.Tensor      # (S_l, k_l) int32 global edge ids, -1 pad
+    # high int32 plane of 64-bit edge ids (None on 32-bit graphs)
+    edge_hi: Optional[torch.Tensor] = None
 
     @property
     def mask(self):
         return self.neigh_local >= 0
+
+    def edge_ids64(self) -> np.ndarray:
+        """Host int64 global edge ids (either width), -1 pad."""
+        return _int64_ids(self.edge_hi, self.edge_ids)
 
 
 @dataclass
@@ -77,7 +94,8 @@ class MultihopBatch:
         return MultihopBatch(
             levels=[a[i] for a in self.levels],
             level_counts=[a[i] for a in self.level_counts],
-            hops=[HopBlock(*(a[i] for a in hop)) for hop in self.hops],
+            hops=[HopBlock(*(None if a is None else a[i] for a in hop))
+                  for hop in self.hops],
             seed_count=self.seed_count[i],
             static_layout=self.static_layout,
             num_shards=self.num_shards)
@@ -138,6 +156,10 @@ class COOSample(NamedTuple):
     num_sampled_edges: torch.Tensor  # (L,) valid edges per hop
     edge_hi: Optional[torch.Tensor] = None
 
+    def edge_ids64(self) -> np.ndarray:
+        """Host int64 global edge ids (either width), -1 pad."""
+        return _int64_ids(self.edge_hi, self.edge)
+
 
 class CSCSample(NamedTuple):
     """PyG-style CSC sample: per hop, the valid entries compacted to the
@@ -151,6 +173,11 @@ class CSCSample(NamedTuple):
     num_sampled_nodes: torch.Tensor
     num_sampled_edges: torch.Tensor
     edge_hi: Optional[List[torch.Tensor]] = None
+
+    def edge_ids64(self) -> List[np.ndarray]:
+        """Per hop, host int64 global edge ids (either width), -1 pad."""
+        his = self.edge_hi or [None] * len(self.edge)
+        return [_int64_ids(h, e) for h, e in zip(his, self.edge)]
 
 
 def _level_growth(batch: MultihopBatch) -> torch.Tensor:
@@ -166,7 +193,7 @@ def to_csc(batch: MultihopBatch) -> CSCSample:
     moved to the front by a stable sort, so ``row[colptr[i]:colptr[i+1]]``
     are column i's sources in slot order; slots past ``colptr[-1]`` are
     -1."""
-    colptrs, rows, edges, n_edges = [], [], [], []
+    colptrs, rows, edges, his, n_edges = [], [], [], [], []
     for hop in batch.hops:
         m = hop.mask
         cnt = m.sum(dim=1, dtype=torch.int32)
@@ -175,16 +202,18 @@ def to_csc(batch: MultihopBatch) -> CSCSample:
         order = torch.argsort((~flat_m).to(torch.int8), stable=True)
         rows.append(torch.where(flat_m, hop.neigh_local.reshape(-1), -1)[order])
         edges.append(torch.where(flat_m, hop.edge_ids.reshape(-1), -1)[order])
+        if hop.edge_hi is not None:
+            his.append(torch.where(flat_m, hop.edge_hi.reshape(-1), 0)[order])
         n_edges.append(m.sum(dtype=torch.int32))
     return CSCSample(node=batch.levels[-1], colptr=colptrs, row=rows, edge=edges,
                      num_sampled_nodes=_level_growth(batch),
-                     num_sampled_edges=torch.stack(n_edges))
+                     num_sampled_edges=torch.stack(n_edges), edge_hi=his or None)
 
 
 def to_coo(batch: MultihopBatch) -> COOSample:
     """A one-step multihop batch as PyG-style COO with per-hop counts: hop
     by hop, every slot row-major, -1 where masked."""
-    rows, cols, edges, n_edges = [], [], [], []
+    rows, cols, edges, his, n_edges = [], [], [], [], []
     for hop in batch.hops:
         s, k = hop.neigh_local.shape
         m = hop.mask
@@ -192,7 +221,10 @@ def to_coo(batch: MultihopBatch) -> COOSample:
         rows.append(torch.where(m, dst, -1).reshape(-1))
         cols.append(torch.where(m, hop.neigh_local, -1).reshape(-1))
         edges.append(torch.where(m, hop.edge_ids, -1).reshape(-1))
+        if hop.edge_hi is not None:
+            his.append(torch.where(m, hop.edge_hi, 0).reshape(-1))
         n_edges.append(m.sum(dtype=torch.int32))
     return COOSample(node=batch.levels[-1], row=torch.cat(rows), col=torch.cat(cols),
                      edge=torch.cat(edges), num_sampled_nodes=_level_growth(batch),
-                     num_sampled_edges=torch.stack(n_edges))
+                     num_sampled_edges=torch.stack(n_edges),
+                     edge_hi=torch.cat(his) if his else None)

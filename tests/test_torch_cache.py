@@ -7,6 +7,9 @@ PyTorch port against the JAX package on the same numpy inputs, on the CPU.
   also writes its non-miss entries back), which of two writes to one slot
   wins is unspecified in XLA; the ids here avoid those sets and no set gets
   more than ``ways`` entries a batch, so the metadata is comparable.
+- ``DeviceLFUCache`` with an overfilled set and -1 pads: gathered rows and
+  a later hit exact against the host rows, the (set, way) pairs a batch
+  writes distinct.
 - ``HostManagedCache``: batches that evict, a prefetch with matching ids and
   one with other ids, ``update`` (cached and written-through ids), then
   ``flush``: tags, counters, modified bits, hits and misses exactly JAX's
@@ -96,6 +99,54 @@ def test_device_lfu_cache_matches_jax():
     assert (port.tags == -1).all() and port.hits == port.misses == 0
     assert CachePolicy("none").capacity_for(100) == JaxCachePolicy("none").capacity_for(100) == 0
     assert CachePolicy().capacity_for(1000) == JaxCachePolicy().capacity_for(1000)
+
+
+def overfilled_batches(cache, n, rng):
+    """Batches that send more than ``ways`` distinct misses into one set
+    (set 0 among them), with repeats and -1 pads between them."""
+    sets = cache._set_of(torch.arange(n)).numpy()
+    crowded = np.nonzero(sets == 0)[0]
+    assert len(crowded) > 2 * cache.ways
+    out = []
+    for _ in range(3):
+        ids = np.concatenate([rng.choice(crowded, 2 * cache.ways, replace=False),
+                              rng.integers(0, n, 20), [-1] * 7])
+        ids[::6] = -1
+        out.append(rng.permutation(ids).astype(np.int64))
+    return out
+
+
+def test_device_lfu_cache_overfilled_set():
+    """More than ``ways`` misses a set and -1 pads: every gathered row is the
+    host row, no two inserts of a batch share a (set, way) (a repeated miss
+    takes two ways, as in JAX), and a later gather of the cached ids hits with the host rows."""
+    host = _table(5)
+    cache = DeviceLFUCache(host, capacity=16, ways=4, device="cpu")
+    slots = []
+    choose = cache._insert_slots
+
+    def spy(ids):
+        eligible, es, ew = choose(ids)
+        slots.append((es.numpy(), ew.numpy()))
+        return eligible, es, ew
+
+    cache._insert_slots = spy
+    rng = np.random.default_rng(6)
+    for ids in overfilled_batches(cache, N, rng):
+        got = cache.gather(torch.as_tensor(ids))
+        np.testing.assert_array_equal(got.numpy(), _expected_rows(host, ids))
+        es, ew = slots[-1]
+        pairs = set(zip(es.tolist(), ew.tolist()))
+        assert len(pairs) == len(es) > 0
+        assert (np.bincount(es, minlength=cache.sets) <= cache.ways).all()
+        tags = cache.tags.numpy()
+        cached = tags[tags >= 0]
+        hits = cache.hits
+        again = cache.gather(torch.as_tensor(cached))
+        assert cache.hits == hits + len(cached)
+        np.testing.assert_array_equal(again.numpy(), host[cached])
+        np.testing.assert_array_equal(
+            cache.rows.numpy()[tags >= 0], host[cached])
 
 
 # -- HostManagedCache --------------------------------------------------------------

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the row gather, the fused sampler (and, around them, ``append_unique`` and
-one ``NeighborLoader`` batch against the CPU on the same draws; the
-embeddings' dedup sums, cache slot reads and a cache round against the CPU), the slab SpMM (the whole function and
-its band-only mode), the CSR SpMM kernel, and the fused slab attention's
+the row gather, the fused sampler (and, around them, ``append_unique``, one
+``NeighborLoader`` batch and two ``LinkNeighborLoader`` batches against the
+CPU on the same draws; the embeddings' dedup sums, cache slot reads, a cache
+round against the CPU and ``DeviceLFUCache`` with an overfilled set), the
+slab SpMM (the whole function and its band-only mode; GIN's full-batch
+forward and backward against the CPU), the CSR SpMM kernel, and the fused slab attention's
 forward and backward kernels, each of the last three also on the row shards
 of a 4-rank split (the shard wrappers of ``ops/dist_full_batch.py``,
 halo-extended inputs; the slab SpMM's whole function on each shard's table
@@ -206,7 +208,8 @@ def test_neighbor_loader_batch_card_matches_cpu(card):
                     + want.sample.level_counts):
         assert torch.equal(a.cpu(), b)
     for ha, hb in zip(got.sample.hops, want.sample.hops):
-        for a, b in zip(ha, hb):
+        assert ha.edge_hi is None and hb.edge_hi is None
+        for a, b in zip(ha[:3], hb[:3]):
             assert torch.equal(a.cpu(), b)
 
 
@@ -1246,3 +1249,140 @@ def test_host_managed_cache_card_matches_cpu(card):
     for c in caches:
         c.flush()
     np.testing.assert_array_equal(caches[0].host_rows, caches[1].host_rows)
+
+
+def test_device_lfu_cache_overfilled_set_on_card(card):
+    """``DeviceLFUCache`` with more than ``ways`` misses in one set and -1
+    pads, on the card: every gathered row and a later hit equal the host
+    rows, the metadata equals a CPU run's, and two card runs are bit for bit
+    equal (each insert of a batch has its own slot)."""
+    from cugraph_gnn_tpu_torch.embedding.cache import DeviceLFUCache
+
+    host = np.random.default_rng(3).standard_normal((3000, 64)).astype(np.float32)
+    runs = []
+    for dev in (card, card, torch.device("cpu")):
+        cache = DeviceLFUCache(host, capacity=64, ways=8, device=dev)
+        sets = cache._set_of(torch.arange(3000)).numpy()
+        crowded = np.nonzero(sets == 0)[0]
+        rng = np.random.default_rng(4)
+        rows = []
+        for _ in range(4):
+            ids = np.concatenate([rng.choice(crowded, 3 * cache.ways, replace=False),
+                                  rng.integers(0, 3000, 100), [-1] * 9])
+            ids[::7] = -1
+            ids = torch.as_tensor(rng.permutation(ids), device=dev)
+            got = cache.gather(ids)
+            want = np.where((ids >= 0).cpu().numpy()[:, None],
+                            host[ids.clamp(min=0).cpu().numpy()], 0)
+            assert torch.equal(got.cpu(), torch.as_tensor(want))
+            tags = cache.tags.cpu().numpy()
+            cached = torch.as_tensor(tags[tags >= 0], device=dev)
+            hits = cache.hits
+            again = cache.gather(cached)
+            assert cache.hits == hits + cached.numel()
+            assert torch.equal(again.cpu(), torch.as_tensor(host[cached.cpu().numpy()]))
+            rows.append(got.cpu())
+        runs.append((rows, cache.rows.cpu(), cache.tags.cpu(), cache.freq.cpu()))
+    (r1, rows1, tags1, freq1), (r2, rows2, tags2, freq2), (_, _, tags_c, freq_c) = runs
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(r1, r2))
+    assert torch.equal(_bits(rows1), _bits(rows2)) and torch.equal(tags1, tags2)
+    assert torch.equal(tags1, tags_c) and torch.equal(freq1, freq_c) and torch.equal(freq1, freq2)
+
+
+def _fixed_negatives(loader):
+    """Make ``loader`` draw its negatives' candidates from a fresh CPU
+    generator every batch, moved to its device."""
+    from cugraph_gnn_tpu_torch.loader.link_loader import draw_negatives
+    from cugraph_gnn_tpu_torch.sampler.negative import NegativeDraws, draw_candidates
+
+    def negatives(ps, n_neg):
+        draws = draw_candidates(loader.num_src, loader.num_dst, n_neg, loader.neg,
+                                pinned_src=loader.neg.mode == "triplet",
+                                rejection=loader._edge_key_sorted is not None,
+                                generator=torch.Generator().manual_seed(12), device="cpu")
+        draws = NegativeDraws(*(None if d is None else d.to(loader.device) for d in draws))
+        return draw_negatives(ps, n_neg, loader.num_src, loader.num_dst, loader.neg,
+                              loader._edge_key_sorted, draws=draws, device=loader.device)
+
+    loader._negatives = negatives
+
+
+@pytest.mark.parametrize("mode", ["binary", "triplet"])
+def test_link_loader_batch_card_matches_cpu(card, mode):
+    """Two batches of ``LinkNeighborLoader`` (rejecting true edges) on the
+    card and on the CPU with the same negatives' candidates and uniforms:
+    seeds, labels, levels, maps and gathered rows equal; 2 sampler launches
+    and 1 row-gather launch a batch on the card."""
+    from cugraph_gnn_tpu_torch.loader import LinkNeighborLoader
+
+    rng = np.random.default_rng(6)
+    indptr, indices = _graph(rng, n=3000)
+    n = indptr.shape[0] - 1
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    x = rng.standard_normal((n, 40)).astype(np.float32)
+    pick = rng.choice(len(rows), 700, replace=False)
+    eli = np.stack([rows[pick], indices[pick]])
+    out = []
+    for dev in (card, torch.device("cpu")):
+        gs, fs = GraphStore(device=dev), FeatureStore(device=dev)
+        gs.put_edge_index((indices, rows), ("n", "to", "n"), num_nodes=(n, n))
+        fs["x"] = x
+        loader = LinkNeighborLoader((fs, gs), (10, 5), eli, neg_sampling=mode,
+                                    batch_size=256, shuffle=True, reject_true_edges=True)
+        loader.sampler = _FixedDraws(loader.sampler)
+        _fixed_negatives(loader)
+        before = (gather_rows.launches, fused_uniform_sample.launches)
+        batches = [b for _, b in zip(range(2), loader)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (gather_rows.launches, fused_uniform_sample.launches) == (
+                before[0] + 2, before[1] + 4)
+        out.append(batches)
+    for got, want in zip(*out):
+        s, w = got.sample, want.sample
+        for a, b in zip([got.seeds, got.edge_label_index, got.edge_label, got.input_id, got.x]
+                        + s.levels + s.level_counts,
+                        [want.seeds, want.edge_label_index, want.edge_label, want.input_id,
+                         want.x] + w.levels + w.level_counts):
+            assert torch.equal(a.cpu(), b)
+        for ha, hb in zip(s.hops, w.hops):
+            for a, b in zip(ha[:3], hb[:3]):
+                assert torch.equal(a.cpu(), b)
+
+
+def test_gin_full_graph_card_matches_plain(card):
+    """GIN's ``full_graph`` on the card (row 4 with 'sum' over the graph,
+    forward, and over its transpose, backward, down to x) against the same model on the
+    CPU (the plain versions): the 'sum' aggregate within 1e-5 + 1e-5 x the
+    terms' magnitude sum, the outputs and input gradients within 1e-4."""
+    from cugraph_gnn_tpu_torch.models.zoo import GIN
+    from cugraph_gnn_tpu_torch.ops.full_batch import FullBatchGraph
+
+    rng = np.random.default_rng(8)
+    n = 3000
+    dst = np.repeat(np.arange(n), 8)
+    src = np.clip(dst + rng.integers(-100, 101, n * 8), 0, n - 1)
+    src[::9] = rng.integers(0, n, src[::9].shape[0])      # fallback edges
+    x = torch.as_tensor(rng.standard_normal((n, 32)).astype(np.float32))
+    torch.manual_seed(0)
+    cpu_model = GIN(32, 64, 7, device="cpu")
+    res = {}
+    for dev in (card, torch.device("cpu")):
+        fbg = FullBatchGraph.from_coo(src, dst, n, reorder="none", block_rows=128, device=dev)
+        model = GIN(32, 64, 7, device=dev)
+        model.load_state_dict(cpu_model.state_dict())
+        xd = x.to(dev).requires_grad_(True)
+        slab_spmm.launches = 0
+        agg = fbg.spmm(xd.detach(), reduce="sum")
+        mag = fbg.spmm(xd.detach().abs(), reduce="sum")
+        out = model.full_graph(xd, fbg)
+        out.square().sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            # the two checks, 2 forward, 2 backward (x requires a gradient)
+            assert slab_spmm.launches == 2 + 2 + 2
+        res[dev.type] = (agg.cpu(), mag.cpu(), out.detach().cpu(), xd.grad.cpu())
+    (agg, _, out, gx), (agg_c, mag_c, out_c, gx_c) = res["cuda"], res["cpu"]
+    assert bool(((agg - agg_c).abs() <= 1e-5 + 1e-5 * mag_c).all())
+    torch.testing.assert_close(out, out_c, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gx, gx_c, rtol=1e-4, atol=1e-4)

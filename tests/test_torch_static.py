@@ -5,6 +5,7 @@
 - CPU tensors take the plain versions: the kernels' launch counters stay 0,
   on the sampled and the full-batch training paths and the embeddings.
 - Entry points given no device run on the card, and raise without one.
+- The link path on the CPU launches no kernel.
 - A gloo mesh refuses the card and the row-sharded step, at one rank on the
   CPU, launches no kernel.
 """
@@ -33,7 +34,14 @@ from cugraph_gnn_tpu_torch.data import FeatureStore
 from cugraph_gnn_tpu_torch.embedding import CachedHostEmbedding, HostManagedCache
 from cugraph_gnn_tpu_torch.embedding.cache import DeviceLFUCache
 from cugraph_gnn_tpu_torch.embedding.convert import embedding_from_jax_arrays
-from cugraph_gnn_tpu_torch.models.zoo import GAT, GCN, GraphSAGE
+from cugraph_gnn_tpu_torch.models.zoo import GAT, GCN, GIN, GraphSAGE
+from cugraph_gnn_tpu_torch.data import GraphStore
+from cugraph_gnn_tpu_torch.graph_structure import GraphStructure
+from cugraph_gnn_tpu_torch.loader import LinkNeighborLoader
+from cugraph_gnn_tpu_torch.models.builder import create_gnn_model
+from cugraph_gnn_tpu_torch.models.convert import gin_from_flax
+from cugraph_gnn_tpu_torch.sampler import negative as NEG
+from cugraph_gnn_tpu_torch.train_link import link_step
 from cugraph_gnn_tpu_torch.ops.full_batch import FullBatchGraph
 from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as attn_grad
 from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import gather_rows
@@ -109,12 +117,32 @@ def test_cpu_embeddings_leave_launch_counters_at_zero():
     assert gather_rows.launches == 0 and csr_spmm.launches == 0
 
 
+def test_cpu_link_path_leaves_launch_counters_at_zero():
+    """The link loader (binary, with rejection) and a GIN ``link_step`` on the
+    CPU take the plain versions of the sampler and the row gather."""
+    gather_rows.launches = 0
+    fused_uniform_sample.launches = 0
+    rng = np.random.default_rng(1)
+    src, dst = rng.integers(0, 40, 200), rng.integers(0, 40, 200)
+    gs = GraphStore(device="cpu")
+    gs.put_edge_index((src, dst), ("n", "to", "n"), num_nodes=(40, 40))
+    fs = FeatureStore(device="cpu")
+    fs["x"] = rng.standard_normal((40, 8)).astype(np.float32)
+    loader = LinkNeighborLoader((fs, gs), [3, 2], np.stack([src[:30], dst[:30]]),
+                                neg_sampling="binary", batch_size=8, reject_true_edges=True)
+    model = GIN(8, 16, 8, device="cpu")
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    losses = [link_step(model, opt, b) for b in loader]
+    assert len(losses) == 4 and all(torch.isfinite(l) for l in losses)
+    assert gather_rows.launches == 0 and fused_uniform_sample.launches == 0
+
+
 ATTN_COUNTERS = (slab_attention_spmm_mh, attn_grad.onepass_bwd,
                  attn_grad.slab_attention_bwd, attn_grad.slab_attention_bwd_mh)
 
 
 @pytest.mark.parametrize("model_cls,block_rows", [(GraphSAGE, 128), (GCN, 128),
-                                                  (GAT, 128), (GAT, 512)])
+                                                  (GAT, 128), (GAT, 512), (GIN, 128)])
 def test_cpu_full_batch_leaves_launch_counters_at_zero(model_cls, block_rows):
     counters = (slab_spmm, slab_spmm_band, csr_spmm) + ATTN_COUNTERS
     for fn in counters:
@@ -176,6 +204,10 @@ _GAT_TREE = {"params": {"conv_0": {"lin": {"kernel": np.zeros((4, 3), np.float32
                                    "att_src": np.zeros((1, 1, 3), np.float32),
                                    "att_dst": np.zeros((1, 1, 3), np.float32),
                                    "bias": np.zeros(3, np.float32)}}}
+_GIN_TREE = {"params": {"conv_0": {name: {"kernel": np.zeros((4, 3), np.float32)
+                                           if name == "mlp_1" else np.zeros((3, 3), np.float32),
+                                           "bias": np.zeros(3, np.float32)}
+                                    for name in ("mlp_1", "mlp_2")}}}
 _INDPTR = np.array([0, 1, 2], np.int32)
 _INDICES = np.array([1, 0], np.int32)
 ENTRY_POINTS = {
@@ -207,6 +239,14 @@ ENTRY_POINTS = {
     "embedding_from_jax_arrays": lambda: embedding_from_jax_arrays(
         np.zeros((4, 2), np.float32), {}, "sgd"),
     "FeatureStore": lambda: FeatureStore(),
+    "GIN": lambda: GIN(4),
+    "gin_from_flax": lambda: gin_from_flax(_GIN_TREE),
+    "create_gnn_model": lambda: create_gnn_model("gin", in_feat_dim=4, class_count=3),
+    "GraphStructure": lambda: GraphStructure(),
+    "LinkNeighborLoader": lambda: LinkNeighborLoader(
+        (FeatureStore(), GraphStore()), [2], np.zeros((2, 3), np.int64)),
+    "make_edge_key_sorted": lambda: NEG.make_edge_key_sorted([0], [1]),
+    "sample_negative_edges": lambda: NEG.sample_negative_edges(4, 4, 2, NEG.NegativeSampling()),
 }
 
 
