@@ -4,9 +4,9 @@ NVIDIA GPU: builds the kernels, holds each against its plain PyTorch version
 at the training paths' shapes and times it, then trains sampled GraphSAGE at
 the full width of ``bench.py``'s configuration, directly and through the
 ``GraphStore`` / ``FeatureStore`` / ``NeighborLoader`` path, link prediction
-through ``LinkNeighborLoader``, GIN through the loader, and full-batch
-GraphSAGE, GCN, GIN and 4-head GAT over a banded graph at ogbn-products
-scale.
+through ``LinkNeighborLoader``, GIN through the loader, weighted, temporal
+and disjoint sampling through both loaders, and full-batch GraphSAGE, GCN,
+GIN and 4-head GAT over a banded graph at ogbn-products scale.
 
     python3 chip_smoke.py            # every phase, on one card
     python3 chip_smoke.py --probe    # phases 1, 2 and 11b alone
@@ -117,6 +117,37 @@ Phases (any failure raises and exits non-zero):
    with 32 misses a batch in one set and -1 pads, six batches: every
    gathered row and a later gather of every cached id (all hits) equal the
    host rows; two runs bit for bit equal.
+5l. weighted sampling: 5b's graph store and a feature store with ``x``,
+   ``y``, an f32 edge weight ``w`` (0.05 + U[0, 1)) and an int32 edge time
+   ``t`` (U{0..999}), both made on the card from seed 12;
+   ``NeighborLoader(weight_attr="w")`` (batch 1024, fanouts 10/10, dedup,
+   shuffled) trains GraphSAGE (128 -> 256 -> 47, bf16, Adam 1e-3) for 8
+   batches (2 warm-up): per batch the loss (finite), ms, each stage by
+   CUDA events and host clocks between synchronisations (hop 0, hop 1, the
+   whole sample, feature gather, model), each hop's targets, edges scored
+   and the chunks JAX's loop would take, nodes and slots per level, peak
+   memory; 1 row-gather launch a batch and no sampler launch (the weighted
+   hops are plain PyTorch: the JAX package has no kernel for them).
+5m. temporal sampling: the same loader with ``time_attr="t"`` and an
+   ``input_time`` per node (U{0..999}, seed 12) for 8 batches (2 warm-up),
+   every sampled edge checked no newer than its target's propagated time;
+   then ``LinkNeighborLoader(time_attr="t", edge_label_time=...)`` on 5h's
+   196,608 positives (each labelled with its own edge's time), binary with
+   rejection, batch 1024, GraphSAGE 128 -> 256 -> 16: 6 batches (2 warm-up)
+   by stage (negatives, hops, sample, feature gather, ``link_step``), the
+   same check on every batch; 1 row-gather launch a batch, no sampler
+   launch.
+5n. disjoint sampling: ``NeighborLoader(disjoint=True)`` (batch 1024: levels
+   of 1 / 11 / 121 slots a seed, 123,904 at the last) trains GraphSAGE over
+   ``DisjointBatch.flat()`` for 6 batches (2 warm-up), each batch checked:
+   every seed's levels a prefix chain without repeats, every sampled edge a
+   true edge of its target, every map pointing at its neighbor in the
+   seed's row; 2 sampler and 1 row-gather launches a batch.
+5o. small-input agreement, sampling variants: on phase 4's graph, weighted,
+   temporal and disjoint ``NeighborLoader`` batches on the card and on the
+   CPU with the same uniforms and key words: seeds, rows, levels, maps and
+   edge ids bit-equal over three batches, three f32 GraphSAGE steps' losses
+   within 1e-4.
 6. full-batch data: the banded graph of ``train_full`` (2,449,029 nodes, 12
    in-band sources within +-256 and 1 uniform source per node: 31,837,377
    edges) and its ``FullBatchGraph`` (reorder "none", R = 256) with the
@@ -240,7 +271,7 @@ Phases (any failure raises and exits non-zero):
     attention forward and backward.
 17. the ``kernels`` summary line (rows 1-14, then the probe, which the
     main path launches no time; rows 1 and 2 count the launches of phases
-    5, 5b, 5e, 5f, 5h and 5j, split by path (row 1 also timed at 5e's two
+    5, 5b, 5e, 5f, 5h, 5j and 5l-5n, split by path (row 1 also timed at 5e's two
     shapes and at 5h's; row 2 also at 5h's hops), row 4 those of 9b beside
     GIN's 'sum' calls,
     row 2 also carries its time per hop and its sector floor, at
@@ -913,6 +944,22 @@ LINK_EDGES = 196_608   # bench.py's seed split, as the link path's positives
 LINK_OUT = 16          # examples/link_prediction.py's embedding width
 
 
+def _link_positives(graph, dev):
+    """The link path's positives: LINK_EDGES of the graph's edges (a fixed
+    draw), as CSR positions and as (neighbor, row) pairs, the graph store's
+    edge direction."""
+    import numpy as np
+    import torch
+
+    indptr = graph.indptr.cpu().numpy()
+    rng = np.random.default_rng(0)
+    pos = rng.permutation(np.unique(rng.integers(0, int(indptr[-1]),
+                                                 LINK_EDGES + LINK_EDGES // 50)))[:LINK_EDGES]
+    eli = np.stack([graph.indices[torch.as_tensor(pos, device=dev)].cpu().numpy(),
+                    np.searchsorted(indptr, pos, side="right") - 1]).astype(np.int64)
+    return pos, eli
+
+
 def _link_negatives(loader, stats=None, draws_from=None):
     """Replace ``loader._negatives`` by the same draw made in two visible
     steps: the candidates (from the loader's generator, or from a fresh CPU
@@ -987,15 +1034,7 @@ def link_paths(dev, emit, graph, small_cpu, counters, cuda_ms, hbm, gs):
 
     # -- 5h. the link path at full width -------------------------------------
     t0 = time.perf_counter()
-    n = graph.num_nodes
-    indptr = graph.indptr.cpu().numpy()
-    e = int(indptr[-1])
-    rng = np.random.default_rng(0)
-    pos = rng.permutation(np.unique(rng.integers(0, e, LINK_EDGES + LINK_EDGES // 50)))
-    pos = pos[:LINK_EDGES]
-    # edge (neighbor -> row), as the graph store holds it
-    eli = np.stack([graph.indices[torch.as_tensor(pos, device=dev)].cpu().numpy(),
-                    np.searchsorted(indptr, pos, side="right") - 1]).astype(np.int64)
+    _, eli = _link_positives(graph, dev)
     kw = dict(num_neighbors=T.FANOUTS, edge_label_index=eli, batch_size=T.BATCH,
               shuffle=True, reject_true_edges=True)
     loader = LinkNeighborLoader((fs, gs), neg_sampling="binary", **kw)
@@ -1245,6 +1284,332 @@ def device_cache_check(dev, emit):
     emit({"phase": "device_lfu_cache_check", "sets": cache.sets, "ways": cache.ways,
           "batches": 6, "misses_in_set_0_per_batch": 4 * cache.ways,
           "hit_rate": cache.hit_rate, "rows_equal_host": True, "bit_equal_two_runs": True})
+
+
+T_RANGE = 1_000   # edge and seed times of phases 5l-5o, drawn in [0, T_RANGE)
+
+
+def _flat_batch(batch):
+    """A disjoint NodeBatch as one batch a model runs: the seeds' blocks one
+    after the other (``DisjointBatch.flat``), features (B * cap, F)."""
+    from cugraph_gnn_tpu_torch.loader import NodeBatch
+
+    x = batch.x.reshape(-1, batch.x.shape[-1])
+    return NodeBatch(batch.sample.flat(), x, batch.y, batch.seeds, batch.input_id,
+                     batch.batch_size)
+
+
+def _check_times(sample, seed_time, edge_times) -> int:
+    """Every sampled edge of ``sample`` is no newer than its target's
+    propagated time (the seeds' ``seed_time``, then the scatter-min of each
+    hop); raises otherwise.  Returns the edges checked."""
+    from cugraph_gnn_tpu_torch.sampler.neighbor_sampler import propagate_times
+
+    st, checked = seed_time[None], 0
+    for h, hop in enumerate(sample.hops):
+        e = hop.edge_ids.long()
+        ok = e >= 0
+        if bool((ok & (edge_times[e.clamp(min=0)] > st[0][:, None])).any()):
+            raise AssertionError(f"hop {h} sampled an edge newer than its target's time")
+        checked += int(ok.sum())
+        st = propagate_times(st, hop.neigh_local[None], sample.levels[h + 1].shape[0])
+    return checked
+
+
+def _check_disjoint(batch, indptr, indices) -> int:
+    """Each seed's levels form a subgraph of its own: targets a prefix of the
+    next level, no node twice in a row, every sampled edge a true edge of its
+    target, every map pointing at its neighbor in the seed's row.  Returns
+    the seeds checked."""
+    import torch
+
+    lv = batch.levels
+    for a, b in zip(lv[:-1], lv[1:]):
+        if not torch.equal(b[:, :a.shape[1]], a):
+            raise AssertionError("a seed's level is not a prefix of its next level")
+        srt = torch.sort(b, dim=1).values
+        if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
+            raise AssertionError("a node appears twice in one seed's level")
+    for h, hop in enumerate(batch.hops):
+        tgt = lv[h].long()[:, :, None].expand_as(hop.edge_ids)
+        ok = hop.neigh_local >= 0
+        e = hop.edge_ids.long().clamp(min=0)
+        t = tgt.clamp(min=0)
+        good = (e >= indptr[t].long()) & (e < indptr[t + 1].long()) & (
+            indices[e] == hop.neigh_global)
+        row = torch.gather(lv[h + 1], 1, hop.neigh_local.long().clamp(min=0).reshape(
+            hop.neigh_local.shape[0], -1)).view_as(hop.neigh_global)
+        if not bool((good & (row == hop.neigh_global))[ok].all()):
+            raise AssertionError(f"disjoint hop {h}: a sampled edge or map is wrong")
+    return int(batch.seed_valid.sum())
+
+
+class _KeyedFixed:
+    """A loader's sampler whose draws are given, batch after batch: the same
+    CPU uniforms and key words (one per seed when disjoint) on either device."""
+
+    def __init__(self, inner, seed):
+        self.inner, self.seed = inner, seed
+        self.fanouts = inner.fanouts
+
+    def sample(self, seeds, node_times=None, generator=None):
+        import torch
+
+        g = torch.Generator().manual_seed(self.seed)
+        caps = self.inner.level_caps(seeds.shape[0])
+        rows = seeds.shape[0] if hasattr(self.inner, "base") else 1
+        u = [torch.rand((caps[h] * rows, k), generator=g) for h, k in enumerate(self.fanouts)]
+        keys = [torch.randint(0, 2**32, (rows, 2) if rows > 1 else (2,), generator=g)
+                for _ in self.fanouts]
+        return self.inner.sample(seeds, node_times, u=u, hash_keys=keys)
+
+
+def sampling_variants(dev, emit, graph, small_cpu, counters, gs):
+    """Phases 5l-5o (see the module docstring).  Returns each kernel's
+    launches on each new path."""
+    import numpy as np
+    import torch
+
+    from cugraph_gnn_tpu_torch import train as T
+    from cugraph_gnn_tpu_torch import train_link as TL
+    from cugraph_gnn_tpu_torch.data import FeatureStore, GraphStore
+    from cugraph_gnn_tpu_torch.loader import LinkNeighborLoader, NeighborLoader
+    from cugraph_gnn_tpu_torch.loader import link_loader as LL
+    from cugraph_gnn_tpu_torch.loader import node_loader as NL
+    from cugraph_gnn_tpu_torch.models.zoo import GraphSAGE
+    from cugraph_gnn_tpu_torch.sampler.disjoint import DisjointBatch
+
+    names = [fn.__name__ for fn in counters]
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def check_launches(what, batches, sampler_per_batch):
+        got = {fn.__name__: fn.launches for fn in counters}
+        want = {**{n: 0 for n in names}, "gather_rows": batches,
+                "fused_uniform_sample": sampler_per_batch * batches}
+        if got != want:
+            raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
+        return got
+
+    # -- the stores: 5b's graph store; x, y, an f32 weight and an int32 time
+    # per edge (COO order = CSR order here), made from the seed ------------------
+    t0 = time.perf_counter()
+    e = graph.indices.numel()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    fs = FeatureStore(device=dev)
+    fs["x"] = graph.feats
+    fs["y"] = graph.labels
+    fs["w"] = 0.05 + torch.rand((e,), generator=gen, device=dev)
+    fs["t"] = torch.randint(0, T_RANGE, (e,), generator=gen, device=dev, dtype=torch.int32)
+    input_time = torch.randint(0, T_RANGE, (graph.num_nodes,), generator=gen, device=dev,
+                               dtype=torch.int32).cpu().numpy()
+    torch.cuda.synchronize()
+    emit({"phase": "variants_setup", "edges": e, "setup_s": time.perf_counter() - t0,
+          "edge_attr_bytes": 8 * e})
+
+    stages = _Stages()
+
+    def watch_hops(sampler):
+        """Time each hop apart."""
+        inner = sampler._one_hop
+        calls = [0]
+
+        def one_hop(targets, fanout, seed_time, **kw):
+            h = calls[0] % len(sampler.fanouts)
+            calls[0] += 1
+            return stages.run(f"hop{h}", inner, targets, fanout, seed_time, **kw)
+
+        sampler._one_hop = one_hop
+
+    def hop_edges(sampler, sample):
+        """Per key-based hop, read after the batch: its valid targets, the
+        edges the port scores (their degrees, cut at JAX's loop bound), the
+        256-edge chunks its largest target needs, and the chunks JAX's loop
+        runs for every seed."""
+        limit = max(-(-int(sampler.max_degree) // sampler.chunk), 1) * sampler.chunk
+        ip, n = sampler.indptr, sampler.indptr.numel() - 1
+        out = []
+        for h in range(len(sampler.fanouts)):
+            targets = sample.levels[h].reshape(-1)
+            safe = targets.long().clamp(0, n)
+            deg = torch.where(targets >= 0, (ip[(safe + 1).clamp(max=n)].long()
+                                             - ip[safe].long()).clamp(max=limit), 0)
+            out.append({"hop": h, "targets": int((targets >= 0).sum()),
+                        "edges_scored": int(deg.sum()),
+                        "chunks_needed": -(-int(deg.max()) // sampler.chunk),
+                        "jax_chunk_iterations": limit // sampler.chunk})
+        return out
+
+    def run_node(what, loader, model, opt, batches, warmup, sampler_per_batch, check=None):
+        base = getattr(loader.sampler, "base", loader.sampler)
+        watch_hops(base)
+        stages.wrap(loader.sampler, "sample", "sample")
+        orig = NL.gather_node_features
+        NL.gather_node_features = lambda *a: stages.run("feature_gather", orig, *a)
+        it = iter(loader)
+        ms, checked = [], 0
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            for i in range(batches):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                batch = stages.run("batch", next, it)
+                step = _flat_batch(batch) if isinstance(batch.sample, DisjointBatch) else batch
+                loss = stages.run("model", _loader_step, model, opt, step)
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t1) * 1e3
+                if i >= warmup:
+                    ms.append(dt)
+                loss = float(loss)
+                if not math.isfinite(loss):
+                    raise AssertionError(f"non-finite {what} loss {loss} at batch {i}")
+                emit({"phase": f"{what}_train", "batch": i, "warmup": i < warmup,
+                      "loss": loss, "ms": dt, "stages": stages.take(),
+                      "hops": hop_edges(base, batch.sample) if base.key_based(True) else None,
+                      "nodes_per_level": [int((lv >= 0).sum()) for lv in batch.sample.levels],
+                      "slots_per_level": [int(lv.numel()) for lv in batch.sample.levels],
+                      "max_memory_allocated": torch.cuda.max_memory_allocated()})
+                if check is not None:
+                    checked += check(batch)
+            launches = check_launches(what, batches, sampler_per_batch)
+        finally:
+            NL.gather_node_features = orig
+            del loader.sampler.sample, base._one_hop
+        emit({"phase": f"{what}_launch_counts", "launches": launches, "batches": batches,
+              "batches_timed": len(ms), "ms_per_batch": sum(ms) / len(ms),
+              "ms_min": min(ms), "ms_max": max(ms), "checked": checked})
+        return launches
+
+    def sage(out=T.CLASSES):
+        torch.manual_seed(0)
+        model = GraphSAGE(T.FEAT_DIM, T.HIDDEN, out, num_layers=len(T.FANOUTS),
+                          dtype=torch.bfloat16, device=dev)
+        return model, torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    launches = {}
+    kw = dict(num_neighbors=T.FANOUTS, batch_size=T.BATCH, shuffle=True)
+    # -- 5l. weighted ------------------------------------------------------------
+    t0 = time.perf_counter()
+    loader = NeighborLoader((fs, gs), weight_attr="w", **kw)
+    emit({"phase": "weighted_loader_setup", "s": time.perf_counter() - t0,
+          "max_degree": loader.sampler.max_degree, "chunk": loader.sampler.chunk})
+    launches["weighted"] = run_node("weighted_loader", loader, *sage(), 8, 2, 0)
+    del loader
+
+    # -- 5m. temporal: the node loader, then the link loader ---------------------
+    loader = NeighborLoader((fs, gs), time_attr="t", input_time=input_time, **kw)
+    et = loader.sampler.edge_times
+
+    def node_times(batch):
+        ids = batch.input_id.clamp(min=0)
+        st = torch.where(batch.input_id >= 0,
+                         torch.as_tensor(input_time, device=dev)[ids], 0)
+        return _check_times(batch.sample, st, et)
+
+    launches["temporal"] = run_node("temporal_loader", loader, *sage(), 8, 2, 0, node_times)
+    del loader
+
+    pos, eli = _link_positives(graph, dev)
+    label_time = fs["t"][torch.as_tensor(pos, device=dev)].cpu().numpy()
+    loader = LinkNeighborLoader((fs, gs), neg_sampling="binary", time_attr="t",
+                                edge_label_time=label_time, edge_label_index=eli,
+                                reject_true_edges=True, **kw)
+    base = loader.sampler
+    watch_hops(base)
+    stages.wrap(loader, "_negatives", "negatives")
+    seen = []
+    sample_inner = base.sample
+
+    def sample(seeds, node_times=None, generator=None):
+        out = stages.run("sample", sample_inner, seeds, node_times, generator=generator)
+        seen.append((out, node_times))
+        return out
+
+    loader.sampler.sample = sample
+    orig = LL.gather_node_features
+    LL.gather_node_features = lambda *a: stages.run("feature_gather", orig, *a)
+    model, opt = sage(LINK_OUT)
+    ms, checked = [], 0
+    try:
+        it = iter(loader)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        for i in range(6):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            batch = stages.run("batch", next, it)
+            loss = float(stages.run("link_step", TL.link_step, model, opt, batch))
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t1) * 1e3
+            if i >= 2:
+                ms.append(dt)
+            if not math.isfinite(loss):
+                raise AssertionError(f"non-finite temporal link loss {loss} at batch {i}")
+            checked += _check_times(*seen[-1], base.edge_times)
+            emit({"phase": "temporal_link_train", "batch": i, "warmup": i < 2, "loss": loss,
+                  "ms": dt, "stages": stages.take(), "hops": hop_edges(base, batch.sample),
+                  "nodes_per_level": [int(c) for c in batch.sample.level_counts],
+                  "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        launches["link_temporal"] = check_launches("temporal link path", 6, 0)
+    finally:
+        LL.gather_node_features = orig
+    emit({"phase": "temporal_link_launch_counts", "launches": launches["link_temporal"],
+          "batches_timed": len(ms), "ms_per_batch": sum(ms) / len(ms), "ms_min": min(ms),
+          "ms_max": max(ms), "edges_checked": checked})
+    del loader, base, seen, batch, model, opt, it
+
+    # -- 5n. disjoint --------------------------------------------------------------
+    loader = NeighborLoader((fs, gs), disjoint=True, **kw)
+    launches["disjoint"] = run_node(
+        "disjoint_loader", loader, *sage(), 6, 2, 2,
+        lambda b: _check_disjoint(b.sample, graph.indptr, graph.indices))
+    del loader, fs
+
+    # -- 5o. small input: weighted, temporal, disjoint, card against CPU -------------
+    sm = small_cpu
+    rows_s = np.repeat(np.arange(sm.num_nodes), np.diff(sm.indptr.numpy()))
+    rng = np.random.default_rng(14)
+    w_s = rng.uniform(0.05, 1.0, len(rows_s)).astype(np.float32)
+    t_s = rng.integers(0, T_RANGE, len(rows_s)).astype(np.int32)
+    it_s = rng.integers(0, T_RANGE, sm.num_nodes)
+    for variant, vkw in (("weighted", dict(weight_attr="w")),
+                         ("temporal", dict(time_attr="t", input_time=it_s)),
+                         ("disjoint", dict(disjoint=True))):
+        sides = {}
+        for where in ("cpu", "card"):
+            d = torch.device("cpu") if where == "cpu" else dev
+            gs_s, fs_s = GraphStore(device=d), FeatureStore(device=d)
+            gs_s.put_edge_index((sm.indices.numpy(), rows_s), ("n", "to", "n"),
+                                num_nodes=(sm.num_nodes, sm.num_nodes))
+            fs_s["x"], fs_s["y"], fs_s["w"], fs_s["t"] = sm.feats, sm.labels, w_s, t_s
+            ld = NeighborLoader((fs_s, gs_s), (10, 10), batch_size=64, shuffle=True, **vkw)
+            ld.sampler = _KeyedFixed(ld.sampler, 15)
+            torch.manual_seed(7)
+            m = GraphSAGE(sm.feats.shape[1], 32, 5, device="cpu").to(d)
+            o = torch.optim.Adam(m.parameters(), lr=1e-3)
+            out = []
+            for _, b in zip(range(3), ld):
+                step = _flat_batch(b) if variant == "disjoint" else b
+                out.append((b, float(_loader_step(m, o, step))))
+            sides[where] = out
+        equal, loss_diff = True, 0.0
+        for (bc, lc), (bg, lg) in zip(sides["cpu"], sides["card"]):
+            a = [bc.seeds, bc.x] + bc.sample.levels + [t for h in bc.sample.hops for t in h[:3]]
+            b = [bg.seeds, bg.x] + bg.sample.levels + [t for h in bg.sample.hops for t in h[:3]]
+            equal &= all(_bits_equal(x.cpu(), y.cpu()) if x.is_floating_point()
+                         else torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+            loss_diff = max(loss_diff, abs(lc - lg))
+        if not (equal and loss_diff <= 1e-4):
+            raise AssertionError(f"small {variant} loader, card vs CPU: batches equal {equal}, "
+                                 f"losses differ by {loss_diff}")
+        emit({"phase": "small_input_agreement_variants", "variant": variant, "batches": 3,
+              "equal": True, "max_loss_abs_diff": loss_diff, "tolerance": 1e-4})
+    return launches
 
 
 def _gather_row(emit, table, ids, distinct, cuda_ms, hbm, what):
@@ -3221,6 +3586,7 @@ def main() -> None:
                                              hbm, gs)
     link_launches, link_rows = link_paths(dev, emit, graph, small_cpu, counters, cuda_ms,
                                           hbm, gs)
+    variant_launches = sampling_variants(dev, emit, graph, small_cpu, counters, gs)
     # the link path's training, triplet and evaluation batches; GIN's loader
     link_total = {name: sum(link_launches[k][name] for k in ("binary", "triplet", "eval"))
                   for name in ("gather_rows", "fused_uniform_sample")}
@@ -3228,7 +3594,8 @@ def main() -> None:
     block_launches = dict(sampled_launches)
     for name in ("gather_rows", "fused_uniform_sample"):
         sampled_launches[name] += loader_launches[name] + sum(
-            v[name] for v in emb_launches.values()) + link_total[name] + gin_loader[name]
+            v[name] for v in emb_launches.values()) + link_total[name] + gin_loader[name] + sum(
+            v[name] for v in variant_launches.values())
     del graph, gs
     torch.cuda.empty_cache()
 
@@ -3284,10 +3651,17 @@ def main() -> None:
         # batches at the block's shape
         "launches_link": link_total["gather_rows"],
         "launches_gin_loader": gin_loader["gather_rows"],
+        **{f"launches_{k}": v["gather_rows"] for k, v in variant_launches.items()},
         **{f"{k}_link": link_rows["gather"][k]
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        # the weighted, temporal and disjoint loaders' batches at the block's
+        # shape, the temporal link batches at the link level's
         "gap_ms": (block_launches["gather_rows"] + loader_launches["gather_rows"]
-                   + gin_loader["gather_rows"]) * (a_row["ms"] - a_row["bound_ms"])
+                   + gin_loader["gather_rows"] + sum(
+                       v["gather_rows"] for k, v in variant_launches.items()
+                       if k != "link_temporal")) * (a_row["ms"] - a_row["bound_ms"])
+        + variant_launches["link_temporal"]["gather_rows"] * (
+            link_rows["gather"]["ms"] - link_rows["gather"]["bound_ms"])
         + link_total["gather_rows"] * (link_rows["gather"]["ms"]
                                        - link_rows["gather"]["bound_ms"])
         + (emb_launches["cached"]["gather_rows"] + emb_launches["host_loader"]["gather_rows"])
@@ -3318,6 +3692,7 @@ def main() -> None:
         "sector_floor_ms_loader": sum(r["sector_floor_ms"] for r in loader_b_rows),
         "launches_link": link_total["fused_uniform_sample"],
         "launches_gin_loader": gin_loader["fused_uniform_sample"],
+        **{f"launches_{k}": v["fused_uniform_sample"] for k, v in variant_launches.items()},
         "ms_per_hop_link": [r["ms"] for r in link_rows["sampler"]],
         "plain_ms_link": sum(r["plain_ms"] for r in link_rows["sampler"]),
         "bound_ms_link": sum(r["bound_ms"] for r in link_rows["sampler"]),
@@ -3325,7 +3700,8 @@ def main() -> None:
         "gap_ms": sampler_gap(block_launches["fused_uniform_sample"], b_rows)
         + sampler_gap(loader_launches["fused_uniform_sample"] + sum(
             v["fused_uniform_sample"] for v in emb_launches.values())
-            + gin_loader["fused_uniform_sample"], loader_b_rows)
+            + gin_loader["fused_uniform_sample"] + variant_launches["disjoint"][
+                "fused_uniform_sample"], loader_b_rows)
         + sampler_gap(link_total["fused_uniform_sample"], link_rows["sampler"])})
     kernels += fb_rows + gat_rows + dist_rows + [probe_row]
     emit({"phase": "wall", "seconds": time.perf_counter() - wall0})

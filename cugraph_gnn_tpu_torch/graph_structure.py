@@ -1,15 +1,12 @@
 """GraphStructure: a CSR graph with attribute tensors and its samplers.
 
 Counterpart of ``cugraph_gnn_tpu/graph_structure.py`` (the WholeGraph-style
-container): ``set_csr_graph``, node and edge attributes, the unweighted
-one-hop sampler and ``multilayer_sample_without_replacement`` over the
-port's ``NeighborSampler``, on one device.  Every sampler takes optional
-uniforms ``u`` (as ``ops/sample.py`` and ``NeighborSampler.sample`` do) or
-draws from ``generator``.
-
-Weighted sampling (the weighted one-hop sampler, ``weight_name=`` in the
-multilayer sampler) comes with ROADMAP Queue 1 item 4 (``weighted_sample``):
-asking for it raises.
+container): ``set_csr_graph``, node and edge attributes, the unweighted and
+weighted one-hop samplers and ``multilayer_sample_without_replacement``
+(weighted with ``weight_name``) over the port's ``NeighborSampler``, on one
+device.  Every sampler takes optional draws, uniforms ``u`` or the weighted
+hops' key words ``hash_key(s)`` (as ``ops/sample.py`` and
+``NeighborSampler.sample`` do), or draws from ``generator``.
 """
 
 from __future__ import annotations
@@ -19,14 +16,9 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from cugraph_gnn_tpu_torch._device import resolve_device
-from cugraph_gnn_tpu_torch.ops.sample import SampleOutput, uniform_sample
+from cugraph_gnn_tpu_torch.ops.sample import SampleOutput, uniform_sample, weighted_sample
 from cugraph_gnn_tpu_torch.sampler.neighbor_sampler import NeighborSampler
 from cugraph_gnn_tpu_torch.sampler.output import MultihopBatch
-
-
-def _weighted_not_ported():
-    return NotImplementedError("weighted sampling is not ported yet (ROADMAP Queue 1 "
-                               "item 4, weighted_sample)")
 
 
 class GraphStructure:
@@ -61,18 +53,26 @@ class GraphStructure:
         return uniform_sample(self.indptr, self.indices, seeds, fanout, u=u,
                               generator=generator, device=self.device)
 
-    def weighted_sample_without_replacement_one_hop(self, seeds, fanout: int,
-                                                    weight_name: str = "weight", **kwargs):
-        raise _weighted_not_ported()
+    def _max_degree(self) -> int:
+        return int((self.indptr[1:] - self.indptr[:-1]).max()) if self.num_nodes else 1
+
+    def weighted_sample_without_replacement_one_hop(
+            self, seeds, fanout: int, weight_name: str = "weight", *, hash_key=None,
+            generator: Optional[torch.Generator] = None,
+            max_degree: Optional[int] = None) -> SampleOutput:
+        """Weighted one-hop sample by the edge attribute ``weight_name``;
+        ``max_degree`` defaults to the graph's largest degree."""
+        return weighted_sample(self.indptr, self.indices, self.edge_attrs[weight_name], seeds,
+                               fanout, max_degree=max_degree or self._max_degree(),
+                               hash_key=hash_key, generator=generator, device=self.device)
 
     # -- multilayer ---------------------------------------------------------------
 
     def multilayer_sample_without_replacement(
             self, seeds, fanouts: Sequence[int], weight_name: Optional[str] = None, *,
-            u=None, generator: Optional[torch.Generator] = None,
+            u=None, hash_keys=None, generator: Optional[torch.Generator] = None,
             dedup: bool = True) -> MultihopBatch:
-        if weight_name is not None:
-            raise _weighted_not_ported()
-        sampler = NeighborSampler(self.indptr, self.indices, fanouts, dedup=dedup,
-                                  device=self.device)
-        return sampler.sample(seeds, u=u, generator=generator)
+        weights = self.edge_attrs.get(weight_name) if weight_name else None
+        sampler = NeighborSampler(self.indptr, self.indices, fanouts, weights=weights,
+                                  dedup=dedup, device=self.device)
+        return sampler.sample(seeds, u=u, hash_keys=hash_keys, generator=generator)

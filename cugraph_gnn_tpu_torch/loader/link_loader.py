@@ -17,9 +17,15 @@ The positive edges are shuffled per epoch with numpy's ``default_rng(epoch
 ``torch.Generator`` seeded with ``seed``, which every batch advances (JAX
 folds the epoch and batch into its key instead).
 
-Hetero edge types (``edge_label_index=(edge_type, ...)``) and temporal
-link sampling (``edge_label_time`` / ``time_attr``) are not ported yet
-(ROADMAP Queue 1 item 4): asking for them raises.
+Temporal link sampling: ``edge_label_time`` gives each positive edge a time,
+and every seed slot samples only edges no newer than its own: a positive's
+endpoints carry its edge's time, binary negatives cycle the batch's valid
+times, triplet negatives repeat their positive's, and pads take the batch's
+largest.  As in JAX, the negatives themselves are drawn without a time
+constraint.
+
+Hetero edge types (``edge_label_index=(edge_type, ...)``) are not ported yet
+(ROADMAP Queue 1 item 4, hetero): asking for them raises.
 """
 
 from __future__ import annotations
@@ -68,7 +74,7 @@ def draw_negatives(ps, n_neg: int, num_src: int, num_dst: int, neg: NegativeSamp
 class LinkBatch:
     """One link-prediction batch."""
 
-    sample: MultihopBatch           # over the seed layout
+    sample: MultihopBatch           # over the seed layout (a DisjointBatch with disjoint=True)
     x: Optional[torch.Tensor]       # (S_L, F) features of sample.input_nodes
     edge_label_index: torch.Tensor  # (2, B+N) int32 positions in seeds
     edge_label: torch.Tensor        # (B+N,) float32: 1 (or the label) positive, 0 negative
@@ -89,9 +95,11 @@ class LinkLoader:
         if (isinstance(edge_label_index, tuple) and len(edge_label_index) == 2
                 and isinstance(edge_label_index[0], (tuple, str))):
             raise _not_ported("typed (hetero) edge_label_index")
-        if edge_label_time is not None:
-            raise _not_ported("temporal link sampling (edge_label_time)")
         self.sampler = sampler
+        if isinstance(edge_label_time, torch.Tensor):
+            edge_label_time = edge_label_time.cpu().numpy()
+        self.edge_label_time = (None if edge_label_time is None
+                                else np.asarray(edge_label_time))
         if isinstance(edge_label_index, torch.Tensor):
             edge_label_index = edge_label_index.cpu().numpy()
         eli = np.asarray(edge_label_index)
@@ -129,6 +137,21 @@ class LinkLoader:
                               self._edge_key_sorted, generator=self._generator,
                               device=self.device)
 
+    def _seed_times(self, sel, n_neg: int) -> np.ndarray:
+        """The seed layout's times for the positives ``sel``: each endpoint
+        its edge's time, binary negatives the batch's valid times cycled,
+        triplet negatives their positive's, pads the batch's largest."""
+        bt = self.edge_label_time[sel]
+        t = np.full((self.batch_size,), bt.max() if len(bt) else 0, bt.dtype)
+        t[:len(sel)] = bt
+        if self.neg is not None and self.neg.mode == "triplet":
+            neg_t = np.repeat(t, max(int(self.neg.amount), 1))[:n_neg]
+        elif len(bt):
+            neg_t = np.resize(bt, n_neg)
+        else:
+            neg_t = np.zeros((n_neg,), t.dtype)
+        return np.concatenate([t, t, neg_t, neg_t])
+
     def _epoch_order(self) -> np.ndarray:
         order = np.arange(len(self.pos_src))
         if self.shuffle:
@@ -157,7 +180,10 @@ class LinkLoader:
             else:
                 ns = nd = torch.zeros((0,), dtype=torch.int32, device=dev)
             seeds = torch.cat([ps_t, torch.as_tensor(pd, device=dev), ns, nd])
-            sample = self.sampler.sample(seeds, generator=self._generator)
+            kw = {}
+            if self.edge_label_time is not None:
+                kw["node_times"] = torch.as_tensor(self._seed_times(sel, n_neg), device=dev)
+            sample = self.sampler.sample(seeds, generator=self._generator, **kw)
             lab = (ps >= 0).astype(np.float32)
             if self.edge_label is not None:
                 user = np.zeros((b,), np.float32)
@@ -173,20 +199,31 @@ class LinkLoader:
 
 
 class LinkNeighborLoader(LinkLoader):
-    """LinkLoader whose sampler is built from the graph store: uniform
-    sampling with ``num_neighbors`` per hop, deduplicated levels.
-    ``neg_sampling``: a ``NegativeSampling``, its mode as a string, or its
-    fields as a dict."""
+    """LinkLoader whose sampler is built from the graph store
+    (``build_neighbor_sampler``): ``num_neighbors`` per hop, deduplicated
+    levels, weighted with ``weight_attr``, temporal with ``time_attr`` (which
+    needs ``edge_label_time``, and the other way round), per-seed subgraphs
+    with ``disjoint``.  ``neg_sampling``: a ``NegativeSampling``, its mode as
+    a string, or its fields as a dict."""
 
     def __init__(self, data: Tuple[FeatureStore, GraphStore], num_neighbors,
                  edge_label_index, edge_label=None, neg_sampling=None,
                  batch_size: int = 512, weight_attr=None, time_attr=None,
                  disjoint: bool = False, **kwargs):
         feature_store, graph_store = data
-        if time_attr is not None or kwargs.get("edge_label_time") is not None:
-            raise _not_ported("temporal link sampling (time_attr, edge_label_time)")
+        if time_attr is not None and kwargs.get("edge_label_time") is None:
+            raise ValueError(
+                "time_attr requires edge_label_time (per-seed-edge "
+                "times); without it temporal sampling has no seed "
+                "times and would silently run uniform")
+        if time_attr is None and kwargs.get("edge_label_time") is not None:
+            raise ValueError(
+                "edge_label_time requires time_attr (per-edge graph "
+                "times); without it the seed times are ignored and "
+                "sampling would silently run uniform")
         sampler = build_neighbor_sampler(feature_store, graph_store, num_neighbors,
-                                         weight_attr=weight_attr, disjoint=disjoint)
+                                         weight_attr=weight_attr, time_attr=time_attr,
+                                         disjoint=disjoint)
         if isinstance(neg_sampling, str):
             neg_sampling = NegativeSampling(mode=neg_sampling)
         elif isinstance(neg_sampling, dict):

@@ -1,16 +1,17 @@
 """NodeLoader / NeighborLoader: seed-batched sampling loaders.
 
 Counterpart of ``cugraph_gnn_tpu/loader/node_loader.py`` for homogeneous
-graphs and uniform sampling: the input nodes are shuffled per epoch (numpy's
+graphs: the input nodes are shuffled per epoch (numpy's
 ``default_rng(epoch + 12345)``, as in JAX), cut into fixed-size batches (the
 last one padded with -1 seeds, or dropped with ``drop_last``), sampled by a
-``NeighborSampler`` built from the graph store, and joined with their
-features and labels from the feature store.  The draws come from a
-``torch.Generator`` seeded with ``seed``, which every batch advances.
+sampler built from the graph store (uniform, weighted with ``weight_attr``,
+temporal with ``time_attr`` and per-seed ``input_time``, optionally
+``disjoint``), and joined with their features and labels from the feature
+store.  The draws come from a ``torch.Generator`` seeded with ``seed``, which
+every batch advances.
 
-Hetero graphs, weighted and temporal sampling, disjoint subgraphs and the
-``"auto"`` level caps are not ported yet (ROADMAP Queue 1 item 4): asking
-for them raises.
+Hetero graphs (typed input nodes, several edge types) are not ported yet
+(ROADMAP Queue 1 item 4, hetero): asking for them raises.
 """
 
 from __future__ import annotations
@@ -22,21 +23,26 @@ import numpy as np
 import torch
 
 from cugraph_gnn_tpu_torch.data.feature_store import FeatureStore
-from cugraph_gnn_tpu_torch.data.graph_store import GraphStore
+from cugraph_gnn_tpu_torch.data.graph_store import GraphStore, edge_type_str
+from cugraph_gnn_tpu_torch.sampler.disjoint import DisjointNeighborSampler
+from cugraph_gnn_tpu_torch.sampler.heuristics import (
+    resolve_feature_dim,
+    resolve_max_unique_per_hop,
+)
 from cugraph_gnn_tpu_torch.sampler.neighbor_sampler import NeighborSampler
 from cugraph_gnn_tpu_torch.sampler.output import MultihopBatch
 
 
 def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item 4)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item 4, hetero)")
 
 
 @dataclasses.dataclass
 class NodeBatch:
     """One sampled training batch."""
 
-    sample: MultihopBatch
-    x: Optional[torch.Tensor]       # (S_L, F) features of sample.input_nodes
+    sample: MultihopBatch           # a DisjointBatch with disjoint=True
+    x: Optional[torch.Tensor]       # (S_L, F) features of sample.input_nodes ((B, cap, F) disjoint)
     y: Optional[torch.Tensor]       # (B,) labels of the seeds
     seeds: torch.Tensor             # (B,) int32 global seed ids, -1 padded
     input_id: torch.Tensor          # (B,) int64 positions in input_nodes, -1 padded
@@ -57,14 +63,15 @@ class NodeLoader:
         self.feature_store, self.graph_store = data
         if isinstance(input_nodes, tuple):
             raise _not_ported("typed (hetero) input nodes")
-        if input_time is not None:
-            raise _not_ported("temporal sampling (input_time)")
         self.sampler = sampler
         if input_nodes is None:
             input_nodes = np.arange(self.graph_store.num_nodes())
         elif isinstance(input_nodes, torch.Tensor):
             input_nodes = input_nodes.cpu().numpy()
         self.input_nodes = np.asarray(input_nodes).astype(np.int64)
+        if isinstance(input_time, torch.Tensor):
+            input_time = input_time.cpu().numpy()
+        self.input_time = None if input_time is None else np.asarray(input_time)
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -97,7 +104,12 @@ class NodeLoader:
             seeds = np.full((b,), -1, np.int32)
             seeds[:len(sel)] = self.input_nodes[sel]
             seeds_t = torch.as_tensor(seeds, device=self.device)
-            sample = self.sampler.sample(seeds_t, generator=self._generator)
+            kw = {}
+            if self.input_time is not None:     # pads at time 0, as in JAX
+                t = np.zeros((b,), self.input_time.dtype)
+                t[:len(sel)] = self.input_time[sel]
+                kw["node_times"] = torch.as_tensor(t, device=self.device)
+            sample = self.sampler.sample(seeds_t, generator=self._generator, **kw)
             yield NodeBatch(sample=sample,
                             x=gather_node_features(self.feature_store, self.graph_store,
                                                    self.x_attr, sample.input_nodes),
@@ -113,19 +125,25 @@ class NodeLoader:
 
 def gather_node_features(feature_store, graph_store, x_attr, input_nodes):
     """The features of a sampled node set: one (S, F) gather (zero rows for
-    -1 slots), or None when the store has no ``x_attr``."""
+    -1 slots; (B, cap) disjoint ids give (B, cap, F)), or None when the
+    store has no ``x_attr``."""
     if not graph_store.is_homogeneous:
         raise _not_ported("the feature join of a hetero graph")
     if ("", x_attr) not in feature_store:
         return None
-    return feature_store.get_tensor("", x_attr, ids=input_nodes)
+    rows = feature_store.get_tensor("", x_attr, ids=input_nodes.reshape(-1))
+    return rows.reshape(*input_nodes.shape, *rows.shape[1:])
 
 
 class NeighborLoader(NodeLoader):
-    """NodeLoader whose sampler is built from the graph store: uniform
-    sampling with ``num_neighbors`` per hop, deduplicated levels by default
-    (``dedup=False``: the static layout), ``max_unique_per_hop`` capping
-    them."""
+    """NodeLoader whose sampler is built from the graph store: ``num_neighbors``
+    per hop, deduplicated levels by default (``dedup=False``: the static
+    layout), ``max_unique_per_hop`` capping them (``"auto"``: sized from the
+    store device's memory, with dedup).  weight_attr: an edge attribute of
+    the feature store -> weighted sampling.  time_attr: an edge attribute ->
+    temporal sampling, which needs ``input_time`` (a time per input node).
+    disjoint: a subgraph per seed; batches then carry a ``DisjointBatch``
+    and (B, cap, F) features."""
 
     def __init__(self, data: Tuple[FeatureStore, GraphStore], num_neighbors: Sequence[int],
                  input_nodes=None, batch_size: int = 512, shuffle: bool = False,
@@ -134,6 +152,16 @@ class NeighborLoader(NodeLoader):
                  dedup: bool = True, max_unique_per_hop: Optional[Sequence[int]] = None,
                  disjoint: bool = False, **kwargs):
         feature_store, graph_store = data
+        if time_attr is not None and input_time is None:
+            raise ValueError(
+                "time_attr requires input_time (per-seed times); without "
+                "it temporal sampling has no seed times and would "
+                "silently run uniform")
+        if max_unique_per_hop == "auto":
+            fd = resolve_feature_dim(feature_store, graph_store, kwargs.get("x_attr", "x"))
+            max_unique_per_hop = resolve_max_unique_per_hop(
+                "auto", batch_size, num_neighbors, fd, device=graph_store.device)
+            dedup = True   # caps need the deduplicated layout
         sampler = build_neighbor_sampler(
             feature_store, graph_store, num_neighbors, weight_attr=weight_attr,
             time_attr=time_attr, dedup=dedup, max_unique_per_hop=max_unique_per_hop,
@@ -145,20 +173,56 @@ class NeighborLoader(NodeLoader):
 
 def build_neighbor_sampler(feature_store, graph_store, num_neighbors, weight_attr=None,
                            time_attr=None, dedup: bool = True, max_unique_per_hop=None,
-                           disjoint: bool = False) -> NeighborSampler:
-    """The uniform ``NeighborSampler`` over a homogeneous graph store's
-    sampling CSR, on the store's device."""
-    if weight_attr is not None:
-        raise _not_ported("weighted sampling (weight_attr)")
-    if time_attr is not None:
-        raise _not_ported("temporal sampling (time_attr)")
-    if disjoint:
-        raise _not_ported("disjoint sampling")
+                           disjoint: bool = False):
+    """The ``NeighborSampler`` over a homogeneous graph store's sampling
+    CSR, on the store's device: uniform, weighted (``weight_attr``) and/or
+    temporal (``time_attr``), the edge attributes read from the feature
+    store and put in CSR order; wrapped in a ``DisjointNeighborSampler``
+    (with dedup) when ``disjoint``."""
     if isinstance(max_unique_per_hop, str):
-        raise _not_ported(f"max_unique_per_hop={max_unique_per_hop!r}")
+        raise ValueError(f"max_unique_per_hop={max_unique_per_hop!r}: resolve 'auto' "
+                         "with sampler.heuristics.resolve_max_unique_per_hop")
     graph = graph_store.finalize()
     if not graph.is_homogeneous:
         raise _not_ported("sampling a hetero graph")
     indptr, indices = graph.homogeneous_csr()
-    return NeighborSampler(indptr, indices, num_neighbors, dedup=dedup,
-                           max_unique_per_hop=max_unique_per_hop, device=graph.device)
+    et = graph.etypes[0]
+    weights = times = maxdeg = None
+    if weight_attr is not None:
+        weights = _edge_attr_to_csr_order(graph_store, graph, et,
+                                          feature_store.get_tensor("", weight_attr))
+        maxdeg = graph.max_degree_by_etype[et]
+    if time_attr is not None:
+        times = _edge_attr_to_csr_order(graph_store, graph, et,
+                                        feature_store.get_tensor("", time_attr))
+        maxdeg = graph.max_degree_by_etype[et]
+    sampler = NeighborSampler(indptr, indices, num_neighbors, weights=weights,
+                              edge_times=times, max_degree=maxdeg,
+                              dedup=True if disjoint else dedup,
+                              max_unique_per_hop=max_unique_per_hop, device=graph.device)
+    return DisjointNeighborSampler(sampler) if disjoint else sampler
+
+
+def _edge_attr_to_csr_order(graph_store: GraphStore, graph, et, attr):
+    """An edge attribute in COO input order, reordered so that sampled edge
+    ids (CSR positions) index it (the graph keeps each edge type's sort
+    permutation)."""
+    return graph.edge_attr_to_csr_order(et, attr)
+
+
+def collect_edge_attrs_by_etype(feature_store, graph_store, graph, attr):
+    """An edge attribute for every edge type that has it (feature-store key
+    (``edge_type_str(et)``, attr)), in CSR order, or None for ``attr`` None;
+    raises when no edge type has it."""
+    if attr is None:
+        return None
+    out = {}
+    for et in graph.etypes:
+        ekey = edge_type_str(et)
+        if (ekey, attr) in feature_store:
+            out[et] = _edge_attr_to_csr_order(graph_store, graph, et,
+                                              feature_store.get_tensor(ekey, attr))
+    if not out:
+        raise KeyError(f"no edge type has attribute {attr!r} in the feature store "
+                       "(keys are (edge_type_str, attr))")
+    return out

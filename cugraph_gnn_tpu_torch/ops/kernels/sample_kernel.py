@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from cugraph_gnn_tpu_torch import _build
-from cugraph_gnn_tpu_torch.ops.sample import SampleOutput, floyd_positions
+from cugraph_gnn_tpu_torch.ops.sample import SampleOutput, empty_output, floyd_positions
 
 # indptr, n_nodes, indices, seeds, u, neighbors, edge_ids, num_sampled,
 # num_seeds, k, stream
@@ -32,18 +32,10 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
 
 
-def _empty(num_seeds: int, fanout: int, device) -> SampleOutput:
-    """Output for a graph with no edges (JAX ``_empty_output``)."""
-    return SampleOutput(
-        torch.full((num_seeds, fanout), -1, dtype=torch.int32, device=device),
-        torch.full((num_seeds, fanout), -1, dtype=torch.int32, device=device),
-        torch.zeros((num_seeds,), dtype=torch.int32, device=device))
-
-
 def fused_uniform_sample_ref(indptr, indices, seeds, u, fanout: int) -> SampleOutput:
     """Plain PyTorch version of :func:`fused_uniform_sample`."""
     if indices.shape[0] == 0:
-        return _empty(seeds.shape[0], fanout, seeds.device)
+        return empty_output(seeds.shape[0], fanout, seeds.device)
     n = indptr.shape[0] - 1
     valid = seeds >= 0
     safe = seeds.long().clamp(min=0)
@@ -89,7 +81,7 @@ def fused_uniform_sample(indptr, indices, seeds, u, fanout: int) -> SampleOutput
         raise ValueError("indptr, indices, seeds and u must be contiguous")
     s = seeds.shape[0]
     if indices.shape[0] == 0:
-        return _empty(s, fanout, seeds.device)
+        return empty_output(s, fanout, seeds.device)
     out = SampleOutput(
         torch.empty((s, fanout), dtype=torch.int32, device=seeds.device),
         torch.empty((s, fanout), dtype=torch.int32, device=seeds.device),

@@ -83,6 +83,66 @@ def append_unique(targets, neighbors, *, max_unique: int) -> AppendUniqueOutput:
                               neighbor_map.to(torch.int32))
 
 
+def append_unique_rows(targets, neighbors, *, max_unique: int) -> AppendUniqueOutput:
+    """:func:`append_unique` for every row at once: targets (B, T) (-1 pads
+    allowed: they match nothing), neighbors (B, R).  Row b's output is
+    ``append_unique(targets[b], neighbors[b], max_unique=max_unique)``:
+    unique_nodes (B, max_unique), num_unique (B,), neighbor_map (B, R) with
+    positions inside the row.
+
+    Each value is keyed ``row * 2**32 + node`` (int64), so one sort, one
+    first-occurrence mask and one scatter serve every row, each in its own
+    namespace: no loop over rows.
+    """
+    b, t = targets.shape
+    r = neighbors.shape[1]
+    dev = targets.device
+    tg = targets.to(torch.int64)
+    nb = neighbors.to(torch.int64)
+    row_n = torch.arange(b, device=dev)[:, None] << 32
+    key_n = row_n | nb.clamp(min=0)                        # (B, R)
+    is_pad = nb < 0
+
+    # each neighbor's index among its row's targets, -1 when none
+    key_t = torch.where(tg >= 0, (torch.arange(b, device=dev)[:, None] << 32) | tg, -1)
+    t_sorted, t_rank = torch.sort(key_t.reshape(-1), stable=True)
+    if t:
+        pos = torch.searchsorted(t_sorted, key_n.reshape(-1)).clamp(max=b * t - 1)
+        hit = (t_sorted[pos] == key_n.reshape(-1)).view(b, r) & ~is_pad
+        tgt_idx = torch.where(hit, (t_rank[pos] % t).view(b, r), -1)
+    else:
+        hit = torch.zeros_like(is_pad)
+        tgt_idx = torch.full_like(nb, -1)
+    is_new = ~hit & ~is_pad
+
+    # the new values of each row, ascending, cut to the row's budget; a row's
+    # free slots hold its own fill key, so the flat buffer stays sorted
+    budget = max(max_unique - t, 1)
+    fill = row_n | _FILL
+    v = torch.sort(torch.where(is_new, key_n, fill).reshape(-1)).values
+    first = torch.ones_like(v, dtype=torch.bool)
+    first[1:] = v[1:] != v[:-1]
+    first &= (v & 0xFFFFFFFF) != _FILL
+    row_v = v >> 32
+    per_row = torch.zeros(b, dtype=torch.int64, device=dev).index_add_(0, row_v, first.long())
+    rank = torch.cumsum(first, 0) - 1 - (torch.cumsum(per_row, 0) - per_row)[row_v]
+    dest = torch.where(first & (rank < budget), row_v * budget + rank, b * budget)
+    flat = torch.cat([fill.expand(b, budget).reshape(-1), v.new_zeros(1)])
+    flat.scatter_(0, dest, v)
+    flat = flat[:b * budget]
+    uniq = flat.view(b, budget)
+    valid_new = (uniq & 0xFFFFFFFF) != _FILL
+    uniq_clean = torch.where(valid_new, uniq & 0xFFFFFFFF, -1).to(torch.int32)
+    unique_nodes = torch.cat([targets.to(torch.int32), uniq_clean], dim=1)[:, :max_unique]
+    num_unique = (t + valid_new.sum(dim=1)).to(torch.int32)
+
+    new_pos = torch.searchsorted(flat, key_n.reshape(-1)).view(b, r)
+    new_ok = (flat[new_pos.clamp(max=b * budget - 1)] == key_n) & is_new
+    local = new_pos - torch.arange(b, device=dev)[:, None] * budget
+    neighbor_map = torch.where(tgt_idx >= 0, tgt_idx, torch.where(new_ok, t + local, -1))
+    return AppendUniqueOutput(unique_nodes, num_unique, neighbor_map.to(torch.int32))
+
+
 def append_unique_np(targets, neighbors):
     """Host reference (ragged, exact): the unique list and the map of the
     non-padding neighbors, as int64 arrays."""

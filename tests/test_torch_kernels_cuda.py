@@ -10,6 +10,9 @@ of a 4-rank split (the shard wrappers of ``ops/dist_full_batch.py``,
 halo-extended inputs; the slab SpMM's whole function on each shard's table
 of halo and remote rows, and at world 1 over NCCL).  Kernels without
 atomics are launched twice on the same inputs and held bit for bit equal.
+The weighted and time-masked samplers (plain PyTorch, no kernel of their
+own) and weighted, temporal and disjoint loader batches are held against the
+CPU on the same key words and uniforms, and two runs bit for bit.
 
 Marked ``cuda``: each test asks the ``card`` fixture for a device and skips
 without one.  The file imports no JAX, so on the machine with the card it
@@ -1386,3 +1389,142 @@ def test_gin_full_graph_card_matches_plain(card):
     assert bool(((agg - agg_c).abs() <= 1e-5 + 1e-5 * mag_c).all())
     torch.testing.assert_close(out, out_c, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(gx, gx_c, rtol=1e-4, atol=1e-4)
+
+
+def _keyed_case(rng, n=3000):
+    indptr, indices = _graph(rng, n=n)
+    e = int(indptr[-1])
+    w = rng.uniform(0.05, 2.0, e).astype(np.float32)
+    w[rng.random(e) < 0.2] = 0
+    times = rng.integers(0, 100, e).astype(np.int32)
+    seeds = rng.integers(0, n, 4000).astype(np.int32)
+    seeds[::37] = -1
+    seeds[:3] = 7                                     # the 17,000-edge hub
+    return indptr, indices, w, times, seeds, rng.integers(0, 100, 4000).astype(np.int32)
+
+
+def _score_gaps(indptr, w, seeds, key, k, times=None, seed_time=None):
+    """Per seed, the smallest gap between the k + 1 best Gumbel scores (the
+    CPU's), so that rows where a last-ulp log difference could swap two
+    scores are compared as sets."""
+    from cugraph_gnn_tpu_torch.ops.sample import edge_uniform, gumbel_from_uniform
+
+    gaps = np.full(len(seeds), np.inf)
+    for i, s in enumerate(seeds):
+        if s < 0:
+            continue
+        e = torch.arange(int(indptr[s]), int(indptr[s + 1]))
+        g = gumbel_from_uniform(edge_uniform(e, torch.tensor(int(key[0])),
+                                             torch.tensor(int(key[1])))).numpy()
+        sc = np.where(w[e] > 0, np.log(np.maximum(w[e], 1e-38)) + g, -np.inf)
+        if times is not None:
+            sc = np.where(times[e] <= seed_time[i], sc, -np.inf)
+        top = np.sort(sc[np.isfinite(sc)])[::-1][:k + 1]
+        if len(top) > 1:
+            gaps[i] = (-np.diff(top)).min()
+    return gaps
+
+
+@pytest.mark.parametrize("case", ["weighted", "weighted_timed", "masked", "per_seed_keys"])
+def test_keyed_samplers_card_match_cpu(card, case):
+    """``weighted_sample`` / ``masked_uniform_sample`` on the card and on the
+    CPU with the same key words, at 4,000 seeds with -1 pads and the
+    17,000-edge hub, max_degree below it: neighbors, edge ids and counts
+    equal (Gumbel rows whose best scores lie within 1e-5 as sets), and two
+    runs on the card bit for bit."""
+    from cugraph_gnn_tpu_torch.ops.sample import masked_uniform_sample, weighted_sample
+
+    rng = np.random.default_rng(21)
+    indptr, indices, w, times, seeds, seed_time = _keyed_case(rng)
+    key = np.array([0x9E3779B9, 0x7F4A7C15], np.int64)
+    if case == "per_seed_keys":
+        key = rng.integers(0, 2**32, (len(seeds), 2))
+    kw = dict(max_degree=12_000, chunk=256)
+    if case in ("weighted_timed", "masked"):
+        kw.update(edge_times=times, seed_time=seed_time)
+    out = []
+    for dev in (card, card, torch.device("cpu")):
+        if case == "masked":
+            o = masked_uniform_sample(indptr, indices, seeds, 10, hash_key=key, device=dev, **kw)
+        else:
+            o = weighted_sample(indptr, indices, w, seeds, 10, hash_key=key, device=dev, **kw)
+        out.append([t.cpu() for t in o])
+    a, b, cpu = out
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(a[2], cpu[2])
+    if case in ("masked", "per_seed_keys"):
+        assert all(torch.equal(x, y) for x, y in zip(a, cpu))
+    else:
+        gaps = _score_gaps(indptr, w, seeds, key, 10, kw.get("edge_times"), seed_time)
+        exact = gaps > 1e-5
+        assert exact.mean() > 0.99
+        for x, y in zip(a[:2], cpu[:2]):
+            assert torch.equal(x[exact], y[exact])
+            assert torch.equal(x.sort(dim=1).values, y.sort(dim=1).values)
+    hub = a[1][0].numpy()      # seed 7: ten edges, all inside JAX's scanned positions
+    assert (hub >= 0).all() and (hub - indptr[7] < 12_032).all()
+
+
+class _KeyedDraws:
+    """A loader's sampler whose draws are given, batch after batch: the same
+    CPU uniforms and key words (one per seed when disjoint) on either
+    device."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.fanouts = inner.fanouts
+
+    def sample(self, seeds, node_times=None, generator=None):
+        g = torch.Generator().manual_seed(17)
+        caps = self.inner.level_caps(seeds.shape[0])
+        rows = seeds.shape[0] if hasattr(self.inner, "base") else 1
+        u = [torch.rand((caps[h] * rows, k), generator=g) for h, k in enumerate(self.fanouts)]
+        keys = [torch.randint(0, 2**32, (rows, 2) if rows > 1 else (2,), generator=g)
+                for _ in self.fanouts]
+        return self.inner.sample(seeds, node_times, u=u, hash_keys=keys)
+
+
+@pytest.mark.parametrize("kw", [dict(weight_attr="w"), dict(time_attr="t"),
+                                dict(weight_attr="w", time_attr="t"), dict(disjoint=True),
+                                dict(disjoint=True, weight_attr="w", time_attr="t")],
+                         ids=["weighted", "temporal", "weighted_temporal", "disjoint",
+                              "disjoint_weighted_temporal"])
+def test_sampling_variants_loader_card_matches_cpu(card, kw):
+    """Two ``NeighborLoader`` batches with weights, times and disjoint
+    subgraphs on the card and on the CPU with the same draws: seeds, levels,
+    maps, edge ids and gathered rows equal; one row-gather launch a batch on
+    the card, and two sampler launches a batch where the hops are uniform."""
+    rng = np.random.default_rng(9)
+    indptr, indices = _graph(rng, n=3000)
+    n = indptr.shape[0] - 1
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    e = len(indices)
+    x = rng.standard_normal((n, 40)).astype(np.float32)
+    w = rng.uniform(0, 2, e).astype(np.float32)
+    t = rng.integers(0, 50, e)
+    input_time = rng.integers(0, 50, n)
+    out = []
+    for dev in (card, torch.device("cpu")):
+        gs, fs = GraphStore(device=dev), FeatureStore(device=dev)
+        gs.put_edge_index((indices, rows), ("n", "to", "n"), num_nodes=(n, n))
+        fs["x"], fs["w"], fs["t"] = x, w, t
+        extra = dict(input_time=input_time) if "time_attr" in kw else {}
+        loader = NeighborLoader((fs, gs), (10, 5), batch_size=128 if kw.get("disjoint") else 512,
+                                shuffle=True, **kw, **extra)
+        loader.sampler = _KeyedDraws(loader.sampler)
+        before = (gather_rows.launches, fused_uniform_sample.launches)
+        batches = [b for _, b in zip(range(2), loader)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            uniform_hops = 0 if ("weight_attr" in kw or "time_attr" in kw) else 4
+            assert (gather_rows.launches, fused_uniform_sample.launches) == (
+                before[0] + 2, before[1] + uniform_hops)
+        out.append(batches)
+    for got, want in zip(*out):
+        s, ws = got.sample, want.sample
+        for a, b in zip([got.seeds, got.input_id, got.x] + s.levels + s.level_counts,
+                        [want.seeds, want.input_id, want.x] + ws.levels + ws.level_counts):
+            assert torch.equal(a.cpu(), b)
+        for ha, hb in zip(s.hops, ws.hops):
+            for a, b in zip(ha[:3], hb[:3]):
+                assert torch.equal(a.cpu(), b)

@@ -392,9 +392,10 @@ def test_link_loader_generator_and_refusals():
     assert torch.equal(a.seeds, b.seeds) and not torch.equal(a.seeds, c.seeds)
     for la, lb in zip(a.sample.levels, b.sample.levels):
         assert torch.equal(la, lb)
-    refused = [dict(edge_label_index=(ET, eli)), dict(edge_label_time=np.zeros(70)),
-               dict(time_attr="t", edge_label_time=np.zeros(70)), dict(time_attr="t"),
-               dict(weight_attr="w"), dict(disjoint=True)]
-    for extra in refused:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4, hetero"):
+        LinkNeighborLoader(data, **{**kw, "edge_label_index": (ET, eli)})
+    # the temporal options need each other (tests/test_torch_temporal.py
+    # holds them against JAX)
+    for extra in (dict(edge_label_time=np.zeros(70)), dict(time_attr="t")):
+        with pytest.raises(ValueError, match="requires"):
             LinkNeighborLoader(data, **{**kw, **extra})

@@ -253,12 +253,18 @@ def test_loader_train_steps_match_jax(epoch):
 
 
 def test_loader_refuses_what_waits():
+    """Weighted, temporal, disjoint and "auto" loading are ported
+    (tests/test_torch_weighted.py, test_torch_temporal.py,
+    test_torch_disjoint.py); hetero loading still raises."""
     src, dst, x, y = _graph(5)
     data = _stores(False, src, dst, x, y)
-    for kw in ({"weight_attr": "w"}, {"time_attr": "t", "input_time": np.zeros(N)},
-               {"disjoint": True}, {"max_unique_per_hop": "auto"}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            NeighborLoader(data, FANOUTS, **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4, hetero"):
+        NeighborLoader(data, FANOUTS, input_nodes=("n", np.arange(10)))
+    gs = GraphStore(device="cpu")
+    gs.put_edge_index((src, dst), ET, num_nodes=(N, N))
+    gs.put_edge_index((dst, src), ("n", "from", "n"), num_nodes=(N, N))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4, hetero"):
+        NeighborLoader((data[0], gs), FANOUTS)
     # without the replay, the generator's draws: same seed, same batches
     a, b = (next(iter(NeighborLoader(data, FANOUTS, batch_size=BATCH, seed=1)))
             for _ in range(2))

@@ -166,13 +166,16 @@ def test_to_coo_and_csc_match_jax(sampled, name):
 
 
 def test_neighbor_sampler_refuses_what_waits():
+    """Since weighted and temporal sampling are ported, what the sampler
+    still refuses: per-edge arrays of the wrong length, and caps that break
+    the levels' prefix invariant or need the static layout deduplicated."""
     indptr, indices = _graph(1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        port_ns.NeighborSampler(indptr, indices, FANOUTS, weights=np.ones(len(indices)),
+    for kw in ({"weights": np.ones(len(indices) - 1)}, {"edge_times": np.ones(3)}):
+        with pytest.raises(ValueError, match="one entry per edge"):
+            port_ns.NeighborSampler(indptr, indices, FANOUTS, device="cpu", **kw)
+    with pytest.raises(ValueError, match="dedup=True"):
+        port_ns.NeighborSampler(indptr, indices, FANOUTS, dedup=False, max_unique_per_hop=(20, 60),
                                 device="cpu")
-    sampler = port_ns.NeighborSampler(indptr, indices, FANOUTS, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        sampler.sample(np.zeros(4, np.int32), node_times=np.zeros(4))
     with pytest.raises(ValueError, match="smaller than"):
         port_ns.NeighborSampler(indptr, indices, FANOUTS, max_unique_per_hop=(5, 60),
                                 device="cpu").sample(np.zeros(B, np.int32))

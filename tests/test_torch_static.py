@@ -5,7 +5,8 @@
 - CPU tensors take the plain versions: the kernels' launch counters stay 0,
   on the sampled and the full-batch training paths and the embeddings.
 - Entry points given no device run on the card, and raise without one.
-- The link path on the CPU launches no kernel.
+- The link path and the weighted, temporal and disjoint loaders on the CPU
+  launch no kernel.
 - A gloo mesh refuses the card and the row-sharded step, at one rank on the
   CPU, launches no kernel.
 """
@@ -58,8 +59,15 @@ from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import (
     csr_spmm,
 )
 from cugraph_gnn_tpu_torch.ops.spmm import EllBuckets
-from cugraph_gnn_tpu_torch.ops.sample import uniform_sample
+from cugraph_gnn_tpu_torch.ops.sample import (
+    masked_uniform_sample,
+    uniform_sample,
+    weighted_sample,
+)
+from cugraph_gnn_tpu_torch.loader import NeighborLoader
+from cugraph_gnn_tpu_torch.sampler.heuristics import device_memory_bytes
 from cugraph_gnn_tpu_torch.sampler.neighbor_sampler import (
+    NeighborSampler,
     multihop_uniform,
     multihop_uniform_batched,
 )
@@ -134,6 +142,37 @@ def test_cpu_link_path_leaves_launch_counters_at_zero():
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
     losses = [link_step(model, opt, b) for b in loader]
     assert len(losses) == 4 and all(torch.isfinite(l) for l in losses)
+    assert gather_rows.launches == 0 and fused_uniform_sample.launches == 0
+
+
+@pytest.mark.parametrize("kw", [dict(weight_attr="w"), dict(time_attr="t"),
+                                dict(disjoint=True), dict(weight_attr="w", disjoint=True)],
+                         ids=["weighted", "temporal", "disjoint", "weighted_disjoint"])
+def test_cpu_sampling_variants_leave_launch_counters_at_zero(kw):
+    """Weighted, temporal and disjoint loader batches and a model step over
+    them on the CPU take the plain versions of the sampler and the row
+    gather."""
+    gather_rows.launches = 0
+    fused_uniform_sample.launches = 0
+    rng = np.random.default_rng(2)
+    src, dst = rng.integers(0, 40, 300), rng.integers(0, 40, 300)
+    gs = GraphStore(device="cpu")
+    gs.put_edge_index((src, dst), ("n", "to", "n"), num_nodes=(40, 40))
+    fs = FeatureStore(device="cpu")
+    fs["x"] = rng.standard_normal((40, 8)).astype(np.float32)
+    fs["y"] = rng.integers(0, 3, 40)
+    fs["w"] = rng.uniform(0, 1, 300).astype(np.float32)
+    fs["t"] = rng.integers(0, 9, 300)
+    if "time_attr" in kw:
+        kw = dict(kw, input_time=rng.integers(0, 9, 40))
+    loader = NeighborLoader((fs, gs), [3, 2], batch_size=8, **kw)
+    model = GraphSAGE(8, 16, 3, device="cpu")
+    for batch in loader:
+        sample, x = batch.sample, batch.x
+        if kw.get("disjoint"):
+            sample, x = sample.flat(), x.reshape(-1, 8)
+        logits = model(x, sample)
+        assert logits.shape == (8, 3) and bool(torch.isfinite(logits).all())
     assert gather_rows.launches == 0 and fused_uniform_sample.launches == 0
 
 
@@ -247,6 +286,12 @@ ENTRY_POINTS = {
         (FeatureStore(), GraphStore()), [2], np.zeros((2, 3), np.int64)),
     "make_edge_key_sorted": lambda: NEG.make_edge_key_sorted([0], [1]),
     "sample_negative_edges": lambda: NEG.sample_negative_edges(4, 4, 2, NEG.NegativeSampling()),
+    "weighted_sample": lambda: weighted_sample(_INDPTR, _INDICES, [1.0, 1.0], [0, 1], 1,
+                                               max_degree=1),
+    "masked_uniform_sample": lambda: masked_uniform_sample(
+        _INDPTR, _INDICES, [0, 1], 1, max_degree=1, edge_times=[0, 0], seed_time=[1, 1]),
+    "NeighborSampler": lambda: NeighborSampler(_INDPTR, _INDICES, (1,), weights=[1.0, 1.0]),
+    "device_memory_bytes": device_memory_bytes,
 }
 
 

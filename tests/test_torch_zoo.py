@@ -18,7 +18,8 @@ in a module fixture).
   flax tree into the port's model, every leaf by shape (a mismatch raises)
   and one port parameter per leaf; ``rgcn`` raises.
 - ``GraphStructure``'s unweighted one-hop and multilayer samplers with the
-  JAX draws replayed: exact; the weighted samplers raise.
+  JAX draws replayed: exact; the weighted ones on JAX's key words: the same
+  edges and nodes.
 """
 
 import argparse
@@ -256,7 +257,9 @@ def test_graph_structure_matches_jax(data):
     jgs.set_csr_graph(indptr, indices)
     assert (gs.num_nodes, gs.num_edges) == (jgs.num_nodes, jgs.num_edges)
     gs.set_node_attribute("x", data["g"].feats)
-    gs.set_edge_attribute("w", np.ones(gs.num_edges, np.float32))
+    w = np.random.default_rng(2).uniform(0, 2, gs.num_edges).astype(np.float32)
+    gs.set_edge_attribute("w", w)
+    jgs.set_edge_attribute("w", w)
     assert gs.node_attrs["x"].shape == (N, F_IN) and gs.edge_attrs["w"].dtype == torch.float32
     # the one-hop samplers differ on -1 seeds (ROADMAP: -1 / -1 / 0 here)
     seeds = np.array([3, 17, 0, 3, 250, 399], np.int32)
@@ -277,7 +280,20 @@ def test_graph_structure_matches_jax(data):
     for hp, hr in zip(got.hops, want.hops):
         for a, b in zip(hp[:3], hr[:3]):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        gs.weighted_sample_without_replacement_one_hop(seeds, 4, "w")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        gs.multilayer_sample_without_replacement(seeds, FANOUTS, weight_name="w")
+    # the weighted samplers on JAX's key words (tests/test_torch_weighted.py
+    # holds the order too): the same edges for every seed
+    seeds[2] = 0
+    words = [np.asarray(jax.random.key_data(jax.random.fold_in(jax.random.fold_in(key, h),
+                                                               0)))[-2:] for h in range(2)]
+    got = gs.weighted_sample_without_replacement_one_hop(seeds, 4, "w", hash_key=words[0])
+    want = jgs.weighted_sample_without_replacement_one_hop(seeds, 4, "w",
+                                                          key=jax.random.fold_in(key, 0))
+    np.testing.assert_array_equal(got.num_sampled.numpy(), np.asarray(want.num_sampled))
+    for a, b in zip(got.edge_ids.numpy(), np.asarray(want.edge_ids)):
+        assert sorted(a) == sorted(b)
+    got = gs.multilayer_sample_without_replacement(seeds, FANOUTS, "w", u=us, hash_keys=words)
+    want = jgs.multilayer_sample_without_replacement(seeds, FANOUTS, "w", key=key)
+    for a, b in zip(got.level_counts, want.level_counts):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for a, b in zip(got.levels, want.levels):
+        assert sorted(a.tolist()) == sorted(np.asarray(b).tolist())
