@@ -5,8 +5,10 @@ at the training paths' shapes and times it, then trains sampled GraphSAGE at
 the full width of ``bench.py``'s configuration, directly and through the
 ``GraphStore`` / ``FeatureStore`` / ``NeighborLoader`` path, link prediction
 through ``LinkNeighborLoader``, GIN through the loader, weighted, temporal
-and disjoint sampling through both loaders, and full-batch GraphSAGE, GCN,
-GIN and 4-head GAT over a banded graph at ogbn-products scale.
+and disjoint sampling through both loaders, R-GCN at ogbn-mag width (the
+typed block, the hetero loaders and a typed link batch), and full-batch
+GraphSAGE, GCN, GIN, R-GCN and 4-head GAT over a banded graph at
+ogbn-products scale.
 
     python3 chip_smoke.py            # every phase, on one card
     python3 chip_smoke.py --probe    # phases 1, 2 and 11b alone
@@ -148,6 +150,42 @@ Phases (any failure raises and exits non-zero):
    CPU with the same uniforms and key words: seeds, rows, levels, maps and
    edge ids bit-equal over three batches, three f32 GraphSAGE steps' losses
    within 1e-4.
+5p. mag-shaped set-up (``train_hetero``, ``benchmarks/model_bench.py``'s
+   part B): 736,389 papers, 1,134,649 authors and 59,965 fields, three edge
+   types into papers (cites, writes, rev_has_topic: 18,913,760 edges for
+   seed 1), the 1,931,003 x 128 f32 table and paper labels (349 classes) on
+   the card; then the same graph as a ``GraphStore`` / ``FeatureStore``
+   (host seconds of each).
+5q. the typed R-GCN block: RGCN 128 -> 256 -> 349 (3 relations, bf16
+   input rows, Adam 1e-3), 1 warm-up and 3 timed blocks of 10 steps of 512
+   paper seeds through ``hetero_multihop_batched`` with typed target
+   segments (fanouts 8/8, 8/8, 4/4): per block the losses (finite), ms a
+   step, sampled edges/s and peak memory; 6 sampler launches (2 hops x 3
+   edge types) and 10 row-gather launches a block, no other kernel.  One
+   more block stage by stage (sample, feature gather, model) with its level
+   sizes checked (512 / 10,752 / 102,912 a step); then row 2 at each of
+   that block's six hop calls and row 1 at its 102,912-id gather (to
+   bf16): bit-equal to their plain versions, timed, with their bounds.
+5r. the hetero loaders: ``NeighborLoader(input_nodes=("paper", ids))``
+   (batch 512, shuffled) with typed target segments (``dedup=False``, 8
+   batches, 2 warm-up), then deduplicated (6, 2 warm-up), R-GCN 128 -> 256 ->
+   349 over the summed per-type features in bf16: per batch the loss
+   (finite), ms, each stage (sample, feature join, labels, model) by CUDA
+   events and host clocks, nodes and slots per level, peak memory; 6
+   sampler launches and 3 row-gather launches (one per node type with
+   ``x``) a batch.  After each, one more batch with rows 2 and 1 at its
+   shapes (each hop call; the paper join, f32).
+5s. the typed link batch: 196,608 author-writes-paper edges (a fixed draw)
+   as positives, ``LinkNeighborLoader(edge_label_index=(("author", "writes",
+   "paper"), ...))`` (binary negatives within the endpoint types, rejecting
+   true edges, batch 512, deduplicated levels), an R-GCN encoder 128 -> 256
+   -> 256 and ``train_link.link_step``: 6 batches (2 warm-up), as 5r; then
+   rows 2 and 1 at one more batch's shapes.  Last, small-input agreement,
+   hetero: on a 7,300-node mag-shaped graph, the typed block (3 steps of 64
+   seeds), the typed and deduplicated loaders and the typed link loader (3
+   batches each) on the card and on the CPU with the same uniforms and
+   negatives: samples, gathered rows and feature dicts bit-equal, f32 losses
+   within 1e-4.
 6. full-batch data: the banded graph of ``train_full`` (2,449,029 nodes, 12
    in-band sources within +-256 and 1 uniform source per node: 31,837,377
    edges) and its ``FullBatchGraph`` (reorder "none", R = 256) with the
@@ -181,6 +219,17 @@ Phases (any failure raises and exits non-zero):
    'sum' over the graph at GIN's two forward shapes (F = 128 and 256, bf16
    and f32 x) against its plain version (phase 7's tolerance), twice bit for
    bit, timed beside ``torch.sparse.mm`` with its byte bound.
+9c. full-batch R-GCN: phase 6's graph split into 2 relations by endpoint
+   parity (``examples/full_batch_training.py``), a ``RelationalFullBatch``
+   (reorder "none", R = 256; host seconds), small-input agreement (3 f32
+   steps card against CPU on 3,000 nodes, losses within 1e-4), then RGCN
+   128 -> 256 -> 47 (bf16 input, Adam 5e-3), 1 warm-up and 3 timed steps:
+   finite losses, per step 6 ``slab_spmm`` launches (2 relations x 2 layers
+   forward, each relation's transpose for layer 1's backward; layer 0's
+   input needs no gradient), each call's relation, orientation, reduction,
+   width and dtype checked, no other kernel; one step stage by stage; row 4
+   at relation 0's three calls against its plain version (phase 7's
+   tolerance), twice bit for bit, timed beside ``torch.sparse.mm``.
 10. attention pairs: the graph's (R = 256, bit planes) and a second
     ``FullBatchGraph`` of the same graph at R = 512 (no bit planes: ``t_ell``),
     each with the band CSR by source; host seconds of each, the bytes of
@@ -271,9 +320,10 @@ Phases (any failure raises and exits non-zero):
     attention forward and backward.
 17. the ``kernels`` summary line (rows 1-14, then the probe, which the
     main path launches no time; rows 1 and 2 count the launches of phases
-    5, 5b, 5e, 5f, 5h, 5j and 5l-5n, split by path (row 1 also timed at 5e's two
-    shapes and at 5h's; row 2 also at 5h's hops), row 4 those of 9b beside
-    GIN's 'sum' calls,
+    5, 5b, 5e, 5f, 5h, 5j, 5l-5n and 5q-5s, split by path (row 1 also timed at
+    5e's two shapes, at 5h's and at each hetero path's; row 2 also at 5h's
+    hops and at each hetero path's hop calls), row 4 those of 9b and 9c
+    beside GIN's 'sum' calls and R-GCN's relation calls,
     row 2 also carries its time per hop and its sector floor, at
     phase 3's block hops and at phase 5b's loader hops, its launches split
     by path, and a gap that prices each path's launches at its own hops;
@@ -286,7 +336,8 @@ Phases (any failure raises and exits non-zero):
     longer runs it; its embedding launches and phase 5g's numbers under
     ``launches_embedding`` and ``*_dedup``), and last the ``ok`` line.
 
-Every JSON line carries the card's name and power limit.
+Every JSON line carries the card's name and power limit, and its seconds since
+the start (``t_s``).
 """
 
 import json
@@ -1612,6 +1663,432 @@ def sampling_variants(dev, emit, graph, small_cpu, counters, gs):
     return launches
 
 
+HETERO_LINK_EDGES = 196_608   # author-writes-paper positives of phase 5s
+# each hetero path's launches -> the rows timed at its shapes
+HETERO_GATHER_ROWS = {"block": "gather_hetero_block",
+                      "loader_typed": "gather_hetero_loader_typed",
+                      "loader_dedup": "gather_hetero_loader_dedup",
+                      "link": "gather_hetero_link"}
+HETERO_SAMPLER_ROWS = {k: v.replace("gather", "sampler") for k, v in HETERO_GATHER_ROWS.items()}
+HETERO_SMALL = {"paper": 3000, "author": 4000, "field": 300}
+
+
+def _draws_like(sample, seed):
+    """CPU uniforms shaped as each (hop, edge type) block of ``sample``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return [{n: torch.rand((b.neigh_local.shape[:-1].numel(), b.neigh_local.shape[-1]),
+                           generator=g) for n, b in hop.items()} for hop in sample.hops]
+
+
+class _ListDraws:
+    """A hetero loader's sampler fed a given list of per-(hop, edge type)
+    CPU uniforms, one entry a batch, moved to its device."""
+
+    def __init__(self, inner, draws):
+        self.inner, self.draws, self.calls = inner, draws, 0
+
+    def sample(self, seeds, node_times=None, generator=None):
+        u = [{n: a.to(seeds.device) for n, a in h.items()} for h in self.draws[self.calls]]
+        self.calls += 1
+        return self.inner.sample(seeds, node_times, u=u)
+
+
+def _fixed_negatives(loader, seed):
+    """Make a link loader draw its negatives' candidates from a fresh CPU
+    generator every batch, moved to its device."""
+    import torch
+
+    from cugraph_gnn_tpu_torch.loader.link_loader import draw_negatives
+    from cugraph_gnn_tpu_torch.sampler.negative import NegativeDraws, draw_candidates
+
+    def negatives(ps, n_neg):
+        draws = draw_candidates(loader.num_src, loader.num_dst, n_neg, loader.neg,
+                                pinned_src=loader.neg.mode == "triplet",
+                                rejection=loader._edge_key_sorted is not None,
+                                generator=torch.Generator().manual_seed(seed), device="cpu")
+        draws = NegativeDraws(*(None if d is None else d.to(loader.device) for d in draws))
+        return draw_negatives(ps, n_neg, loader.num_src, loader.num_dst, loader.neg,
+                              loader._edge_key_sorted, draws=draws, device=loader.device)
+
+    loader._negatives = negatives
+
+
+def _sampler_call_rows(emit, calls, names, what, cuda_ms, hbm):
+    """Row 2 at each recorded call (indptr, indices, seeds, u, k) of a hetero
+    path, in the order hop by hop, edge type by edge type: bit-equal to its
+    plain version and between two launches, timed beside it, with its byte
+    bound and sector floor."""
+    import torch
+
+    from cugraph_gnn_tpu_torch.ops.kernels.sample_kernel import (
+        fused_uniform_sample,
+        fused_uniform_sample_ref,
+    )
+
+    rows = []
+    for i, (ip, ix, sd, u, k) in enumerate(calls):
+        got = fused_uniform_sample(ip, ix, sd, u, k)
+        again = fused_uniform_sample(ip, ix, sd, u, k)
+        want = fused_uniform_sample_ref(ip, ix, sd, u, k)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, w) and torch.equal(a, b) for a, b, w in zip(got, again, want)):
+            raise AssertionError(f"sampler at {what} call {i} differs from the plain "
+                                 f"version or between two launches")
+        nbytes, floor = _sampler_bytes(ip, sd, k, want)
+        row = {"kernel": "uniform_sample", "path": what, "hop": i // len(names),
+               "etype": names[i % len(names)], "seeds": sd.numel(), "k": k,
+               "ms": cuda_ms(lambda: fused_uniform_sample(ip, ix, sd, u, k)),
+               "plain_ms": cuda_ms(lambda: fused_uniform_sample_ref(ip, ix, sd, u, k), iters=5),
+               "library_ms": None, "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3,
+               "sector_floor_ms": floor / hbm * 1e3, "bit_equal": True}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def hetero_paths(dev, emit, counters, cuda_ms, hbm):
+    """Phases 5p-5s (see the module docstring).  Returns each kernel's
+    launches on each hetero path, and rows 1 and 2 timed at their shapes."""
+    import numpy as np
+    import torch
+
+    from cugraph_gnn_tpu_torch import train_hetero as TH
+    from cugraph_gnn_tpu_torch import train_link as TL
+    from cugraph_gnn_tpu_torch.loader import LinkNeighborLoader, NeighborLoader
+    from cugraph_gnn_tpu_torch.loader import link_loader as LL
+    from cugraph_gnn_tpu_torch.loader import node_loader as NL
+    from cugraph_gnn_tpu_torch.models.zoo import RGCN
+    from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import gather_rows, gather_rows_ref
+    from cugraph_gnn_tpu_torch.sampler import hetero as HS
+    from cugraph_gnn_tpu_torch.sampler import neighbor_sampler as NS
+
+    names = [fn.__name__ for fn in counters]
+    writes = ("author", "writes", "paper")
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def check_launches(what, gathers, sampler_calls):
+        got = {fn.__name__: fn.launches for fn in counters}
+        want = {**{n: 0 for n in names}, "gather_rows": gathers,
+                "fused_uniform_sample": sampler_calls}
+        if got != want:
+            raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
+        return got
+
+    real_uniform = NS.uniform_sample
+    calls = []
+
+    def recording(indptr, indices, seeds, fanout, *, u=None, generator=None, device=None):
+        """The samplers' uniform hop (``neighbor_sampler.one_hop``), its
+        inputs kept (the uniforms drawn as ``uniform_sample`` draws them)."""
+        if u is None:
+            u = torch.rand((seeds.shape[0], fanout), generator=generator, device=device)
+        calls.append((indptr, indices, seeds.clone(), u, fanout))
+        return real_uniform(indptr, indices, seeds, fanout, u=u, device=device)
+
+    def rgcn(out):
+        torch.manual_seed(0)
+        m = RGCN(TH.FEAT_DIM, num_relations=len(TH.ETYPES), hidden_features=TH.HIDDEN,
+                 out_features=out, device=dev)
+        return m, torch.optim.Adam(m.parameters(), lr=TH.LR)
+
+    # -- 5p. the mag-shaped set-up --------------------------------------------------
+    t0 = time.perf_counter()
+    g = TH.make_synthetic_mag(1, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fs, gs = TH.mag_stores(g, dev)
+    store_names = [HS.etype_str(et) for et in gs.finalize().etypes]
+    torch.cuda.synchronize()
+    emit({"phase": "hetero_setup", "nodes": g.num_nodes, "edges": g.num_edges,
+          "max_degree": g.max_degrees, "table": list(g.feats.shape), "graph_s": t1 - t0,
+          "stores_s": time.perf_counter() - t1, "store_etypes": store_names})
+
+    launches, rows = {}, {}
+    # -- 5q. the typed R-GCN block (train_hetero) -----------------------------------
+    model, opt = rgcn(TH.CLASSES)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    blocks = 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    for blk in range(blocks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, edges = TH.train_block(model, opt, g, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        vals = torch.stack(losses).tolist()
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"non-finite hetero loss in block {blk}: {vals}")
+        emit({"phase": "hetero_train", "block": blk, "warmup": blk == 0, "losses": vals,
+              "ms_per_step": dt * 1e3 / TH.REPS, "sampled_edges": int(edges),
+              "sampled_edges_per_s": int(edges) / dt,
+              "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    launches["block"] = check_launches("hetero block", TH.REPS * blocks,
+                                       2 * len(TH.ETYPES) * blocks)
+    emit({"phase": "hetero_launch_counts", "blocks": blocks, "launches": launches["block"]})
+    # one more block stage by stage, its uniform hops recorded
+    stages = _Stages()
+    NS.uniform_sample = recording
+    try:
+        _, sample = stages.run("sample", TH.sample_block, g, gen)
+    finally:
+        NS.uniform_sample = real_uniform
+    sizes = [lv.shape[1] for lv in sample.levels]
+    if sizes != TH.level_sizes():
+        raise AssertionError(f"typed level sizes {sizes}, expected {TH.level_sizes()}")
+    for i in range(TH.REPS):
+        st = sample.step(i)
+        x = stages.run("feature_gather", TH.gather_features, st, g.feats)
+        stages.run("model", TH.rgcn_step, model, opt, x, st, g.labels)
+    took = stages.take()
+    emit({"phase": "hetero_stages", "level_sizes": sizes,
+          "nodes_per_level_step0": [int((lv[0] >= 0).sum()) for lv in sample.levels],
+          "ms_per_step": {k: v / TH.REPS for k, v in took["ms"].items()},
+          "host_ms_per_step": {k: v / TH.REPS for k, v in took["host_ms"].items()}})
+    rows["sampler_hetero_block"] = _sampler_call_rows(emit, calls, list(TH.ETYPES),
+                                                      "hetero_block", cuda_ms, hbm)
+    calls.clear()
+    # row 1 at the block's gather: 102,912 ids into the f32 table, to bf16
+    ids = sample.step(0).input_nodes
+    if not torch.equal(gather_rows(g.feats, ids, torch.bfloat16).view(torch.int16),
+                       gather_rows_ref(g.feats, ids, torch.bfloat16).view(torch.int16)):
+        raise AssertionError("row gather (hetero block) differs from the plain version")
+    f = g.feats.shape[1]
+    uniq = int(torch.unique(ids[ids >= 0]).numel())
+    nbytes = 4 * ids.numel() + 4 * f * uniq + 2 * f * ids.numel()
+    rows["gather_hetero_block"] = {
+        "kernel": "gather_rows", "path": "hetero_block", "ids": ids.numel(),
+        "table": list(g.feats.shape), "out_dtype": "bfloat16",
+        "ms": cuda_ms(lambda: gather_rows(g.feats, ids, torch.bfloat16)),
+        "plain_ms": cuda_ms(lambda: gather_rows_ref(g.feats, ids, torch.bfloat16)),
+        "library_ms": cuda_ms(lambda: torch.index_select(
+            g.feats, 0, ids.clamp(min=0)).to(torch.bfloat16)),
+        "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3, "bit_equal": True}
+    emit(rows["gather_hetero_block"])
+    with torch.no_grad():
+        logits = model.batch_call(x, st, list(TH.ETYPES))
+    if logits.shape != (TH.BATCH, TH.CLASSES) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"hetero logits {tuple(logits.shape)} not finite")
+    del sample, st, x, logits, model, opt
+
+    # -- 5r. the hetero loaders (typed segments, then deduplicated) ----------------------
+    def at_extra_batch(what, next_batch):
+        """One more batch with its uniform hops recorded, then rows 2 (each
+        hop call) and 1 (the paper join: the level's slots, the papers' rows,
+        f32 to f32) at its shapes."""
+        NS.uniform_sample = recording
+        try:
+            extra = next_batch()
+        finally:
+            NS.uniform_sample = real_uniform
+        sampler_rows = _sampler_call_rows(emit, calls, store_names, what, cuda_ms, hbm)
+        calls.clear()
+        local = extra.sample.input_nodes.reshape(-1) - gs.node_offset("paper")
+        ok = (local >= 0) & (local < TH.MAG_NODES["paper"])
+        ids = torch.where(ok, local, -1)
+        gather_row = _gather_row(emit, fs.get_tensor("paper", "x"), ids,
+                                 int(torch.unique(ids[ok]).numel()), cuda_ms, hbm,
+                                 f"{what} paper join")
+        return sampler_rows, gather_row
+
+    def run_loader(what, loader, batches, warmup):
+        model, opt = rgcn(TH.CLASSES)
+        stages = _Stages()
+        stages.wrap(loader.sampler, "sample", "sample")
+        stages.wrap(loader, "_gather_y", "labels")
+        orig = NL.gather_node_features
+        NL.gather_node_features = lambda *a: stages.run("feature_join", orig, *a)
+        it = iter(loader)
+        ms, by_stage = [], []
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            for i in range(batches):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                batch = next(it)
+                loss = stages.run("model", TH.loader_step, model, opt, batch, store_names)
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t1) * 1e3
+                took = stages.take()
+                if i >= warmup:
+                    ms.append(dt)
+                    by_stage.append(took["ms"])
+                loss = float(loss)
+                if not math.isfinite(loss):
+                    raise AssertionError(f"non-finite {what} loss {loss} at batch {i}")
+                emit({"phase": f"{what}_train", "batch": i, "warmup": i < warmup,
+                      "loss": loss, "ms": dt, "stages": took,
+                      "x_types": sorted(batch.x),
+                      "nodes_per_level": [int((lv >= 0).sum()) for lv in batch.sample.levels],
+                      "slots_per_level": [int(lv.numel()) for lv in batch.sample.levels],
+                      "max_memory_allocated": torch.cuda.max_memory_allocated()})
+            got = check_launches(what, 3 * batches, 2 * len(store_names) * batches)
+        finally:
+            NL.gather_node_features = orig
+            del loader.sampler.sample, loader._gather_y
+        emit({"phase": f"{what}_launch_counts", "launches": got, "batches": batches,
+              "batches_timed": len(ms), "ms_per_batch": sum(ms) / len(ms),
+              "ms_min": min(ms), "ms_max": max(ms),
+              "stages_ms_per_batch": {k: sum(d.get(k, 0.0) for d in by_stage) / len(by_stage)
+                                      for k in by_stage[0]}})
+        rows[f"sampler_{what}"], rows[f"gather_{what}"] = at_extra_batch(
+            what, lambda: next(it))
+        return got
+
+    kw = dict(input_nodes=("paper", np.arange(TH.MAG_NODES["paper"])), batch_size=TH.BATCH,
+              shuffle=True)
+    loader = NeighborLoader((fs, gs), TH.FANOUTS, dedup=False, **kw)
+    if loader.sampler.seed_type != "paper":
+        raise AssertionError("the typed loader did not take typed target segments")
+    launches["loader_typed"] = run_loader("hetero_loader_typed", loader, 8, 2)
+    del loader
+    loader = NeighborLoader((fs, gs), TH.FANOUTS, dedup=True, **kw)
+    launches["loader_dedup"] = run_loader("hetero_loader_dedup", loader, 6, 2)
+    del loader
+
+    # -- 5s. the typed link batch: author-writes-paper positives ------------------------
+    src_w, dst_w = gs.get_edge_index(writes)
+    pick = np.random.default_rng(13).choice(len(src_w), HETERO_LINK_EDGES, replace=False)
+    t0 = time.perf_counter()
+    loader = LinkNeighborLoader((fs, gs), TH.FANOUTS, (writes, np.stack([src_w[pick],
+                                                                         dst_w[pick]])),
+                                neg_sampling="binary", batch_size=TH.BATCH, shuffle=True,
+                                reject_true_edges=True)
+    emit({"phase": "hetero_link_setup", "positives": HETERO_LINK_EDGES,
+          "batches_per_epoch": len(loader), "setup_s": time.perf_counter() - t0,
+          "num_src": loader.num_src, "num_dst": loader.num_dst})
+    model, opt = rgcn(TH.HIDDEN)
+    enc = TH.RGCNEncoder(model, store_names, dtype=torch.bfloat16)
+    stages = _Stages()
+    stages.wrap(loader, "_negatives", "negatives")
+    stages.wrap(loader.sampler, "sample", "sample")
+    orig = LL.gather_node_features
+    LL.gather_node_features = lambda *a: stages.run("feature_join", orig, *a)
+    it, ms, batches, warmup = iter(loader), [], 6, 2
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        for i in range(batches):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            batch = next(it)
+            loss = stages.run("link_step", TL.link_step, enc, opt, batch)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t1) * 1e3
+            if i >= warmup:
+                ms.append(dt)
+            loss = float(loss)
+            if not math.isfinite(loss):
+                raise AssertionError(f"non-finite hetero link loss {loss} at batch {i}")
+            b = TH.BATCH
+            emit({"phase": "hetero_link_train", "batch": i, "warmup": i < warmup,
+                  "loss": loss, "ms": dt, "stages": stages.take(),
+                  "valid_positives": int((batch.seeds[:b] >= 0).sum()),
+                  "valid_negatives": int(((batch.seeds[2 * b:3 * b] >= 0)
+                                          & (batch.seeds[3 * b:] >= 0)).sum()),
+                  "nodes_per_level": [int((lv >= 0).sum()) for lv in batch.sample.levels],
+                  "slots_per_level": [int(lv.numel()) for lv in batch.sample.levels],
+                  "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        launches["link"] = check_launches("hetero link", 3 * batches,
+                                          2 * len(store_names) * batches)
+    finally:
+        LL.gather_node_features = orig
+        del loader._negatives, loader.sampler.sample
+    rows["sampler_hetero_link"], rows["gather_hetero_link"] = at_extra_batch(
+        "hetero_link", lambda: next(it))
+    emit({"phase": "hetero_link_launch_counts", "launches": launches["link"],
+          "batches": batches, "batches_timed": len(ms), "ms_per_batch": sum(ms) / len(ms),
+          "ms_min": min(ms), "ms_max": max(ms)})
+    del loader, model, opt, enc, batch, it, fs, gs, g
+    torch.cuda.empty_cache()
+
+    # -- small input, hetero: card against CPU --------------------------------------------
+    small = TH.make_synthetic_mag(3, "cpu", num_nodes=HETERO_SMALL, feat_dim=16, classes=5)
+    seeds = torch.randint(0, HETERO_SMALL["paper"], (3, 64), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(4))
+    seeds[:, ::9] = -1
+    u = _draws_like(HS.hetero_multihop_batched(seeds, generator=torch.Generator().manual_seed(0),
+                                               device="cpu", **small.sampler_args()), 5)
+    torch.manual_seed(3)
+    ref = RGCN(16, num_relations=3, hidden_features=32, out_features=5, device="cpu")
+    sides, draws = [], {}
+    for d in (torch.device("cpu"), dev):
+        gd = TH.SyntheticMag({n: (a.to(d), b.to(d)) for n, (a, b) in small.csrs.items()},
+                             small.edge_bases, small.max_degrees, small.num_edges,
+                             small.num_nodes, small.feats.to(d), small.labels.to(d))
+        sm = HS.hetero_multihop_batched(seeds.to(d), device=d,
+                                        u=[{n: a.to(d) for n, a in h.items()} for h in u],
+                                        **gd.sampler_args())
+        m = RGCN(16, num_relations=3, hidden_features=32, out_features=5, device=d)
+        m.load_state_dict(ref.state_dict())
+        o = torch.optim.Adam(m.parameters(), lr=TH.LR)
+        xs = [TH.gather_features(sm.step(i), gd.feats, torch.float32) for i in range(3)]
+        ls = [float(TH.rgcn_step(m, o, xs[i], sm.step(i), gd.labels)) for i in range(3)]
+        loaders = {}
+        for mode in ("typed", "dedup", "link"):
+            fs_d, gs_d = TH.mag_stores(gd, d)
+            if mode == "link":
+                s_w, d_w = gs_d.get_edge_index(writes)
+                ld = LinkNeighborLoader((fs_d, gs_d), (4, 3), (writes, np.stack([s_w[:600],
+                                                                                 d_w[:600]])),
+                                        neg_sampling="binary", batch_size=128, shuffle=True,
+                                        reject_true_edges=True)
+                _fixed_negatives(ld, 16)
+            else:
+                ld = NeighborLoader((fs_d, gs_d), (4, 3), batch_size=128, shuffle=True,
+                                    input_nodes=("paper", np.arange(1000)),
+                                    dedup=mode == "dedup")
+            if d.type == "cpu":     # the draws, shaped as the CPU's first pass
+                first = [b for _, b in zip(range(3), ld)]
+                ld._epoch = 0
+                draws[mode] = [_draws_like(b.sample, 30 + i) for i, b in enumerate(first)]
+            ld.sampler = _ListDraws(ld.sampler, draws[mode])
+            torch.manual_seed(7)
+            mm = RGCN(16, num_relations=3, hidden_features=32,
+                      out_features=16 if mode == "link" else 5, device="cpu").to(d)
+            oo = torch.optim.Adam(mm.parameters(), lr=TH.LR)
+            names_d = [HS.etype_str(et) for et in gs_d.finalize().etypes]
+            out = []
+            for _, b in zip(range(3), ld):
+                if mode == "link":
+                    step = TL.link_step(TH.RGCNEncoder(mm, names_d), oo, b)
+                else:
+                    step = TH.loader_step(mm, oo, b, names_d, dtype=torch.float32)
+                out.append((b, float(step)))
+            loaders[mode] = out
+        sides.append((sm, xs, ls, loaders))
+    (sc, xc, lc, ldc), (sg, xg, lg, ldg) = sides
+    equal = all(torch.equal(a, b.cpu()) for a, b in zip(sc.levels, sg.levels))
+    for hc, hg in zip(sc.hops, sg.hops):
+        equal &= all(torch.equal(a, b.cpu()) for n in hc for a, b in zip(hc[n][:3], hg[n][:3]))
+    equal &= all(_bits_equal(a, b.cpu()) for a, b in zip(xc, xg))
+    loss_diff = max(abs(a - b) for a, b in zip(lc, lg))
+    for mode in ("typed", "dedup", "link"):
+        for (bc, l1), (bg, l2) in zip(ldc[mode], ldg[mode]):
+            a = [bc.seeds] + [bc.x[k] for k in sorted(bc.x)] + bc.sample.levels + [
+                t for h in bc.sample.hops for n in sorted(h) for t in h[n][:3]]
+            b = [bg.seeds] + [bg.x[k] for k in sorted(bg.x)] + bg.sample.levels + [
+                t for h in bg.sample.hops for n in sorted(h) for t in h[n][:3]]
+            equal &= all(_bits_equal(p, q.cpu()) if p.is_floating_point()
+                         else torch.equal(p, q.cpu()) for p, q in zip(a, b))
+            loss_diff = max(loss_diff, abs(l1 - l2))
+    if not (equal and loss_diff <= 1e-4):
+        raise AssertionError(f"small hetero paths, card vs CPU: equal {equal}, losses differ "
+                             f"by {loss_diff}")
+    emit({"phase": "small_input_agreement_hetero", "paths": ["block", "typed", "dedup", "link"],
+          "steps": 3, "equal": True, "max_loss_abs_diff": loss_diff, "tolerance": 1e-4})
+    return launches, rows
+
+
 def _gather_row(emit, table, ids, distinct, cuda_ms, hbm, what):
     """Row 1 on ``table`` (f32 to f32) at ``ids``, ``distinct`` of them
     valid and distinct: bit-equal to its plain version, timed beside it and
@@ -2017,6 +2494,12 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
     errs["slab_spmm"] = max(errs["slab_spmm"], gin_err)
     del x256
 
+    # -- 9c. full-batch R-GCN at full width -----------------------------------
+    rgcn_launches, rgcn_rows, rgcn_err = rgcn_full_batch(
+        dev, emit, cuda_ms, counters, reused, x, labels, steps, check, bound, whole_csr)
+    totals["slab_spmm"] += rgcn_launches
+    errs["slab_spmm"] = max(errs["slab_spmm"], rgcn_err)
+
     def kernel_row(name, source, replaces, launches, err):
         rows = timing[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2035,6 +2518,11 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
                       totals["slab_spmm"], errs["slab_spmm"])
     row4.update(launches_gin=gin_launches,
                 **{f"{k}_gin_sum": [r[k] for r in gin_rows]
+                   for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                # R-GCN's per-relation calls (9c): forward at F = 128 and 256
+                # over relation 0's graph, backward over its transpose
+                launches_rgcn=rgcn_launches,
+                **{f"{k}_rgcn": [r[k] for r in rgcn_rows]
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
     return reused, [
         row4,
@@ -2042,6 +2530,164 @@ def full_batch(dev, emit, cuda_ms, hbm, counters):
                    "cugraph_gnn_tpu/ops/pallas/spmm_kernel.py:90",
                    totals["csr_spmm"], errs["csr_spmm"]),
     ]
+
+
+def rgcn_full_batch(dev, emit, cuda_ms, counters, reused, x, labels, steps, check, bound,
+                    whole_csr):
+    """Phase 9c (see the module docstring) on phase 6's graph, its features
+    ``x`` (bf16) and labels.  Returns row 4's launches on the path, its rows
+    timed at R-GCN's three calls of one relation, and its largest
+    difference from the plain version."""
+    import numpy as np
+    import torch
+    from torch.nn import functional as F
+
+    from cugraph_gnn_tpu_torch import train_full as TF
+    from cugraph_gnn_tpu_torch.models.zoo import RGCN
+    from cugraph_gnn_tpu_torch.ops import full_batch as FB
+    from cugraph_gnn_tpu_torch.ops.full_batch import RelationalFullBatch
+    from cugraph_gnn_tpu_torch.ops.kernels.slab_kernel import slab_spmm, slab_spmm_ref
+
+    # 2 relations by endpoint parity (examples/full_batch_training.py)
+    src, dst = reused["src"], reused["dst"]
+    et = ((src.astype(np.int64) + dst) % 2).astype(np.int32)
+    n = x.shape[0]
+    t0 = time.perf_counter()
+    rfb = RelationalFullBatch(src, dst, et, 2, n, reorder="none", block_rows=TF.BLOCK_ROWS,
+                              device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "rgcn_full_batch_data", "relations": 2, "nodes": n,
+          "edges": [int((et == r).sum()) for r in range(2)],
+          "build_s": time.perf_counter() - t0,
+          "build_seconds": [g.build_seconds for g in rfb.graphs],
+          "band_fraction": [g.band_fraction for g in rfb.graphs],
+          "fallback_edges": [int((g.slab.fb_src >= 0).sum()) for g in rfb.graphs]})
+    if not all(g.use_slab for g in rfb.graphs):
+        raise AssertionError("a relation is off the slab path: it would run the plain version")
+
+    # small input: 3 f32 steps on the card and on the CPU from the same weights
+    small = TF.make_synthetic_banded(3, "cpu", num_nodes=3000, deg=8, band=100,
+                                     feat_dim=16, classes=5)
+    s_et = ((small.src.astype(np.int64) + small.dst) % 2).astype(np.int32)
+    torch.manual_seed(3)
+    m_cpu = RGCN(16, num_relations=2, hidden_features=32, out_features=5, device="cpu")
+    sides = []
+    for d in (torch.device("cpu"), dev):
+        r_s = RelationalFullBatch(small.src, small.dst, s_et, 2, 3000, reorder="none",
+                                  block_rows=TF.BLOCK_ROWS, device=d)
+        m = RGCN(16, num_relations=2, hidden_features=32, out_features=5, device=d)
+        m.load_state_dict(m_cpu.state_dict())
+        o = torch.optim.Adam(m.parameters(), lr=TF.LR)
+        sides.append([float(TF.full_batch_step(m, o, small.feats.to(d), r_s,
+                                               small.labels.to(d))) for _ in range(3)])
+    loss_diff = max(abs(a - b) for a, b in zip(*sides))
+    if not loss_diff <= 1e-4:
+        raise AssertionError(f"small full-batch rgcn f32 steps: card vs CPU loss differ by "
+                             f"{loss_diff}")
+    emit({"phase": "small_input_agreement_full_batch", "model": "rgcn", "steps": 3,
+          "max_loss_abs_diff": loss_diff, "tolerance": 1e-4})
+
+    # the training path: 1 warm-up and 3 timed steps, each call recorded
+    kernel, calls = FB.slab_spmm, []
+    slab_of = {id(g.slab): ("graph", r) for r, g in enumerate(rfb.graphs)}
+    slab_of.update({id(g.slab_t): ("transpose", r) for r, g in enumerate(rfb.graphs)})
+
+    def recording(slab, xs_, reduce, compute_dtype):
+        calls.append((*slab_of.get(id(slab), ("other", -1)), reduce, xs_.shape[1],
+                      str(xs_.dtype)))
+        return kernel(slab, xs_, reduce, compute_dtype)
+
+    torch.manual_seed(0)
+    model = RGCN(TF.FEAT_DIM, num_relations=2, hidden_features=TF.HIDDEN,
+                 out_features=TF.CLASSES, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=TF.LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    timed = []
+    FB.slab_spmm = recording
+    try:
+        for step in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = TF.full_batch_step(model, opt, x, rfb, labels)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            v = float(loss)
+            if not math.isfinite(v):
+                raise AssertionError(f"rgcn: non-finite loss at step {step}")
+            if step:
+                timed.append(dt)
+            emit({"phase": "full_batch_train", "model": "rgcn", "step": step,
+                  "warmup": step == 0, "loss": v, "ms_per_step": dt * 1e3,
+                  "edges_per_s": len(src) / dt})
+    finally:
+        FB.slab_spmm = kernel
+    # per step: 2 relations x 2 layers forward, and layer 1's backward over
+    # each relation's transpose (layer 0's input needs no gradient)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    want = {**{fn.__name__: 0 for fn in counters}, "slab_spmm": 6 * steps}
+    per_step = sorted(calls[:6])
+    want_calls = sorted([("graph", r, "mean", 128, "torch.bfloat16") for r in range(2)]
+                        + [("graph", r, "mean", 256, "torch.float32") for r in range(2)]
+                        + [("transpose", r, "sum", 256, "torch.float32") for r in range(2)])
+    emit({"phase": "full_batch_launch_counts", "model": "rgcn", "steps": steps,
+          "launches": launches, "expected": want, "calls_per_step": calls[:6],
+          "ms_per_step": sum(timed) * 1e3 / len(timed),
+          "edges_per_s": len(src) * len(timed) / sum(timed),
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    if launches != want or per_step != want_calls or len(calls) != 6 * steps:
+        raise AssertionError(f"rgcn: kernel launches {launches} / calls {calls[:6]}, "
+                             f"expected {want} / {want_calls}")
+    emit({"phase": "full_batch_stages", "model": "rgcn",
+          "ms": _staged_step(model, opt, x, rfb, labels, F)})
+    with torch.no_grad():
+        logits = model.full_graph(x, rfb)
+    if logits.shape != (n, TF.CLASSES) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"rgcn: logits {tuple(logits.shape)} not finite")
+    del model, opt, logits
+
+    # row 4 at R-GCN's calls of relation 0, against its plain version, then
+    # timed: forward F = 128 bf16 and F = 256 f32 'mean', backward F = 256
+    # f32 'sum' over the transpose
+    gen = torch.Generator(device=dev).manual_seed(6)
+    h = torch.randn((n, 256), generator=gen, device=dev)
+    g0 = rfb.graphs[0]
+    rows, err = [], 0.0
+    for orient, slab, xf, reduce in (("graph", g0.slab, x, "mean"),
+                                     ("graph", g0.slab, h, "mean"),
+                                     ("transpose", g0.slab_t, h, "sum")):
+        what = f"rgcn relation 0 {orient} F={xf.shape[1]} {xf.dtype} {reduce}"
+        got = slab_spmm(slab, xf, reduce, torch.float32)
+        e = check("slab_spmm", got, slab_spmm_ref(slab, xf.float(), reduce, torch.float32),
+                  slab_spmm_ref(slab, xf.float().abs(), reduce, torch.float32), what)
+        _same_bits("slab_spmm", got, slab_spmm(slab, xf, reduce, torch.float32), what)
+        err = max(err, e or 0.0)
+        del got
+        f, el = xf.shape[1], xf.element_size()
+        nnz_band = int((slab.ell[:n] >= 0).sum())
+        nv = int((slab.fb_src >= 0).sum())
+        nbytes = (4 * nnz_band + xf.numel() * el + slab.fallback.rowptr.numel() * 8 + nv * 4
+                  + (4 * n if reduce == "mean" else 0) + n * f * el)
+        b_ms, b_by = bound(nbytes, (nnz_band + nv) * f)
+        a_all = whole_csr(slab, xf.dtype, reduce)
+        row = {"kernel": "slab_spmm", "path": "rgcn", "relation": 0, "orientation": orient,
+               "f": f, "reduce": reduce, "dtype": str(xf.dtype), "band_edges": nnz_band,
+               "fallback_edges": nv,
+               "ms": cuda_ms(lambda: slab_spmm(slab, xf, reduce, torch.float32)),
+               "plain_ms": cuda_ms(lambda: slab_spmm_ref(slab, xf, reduce, torch.float32),
+                                   iters=5),
+               "library_ms": cuda_ms(lambda: torch.sparse.mm(a_all, xf)),
+               "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        rows.append(row)
+        del a_all
+    emit({"phase": "full_batch_kernel_check", "model": "rgcn", "max_abs_err": err,
+          "tolerance": "1e-5 abs + 1e-5 x the terms' magnitude sum"})
+    del rfb, h
+    torch.cuda.empty_cache()
+    return launches["slab_spmm"], rows, err
 
 
 def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
@@ -3222,14 +3868,14 @@ def _staged_step(model, opt, x, fbg, labels, F, method="spmm", label="spmm", val
 
     fwd, bwd = [], []
 
-    def timed(h, *args, **kw):
+    def timed(graph, h, *args, **kw):
         grad = h.requires_grad
         if grad:
             start, end = event(), event()
             h = Mark.apply(h, end)
         a, b = event(), event()
         a.record()
-        out = getattr(fbg, method)(h, *args, **kw)
+        out = getattr(graph, method)(h, *args, **kw)
         b.record()
         fwd.append((a, b))
         if grad:
@@ -3238,17 +3884,25 @@ def _staged_step(model, opt, x, fbg, labels, F, method="spmm", label="spmm", val
         return out
 
     class Timed:
-        """``fbg`` with every ``method`` call bracketed by events."""
+        """``graph`` with every ``method`` call bracketed by events (and so
+        each relation's graph of a ``RelationalFullBatch``)."""
+
+        def __init__(self, graph):
+            self.graph = graph
 
         def __getattr__(self, name):
-            return timed if name == method else getattr(fbg, name)
+            if name == method:
+                return lambda *a, **kw: timed(self.graph, *a, **kw)
+            if name == "graphs":
+                return [Timed(g) for g in self.graph.graphs]
+            return getattr(self.graph, name)
 
     stages = ("forward", "loss", "backward", "adam") + (
         () if valid is None else ("grad_all_reduce",))
     ev = {k: (event(), event()) for k in stages}
     opt.zero_grad(set_to_none=True)
     ev["forward"][0].record()
-    logits = model.full_graph(x, Timed()).float()
+    logits = model.full_graph(x, Timed(fbg)).float()
     ev["forward"][1].record()
     ev["loss"][0].record()
     if valid is None:
@@ -3329,8 +3983,8 @@ def main() -> None:
           f"{torch.__version__}, CUDA {torch.version.cuda})")
 
     def emit(obj):
-        print(json.dumps({**obj, "card": card, "power_limit": power_limit}),
-              flush=True)
+        print(json.dumps({**obj, "card": card, "power_limit": power_limit,
+                          "t_s": time.perf_counter() - wall0}), flush=True)
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -3598,6 +4252,9 @@ def main() -> None:
             v[name] for v in variant_launches.values())
     del graph, gs
     torch.cuda.empty_cache()
+    hetero_launches, hetero_rows = hetero_paths(dev, emit, counters, cuda_ms, hbm)
+    for name in ("gather_rows", "fused_uniform_sample"):
+        sampled_launches[name] += sum(v[name] for v in hetero_launches.values())
 
     reused, fb_rows = full_batch(dev, emit, cuda_ms, hbm, counters)
     gat_rows, probe_row = gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused)
@@ -3667,7 +4324,16 @@ def main() -> None:
         + (emb_launches["cached"]["gather_rows"] + emb_launches["host_loader"]["gather_rows"])
         * (emb_rows["cache_read"]["ms"] - emb_rows["cache_read"]["bound_ms"])
         + emb_launches["dist"]["gather_rows"]
-        * (emb_rows["dist_lookup"]["ms"] - emb_rows["dist_lookup"]["bound_ms"])})
+        * (emb_rows["dist_lookup"]["ms"] - emb_rows["dist_lookup"]["bound_ms"])
+        # the hetero paths, each at its own shape (5q-5s): the block's bf16
+        # gathers, the loaders' and the link batch's per-type joins priced at
+        # their paper join
+        + sum(hetero_launches[k]["gather_rows"] * (hetero_rows[r]["ms"]
+                                                   - hetero_rows[r]["bound_ms"])
+              for k, r in HETERO_GATHER_ROWS.items()),
+        **{f"launches_hetero_{k}": v["gather_rows"] for k, v in hetero_launches.items()},
+        **{f"{k}_{r}": hetero_rows[r][k] for r in HETERO_GATHER_ROWS.values()
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
     # the sampler's numbers are one block's two launches (hop 0 + hop 1); its
     # gap prices the block's launches at the block's hops and the loader's
     # at a loader batch's hops
@@ -3702,7 +4368,15 @@ def main() -> None:
             v["fused_uniform_sample"] for v in emb_launches.values())
             + gin_loader["fused_uniform_sample"] + variant_launches["disjoint"][
                 "fused_uniform_sample"], loader_b_rows)
-        + sampler_gap(link_total["fused_uniform_sample"], link_rows["sampler"])})
+        + sampler_gap(link_total["fused_uniform_sample"], link_rows["sampler"])
+        # the hetero paths, each at its own hop calls (5q-5s)
+        + sum(sampler_gap(hetero_launches[k]["fused_uniform_sample"], hetero_rows[r])
+              for k, r in HETERO_SAMPLER_ROWS.items()),
+        **{f"launches_hetero_{k}": v["fused_uniform_sample"] for k, v in hetero_launches.items()},
+        **{f"ms_per_call_{r}": [x["ms"] for x in hetero_rows[r]]
+           for r in HETERO_SAMPLER_ROWS.values()},
+        **{f"{k}_{r}": sum(x[k] for x in hetero_rows[r]) for r in HETERO_SAMPLER_ROWS.values()
+           for k in ("plain_ms", "bound_ms", "sector_floor_ms")}})
     kernels += fb_rows + gat_rows + dist_rows + [probe_row]
     emit({"phase": "wall", "seconds": time.perf_counter() - wall0})
     print(smi)

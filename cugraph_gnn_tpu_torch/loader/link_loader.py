@@ -24,8 +24,11 @@ times, triplet negatives repeat their positive's, and pads take the batch's
 largest.  As in JAX, the negatives themselves are drawn without a time
 constraint.
 
-Hetero edge types (``edge_label_index=(edge_type, ...)``) are not ported yet
-(ROADMAP Queue 1 item 4, hetero): asking for them raises.
+Hetero link prediction: ``edge_label_index=(edge_type, (2, E))`` with
+type-local source and destination ids (PyG's convention).  Negatives are
+drawn inside the edge type's endpoint types (``num_src`` / ``num_dst`` of
+its source and destination node types), and the whole seed layout is shifted
+into the global id space by the two node offsets (-1 pads stay -1).
 """
 
 from __future__ import annotations
@@ -37,9 +40,8 @@ import numpy as np
 import torch
 
 from cugraph_gnn_tpu_torch.data.feature_store import FeatureStore
-from cugraph_gnn_tpu_torch.data.graph_store import GraphStore
+from cugraph_gnn_tpu_torch.data.graph_store import GraphStore, _host
 from cugraph_gnn_tpu_torch.loader.node_loader import (
-    _not_ported,
     build_neighbor_sampler,
     gather_node_features,
 )
@@ -75,11 +77,15 @@ class LinkBatch:
     """One link-prediction batch."""
 
     sample: MultihopBatch           # over the seed layout (a DisjointBatch with disjoint=True)
-    x: Optional[torch.Tensor]       # (S_L, F) features of sample.input_nodes
+    x: Optional[object]             # (S_L, F) features of sample.input_nodes; hetero: a dict
     edge_label_index: torch.Tensor  # (2, B+N) int32 positions in seeds
     edge_label: torch.Tensor        # (B+N,) float32: 1 (or the label) positive, 0 negative
-    seeds: torch.Tensor             # (2B+2N,) int32
+    seeds: torch.Tensor             # (2B+2N,) int32 global ids
     input_id: torch.Tensor          # (B,) int64 positions of the positive edges, -1 padded
+
+
+def _offset(ids, off: int):
+    return torch.where(ids >= 0, ids + off, -1).to(torch.int32) if off else ids
 
 
 class LinkLoader:
@@ -92,18 +98,17 @@ class LinkLoader:
                  x_attr: str = "x", reject_true_edges: bool = False, seed: int = 0,
                  edge_label_time=None):
         self.feature_store, self.graph_store = data
+        self.edge_type = None
         if (isinstance(edge_label_index, tuple) and len(edge_label_index) == 2
                 and isinstance(edge_label_index[0], (tuple, str))):
-            raise _not_ported("typed (hetero) edge_label_index")
+            self.edge_type, edge_label_index = edge_label_index
         self.sampler = sampler
         if isinstance(edge_label_time, torch.Tensor):
             edge_label_time = edge_label_time.cpu().numpy()
         self.edge_label_time = (None if edge_label_time is None
                                 else np.asarray(edge_label_time))
-        if isinstance(edge_label_index, torch.Tensor):
-            edge_label_index = edge_label_index.cpu().numpy()
-        eli = np.asarray(edge_label_index)
-        self.pos_src = eli[0].astype(np.int64)
+        eli = _host(edge_label_index)
+        self.pos_src = eli[0].astype(np.int64)     # type-local ids for an edge type
         self.pos_dst = eli[1].astype(np.int64)
         if isinstance(edge_label, torch.Tensor):
             edge_label = edge_label.cpu().numpy()
@@ -116,7 +121,15 @@ class LinkLoader:
         self.device = self.graph_store.device
         self._epoch = 0
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.num_src = self.num_dst = self.graph_store.num_nodes()
+        if self.edge_type is not None:
+            src_t, _, dst_t = self.edge_type
+            self.src_offset = self.graph_store.node_offset(src_t)
+            self.dst_offset = self.graph_store.node_offset(dst_t)
+            self.num_src = self.graph_store.num_nodes(src_t)
+            self.num_dst = self.graph_store.num_nodes(dst_t)
+        else:
+            self.src_offset = self.dst_offset = 0
+            self.num_src = self.num_dst = self.graph_store.num_nodes()
         self._edge_key_sorted = None
         if reject_true_edges:
             self._edge_key_sorted = make_edge_key_sorted(self.pos_src, self.pos_dst,
@@ -179,7 +192,10 @@ class LinkLoader:
                 ns, nd = self._negatives(ps_t, n_neg)
             else:
                 ns = nd = torch.zeros((0,), dtype=torch.int32, device=dev)
-            seeds = torch.cat([ps_t, torch.as_tensor(pd, device=dev), ns, nd])
+            # type-local -> global ids (-1 pads stay -1)
+            seeds = torch.cat([_offset(ps_t, self.src_offset),
+                               _offset(torch.as_tensor(pd, device=dev), self.dst_offset),
+                               _offset(ns, self.src_offset), _offset(nd, self.dst_offset)])
             kw = {}
             if self.edge_label_time is not None:
                 kw["node_times"] = torch.as_tensor(self._seed_times(sel, n_neg), device=dev)

@@ -1,17 +1,22 @@
 """NodeLoader / NeighborLoader: seed-batched sampling loaders.
 
-Counterpart of ``cugraph_gnn_tpu/loader/node_loader.py`` for homogeneous
-graphs: the input nodes are shuffled per epoch (numpy's
-``default_rng(epoch + 12345)``, as in JAX), cut into fixed-size batches (the
-last one padded with -1 seeds, or dropped with ``drop_last``), sampled by a
-sampler built from the graph store (uniform, weighted with ``weight_attr``,
-temporal with ``time_attr`` and per-seed ``input_time``, optionally
-``disjoint``), and joined with their features and labels from the feature
-store.  The draws come from a ``torch.Generator`` seeded with ``seed``, which
-every batch advances.
+Counterpart of ``cugraph_gnn_tpu/loader/node_loader.py``: the input nodes
+are shuffled per epoch (numpy's ``default_rng(epoch + 12345)``, as in JAX),
+cut into fixed-size batches (the last one padded with -1 seeds, or dropped
+with ``drop_last``), sampled by a sampler built from the graph store
+(uniform, weighted with ``weight_attr``, temporal with ``time_attr`` and
+per-seed ``input_time``, optionally ``disjoint``), and joined with their
+features and labels from the feature store.  The draws come from a
+``torch.Generator`` seeded with ``seed``, which every batch advances.
 
-Hetero graphs (typed input nodes, several edge types) are not ported yet
-(ROADMAP Queue 1 item 4, hetero): asking for them raises.
+Hetero graphs (several node or edge types) sample through a
+``HeteroNeighborSampler``.  Typed input nodes ``(node_type, ids)`` take
+type-local ids, shifted into the global id space by the type's offset; the
+labels are read at the de-offset ids of the type's ``y``.  The features are
+a dict by node type: each type's rows at the slots of its nodes, zero rows
+elsewhere.  With ``dedup=False`` and typed input (untimed, not disjoint),
+each edge type expands only its destination type's level positions (typed
+target segments).
 """
 
 from __future__ import annotations
@@ -23,8 +28,9 @@ import numpy as np
 import torch
 
 from cugraph_gnn_tpu_torch.data.feature_store import FeatureStore
-from cugraph_gnn_tpu_torch.data.graph_store import GraphStore, edge_type_str
+from cugraph_gnn_tpu_torch.data.graph_store import GraphStore, _host, edge_type_str
 from cugraph_gnn_tpu_torch.sampler.disjoint import DisjointNeighborSampler
+from cugraph_gnn_tpu_torch.sampler.hetero import HeteroNeighborSampler
 from cugraph_gnn_tpu_torch.sampler.heuristics import (
     resolve_feature_dim,
     resolve_max_unique_per_hop,
@@ -33,16 +39,13 @@ from cugraph_gnn_tpu_torch.sampler.neighbor_sampler import NeighborSampler
 from cugraph_gnn_tpu_torch.sampler.output import MultihopBatch
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item 4, hetero)")
-
-
 @dataclasses.dataclass
 class NodeBatch:
     """One sampled training batch."""
 
-    sample: MultihopBatch           # a DisjointBatch with disjoint=True
-    x: Optional[torch.Tensor]       # (S_L, F) features of sample.input_nodes ((B, cap, F) disjoint)
+    sample: MultihopBatch           # DisjointBatch with disjoint=True; HeteroMultihopBatch hetero
+    x: Optional[object]             # (S_L, F) features of sample.input_nodes ((B, cap, F)
+                                    # disjoint); hetero: a dict by node type
     y: Optional[torch.Tensor]       # (B,) labels of the seeds
     seeds: torch.Tensor             # (B,) int32 global seed ids, -1 padded
     input_id: torch.Tensor          # (B,) int64 positions in input_nodes, -1 padded
@@ -61,14 +64,14 @@ class NodeLoader:
                  batch_size: int = 512, shuffle: bool = False, drop_last: bool = False,
                  x_attr: str = "x", y_attr: str = "y", input_time=None, seed: int = 0):
         self.feature_store, self.graph_store = data
-        if isinstance(input_nodes, tuple):
-            raise _not_ported("typed (hetero) input nodes")
         self.sampler = sampler
         if input_nodes is None:
             input_nodes = np.arange(self.graph_store.num_nodes())
-        elif isinstance(input_nodes, torch.Tensor):
-            input_nodes = input_nodes.cpu().numpy()
-        self.input_nodes = np.asarray(input_nodes).astype(np.int64)
+        self.input_type = None
+        if isinstance(input_nodes, tuple):       # PyG's (node_type, type-local ids)
+            self.input_type, input_nodes = input_nodes
+            input_nodes = _host(input_nodes) + self.graph_store.node_offset(self.input_type)
+        self.input_nodes = _host(input_nodes).astype(np.int64)
         if isinstance(input_time, torch.Tensor):
             input_time = input_time.cpu().numpy()
         self.input_time = None if input_time is None else np.asarray(input_time)
@@ -118,21 +121,41 @@ class NodeLoader:
                             batch_size=b)
 
     def _gather_y(self, seeds):
-        if ("", self.y_attr) not in self.feature_store:
+        key = ("", self.y_attr) if self.input_type is None else (self.input_type, self.y_attr)
+        if key not in self.feature_store:
             return None
-        return self.feature_store.get_tensor("", self.y_attr, ids=seeds)
+        if self.input_type is not None:
+            # the type's labels are indexed by type-local ids; pads stay -1
+            off = self.graph_store.node_offset(self.input_type)
+            seeds = torch.where(seeds >= 0, seeds - off, -1)
+        return self.feature_store.get_tensor(*key, ids=seeds)
+
+
+def _rows(feature_store, group, x_attr, ids):
+    """One gather of ``ids`` (any shape) from a stored table; rows in ids'
+    shape."""
+    rows = feature_store.get_tensor(group, x_attr, ids=ids.reshape(-1))
+    return rows.reshape(*ids.shape, *rows.shape[1:])
 
 
 def gather_node_features(feature_store, graph_store, x_attr, input_nodes):
-    """The features of a sampled node set: one (S, F) gather (zero rows for
-    -1 slots; (B, cap) disjoint ids give (B, cap, F)), or None when the
-    store has no ``x_attr``."""
-    if not graph_store.is_homogeneous:
-        raise _not_ported("the feature join of a hetero graph")
-    if ("", x_attr) not in feature_store:
-        return None
-    rows = feature_store.get_tensor("", x_attr, ids=input_nodes.reshape(-1))
-    return rows.reshape(*input_nodes.shape, *rows.shape[1:])
+    """The features of a sampled node set (zero rows for -1 slots; (B, cap)
+    disjoint ids give (B, cap, F)), or None when no group has ``x_attr``.
+    Homogeneous: one gather.  Hetero: a dict by node type, one gather per
+    type holding ``x_attr``: its rows at its nodes' slots (de-offset ids),
+    zero rows at the other slots."""
+    if graph_store.is_homogeneous:
+        if ("", x_attr) not in feature_store:
+            return None
+        return _rows(feature_store, "", x_attr, input_nodes)
+    out = {}
+    for nt in graph_store.node_types:
+        if (nt, x_attr) not in feature_store:
+            continue
+        local = input_nodes - graph_store.node_offset(nt)
+        ok = (local >= 0) & (local < graph_store.num_nodes(nt))
+        out[nt] = _rows(feature_store, nt, x_attr, torch.where(ok, local, -1))
+    return out or None
 
 
 class NeighborLoader(NodeLoader):
@@ -143,7 +166,9 @@ class NeighborLoader(NodeLoader):
     the feature store -> weighted sampling.  time_attr: an edge attribute ->
     temporal sampling, which needs ``input_time`` (a time per input node).
     disjoint: a subgraph per seed; batches then carry a ``DisjointBatch``
-    and (B, cap, F) features."""
+    and (B, cap, F) features.  Hetero stores: ``num_neighbors`` a list or a
+    dict by edge type; typed ``input_nodes=(node_type, ids)`` with
+    ``dedup=False`` (untimed, not disjoint) samples typed target segments."""
 
     def __init__(self, data: Tuple[FeatureStore, GraphStore], num_neighbors: Sequence[int],
                  input_nodes=None, batch_size: int = 512, shuffle: bool = False,
@@ -162,10 +187,14 @@ class NeighborLoader(NodeLoader):
             max_unique_per_hop = resolve_max_unique_per_hop(
                 "auto", batch_size, num_neighbors, fd, device=graph_store.device)
             dedup = True   # caps need the deduplicated layout
+        seed_type = None
+        if (not dedup and time_attr is None and not disjoint
+                and isinstance(input_nodes, tuple)):
+            seed_type = input_nodes[0]
         sampler = build_neighbor_sampler(
             feature_store, graph_store, num_neighbors, weight_attr=weight_attr,
             time_attr=time_attr, dedup=dedup, max_unique_per_hop=max_unique_per_hop,
-            disjoint=disjoint)
+            disjoint=disjoint, seed_type=seed_type)
         super().__init__(data, sampler, input_nodes=input_nodes, batch_size=batch_size,
                          shuffle=shuffle, drop_last=drop_last, input_time=input_time,
                          seed=seed, **kwargs)
@@ -173,18 +202,30 @@ class NeighborLoader(NodeLoader):
 
 def build_neighbor_sampler(feature_store, graph_store, num_neighbors, weight_attr=None,
                            time_attr=None, dedup: bool = True, max_unique_per_hop=None,
-                           disjoint: bool = False):
-    """The ``NeighborSampler`` over a homogeneous graph store's sampling
-    CSR, on the store's device: uniform, weighted (``weight_attr``) and/or
-    temporal (``time_attr``), the edge attributes read from the feature
-    store and put in CSR order; wrapped in a ``DisjointNeighborSampler``
-    (with dedup) when ``disjoint``."""
+                           disjoint: bool = False, seed_type=None):
+    """The sampler over a graph store's sampling CSRs, on the store's
+    device: a ``NeighborSampler`` (homogeneous) or a ``HeteroNeighborSampler``
+    (hetero: ``weight_attr`` / ``time_attr`` per edge type that has them,
+    levels deduplicated when ``disjoint`` or capped, typed segments by
+    ``seed_type`` otherwise); uniform, weighted (``weight_attr``) and/or
+    temporal (``time_attr``), the edge attributes read from the feature store
+    and put in CSR order; wrapped in a ``DisjointNeighborSampler`` (with
+    dedup) when ``disjoint``."""
     if isinstance(max_unique_per_hop, str):
         raise ValueError(f"max_unique_per_hop={max_unique_per_hop!r}: resolve 'auto' "
                          "with sampler.heuristics.resolve_max_unique_per_hop")
     graph = graph_store.finalize()
     if not graph.is_homogeneous:
-        raise _not_ported("sampling a hetero graph")
+        effective_dedup = True if (disjoint or max_unique_per_hop is not None) else dedup
+        sampler = HeteroNeighborSampler(
+            graph, num_neighbors,
+            weights_by_etype=collect_edge_attrs_by_etype(feature_store, graph_store, graph,
+                                                         weight_attr),
+            times_by_etype=collect_edge_attrs_by_etype(feature_store, graph_store, graph,
+                                                       time_attr),
+            max_unique_per_hop=max_unique_per_hop, dedup=effective_dedup,
+            seed_type=None if effective_dedup else seed_type)
+        return DisjointNeighborSampler(sampler) if disjoint else sampler
     indptr, indices = graph.homogeneous_csr()
     et = graph.etypes[0]
     weights = times = maxdeg = None

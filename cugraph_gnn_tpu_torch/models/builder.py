@@ -2,11 +2,10 @@
 
 Counterpart of ``cugraph_gnn_tpu/models/builder.py``: ``create_gnn_model``
 builds a zoo model from the reference's option vocabulary (sage / gcn / gat /
-gin; the last layer emits ``class_count`` logits; hidden layers at
-``hidden_feat_dim``, GAT splitting it over ``num_heads``).  A torch module
-needs its input width when it is built, so both functions take
-``in_feat_dim`` (flax infers it at init).  ``rgcn`` comes with the hetero
-slice (ROADMAP Queue 1 item 4).
+gin / rgcn; the last layer emits ``class_count`` logits; hidden layers at
+``hidden_feat_dim``, GAT splitting it over ``num_heads``, RGCN over
+``num_relations``).  A torch module needs its input width when it is built,
+so both functions take ``in_feat_dim`` (flax infers it at init).
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from cugraph_gnn_tpu_torch.models.zoo import GAT, GCN, GIN, GraphSAGE
+from cugraph_gnn_tpu_torch.models.zoo import GAT, GCN, GIN, RGCN, GraphSAGE
 
 MODEL_TYPES = ("sage", "gcn", "gat", "gin", "rgcn")
 
@@ -24,15 +23,16 @@ def create_gnn_model(model_type: str, *, in_feat_dim: int, class_count: int,
                      hidden_feat_dim: int = 256, num_layers: int = 2, num_heads: int = 4,
                      num_relations: int = 2, dropout: float = 0.0,
                      dtype: Optional[torch.dtype] = None, device=None):
-    """A zoo model on ``device`` (default: the card).  GAT computes in the
-    promotion of its input's and parameters' dtypes, as the JAX builder's
-    does, and ignores ``dtype``."""
+    """A zoo model on ``device`` (default: the card).  GAT and RGCN compute in
+    the promotion of their input's and parameters' dtypes, as the JAX
+    builder's do, and ignore ``dtype`` (RGCN also ``dropout``, as JAX's)."""
     kind = model_type.lower()
     if kind not in MODEL_TYPES:
         raise ValueError(f"unknown model_type {model_type!r}; expected one of {MODEL_TYPES}")
     if kind == "rgcn":
-        raise NotImplementedError(
-            "rgcn is not ported yet (ROADMAP Queue 1 item 4, the hetero slice)")
+        return RGCN(in_feat_dim, num_relations=num_relations,
+                    hidden_features=hidden_feat_dim, out_features=class_count,
+                    num_layers=num_layers, device=device)
     kw = dict(hidden_features=hidden_feat_dim, out_features=class_count,
               num_layers=num_layers, dropout=dropout, device=device)
     if kind == "gat":

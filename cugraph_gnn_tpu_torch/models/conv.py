@@ -1,11 +1,11 @@
 """Graph convolution layers (torch.nn).
 
 Counterpart of ``cugraph_gnn_tpu/models/conv.py``: ``SAGEConv``,
-``GCNConv``, ``GATConv`` and ``GINConv``, each with the sampled path
-(``forward`` over the fixed-fanout layout), the full-batch COO path
-(``full``) and the full-batch path through a ``FullBatchGraph``
-(``full_graph``, the slab kernels).  ``RGCNConv`` comes with the hetero
-slice (ROADMAP Queue 1 item 4).
+``GCNConv``, ``GATConv``, ``GINConv`` and ``RGCNConv``, each with the sampled
+path (``forward`` over the fixed-fanout layout), the full-batch COO path
+(``full``) and the full-batch path through a ``FullBatchGraph`` (a
+``RelationalFullBatch`` for ``RGCNConv``) (``full_graph``, the slab
+kernels).
 
 ``dtype`` computes as flax's ``Dense(dtype=...)`` does: parameters stay float32
 and are cast, together with the input, at each call, and the bias is added
@@ -259,3 +259,93 @@ class GINConv(nn.Module):
         """Full batch through ``fbg``, x in its graph order: the sum by the
         slab SpMM kernel."""
         return self._mlp(x, fbg.spmm(x, reduce="sum").to(x.dtype))
+
+
+class RGCNConv(nn.Module):
+    """Relational GCN (PyG RGCNConv semantics, 'mean' per relation):
+
+    h = W_root x_dst + b + sum_r W_r agg_{j in N_r(dst)} x_j
+
+    Parameters as flax's: ``lin_root`` (with the bias) and ``lin_rel[r]``
+    (flax's ``lin_rel_<r>``, no bias).
+    """
+
+    def __init__(self, in_features: int, out_features: int, num_relations: int,
+                 aggr: str = "mean", bias: bool = True,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.num_relations, self.aggr, self.dtype = num_relations, aggr, dtype
+        self.lin_root = nn.Linear(in_features, out_features, bias=bias, device=device)
+        self.lin_rel = nn.ModuleList([
+            nn.Linear(in_features, out_features, bias=False, device=device)
+            for _ in range(num_relations)])
+
+    def _rel(self, r: int, x_neigh, mask):
+        return dense(self.lin_rel[r], fanout_aggregate(x_neigh, mask, self.aggr), self.dtype)
+
+    def forward(self, x_dst, rel_neigh):
+        """rel_neigh: per relation, (x_neigh (S, k, F), mask (S, k)), or None
+        for a relation absent from the batch."""
+        out = dense(self.lin_root, x_dst, self.dtype)
+        for r, blk in enumerate(rel_neigh):
+            if blk is not None:
+                out = out + self._rel(r, *blk)
+        return out
+
+    def typed_call(self, x_dst, rel_neigh):
+        """Typed target segments: relation r's block covers only its
+        destination type's rows of the level, and comes as (x_neigh (S_r, k,
+        F), mask, plan), ``plan`` the tuple of (segment_length, covered) over
+        the level's segments; its aggregate goes back to its segments' rows
+        (zeros elsewhere).  2-tuples cover the whole level, as in
+        :meth:`forward`."""
+        out = dense(self.lin_root, x_dst, self.dtype)
+        for r, blk in enumerate(rel_neigh):
+            if blk is None:
+                continue
+            plan = blk[2] if len(blk) > 2 else None
+            rel = self._rel(r, blk[0], blk[1])
+            if plan is not None:
+                pieces, off = [], 0
+                for length, covered in plan:
+                    if covered:
+                        pieces.append(rel[off:off + length])
+                        off += length
+                    else:
+                        pieces.append(rel.new_zeros((length,) + rel.shape[1:]))
+                rel = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)
+            out = out + rel
+        return out
+
+    def edgewise(self, x_dst, x_neigh, mask, edge_type):
+        """Per-edge relation ids instead of per-relation blocks (the
+        FastRGCNConv pattern over a homogeneous graph with an edge-type
+        attribute): edge_type (S, k) int, aligned with x_neigh and mask."""
+        out = dense(self.lin_root, x_dst, self.dtype)
+        for r in range(self.num_relations):
+            out = out + self._rel(r, x_neigh, mask & (edge_type == r))
+        return out
+
+    def full(self, x, src, dst, edge_type, num_nodes: int):
+        """Full batch over COO edges src -> dst (-1 padded) with a relation
+        per edge."""
+        out = dense(self.lin_root, x[:num_nodes], self.dtype)
+        for r in range(self.num_relations):
+            sel = edge_type == r
+            agg = segment_spmm(x, torch.where(sel, src, -1), torch.where(sel, dst, -1),
+                               num_nodes, reduce=self.aggr)
+            out = out + dense(self.lin_rel[r], agg, self.dtype)
+        return out
+
+    def full_graph(self, x, rfb):
+        """Full batch through ``rfb`` (an ``ops.full_batch.RelationalFullBatch``),
+        x in its graph order: one slab SpMM per relation, forward over the
+        relation's graph and backward over its transpose."""
+        if len(rfb.graphs) != self.num_relations:
+            raise ValueError(f"RelationalFullBatch has {len(rfb.graphs)} relations, "
+                             f"the conv {self.num_relations}")
+        out = dense(self.lin_root, x, self.dtype)
+        for r, g in enumerate(rfb.graphs):
+            agg = g.spmm(x, reduce=self.aggr).to(x.dtype)
+            out = out + dense(self.lin_rel[r], agg, self.dtype)
+        return out

@@ -11,7 +11,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cugraph_gnn_tpu_torch.models.zoo import GAT, GCN, GIN, GraphSAGE
+from cugraph_gnn_tpu_torch.models.zoo import GAT, GCN, GIN, RGCN, GraphSAGE
 
 
 def graphsage_from_flax(params, model: Optional[GraphSAGE] = None, *,
@@ -112,19 +112,63 @@ def gin_from_flax(params, model: Optional[GIN] = None, *,
     return model
 
 
+def _rel_index(name: str) -> int:
+    return int(name[len("lin_rel_"):])
+
+
+def rgcn_from_flax(params, model: Optional[RGCN] = None, *, device=None) -> RGCN:
+    """An RGCN holding the weights of the flax tree ``params``
+    (``{'params': {'conv_<i>': {'lin_root': {'kernel', 'bias'},
+    'lin_rel_<r>': {'kernel'}}}}``), copied into ``model`` when given (any
+    model of ``RGCNConv``s), else into a new one on ``device`` (default: the
+    card) whose widths and relation count are read from the tree.
+
+    Flax creates a relation's parameters only if its block was present when
+    the model was initialised (the last layer of a typed batch sees only
+    the seed type's relations); such a relation's port weights are zeroed,
+    so that it adds nothing, as it adds nothing in JAX.
+    """
+    convs = _convs(params)
+    if model is None:
+        kernels = [np.asarray(c["lin_root"]["kernel"]) for c in convs]
+        rels = 1 + max(_rel_index(n) for c in convs for n in c if n.startswith("lin_rel_"))
+        model = RGCN(kernels[0].shape[0], num_relations=rels,
+                     hidden_features=kernels[0].shape[1],
+                     out_features=kernels[-1].shape[1], num_layers=len(convs),
+                     device=device)
+    _check_depth(model, convs)
+    with torch.no_grad():
+        for conv, p in zip(model.convs, convs):
+            rels = {_rel_index(n): n for n in p if n.startswith("lin_rel_")}
+            if max(rels, default=-1) >= len(conv.lin_rel):
+                raise ValueError(f"flax tree has relation {max(rels)}, model has "
+                                 f"{len(conv.lin_rel)} relations")
+            _copy(conv.lin_root.weight, np.asarray(p["lin_root"]["kernel"]).T)
+            if ("bias" in p["lin_root"]) != (conv.lin_root.bias is not None):
+                raise ValueError("the flax tree and the model disagree on lin_root's bias")
+            if conv.lin_root.bias is not None:
+                _copy(conv.lin_root.bias, np.asarray(p["lin_root"]["bias"]))
+            for r, lin in enumerate(conv.lin_rel):
+                if r in rels:
+                    _copy(lin.weight, np.asarray(p[rels[r]]["kernel"]).T)
+                else:
+                    lin.weight.zero_()
+    return model
+
+
 _FROM_FLAX = {"sage": graphsage_from_flax, "gcn": gcn_from_flax, "gat": gat_from_flax,
-              "gin": gin_from_flax}
+              "gin": gin_from_flax, "rgcn": rgcn_from_flax}
 
 
 def model_from_flax(model_type: str, params, model=None, *, dtype=None, device=None):
     """The weights of a flax tree of the JAX builder's ``model_type``
-    (sage / gcn / gat / gin) in a port model (``model``, or a new one on
-    ``device``, default the card; GAT takes no ``dtype``)."""
+    (sage / gcn / gat / gin / rgcn) in a port model (``model``, or a new one
+    on ``device``, default the card; GAT and RGCN take no ``dtype``)."""
     kind = model_type.lower()
     if kind not in _FROM_FLAX:
         raise ValueError(f"no flax conversion for model_type {model_type!r}; "
                          f"expected one of {tuple(_FROM_FLAX)}")
-    kw = {} if kind == "gat" else {"dtype": dtype}
+    kw = {} if kind in ("gat", "rgcn") else {"dtype": dtype}
     return _FROM_FLAX[kind](params, model, device=device, **kw)
 
 

@@ -3,8 +3,8 @@
 Counterpart of ``cugraph_gnn_tpu/models/zoo.py``: ``MultihopModel`` (the
 sampled forward, ``full`` and ``full_graph``, with dropout between layers
 and, in the sampled forward, degree inputs for ``GCNConv``), ``GraphSAGE``,
-``GCN``, ``GIN`` and ``GAT``.  ``RGCN`` comes with the hetero slice (ROADMAP
-Queue 1 item 4).
+``GCN``, ``GIN`` and ``GAT``; and ``RGCN`` over per-relation blocks
+(``forward``), a ``HeteroMultihopBatch`` (``batch_call``) or whole graphs.
 
 Dropout is flax's: at ``train=True`` each entry is kept with probability
 1 - p and scaled by 1 / (1 - p), the keep mask drawn from the ``generator``
@@ -20,8 +20,8 @@ import torch
 from torch import nn
 
 from cugraph_gnn_tpu_torch._device import resolve_device
-from cugraph_gnn_tpu_torch.models.conv import GATConv, GCNConv, GINConv, SAGEConv
-from cugraph_gnn_tpu_torch.sampler.output import MultihopBatch
+from cugraph_gnn_tpu_torch.models.conv import GATConv, GCNConv, GINConv, RGCNConv, SAGEConv
+from cugraph_gnn_tpu_torch.sampler.output import MultihopBatch, shard_gather, shard_prefix
 
 
 class MultihopModel(nn.Module):
@@ -170,3 +170,65 @@ class GAT(MultihopModel):
             convs.append(GATConv(width, f, heads=h, concat=not last, device=dev))
             width = h * f
         super().__init__(convs, dropout)
+
+
+class RGCN(nn.Module):
+    """``num_layers`` RGCNConvs over ``num_relations`` relations: in -> hidden
+    -> ... -> out, ReLU between.  Layer i is ``convs[i]`` (flax's
+    ``conv_<i>``).  The convs compute in the promotion of the input's and the
+    parameters' dtypes, as the JAX model's do.  Built on ``device`` (default:
+    the card)."""
+
+    def __init__(self, in_features: int, num_relations: int = 2, hidden_features: int = 64,
+                 out_features: int = 16, num_layers: int = 2, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        dims = _dims(in_features, hidden_features, out_features, num_layers)
+        self.convs = nn.ModuleList([
+            RGCNConv(dims[i], dims[i + 1], num_relations, device=dev)
+            for i in range(num_layers)])
+
+    def _layers(self, h, layer):
+        for i, conv in enumerate(self.convs):
+            h = layer(conv, i, h)
+            if i != len(self.convs) - 1:
+                h = torch.relu(h)
+        return h
+
+    def forward(self, x_input, rel_batches, num_shards: int = 1):
+        """rel_batches: per layer (input side first, as the convs), per
+        relation (neigh_local, mask) or None; the target count comes from the
+        blocks' shapes.  ``num_shards``: blocks per level (a flattened
+        disjoint batch)."""
+        def layer(conv, i, h):
+            blocks = rel_batches[i]
+            s_l = next(b[0].shape[0] for b in blocks if b is not None)
+            return conv(shard_prefix(h, s_l, num_shards),
+                        [None if b is None else (shard_gather(h, b[0], num_shards), b[1])
+                         for b in blocks])
+        return self._layers(x_input, layer)
+
+    def batch_call(self, x_input, batch, etype_names):
+        """Forward over a ``HeteroMultihopBatch``: neighbor activations by
+        ``batch.gather_neighbors`` (contiguous slices in the static layout),
+        relations in ``etype_names`` order, through ``RGCNConv.typed_call``
+        (typed layout entries carry their segment plan)."""
+        def layer(conv, i, h):
+            hop_index = batch.num_hops - 1 - i
+            hop = batch.hops[hop_index]
+            entries = {e[0]: e for e in (batch.layouts[hop_index] if batch.layouts else ())}
+            blocks = [None if name not in hop else
+                      (batch.gather_neighbors(h, hop_index, name), hop[name].mask)
+                      + tuple(entries.get(name, ())[3:])
+                      for name in etype_names]
+            return conv.typed_call(batch.dst_activations(h, hop_index), blocks)
+        return self._layers(x_input, layer)
+
+    def full(self, x, src, dst, edge_type, num_nodes: int):
+        """Full batch over COO edges src -> dst with a relation per edge."""
+        return self._layers(x, lambda conv, i, h: conv.full(h, src, dst, edge_type,
+                                                            num_nodes))
+
+    def full_graph(self, x, rfb):
+        """Full batch through a ``RelationalFullBatch``; x in its graph order."""
+        return self._layers(x, lambda conv, i, h: conv.full_graph(h, rfb))

@@ -19,6 +19,10 @@ the JAX package.
 
 Train in graph order: ``to_graph_order`` is meant for features and labels
 once at load time, with node ids mapped through ``map_ids``.
+
+``RelationalFullBatch`` is the full-batch R-GCN surface: one
+``FullBatchGraph`` per relation, all on the union graph's node order, so one
+graph-order ``x`` serves every relation's SpMM.
 """
 
 from __future__ import annotations
@@ -67,7 +71,49 @@ class _SlabSpmm(torch.autograd.Function):
         return gx.to(ctx.x_dtype), None, None, None
 
 
-class FullBatchGraph:
+class _NodeOrder:
+    """The input-order <-> graph-order maps of a reordered graph, as device
+    tensors cached per device."""
+
+    def __init__(self, reordered):
+        self._order = reordered
+        self._on = {}
+
+    @property
+    def order(self) -> Optional[np.ndarray]:
+        """(N,) graph-order -> input-order map (None if not reordered)."""
+        return None if self._order is None else self._order.order
+
+    @property
+    def inv_order(self) -> Optional[np.ndarray]:
+        return None if self._order is None else self._order.inv_order
+
+    def _order_on(self, name: str, device) -> torch.Tensor:
+        key = (name, str(device))
+        if key not in self._on:
+            self._on[key] = torch.as_tensor(
+                getattr(self._order, name).astype(np.int64), device=device)
+        return self._on[key]
+
+    def to_graph_order(self, x):
+        if self._order is None:
+            return x
+        return x[self._order_on("order", x.device)]
+
+    def to_input_order(self, x):
+        if self._order is None:
+            return x
+        return x[self._order_on("inv_order", x.device)]
+
+    def map_ids(self, ids):
+        """Input-order node ids -> graph-order ids (-1 passes through)."""
+        if self._order is None:
+            return ids
+        inv = self._order_on("inv_order", ids.device)
+        return torch.where(ids >= 0, inv[ids.clamp(min=0).long()], -1).to(ids.dtype)
+
+
+class FullBatchGraph(_NodeOrder):
     """See the module docstring.  reorder: 'rcm' | 'none' | 'auto' (RCM, kept
     only if it raises the band fraction); ``min_band_fraction`` gates the
     slab path.  Device tensors live on ``device`` (default: the card).
@@ -87,7 +133,7 @@ class FullBatchGraph:
         self.num_nodes = n
         if reorder not in ("rcm", "none", "auto"):
             raise ValueError(f"unknown reorder {reorder!r}")
-        self._order = None
+        rg = None
         # candidates are built on the host and only the chosen one moves
         build = dict(block_rows=block_rows, max_k=max_k, device="cpu")
         if reorder in ("rcm", "auto"):
@@ -99,10 +145,10 @@ class FullBatchGraph:
                 if slab.band_fraction <= slab_i.band_fraction:
                     rg, slab = None, slab_i
             if rg is not None:
-                self._order = rg
                 indptr, indices, weights = rg.indptr, rg.indices, w_r
         else:
             slab = build_slab_graph(indptr, indices, weights, **build)
+        super().__init__(rg)
         self.slab = slab.to(self.device)
         self.band_fraction = self.slab.band_fraction
         self.use_slab = self.band_fraction >= min_band_fraction
@@ -111,7 +157,6 @@ class FullBatchGraph:
         self._weights = None if weights is None else np.asarray(weights, np.float32)
         self._ell: Optional[EllBuckets] = None
         self._coo = None
-        self._order_t = {}
         self.degrees = self.slab.degrees[:n]
         t1 = time.perf_counter()
         # The transpose of a banded graph is banded with the same bandwidth,
@@ -127,41 +172,6 @@ class FullBatchGraph:
             "graph": t1 - t0, "transpose": time.perf_counter() - t1}
         self._block_rows, self._max_k = block_rows, max_k
         self._attn_pair: Optional[AttnSlabPair] = None
-
-    # -- node-order mapping ---------------------------------------------
-
-    @property
-    def order(self) -> Optional[np.ndarray]:
-        """(N,) graph-order -> input-order map (None if not reordered)."""
-        return None if self._order is None else self._order.order
-
-    @property
-    def inv_order(self) -> Optional[np.ndarray]:
-        return None if self._order is None else self._order.inv_order
-
-    def _order_on(self, name: str, device) -> torch.Tensor:
-        key = (name, str(device))
-        if key not in self._order_t:
-            self._order_t[key] = torch.as_tensor(
-                getattr(self._order, name).astype(np.int64), device=device)
-        return self._order_t[key]
-
-    def to_graph_order(self, x):
-        if self._order is None:
-            return x
-        return x[self._order_on("order", x.device)]
-
-    def to_input_order(self, x):
-        if self._order is None:
-            return x
-        return x[self._order_on("inv_order", x.device)]
-
-    def map_ids(self, ids):
-        """Input-order node ids -> graph-order ids (-1 passes through)."""
-        if self._order is None:
-            return ids
-        inv = self._order_on("inv_order", ids.device)
-        return torch.where(ids >= 0, inv[ids.clamp(min=0).long()], -1).to(ids.dtype)
 
     # -- aggregation ------------------------------------------------------
 
@@ -251,3 +261,50 @@ class FullBatchGraph:
             np.asarray(dst, np.int32), np.asarray(src, np.int32), num_nodes)
         w = None if weights is None else np.asarray(weights)[perm]
         return cls(indptr, indices, w, **kw)
+
+
+def _band_share(src, dst, block_rows: int) -> float:
+    """The share of edges with |src - dst| <= block_rows under an order (the
+    slab keeps columns within one block radius of their row block)."""
+    if len(src) == 0:
+        return 0.0
+    return float(np.mean(np.abs(src.astype(np.int64) - dst.astype(np.int64)) <= block_rows))
+
+
+class RelationalFullBatch(_NodeOrder):
+    """One ``FullBatchGraph`` per relation over one shared node order: the
+    full-batch R-GCN surface, out = W_root x + sum_r W_r (A_r x), each A_r x
+    one launch of the slab SpMM kernel (its gradient one launch over A_r's
+    transpose).  Every relation is built on the union graph's RCM order
+    (``reorder='auto'`` keeps it only if it raises the union's band share),
+    so one graph-order ``x`` serves every relation.  Keyword arguments as
+    ``FullBatchGraph``'s, ``device`` included."""
+
+    def __init__(self, src, dst, edge_type, num_relations: int, num_nodes: int, *,
+                 reorder: str = "auto", block_rows: int = 256, max_k: int = 64,
+                 min_band_fraction: float = 0.5, device=None):
+        src = np.asarray(src, np.int32)
+        dst = np.asarray(dst, np.int32)
+        et = np.asarray(edge_type, np.int32)
+        if not len(src) == len(dst) == len(et):
+            raise ValueError("src, dst and edge_type lengths differ")
+        if reorder not in ("rcm", "none", "auto"):
+            raise ValueError(f"unknown reorder {reorder!r}")
+        self.num_nodes = int(num_nodes)
+        self.num_relations = int(num_relations)
+        rg = None
+        if reorder in ("rcm", "auto") and len(src):
+            u_indptr, u_indices, _ = _native.build_csr(dst, src, num_nodes)
+            cand = reorder_csr(u_indptr, u_indices)
+            ns, nd = cand.inv_order[src], cand.inv_order[dst]
+            if reorder == "rcm" or (_band_share(ns, nd, block_rows)
+                                    > _band_share(src, dst, block_rows)):
+                rg, src, dst = cand, ns, nd
+        super().__init__(rg)
+        self.graphs = [
+            FullBatchGraph.from_coo(src[et == r], dst[et == r], num_nodes, reorder="none",
+                                    block_rows=block_rows, max_k=max_k,
+                                    min_band_fraction=min_band_fraction, device=device)
+            for r in range(num_relations)]
+        self.band_fraction = (float(np.mean([g.band_fraction for g in self.graphs]))
+                              if self.graphs else 0.0)

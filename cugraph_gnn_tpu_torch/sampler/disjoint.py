@@ -15,10 +15,16 @@ capacities ``base.level_caps(1)`` (1, 1 + k0, ...).  Per-hop draws can be
 injected as in ``NeighborSampler.sample``: ``u[h]`` holds the seeds' uniforms
 one after the other, ``hash_keys[h]`` one key per seed.
 
+Over a ``HeteroNeighborSampler`` (with ``dedup=True``) each seed gets a
+typed subgraph: the hops are per-edge-type dicts of (B, cap, k) blocks, one
+flat frontier per hop per edge type, with per-type draws ``u[h][name]`` and
+``hash_keys[h][name]``.
+
 A model runs over a disjoint batch through :meth:`DisjointBatch.flat`: one
-``MultihopBatch`` whose levels hold every seed's block one after the other
-(``num_shards`` = the number of seeds), so each layer reads each seed's
-targets and neighbors inside its own block.
+``MultihopBatch`` (``HeteroMultihopBatch`` for hetero hops) whose levels hold
+every seed's block one after the other (``num_shards`` = the number of
+seeds), so each layer reads each seed's targets and neighbors inside its own
+block.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
+from cugraph_gnn_tpu_torch.sampler.hetero import HeteroMultihopBatch, HeteroNeighborSampler
 from cugraph_gnn_tpu_torch.sampler.neighbor_sampler import NeighborSampler
 from cugraph_gnn_tpu_torch.sampler.output import COOSample, HopBlock, MultihopBatch
 
@@ -37,8 +44,8 @@ class DisjointBatch(NamedTuple):
     levels[l]: (B, cap_l) global node ids, -1 pad; each row has the prefix
       property of a MultihopBatch.
     level_counts[l]: (B,) int32 valid nodes per seed.
-    hops[l]: HopBlock of (B, cap_l, k_l) tensors; neigh_local indexes the
-      seed's own row of levels[l+1].
+    hops[l]: HopBlock of (B, cap_l, k_l) tensors (a dict of them by edge
+      type, hetero); neigh_local indexes the seed's own row of levels[l+1].
     seed_valid: (B,) bool, False for -1-padded seeds.
     """
 
@@ -64,12 +71,16 @@ class DisjointBatch(NamedTuple):
         seed_of = torch.arange(b, dtype=torch.int32, device=self.levels[-1].device)
         return torch.where(self.levels[-1] >= 0, seed_of[:, None], -1).reshape(-1)
 
-    def per_seed(self) -> MultihopBatch:
-        """The batch as a MultihopBatch of per-seed tensors (the JAX view
-        that ``vmap`` maps over)."""
-        return MultihopBatch(levels=list(self.levels), level_counts=list(self.level_counts),
-                             hops=list(self.hops),
-                             seed_count=self.seed_valid.to(torch.int32))
+    @property
+    def is_hetero(self) -> bool:
+        return bool(self.hops) and isinstance(self.hops[0], dict)
+
+    def per_seed(self):
+        """The batch as a MultihopBatch (HeteroMultihopBatch) of per-seed
+        tensors (the JAX view that ``vmap`` maps over)."""
+        cls = HeteroMultihopBatch if self.is_hetero else MultihopBatch
+        return cls(levels=list(self.levels), level_counts=list(self.level_counts),
+                   hops=list(self.hops), seed_count=self.seed_valid.to(torch.int32))
 
     def flat(self) -> MultihopBatch:
         """One MultihopBatch of B blocks a level (seed s's cap_l slots at s *
@@ -79,23 +90,29 @@ class DisjointBatch(NamedTuple):
         :meth:`per_seed` gives it.  Features: ``x.reshape(B * cap_L, F)``."""
         b = self.seed_valid.shape[0]
         counts = [c.sum(dtype=torch.int32) for c in self.level_counts]
+
+        def flat(hop):
+            return HopBlock(*(a.reshape(-1, a.shape[-1]) for a in hop[:3]))
+
+        if self.is_hetero:
+            return HeteroMultihopBatch(
+                levels=[lv.reshape(-1) for lv in self.levels], level_counts=counts,
+                hops=[{k: flat(v) for k, v in hop.items()} for hop in self.hops],
+                seed_count=counts[0], num_shards=b)
         return MultihopBatch(
             levels=[lv.reshape(-1) for lv in self.levels], level_counts=counts,
-            hops=[HopBlock(*(a.reshape(-1, a.shape[-1]) for a in hop[:3]))
-                  for hop in self.hops],
-            seed_count=counts[0], num_shards=b)
+            hops=[flat(hop) for hop in self.hops], seed_count=counts[0], num_shards=b)
 
 
 class DisjointNeighborSampler:
-    """Disjoint mode over a homogeneous ``NeighborSampler`` with
-    ``dedup=True``: uniform, weighted and temporal, as the base samples.
+    """Disjoint mode over a ``NeighborSampler`` or a ``HeteroNeighborSampler``
+    with ``dedup=True``: uniform, weighted and temporal, as the base samples.
     ``max_unique_per_hop`` caps each seed's levels (it becomes the base's)."""
 
     def __init__(self, base, max_unique_per_hop: Optional[Sequence[int]] = None):
-        if not isinstance(base, NeighborSampler):
-            raise NotImplementedError(
-                "disjoint sampling over a hetero sampler is not ported yet (ROADMAP "
-                "Queue 1 item 4, hetero)")
+        if not isinstance(base, (NeighborSampler, HeteroNeighborSampler)):
+            raise TypeError(f"disjoint sampling needs a NeighborSampler or a "
+                            f"HeteroNeighborSampler, got {type(base).__name__}")
         if not base.dedup:
             raise ValueError("disjoint mode requires a dedup=True sampler "
                              "(per-seed namespaces are dedup'd node lists)")
@@ -117,8 +134,9 @@ class DisjointNeighborSampler:
                generator=None) -> DisjointBatch:
         """Per-seed subgraphs of ``seeds`` (B,) int32, -1 padded; node_times
         (B,) optional.  u[h]: (B * cap_h, k_h) uniforms, seed after seed;
-        hash_keys[h]: (B, 2) key words, one per seed; otherwise drawn from
-        ``generator``, each seed its own key."""
+        hash_keys[h]: (B, 2) key words, one per seed (hetero: u[h][name],
+        hash_keys[h][name]); otherwise drawn from ``generator``, each seed
+        its own key."""
         base = self.base
         seeds = torch.as_tensor(seeds, dtype=torch.int32, device=base.device)
         times = None if node_times is None else torch.as_tensor(

@@ -100,6 +100,25 @@ def multihop_uniform_batched(indptr, indices, seeds, fanouts, *, u=None,
                          seed_count=counts[0], static_layout=True)
 
 
+def one_hop(indptr, indices, targets, fanout: int, *, weights=None, edge_times=None,
+            seed_time=None, max_degree=None, chunk: int = 256, u=None, hash_key=None,
+            generator=None, device=None):
+    """One hop of a graph from ``targets`` (-1 = padding): weighted
+    (time-filtered when there are edge and seed times), else time-masked
+    uniform, else uniform (the fused kernel on the card)."""
+    timed = edge_times is not None and seed_time is not None
+    kw = dict(max_degree=max_degree, chunk=chunk, hash_key=hash_key, generator=generator,
+              device=device)
+    if timed:
+        kw.update(edge_times=edge_times, seed_time=seed_time)
+    if weights is not None:
+        return weighted_sample(indptr, indices, weights, targets, fanout, **kw)
+    if timed:
+        return masked_uniform_sample(indptr, indices, targets, fanout, **kw)
+    return uniform_sample(indptr, indices, targets, fanout, u=u, generator=generator,
+                          device=device)
+
+
 def _check_draws(draws, fanouts):
     if draws is not None and len(draws) != len(fanouts):
         raise ValueError(f"per-hop draws need one entry per hop: got {len(draws)} "
@@ -176,20 +195,11 @@ class NeighborSampler:
         return self.weights is not None or (self.edge_times is not None and timed)
 
     def _one_hop(self, targets, fanout: int, seed_time, *, u, hash_key, generator):
-        """One hop from ``targets`` (-1 = padding): weighted (time-filtered
-        when there are seed times), else time-masked uniform, else uniform."""
-        timed = self.edge_times is not None and seed_time is not None
-        kw = dict(max_degree=self.max_degree, chunk=self.chunk, hash_key=hash_key,
-                  generator=generator, device=self.device)
-        if timed:
-            kw.update(edge_times=self.edge_times, seed_time=seed_time)
-        if self.weights is not None:
-            return weighted_sample(self.indptr, self.indices, self.weights, targets,
-                                   fanout, **kw)
-        if timed:
-            return masked_uniform_sample(self.indptr, self.indices, targets, fanout, **kw)
-        return uniform_sample(self.indptr, self.indices, targets, fanout, u=u,
-                              generator=generator, device=self.device)
+        """One hop from ``targets`` (-1 = padding), as :func:`one_hop`."""
+        return one_hop(self.indptr, self.indices, targets, fanout, weights=self.weights,
+                       edge_times=self.edge_times, seed_time=seed_time,
+                       max_degree=self.max_degree, chunk=self.chunk, u=u,
+                       hash_key=hash_key, generator=generator, device=self.device)
 
     def sample_rows(self, seeds, seed_time, caps, *, u=None, hash_keys=None,
                     generator=None):

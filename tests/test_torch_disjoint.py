@@ -251,7 +251,7 @@ def test_disjoint_refusals():
                                    device="cpu")
     with pytest.raises(ValueError, match="dedup=True"):
         port_dj.DisjointNeighborSampler(base)
-    with pytest.raises(NotImplementedError, match="hetero"):
+    with pytest.raises(TypeError, match="HeteroNeighborSampler"):
         port_dj.DisjointNeighborSampler(object())
     # without a replay: each seed its own draws, reproducible
     s = port_dj.DisjointNeighborSampler(

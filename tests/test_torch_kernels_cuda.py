@@ -12,7 +12,11 @@ of halo and remote rows, and at world 1 over NCCL).  Kernels without
 atomics are launched twice on the same inputs and held bit for bit equal.
 The weighted and time-masked samplers (plain PyTorch, no kernel of their
 own) and weighted, temporal and disjoint loader batches are held against the
-CPU on the same key words and uniforms, and two runs bit for bit.
+CPU on the same key words and uniforms, and two runs bit for bit.  The hetero
+paths: the typed R-GCN block (samples and gathered rows bit-equal, three f32
+steps' losses within 1e-4), typed and deduplicated hetero loader batches, and
+``RelationalFullBatch``'s per-relation SpMMs under full-batch R-GCN, each
+against the CPU.
 
 Marked ``cuda``: each test asks the ``card`` fixture for a device and skips
 without one.  The file imports no JAX, so on the machine with the card it
@@ -1528,3 +1532,169 @@ def test_sampling_variants_loader_card_matches_cpu(card, kw):
         for ha, hb in zip(s.hops, ws.hops):
             for a, b in zip(ha[:3], hb[:3]):
                 assert torch.equal(a.cpu(), b)
+
+
+# -- the hetero paths ------------------------------------------------------------
+
+_SMALL_MAG = {"paper": 3000, "author": 4000, "field": 300}
+
+
+def _mag_on(graph, dev):
+    """A ``train_hetero.SyntheticMag`` with its tensors moved to ``dev``."""
+    from cugraph_gnn_tpu_torch.train_hetero import SyntheticMag
+
+    return SyntheticMag({n: (a.to(dev), b.to(dev)) for n, (a, b) in graph.csrs.items()},
+                        graph.edge_bases, graph.max_degrees, graph.num_edges,
+                        graph.num_nodes, graph.feats.to(dev), graph.labels.to(dev))
+
+
+def _draws_like(sample, seed):
+    """CPU uniforms shaped as every (hop, edge type) block of ``sample``."""
+    g = torch.Generator().manual_seed(seed)
+    return [{n: torch.rand((b.neigh_local.shape[:-1].numel(), b.neigh_local.shape[-1]),
+                           generator=g) for n, b in hop.items()} for hop in sample.hops]
+
+
+def test_hetero_block_card_matches_cpu(card):
+    """The typed R-GCN block (``train_hetero``) at a small mag shape on the
+    card and on the CPU with the same seeds and uniforms: every level,
+    block and gathered row bit-equal, 6 sampler launches for the block and
+    1 row-gather launch a step, three f32 steps' losses within 1e-4."""
+    from cugraph_gnn_tpu_torch import train_hetero as TH
+    from cugraph_gnn_tpu_torch.models.zoo import RGCN
+    from cugraph_gnn_tpu_torch.sampler.hetero import hetero_multihop_batched
+
+    cpu = TH.make_synthetic_mag(3, "cpu", num_nodes=_SMALL_MAG, feat_dim=32, classes=7)
+    seeds = torch.randint(0, _SMALL_MAG["paper"], (3, 64), generator=torch.Generator()
+                          .manual_seed(4), dtype=torch.int32)
+    seeds[:, ::9] = -1
+    u = _draws_like(hetero_multihop_batched(seeds, generator=torch.Generator().manual_seed(0),
+                                            device="cpu", **cpu.sampler_args()), 5)
+    torch.manual_seed(0)
+    ref = RGCN(32, num_relations=3, hidden_features=64, out_features=7, device="cpu")
+    res = []
+    for dev in (card, torch.device("cpu")):
+        g = _mag_on(cpu, dev)
+        before = (gather_rows.launches, fused_uniform_sample.launches)
+        sample = hetero_multihop_batched(seeds.to(dev), u=[{n: a.to(dev) for n, a in h.items()}
+                                                           for h in u],
+                                         device=dev, **g.sampler_args())
+        model = RGCN(32, num_relations=3, hidden_features=64, out_features=7, device=dev)
+        model.load_state_dict(ref.state_dict())
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        xs, losses = [], []
+        for i in range(3):
+            st = sample.step(i)
+            xs.append(TH.gather_features(st, g.feats, torch.float32))
+            losses.append(float(TH.rgcn_step(model, opt, xs[-1], st, g.labels)))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (gather_rows.launches, fused_uniform_sample.launches) == (
+                before[0] + 3, before[1] + 6)
+        res.append((sample, xs, losses))
+    (s, xs, losses), (sc, xc, lc) = res
+    assert s.layouts == sc.layouts
+    assert [lv.shape[1] for lv in s.levels] == [64, 64 * 21, 64 * 21 + 64 * 9 * 20]
+    for a, b in zip(s.levels + s.level_counts, sc.levels + sc.level_counts):
+        assert torch.equal(a.cpu(), b)
+    for ha, hb in zip(s.hops, sc.hops):
+        for n in hb:
+            for a, b in zip(ha[n][:3], hb[n][:3]):
+                assert torch.equal(a.cpu(), b)
+    for a, b in zip(xs, xc):
+        assert torch.equal(_bits(a.cpu()), _bits(b))
+    assert max(abs(a - b) for a, b in zip(losses, lc)) <= 1e-4
+
+
+class _ListDraws:
+    """A loader's sampler fed a given list of per-(hop, edge type) CPU
+    uniforms, one entry a batch, moved to its device."""
+
+    def __init__(self, inner, draws):
+        self.inner, self.draws, self.calls = inner, draws, 0
+
+    def sample(self, seeds, node_times=None, generator=None):
+        u = [{n: a.to(seeds.device) for n, a in h.items()} for h in self.draws[self.calls]]
+        self.calls += 1
+        return self.inner.sample(seeds, node_times, u=u)
+
+
+@pytest.mark.parametrize("dedup", [False, True], ids=["typed", "dedup"])
+def test_hetero_loader_batch_card_matches_cpu(card, dedup):
+    """Two hetero ``NeighborLoader`` batches (typed input ``("paper",
+    ids)``) on the card and on the CPU with the same uniforms: seeds,
+    labels, every type's feature rows, levels and blocks equal; 6 sampler
+    launches and 3 row-gather launches (one per node type with ``x``) a
+    batch on the card."""
+    from cugraph_gnn_tpu_torch import train_hetero as TH
+
+    cpu = TH.make_synthetic_mag(5, "cpu", num_nodes=_SMALL_MAG, feat_dim=32, classes=7)
+    kw = dict(input_nodes=("paper", np.arange(1500)), batch_size=256, shuffle=True,
+              dedup=dedup)
+    first = NeighborLoader(TH.mag_stores(cpu, "cpu"), TH.FANOUTS, **kw)
+    draws = [_draws_like(b.sample, 20 + i) for i, b in zip(range(2), first)]
+    out = []
+    for dev in (card, torch.device("cpu")):
+        loader = NeighborLoader(TH.mag_stores(_mag_on(cpu, dev), dev), TH.FANOUTS, **kw)
+        loader.sampler = _ListDraws(loader.sampler, draws)
+        before = (gather_rows.launches, fused_uniform_sample.launches)
+        batches = [b for _, b in zip(range(2), loader)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (gather_rows.launches, fused_uniform_sample.launches) == (
+                before[0] + 6, before[1] + 12)
+        out.append(batches)
+    for got, want in zip(*out):
+        s, w = got.sample, want.sample
+        assert s.layouts == w.layouts and sorted(got.x) == sorted(want.x)
+        for a, b in zip([got.seeds, got.y] + [got.x[k] for k in sorted(got.x)]
+                        + s.levels + s.level_counts,
+                        [want.seeds, want.y] + [want.x[k] for k in sorted(want.x)]
+                        + w.levels + w.level_counts):
+            assert torch.equal(a.cpu(), b)
+        for ha, hb in zip(s.hops, w.hops):
+            for n in hb:
+                for a, b in zip(ha[n][:3], hb[n][:3]):
+                    assert torch.equal(a.cpu(), b)
+
+
+def test_relational_full_batch_card_matches_cpu(card):
+    """Full-batch R-GCN (2 relations by endpoint parity) on the card (row 4
+    per relation: 'mean' over its graph forward, 'sum' over its transpose
+    backward) against the CPU: each relation's aggregate within 1e-5 + 1e-5
+    x the terms' magnitude sum, the outputs and input gradients within 1e-4;
+    2 checks + 4 forward + 4 backward launches (x requires a gradient)."""
+    from cugraph_gnn_tpu_torch.models.zoo import RGCN
+    from cugraph_gnn_tpu_torch.ops.full_batch import RelationalFullBatch
+
+    rng = np.random.default_rng(10)
+    n = 3000
+    dst = np.repeat(np.arange(n), 8)
+    src = np.clip(dst + rng.integers(-100, 101, n * 8), 0, n - 1)
+    src[::9] = rng.integers(0, n, src[::9].shape[0])      # fallback edges
+    et = (src + dst) % 2
+    x = torch.as_tensor(rng.standard_normal((n, 32)).astype(np.float32))
+    torch.manual_seed(0)
+    ref = RGCN(32, num_relations=2, hidden_features=64, out_features=7, device="cpu")
+    res = []
+    for dev in (card, torch.device("cpu")):
+        rfb = RelationalFullBatch(src, dst, et, 2, n, reorder="none", block_rows=128,
+                                  device=dev)
+        assert all(g.use_slab for g in rfb.graphs)
+        model = RGCN(32, num_relations=2, hidden_features=64, out_features=7, device=dev)
+        model.load_state_dict(ref.state_dict())
+        xd = x.to(dev).requires_grad_(True)
+        slab_spmm.launches = 0
+        aggs = [g.spmm(xd.detach(), "mean") for g in rfb.graphs]
+        mags = [g.spmm(xd.detach().abs(), "mean") for g in rfb.graphs]
+        out = model.full_graph(xd, rfb)
+        out.square().sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert slab_spmm.launches == 4 + 4 + 4
+        res.append(([a.cpu() for a in aggs], mags, out.detach().cpu(), xd.grad.cpu()))
+    (aggs, _, out, gx), (aggs_c, mags_c, out_c, gx_c) = res
+    for a, b, m in zip(aggs, aggs_c, mags_c):
+        assert bool(((a - b).abs() <= 1e-5 + 1e-5 * m).all())
+    torch.testing.assert_close(out, out_c, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gx, gx_c, rtol=1e-4, atol=1e-4)

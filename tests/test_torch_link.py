@@ -392,8 +392,10 @@ def test_link_loader_generator_and_refusals():
     assert torch.equal(a.seeds, b.seeds) and not torch.equal(a.seeds, c.seeds)
     for la, lb in zip(a.sample.levels, b.sample.levels):
         assert torch.equal(la, lb)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4, hetero"):
-        LinkNeighborLoader(data, **{**kw, "edge_label_index": (ET, eli)})
+    # a typed edge_label_index (ported since the hetero slice): on a one-type
+    # store the offsets are 0, so the batch is the untyped one
+    typed = next(iter(LinkNeighborLoader(data, seed=1, **{**kw, "edge_label_index": (ET, eli)})))
+    assert torch.equal(typed.seeds, a.seeds) and torch.equal(typed.x, a.x)
     # the temporal options need each other (tests/test_torch_temporal.py
     # holds them against JAX)
     for extra in (dict(edge_label_time=np.zeros(70)), dict(time_attr="t")):

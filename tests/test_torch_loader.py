@@ -31,6 +31,7 @@ from cugraph_gnn_tpu.loader import NeighborLoader as JaxNeighborLoader
 from cugraph_gnn_tpu.models import GraphSAGE as JaxGraphSAGE
 from cugraph_gnn_tpu_torch.data import FeatureStore, GraphStore
 from cugraph_gnn_tpu_torch.loader import NeighborLoader
+from cugraph_gnn_tpu_torch.sampler.hetero import HeteroNeighborSampler
 from cugraph_gnn_tpu_torch.models.convert import graphsage_from_flax
 from cugraph_gnn_tpu_torch.store.dist_array import DistArray
 from cugraph_gnn_tpu_torch.utils import distributed as D
@@ -253,18 +254,28 @@ def test_loader_train_steps_match_jax(epoch):
 
 
 def test_loader_refuses_what_waits():
-    """Weighted, temporal, disjoint and "auto" loading are ported
+    """Weighted, temporal, disjoint, "auto" and hetero loading are ported
     (tests/test_torch_weighted.py, test_torch_temporal.py,
-    test_torch_disjoint.py); hetero loading still raises."""
+    test_torch_disjoint.py, test_torch_hetero_loader.py); rank-local edge
+    shards (the distributed loaders, ROADMAP Queue 1 item 6) still raise."""
     src, dst, x, y = _graph(5)
     data = _stores(False, src, dst, x, y)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4, hetero"):
-        NeighborLoader(data, FANOUTS, input_nodes=("n", np.arange(10)))
+    # typed input nodes on a one-type store: offset 0, the untyped batch
+    typed = next(iter(NeighborLoader(data, FANOUTS, input_nodes=("n", np.arange(10)),
+                                     batch_size=BATCH, seed=1)))
+    plain = next(iter(NeighborLoader(data, FANOUTS, input_nodes=np.arange(10),
+                                     batch_size=BATCH, seed=1)))
+    _assert_sample_equal(typed.sample, plain.sample)
+    assert torch.equal(typed.x, plain.x)
+    # typed labels are read under (node_type, "y"), as in JAX: this store has none
+    assert typed.y is None and plain.y is not None
     gs = GraphStore(device="cpu")
     gs.put_edge_index((src, dst), ET, num_nodes=(N, N))
     gs.put_edge_index((dst, src), ("n", "from", "n"), num_nodes=(N, N))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4, hetero"):
-        NeighborLoader((data[0], gs), FANOUTS)
+    assert isinstance(NeighborLoader((data[0], gs), FANOUTS).sampler,
+                      HeteroNeighborSampler)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        gs.put_local_edge_index((src, dst), ET)
     # without the replay, the generator's draws: same seed, same batches
     a, b = (next(iter(NeighborLoader(data, FANOUTS, batch_size=BATCH, seed=1)))
             for _ in range(2))

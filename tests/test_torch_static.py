@@ -6,7 +6,8 @@
   on the sampled and the full-batch training paths and the embeddings.
 - Entry points given no device run on the card, and raise without one.
 - The link path and the weighted, temporal and disjoint loaders on the CPU
-  launch no kernel.
+  launch no kernel; nor do the hetero paths (the typed R-GCN block, the hetero
+  loaders, the typed link batch, full-batch R-GCN).
 - A gloo mesh refuses the card and the row-sharded step, at one rank on the
   CPU, launches no kernel.
 """
@@ -71,6 +72,11 @@ from cugraph_gnn_tpu_torch.sampler.neighbor_sampler import (
     multihop_uniform,
     multihop_uniform_batched,
 )
+from cugraph_gnn_tpu_torch import train_hetero as TH
+from cugraph_gnn_tpu_torch.models.convert import rgcn_from_flax
+from cugraph_gnn_tpu_torch.models.zoo import RGCN
+from cugraph_gnn_tpu_torch.ops.full_batch import RelationalFullBatch
+from cugraph_gnn_tpu_torch.sampler.hetero import hetero_multihop, hetero_multihop_batched
 
 PKG = pathlib.Path(cugraph_gnn_tpu_torch.__file__).parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cugraph_gnn_tpu"}
@@ -176,6 +182,54 @@ def test_cpu_sampling_variants_leave_launch_counters_at_zero(kw):
     assert gather_rows.launches == 0 and fused_uniform_sample.launches == 0
 
 
+SMALL_MAG = {"paper": 60, "author": 40, "field": 10}
+
+
+@pytest.mark.parametrize("path", ["block", "loader_typed", "loader_dedup", "link", "full"])
+def test_cpu_hetero_paths_leave_launch_counters_at_zero(path):
+    """The typed R-GCN block, the hetero loaders, the typed link batch and
+    full-batch R-GCN on the CPU take the plain versions of the sampler, the
+    row gather and the slab SpMM."""
+    counters = (gather_rows, fused_uniform_sample, slab_spmm, slab_spmm_band, csr_spmm)
+    for fn in counters:
+        fn.launches = 0
+    g = TH.make_synthetic_mag(0, "cpu", num_nodes=SMALL_MAG, feat_dim=8, classes=3, deg_cap=20)
+    names = list(TH.ETYPES)
+    model = RGCN(8, num_relations=3, hidden_features=16, out_features=3, device="cpu")
+    opt = torch.optim.Adam(model.parameters(), lr=TH.LR)
+    if path == "block":
+        losses, edges = TH.train_block(model, opt, g, torch.Generator().manual_seed(0),
+                                       reps=2, batch_size=8)
+        assert len(losses) == 2 and all(torch.isfinite(l) for l in losses)
+        assert int(edges) > 0
+    elif path.startswith("loader"):
+        fs, gs = TH.mag_stores(g, "cpu")
+        names = [n for n in map("__".join, gs.finalize().etypes)]
+        loader = NeighborLoader((fs, gs), TH.FANOUTS, input_nodes=("paper", np.arange(20)),
+                                batch_size=8, shuffle=True, dedup=path == "loader_dedup")
+        for batch in loader:
+            assert sorted(batch.x) == ["author", "field", "paper"]
+            assert torch.isfinite(TH.loader_step(model, opt, batch, names))
+    elif path == "link":
+        fs, gs = TH.mag_stores(g, "cpu")
+        names = [n for n in map("__".join, gs.finalize().etypes)]
+        src, dst = gs.get_edge_index(("author", "writes", "paper"))
+        loader = LinkNeighborLoader((fs, gs), [3, 2], (("author", "writes", "paper"),
+                                                       np.stack([src[:20], dst[:20]])),
+                                    neg_sampling="binary", batch_size=8)
+        enc = TH.RGCNEncoder(model, names)
+        assert all(torch.isfinite(link_step(enc, opt, b)) for b in loader)
+    else:
+        fb = TF.make_synthetic_banded(0, "cpu", num_nodes=300, deg=4, band=20, feat_dim=8,
+                                      classes=3)
+        rfb = RelationalFullBatch(fb.src, fb.dst, (fb.src + fb.dst) % 2, 2, fb.num_nodes,
+                                  reorder="none", block_rows=128, device="cpu")
+        model = RGCN(8, num_relations=2, hidden_features=16, out_features=3, device="cpu")
+        opt = torch.optim.Adam(model.parameters(), lr=TF.LR)
+        assert torch.isfinite(TF.full_batch_step(model, opt, fb.feats, rfb, fb.labels))
+    assert all(fn.launches == 0 for fn in counters)
+
+
 ATTN_COUNTERS = (slab_attention_spmm_mh, attn_grad.onepass_bwd,
                  attn_grad.slab_attention_bwd, attn_grad.slab_attention_bwd_mh)
 
@@ -247,8 +301,12 @@ _GIN_TREE = {"params": {"conv_0": {name: {"kernel": np.zeros((4, 3), np.float32)
                                            if name == "mlp_1" else np.zeros((3, 3), np.float32),
                                            "bias": np.zeros(3, np.float32)}
                                     for name in ("mlp_1", "mlp_2")}}}
+_RGCN_TREE = {"params": {"conv_0": {"lin_root": {"kernel": np.zeros((4, 3), np.float32),
+                                                  "bias": np.zeros(3, np.float32)},
+                                     "lin_rel_0": {"kernel": np.zeros((4, 3), np.float32)}}}}
 _INDPTR = np.array([0, 1, 2], np.int32)
 _INDICES = np.array([1, 0], np.int32)
+_CPU_CSR = (torch.as_tensor(_INDPTR), torch.as_tensor(_INDICES))
 ENTRY_POINTS = {
     "uniform_sample": lambda: uniform_sample(_INDPTR, _INDICES, [0, 1], 2),
     "multihop_uniform_batched": lambda: multihop_uniform_batched(
@@ -292,6 +350,22 @@ ENTRY_POINTS = {
         _INDPTR, _INDICES, [0, 1], 1, max_degree=1, edge_times=[0, 0], seed_time=[1, 1]),
     "NeighborSampler": lambda: NeighborSampler(_INDPTR, _INDICES, (1,), weights=[1.0, 1.0]),
     "device_memory_bytes": device_memory_bytes,
+    "make_synthetic_mag": lambda: TH.make_synthetic_mag(0, num_nodes=SMALL_MAG),
+    "hetero_multihop_batched": lambda: hetero_multihop_batched(
+        np.zeros((1, 2), np.int32), csrs={"a": (_INDPTR, _INDICES)}, etype_names=["a"],
+        fanouts={"a": [1]}, edge_bases={"a": 0}),
+    # CPU tensors do not choose the device: only device="cpu" does
+    "hetero_multihop_batched_cpu_seeds": lambda: hetero_multihop_batched(
+        torch.zeros((1, 2), dtype=torch.int32), csrs={"a": _CPU_CSR}, etype_names=["a"],
+        fanouts={"a": [1]}, edge_bases={"a": 0}),
+    "hetero_multihop_cpu_seeds": lambda: hetero_multihop(
+        torch.zeros(2, dtype=torch.int32), csrs={"a": _CPU_CSR}, etype_names=["a"],
+        fanouts={"a": [1]}, edge_bases={"a": 0}, max_degrees={"a": 1}, caps=[2, 4]),
+    "RGCN": lambda: RGCN(4),
+    "rgcn_from_flax": lambda: rgcn_from_flax(_RGCN_TREE),
+    "create_gnn_model_rgcn": lambda: create_gnn_model("rgcn", in_feat_dim=4, class_count=3),
+    "RelationalFullBatch": lambda: RelationalFullBatch(_INDICES, [0, 1], [0, 1], 2, 2,
+                                                       reorder="none"),
 }
 
 

@@ -228,11 +228,11 @@ def test_dropout_matches_flax_and_keeps_its_contract(data):
 @pytest.mark.parametrize("model_type", MODEL_TYPES)
 def test_create_gnn_model_matches_jax_builder(data, model_type):
     kw = dict(class_count=OUT, hidden_feat_dim=HIDDEN, num_layers=2, num_heads=4)
-    if model_type == "rgcn":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            create_gnn_model(model_type, in_feat_dim=F_IN, device="cpu", **kw)
-        return
     jb, x_in = data["jbatch"], jnp.asarray(data["x_in"].numpy())
+    batch = data["batch"]
+    if model_type == "rgcn":    # its 2 relations over the batch's blocks, input side first
+        jb = [[(h.neigh_local, h.mask)] * 2 for h in reversed(jb.hops)]
+        batch = [[(h.neigh_local, h.mask)] * 2 for h in reversed(batch.hops)]
     jm = jax_create_gnn_model(model_type, **kw)
     params = jax.jit(lambda z: jm.init(jax.random.PRNGKey(5), z, jb))(x_in)
     tree = jax.tree_util.tree_map(np.asarray, params)
@@ -240,14 +240,17 @@ def test_create_gnn_model_matches_jax_builder(data, model_type):
     assert model_from_flax(model_type.upper(), tree, pm) is pm
     assert len(list(pm.parameters())) == len(jax.tree_util.tree_leaves(tree))
     with torch.no_grad():
-        got = pm(data["x_in"], data["batch"])
+        got = pm(data["x_in"], batch)
     want = jax.jit(jm.apply)(params, x_in, jb)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     args = argparse.Namespace(model=model_type, hidden_dim=HIDDEN, num_layers=2, heads=4)
     again = model_from_args(args, OUT, F_IN, device="cpu")
     assert [p.shape for p in again.parameters()] == [p.shape for p in pm.parameters()]
     with pytest.raises(ValueError):
-        model_from_flax("rgcn", tree)
+        model_from_flax("mlp", tree)
+    if model_type != "rgcn":    # another model's tree is not an RGCN's
+        with pytest.raises(KeyError):
+            model_from_flax("rgcn", tree)
 
 
 def test_graph_structure_matches_jax(data):
