@@ -5,7 +5,8 @@ at the training paths' shapes and times it, then trains sampled GraphSAGE at
 the full width of ``bench.py``'s configuration, directly and through the
 ``GraphStore`` / ``FeatureStore`` / ``NeighborLoader`` path, link prediction
 through ``LinkNeighborLoader``, GIN through the loader, weighted, temporal
-and disjoint sampling through both loaders, R-GCN at ogbn-mag width (the
+and disjoint sampling through both loaders, the distributed loaders and
+trainer at world 1 over NCCL, R-GCN at ogbn-mag width (the
 typed block, the hetero loaders and a typed link batch), and full-batch
 GraphSAGE, GCN, GIN, R-GCN and 4-head GAT over a banded graph at
 ogbn-products scale.
@@ -186,6 +187,42 @@ Phases (any failure raises and exits non-zero):
    batches each) on the card and on the CPU with the same uniforms and
    negatives: samples, gathered rows and feature dicts bit-equal, f32 losses
    within 1e-4.
+5t. (run after 5o, before 5p: on phase 5's graph and 5b's stores) the
+   distributed loader at full width, world 1 over NCCL (``tcp://localhost``):
+   ``DistNeighborLoader`` (batch 1024, fanouts 10/10, shuffled; the graph
+   sharded by ``DistGraph.from_global_csr`` of the store's CSR, the features
+   and labels the store's tensors as one shard) and
+   ``train_dist.dist_train_step`` (GraphSAGE 128 -> 256 -> 47, bf16, Adam
+   1e-3), ``dedup`` on for 12 batches (2 warm-up), off for 6 (2): per batch
+   the loss (finite), ms, sampled edges, nodes and slots per level, the
+   collectives and host reads of the loader and of the step
+   (``store/dist_array.py::EXCHANGES``), peak memory; per batch 2 sampler
+   launches and 1 row-gather launch, no other kernel.  Then 3 batches stage
+   by stage (each hop's seed routing, the owner's sample and the return
+   routing; the whole sample, feature and label gathers, the step), and,
+   with ``dedup``, rows 2 and 1 at one batch's calls (the owner's received
+   rows at each hop; its f32 feature read): bit-equal to their plain
+   versions, timed, with their bounds.  Then one batch through the
+   rank-local mode (``put_local_edge_index`` of the whole COO, routed by
+   ``store/edge_exchange.py``; host seconds of each part): its shard and
+   batch equal to the global mode's bit for bit.
+5u. the distributed link loader at world 1: ``DistLinkNeighborLoader`` on
+   5h's 196,608 positives (binary, rejecting true edges, batch 1024,
+   deduplicated levels), GraphSAGE 128 -> 256 -> 16, ``train_link.
+   link_step``: 6 batches (2 warm-up), as 5t, and 3 more by stage
+   (negatives, hops, sample, gathers, ``link_step``).
+5v. checks: world-1 dist batches (``dedup`` on and off) against
+   ``NeighborLoader`` batches on the same draws (the one-device sampler's
+   uniforms at its valid targets, which at world 1 are the owner's rows),
+   three batches each: levels, blocks, edge ids, features and the valid
+   seeds' labels bit-equal (the dist pads' labels -1), and three Adam steps'
+   losses equal; the same for ``DistLinkNeighborLoader`` against
+   ``LinkNeighborLoader`` on the same negatives' candidates (seed layout,
+   labels, features, ``link_step`` losses); on phase 4's graph, uniform,
+   weighted and temporal ``DistNeighborLoader`` batches on the card (NCCL)
+   and on the CPU (a gloo group of one rank) with the same CPU draws,
+   bit-equal over three batches, and every temporal edge no newer than its
+   target's propagated time.
 6. full-batch data: the banded graph of ``train_full`` (2,449,029 nodes, 12
    in-band sources within +-256 and 1 uniform source per node: 31,837,377
    edges) and its ``FullBatchGraph`` (reorder "none", R = 256) with the
@@ -320,7 +357,8 @@ Phases (any failure raises and exits non-zero):
     attention forward and backward.
 17. the ``kernels`` summary line (rows 1-14, then the probe, which the
     main path launches no time; rows 1 and 2 count the launches of phases
-    5, 5b, 5e, 5f, 5h, 5j, 5l-5n and 5q-5s, split by path (row 1 also timed at
+    5, 5b, 5e, 5f, 5h, 5j, 5l-5n, 5q-5s and 5t-5u, split by path (the dist
+    paths' also timed at a dist batch's calls, beside their ``gap_ms_dist``) (row 1 also timed at
     5e's two shapes, at 5h's and at each hetero path's; row 2 also at 5h's
     hops and at each hetero path's hop calls), row 4 those of 9b and 9c
     beside GIN's 'sum' calls and R-GCN's relation calls,
@@ -1661,6 +1699,469 @@ def sampling_variants(dev, emit, graph, small_cpu, counters, gs):
         emit({"phase": "small_input_agreement_variants", "variant": variant, "batches": 3,
               "equal": True, "max_loss_abs_diff": loss_diff, "tolerance": 1e-4})
     return launches
+
+
+DIST_STAGES = ("route_to_owners", "sample_owned", "route_back")
+
+
+class _RecordDraws:
+    """A one-device loader's sampler whose uniforms come from a CPU generator
+    (seeded), kept with the batch's levels for :class:`_FrameDraws`."""
+
+    def __init__(self, inner, seed):
+        import torch
+
+        self.inner, self.fanouts = inner, inner.fanouts
+        self.gen = torch.Generator().manual_seed(seed)
+        self.last = None
+
+    def sample(self, seeds, node_times=None, generator=None):
+        import torch
+
+        caps = self.inner.level_caps(seeds.shape[0])
+        u = [torch.rand((caps[h], k), generator=self.gen).to(seeds.device)
+             for h, k in enumerate(self.fanouts)]
+        batch = self.inner.sample(seeds, node_times, u=u)
+        self.last = (u, batch.levels)
+        return batch
+
+
+class _FrameDraws:
+    """A world-1 dist sampler taking the draws of the one-device batch just
+    recorded: at world 1 a hop's frame is its level's valid targets, in
+    order."""
+
+    def __init__(self, inner, record):
+        self.inner, self.record, self.fanouts = inner, record, inner.fanouts
+
+    def sample(self, seeds, node_times=None, generator=None):
+        u, levels = self.record.last
+        return self.inner.sample(seeds, node_times,
+                                 u=[uh[lv >= 0] for uh, lv in zip(u, levels)])
+
+
+def _cpu_draws(seed):
+    """A stand-in for ``dist_sampler.sample_owned`` that draws each hop's
+    uniforms (or key words) from one CPU generator, so that the card's and
+    the CPU's samplers take the same draws."""
+    import torch
+
+    from cugraph_gnn_tpu_torch.sampler import dist_sampler as DS
+
+    gen, inner = torch.Generator().manual_seed(seed), DS.sample_owned
+
+    def sample_owned(graph, local, fanout, *, req_time=None, **kw):
+        if graph.weights is not None or (graph.times is not None and req_time is not None):
+            kw["hash_key"] = torch.randint(0, 1 << 32, (2,), generator=gen)
+        else:
+            kw["u"] = torch.rand((local.shape[0], fanout), generator=gen).to(local.device)
+        return inner(graph, local, fanout, req_time=req_time, **kw)
+
+    return sample_owned
+
+
+def _same_batches(a, b, fields) -> bool:
+    """Two batches' sample (levels, counts, hops) and ``fields`` bit for bit
+    equal (float tensors by their bits), on the host."""
+    import torch
+
+    def pairs():
+        yield from zip(a.sample.levels + a.sample.level_counts,
+                       b.sample.levels + b.sample.level_counts)
+        for ha, hb in zip(a.sample.hops, b.sample.hops):
+            yield from zip(ha[:3], hb[:3])
+        for f in fields:
+            yield getattr(a, f), getattr(b, f)
+
+    return all(_bits_equal(x.cpu(), y.cpu()) if x.is_floating_point()
+               else torch.equal(x.cpu(), y.cpu()) for x, y in pairs())
+
+
+def dist_paths(dev, emit, graph, small_cpu, counters, cuda_ms, hbm, gs):
+    """Phases 5t-5v (see the module docstring).  Returns each kernel's
+    launches on the dist loader (5t) and dist link (5u) paths, and rows 1
+    and 2 timed at a dist batch's shapes."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cugraph_gnn_tpu_torch import train as T
+    from cugraph_gnn_tpu_torch import train_dist as TD
+    from cugraph_gnn_tpu_torch import train_link as TL
+    from cugraph_gnn_tpu_torch.data import FeatureStore, GraphStore
+    from cugraph_gnn_tpu_torch.loader import (
+        DistLinkNeighborLoader,
+        DistNeighborLoader,
+        LinkNeighborLoader,
+        NeighborLoader,
+    )
+    from cugraph_gnn_tpu_torch.models.zoo import GraphSAGE
+    from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import gather_rows, gather_rows_ref
+    from cugraph_gnn_tpu_torch.ops.kernels.sample_kernel import (
+        fused_uniform_sample,
+        fused_uniform_sample_ref,
+    )
+    from cugraph_gnn_tpu_torch.parallel.mesh import create_store_mesh
+    from cugraph_gnn_tpu_torch.sampler import dist_sampler as DS
+    from cugraph_gnn_tpu_torch.store import dist_array as DA
+    from cugraph_gnn_tpu_torch.utils import distributed as D
+
+    names = [fn.__name__ for fn in counters]
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def check_launches(what, batches):
+        got = {fn.__name__: fn.launches for fn in counters}
+        want = {**{n: 0 for n in names}, "gather_rows": batches,
+                "fused_uniform_sample": 2 * batches}
+        if got != want:
+            raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
+        return got
+
+    def exchanges():
+        return dict(DA.EXCHANGES)
+
+    def delta(before):
+        return {k: DA.EXCHANGES[k] - before[k] for k in before}
+
+    def sage(out=T.CLASSES):
+        torch.manual_seed(0)
+        model = GraphSAGE(T.FEAT_DIM, T.HIDDEN, out, num_layers=len(T.FANOUTS),
+                          dtype=torch.bfloat16, device=dev)
+        return model, torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    stages = _Stages()
+
+    def watch(loader):
+        """Time each hop's three parts (CUDA events and host clocks between
+        synchronisations), the sample, the feature and label gathers; undo
+        with the returned function."""
+        calls = [0]
+        saved = {name: getattr(DS, name) for name in DIST_STAGES}
+
+        def part(name):
+            def run(*a, **kw):
+                hop = calls[0] // 3 % len(T.FANOUTS)
+                calls[0] += 1
+                return stages.run(f"hop{hop}_{name}", saved[name], *a, **kw)
+            return run
+
+        for name in DIST_STAGES:
+            setattr(DS, name, part(name))
+        stages.wrap(loader.sampler, "sample", "sample")
+        gather = loader.gather
+        loader.gather = lambda arr, ids, fill=0, read=None: stages.run(
+            "feature_gather" if read is not None else "label_gather", gather, arr, ids, fill,
+            read)
+
+        def undo():
+            for name, fn in saved.items():
+                setattr(DS, name, fn)
+            del loader.sampler.sample, loader.gather
+        return undo
+
+    mesh = D.init(init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    launches, rows = {}, {}
+    try:
+        _require_nccl(mesh)
+        cpu_mesh = create_store_mesh("cpu", group=dist.new_group([0], backend="gloo"))
+        fs = FeatureStore(device=dev)
+        fs["x"] = graph.feats
+        fs["y"] = graph.labels
+
+        # -- 5t. the distributed loader at full width, world 1 over NCCL --------
+        model, opt = sage()
+        launches["dist_loader"] = {n: 0 for n in names}
+        for dedup, batches, warmup in ((True, 12, 2), (False, 6, 2)):
+            t0 = time.perf_counter()
+            loader = DistNeighborLoader((fs, gs), T.FANOUTS, mesh, batch_size=T.BATCH,
+                                        shuffle=True, dedup=dedup)
+            torch.cuda.synchronize()
+            emit({"phase": "dist_loader_setup", "dedup": dedup,
+                  "setup_s": time.perf_counter() - t0,
+                  "book_offsets": [int(o) for o in loader.graph.book.offsets],
+                  "shard_edges": int(loader.graph.indices.numel())})
+            it = iter(loader)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            ms = []
+            for i in range(batches):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                before = exchanges()
+                batch = next(it)
+                in_loader = delta(before)
+                loss = TD.dist_train_step(model, opt, batch, mesh)
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t1) * 1e3
+                if i >= warmup:
+                    ms.append(dt)
+                loss = float(loss)
+                if not math.isfinite(loss):
+                    raise AssertionError(f"non-finite dist loader loss {loss} (dedup={dedup})")
+                emit({"phase": "dist_loader_train", "dedup": dedup, "batch": i,
+                      "warmup": i < warmup, "loss": loss, "ms": dt,
+                      "sampled_edges": int(sum(hop.mask.sum() for hop in batch.sample.hops)),
+                      "nodes_per_level": [int(c) for c in batch.sample.level_counts],
+                      "slots_per_level": [int(lv.numel()) for lv in batch.sample.levels],
+                      "loader_exchanges": in_loader,
+                      "step_exchanges": {k: v - in_loader[k] for k, v in delta(before).items()},
+                      "max_memory_allocated": torch.cuda.max_memory_allocated()})
+            got = check_launches(f"dist loader (dedup={dedup})", batches)
+            for k, v in got.items():
+                launches["dist_loader"][k] += v
+            emit({"phase": "dist_loader_launch_counts", "dedup": dedup, "batches": batches,
+                  "launches": got, "batches_timed": len(ms), "ms_per_batch": sum(ms) / len(ms),
+                  "ms_min": min(ms), "ms_max": max(ms)})
+            # three more batches stage by stage
+            undo = watch(loader)
+            try:
+                for _ in range(3):
+                    batch = stages.run("batch", next, it)
+                    stages.run("model", TD.dist_train_step, model, opt, batch, mesh)
+            finally:
+                undo()
+            emit({"phase": "dist_loader_stages", "dedup": dedup, "batches": 3,
+                  **stages.take()})
+            if dedup:
+                # rows 2 and 1 at this batch's calls: the owner's two hops
+                # (its received rows) and its feature read
+                recorded, inner = [], DS.sample_owned
+                DS.sample_owned = lambda g, local, k, **kw: (
+                    recorded.append((g, local, k)), inner(g, local, k, **kw))[1]
+                try:
+                    batch = next(it)
+                finally:
+                    DS.sample_owned = inner
+                g_u = torch.Generator(device=dev).manual_seed(4)
+                rows["sampler"] = []
+                for h, (g, local, kf) in enumerate(recorded):
+                    u = torch.rand((local.numel(), kf), generator=g_u, device=dev)
+                    got_s = fused_uniform_sample(g.indptr, g.indices, local, u, kf)
+                    want_s = fused_uniform_sample_ref(g.indptr, g.indices, local, u, kf)
+                    if not all(torch.equal(a, b) for a, b in zip(got_s, want_s)):
+                        raise AssertionError(f"sampler at the dist batch's hop {h} differs "
+                                             f"from the plain version")
+                    nbytes, floor_bytes = _sampler_bytes(g.indptr, local, kf, want_s)
+                    row = {"kernel": "uniform_sample", "path": "dist_loader", "hop": h,
+                           "seeds": local.numel(), "k": kf,
+                           "ms": cuda_ms(lambda: fused_uniform_sample(
+                               g.indptr, g.indices, local, u, kf)),
+                           "plain_ms": cuda_ms(lambda: fused_uniform_sample_ref(
+                               g.indptr, g.indices, local, u, kf), iters=5),
+                           "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3,
+                           "sector_floor_ms": floor_bytes / hbm * 1e3, "bit_equal": True}
+                    emit(row)
+                    rows["sampler"].append(row)
+                ids = batch.sample.input_nodes
+                ids = ids[ids >= 0]                # the owner's read: its received ids
+                table = loader.features.data
+                got_g = gather_rows(table, ids)
+                if not torch.equal(got_g.view(torch.int32),
+                                   gather_rows_ref(table, ids).view(torch.int32)):
+                    raise AssertionError("row gather at the dist batch differs from the "
+                                         "plain version")
+                f = table.shape[1]
+                uniq = int(torch.unique(ids).numel())
+                nbytes = 4 * ids.numel() + 4 * f * uniq + 4 * f * ids.numel()
+                rows["gather"] = {
+                    "kernel": "gather_rows", "path": "dist_loader", "ids": ids.numel(),
+                    "distinct": uniq, "out_dtype": "float32",
+                    "ms": cuda_ms(lambda: gather_rows(table, ids)),
+                    "plain_ms": cuda_ms(lambda: gather_rows_ref(table, ids)),
+                    "library_ms": cuda_ms(lambda: torch.index_select(table, 0, ids)),
+                    "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3, "bit_equal": True}
+                emit(rows["gather"])
+            del loader, it, batch
+
+        # what one exchange of the path costs at world 1 on this card: the
+        # sizes exchange with its host read, a 1,024-id and a 113,000-id
+        # all_to_all_single, an all_reduce of the level counts
+        counts = torch.ones(1, dtype=torch.int64, device=dev)
+
+        def sizes_and_read():
+            recv = torch.empty_like(counts)
+            dist.all_to_all_single(recv, counts, group=mesh.group)
+            return recv.tolist()
+
+        costs = {"sizes_exchange_and_host_read": sizes_and_read}
+        for n_ids in (1024, 113_000):
+            ids_buf = torch.zeros(n_ids, dtype=torch.int32, device=dev)
+            out_buf = torch.empty_like(ids_buf)
+            costs[f"all_to_all_single_{n_ids}_ids"] = (
+                lambda o=out_buf, i=ids_buf: dist.all_to_all_single(
+                    o, i, [i.numel()], [i.numel()], group=mesh.group))
+        level_counts = torch.ones(3, dtype=torch.int32, device=dev)
+        costs["all_reduce_3_counts"] = lambda: dist.all_reduce(level_counts, group=mesh.group)
+        emit({"phase": "dist_collective_costs", "world": 1, "backend": mesh.backend,
+              "ms": {k: cuda_ms(fn) for k, fn in costs.items()}})
+
+        # one batch through the rank-local mode: this rank's slice (at world 1
+        # the whole COO) routed to its owner, against the global mode's first
+        # batch (the same seed: the same draws)
+        t0 = time.perf_counter()
+        n = graph.num_nodes
+        gs_local = GraphStore(device=dev)
+        gs_local.put_local_edge_index(
+            (graph.indices.cpu().numpy(),
+             np.repeat(np.arange(n, dtype=np.int32), np.diff(graph.indptr.cpu().numpy()))),
+            ("node", "to", "node"), num_nodes=(n, n))
+        t1 = time.perf_counter()
+        local = DistNeighborLoader((fs, gs_local), T.FANOUTS, mesh, batch_size=T.BATCH,
+                                   shuffle=True, dedup=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        glob = DistNeighborLoader((fs, gs), T.FANOUTS, mesh, batch_size=T.BATCH,
+                                  shuffle=True, dedup=True)
+        same_graph = all(torch.equal(a, b) for a, b in (
+            (local.graph.indptr, glob.graph.indptr), (local.graph.indices, glob.graph.indices)))
+        reset()
+        a, b = next(iter(local)), next(iter(glob))
+        if not (same_graph and _same_batches(a, b, ("seeds", "x", "y"))):
+            raise AssertionError(f"rank-local batch differs from the global mode's "
+                                 f"(shards equal: {same_graph})")
+        launches["dist_local"] = check_launches("rank-local dist batch", 2)
+        emit({"phase": "dist_rank_local", "put_local_edge_index_s": t1 - t0,
+              "route_and_build_s": t2 - t1, "shard_equal": True, "batch_equal": True,
+              "nodes_per_level": [int(c) for c in a.sample.level_counts]})
+        del gs_local, local, glob, a, b
+
+        # -- 5u. the distributed link loader at world 1 --------------------------
+        _, eli = _link_positives(graph, dev)
+        link_kw = dict(edge_label_index=eli, neg_sampling="binary", batch_size=T.BATCH,
+                       shuffle=True, reject_true_edges=True, dedup=True)
+        loader = DistLinkNeighborLoader((fs, gs), T.FANOUTS, mesh, **link_kw)
+        model, opt = sage(LINK_OUT)
+        it = iter(loader)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        ms = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            before = exchanges()
+            batch = next(it)
+            in_loader = delta(before)
+            loss = float(TL.link_step(model, opt, batch))
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t1) * 1e3
+            if i >= 2:
+                ms.append(dt)
+            if not math.isfinite(loss):
+                raise AssertionError(f"non-finite dist link loss {loss} at batch {i}")
+            emit({"phase": "dist_link_train", "batch": i, "warmup": i < 2, "loss": loss,
+                  "ms": dt, "nodes_per_level": [int(c) for c in batch.sample.level_counts],
+                  "slots_per_level": [int(lv.numel()) for lv in batch.sample.levels],
+                  "loader_exchanges": in_loader,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        launches["dist_link"] = check_launches("dist link path", 6)
+        stages.wrap(loader, "_negatives", "negatives")
+        undo = watch(loader._nl)
+        try:
+            for _ in range(3):
+                batch = stages.run("batch", next, it)
+                stages.run("link_step", TL.link_step, model, opt, batch)
+        finally:
+            undo()
+            del loader._negatives
+        emit({"phase": "dist_link_stages", "batches": 3, "launches": launches["dist_link"],
+              "batches_timed": len(ms), "ms_per_batch": sum(ms) / len(ms),
+              "ms_min": min(ms), "ms_max": max(ms), **stages.take()})
+        del loader, it, batch, model, opt
+
+        # -- 5v. checks ------------------------------------------------------------
+        # world-1 dist batches against one-device batches on the same draws,
+        # and three Adam steps from the same weights: bit for bit
+        for dedup in (True, False):
+            single = NeighborLoader((fs, gs), T.FANOUTS, batch_size=T.BATCH, shuffle=True,
+                                    dedup=dedup)
+            dl = DistNeighborLoader((fs, gs), T.FANOUTS, mesh, batch_size=T.BATCH,
+                                    shuffle=True, dedup=dedup)
+            single.sampler = _RecordDraws(single.sampler, 21)
+            dl.sampler = _FrameDraws(dl.sampler, single.sampler)
+            (m1, o1), (m2, o2) = sage(), sage()
+            for i, bs, bd in zip(range(3), single, dl):
+                valid = bs.seeds >= 0
+                if not (_same_batches(bs, bd, ("seeds", "x"))
+                        and torch.equal(bs.y[valid], bd.y[valid])
+                        and bool((bd.y[~valid] == -1).all())):
+                    raise AssertionError(f"world-1 dist batch {i} (dedup={dedup}) differs "
+                                         f"from the one-device batch")
+                l1 = float(_loader_step(m1, o1, bs))
+                l2 = float(TD.dist_train_step(m2, o2, bd, mesh))
+                if l1 != l2:
+                    raise AssertionError(f"world-1 dist step {i} (dedup={dedup}): loss {l2}, "
+                                         f"one device {l1}")
+            emit({"phase": "dist_check_world1", "dedup": dedup, "batches": 3,
+                  "batches_equal": True, "losses_equal": True, "last_loss": l1})
+        # the link loaders on the same negatives' candidates and draws
+        pair = []
+        for cls, extra in ((LinkNeighborLoader, {}), (DistLinkNeighborLoader, {"mesh": mesh})):
+            kw = {k: v for k, v in link_kw.items() if k not in ("edge_label_index", "dedup")}
+            if cls is DistLinkNeighborLoader:
+                kw["dedup"] = True
+            ld = cls((fs, gs), T.FANOUTS, edge_label_index=eli, **kw, **extra)
+            _link_negatives(ld, draws_from=22)
+            pair.append(ld)
+        pair[0].sampler = _RecordDraws(pair[0].sampler, 23)
+        pair[1].sampler = _FrameDraws(pair[1].sampler, pair[0].sampler)
+        (m1, o1), (m2, o2) = sage(LINK_OUT), sage(LINK_OUT)
+        for i, bs, bd in zip(range(3), *pair):
+            if not _same_batches(bs, bd, ("seeds", "x", "edge_label_index", "edge_label")):
+                raise AssertionError(f"world-1 dist link batch {i} differs from the "
+                                     f"one-device batch")
+            l1, l2 = float(TL.link_step(m1, o1, bs)), float(TL.link_step(m2, o2, bd))
+            if l1 != l2:
+                raise AssertionError(f"world-1 dist link step {i}: loss {l2}, one device {l1}")
+        emit({"phase": "dist_check_world1_link", "batches": 3, "batches_equal": True,
+              "losses_equal": True})
+        del pair, m1, m2, o1, o2
+
+        # small inputs: the card (NCCL) against the CPU (gloo), uniform,
+        # weighted and temporal, the same CPU draws; temporal edges no newer
+        # than their targets
+        sm = small_cpu
+        rows_s = np.repeat(np.arange(sm.num_nodes), np.diff(sm.indptr.numpy()))
+        rng = np.random.default_rng(24)
+        w_s = rng.uniform(0.05, 1.0, len(rows_s)).astype(np.float32)
+        t_s = rng.integers(0, T_RANGE, len(rows_s)).astype(np.int32)
+        it_s = rng.integers(0, T_RANGE, sm.num_nodes)
+        checked = 0
+        for variant, vkw in (("uniform", {}), ("weighted", dict(weight_attr="w")),
+                             ("temporal", dict(time_attr="t", input_time=it_s))):
+            sides = {}
+            for where, m in (("cpu", cpu_mesh), ("card", mesh)):
+                gs_s, fs_s = GraphStore(device=m.device), FeatureStore(device=m.device)
+                gs_s.put_edge_index((sm.indices.numpy(), rows_s), ("n", "to", "n"),
+                                    num_nodes=(sm.num_nodes, sm.num_nodes))
+                fs_s["x"], fs_s["y"], fs_s["w"], fs_s["t"] = sm.feats, sm.labels, w_s, t_s
+                ld = DistNeighborLoader((fs_s, gs_s), (10, 10), m, batch_size=64,
+                                        shuffle=True, dedup=True, **vkw)
+                inner, DS.sample_owned = DS.sample_owned, _cpu_draws(25)
+                try:
+                    sides[where] = [b for _, b in zip(range(3), ld)]
+                finally:
+                    DS.sample_owned = inner
+                if variant == "temporal":
+                    csr_t = gs_s.finalize().edge_attr_to_csr_order(("n", "to", "n"), t_s)
+                    for b in sides[where]:
+                        iid = b.input_id.cpu().numpy()
+                        st = torch.as_tensor(np.where(iid >= 0, it_s[np.maximum(iid, 0)], 0),
+                                             device=m.device)
+                        checked += _check_times(b.sample, st, csr_t)
+            if not all(_same_batches(a, b, ("seeds", "x", "y"))
+                       for a, b in zip(sides["cpu"], sides["card"])):
+                raise AssertionError(f"small {variant} dist loader: card and CPU differ")
+            emit({"phase": "small_input_agreement_dist", "variant": variant, "batches": 3,
+                  "equal": True})
+        emit({"phase": "dist_temporal_check", "edges_checked": checked})
+    finally:
+        D.finalize()
+    return launches, rows
 
 
 HETERO_LINK_EDGES = 196_608   # author-writes-paper positives of phase 5s
@@ -4241,6 +4742,7 @@ def main() -> None:
     link_launches, link_rows = link_paths(dev, emit, graph, small_cpu, counters, cuda_ms,
                                           hbm, gs)
     variant_launches = sampling_variants(dev, emit, graph, small_cpu, counters, gs)
+    dl_launches, dl_rows = dist_paths(dev, emit, graph, small_cpu, counters, cuda_ms, hbm, gs)
     # the link path's training, triplet and evaluation batches; GIN's loader
     link_total = {name: sum(link_launches[k][name] for k in ("binary", "triplet", "eval"))
                   for name in ("gather_rows", "fused_uniform_sample")}
@@ -4249,7 +4751,8 @@ def main() -> None:
     for name in ("gather_rows", "fused_uniform_sample"):
         sampled_launches[name] += loader_launches[name] + sum(
             v[name] for v in emb_launches.values()) + link_total[name] + gin_loader[name] + sum(
-            v[name] for v in variant_launches.values())
+            v[name] for v in variant_launches.values()) + sum(
+            v[name] for v in dl_launches.values())
     del graph, gs
     torch.cuda.empty_cache()
     hetero_launches, hetero_rows = hetero_paths(dev, emit, counters, cuda_ms, hbm)
@@ -4333,7 +4836,19 @@ def main() -> None:
               for k, r in HETERO_GATHER_ROWS.items()),
         **{f"launches_hetero_{k}": v["gather_rows"] for k, v in hetero_launches.items()},
         **{f"{k}_{r}": hetero_rows[r][k] for r in HETERO_GATHER_ROWS.values()
-           for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        # the dist paths (5t-5u): the owner's f32 read at a dist batch's
+        # level (the rank-local batches too), the dist link batches at 5h's
+        # link level
+        **{f"launches_{k}": v["gather_rows"] for k, v in dl_launches.items()},
+        **{f"{k}_dist_loader": dl_rows["gather"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms", "ids")},
+        "gap_ms_dist": (dl_launches["dist_loader"]["gather_rows"]
+                        + dl_launches["dist_local"]["gather_rows"])
+        * (dl_rows["gather"]["ms"] - dl_rows["gather"]["bound_ms"])
+        + dl_launches["dist_link"]["gather_rows"] * (link_rows["gather"]["ms"]
+                                                       - link_rows["gather"]["bound_ms"])})
+    kernels[-1]["gap_ms"] += kernels[-1]["gap_ms_dist"]
     # the sampler's numbers are one block's two launches (hop 0 + hop 1); its
     # gap prices the block's launches at the block's hops and the loader's
     # at a loader batch's hops
@@ -4376,7 +4891,19 @@ def main() -> None:
         **{f"ms_per_call_{r}": [x["ms"] for x in hetero_rows[r]]
            for r in HETERO_SAMPLER_ROWS.values()},
         **{f"{k}_{r}": sum(x[k] for x in hetero_rows[r]) for r in HETERO_SAMPLER_ROWS.values()
-           for k in ("plain_ms", "bound_ms", "sector_floor_ms")}})
+           for k in ("plain_ms", "bound_ms", "sector_floor_ms")},
+        # the dist paths (5t-5u): the owner's hops of a dist batch (the
+        # rank-local batches too), the dist link batches at 5h's hops
+        **{f"launches_{k}": v["fused_uniform_sample"] for k, v in dl_launches.items()},
+        "ms_per_hop_dist_loader": [r["ms"] for r in dl_rows["sampler"]],
+        "seeds_per_hop_dist_loader": [r["seeds"] for r in dl_rows["sampler"]],
+        **{f"{k}_dist_loader": sum(r[k] for r in dl_rows["sampler"])
+           for k in ("plain_ms", "bound_ms", "sector_floor_ms")},
+        "gap_ms_dist": sampler_gap(dl_launches["dist_loader"]["fused_uniform_sample"]
+                                   + dl_launches["dist_local"]["fused_uniform_sample"],
+                                   dl_rows["sampler"])
+        + sampler_gap(dl_launches["dist_link"]["fused_uniform_sample"], link_rows["sampler"])})
+    kernels[-1]["gap_ms"] += kernels[-1]["gap_ms_dist"]
     kernels += fb_rows + gat_rows + dist_rows + [probe_row]
     emit({"phase": "wall", "seconds": time.perf_counter() - wall0})
     print(smi)

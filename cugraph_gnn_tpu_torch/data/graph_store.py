@@ -10,8 +10,11 @@ is built on the host by the repository's counting-sort builder
 (``_native.build_csr``) and put on the store's device.  The port's sampler
 reads neighbor ids directly, so ``indices`` carries no line padding.
 
-Rank-local edge shards (``put_local_edge_index``) come with the distributed
-loaders (ROADMAP Queue 1 item 6).
+``put_local_edge_index`` takes this rank's slice of an edge type's edges
+instead (the logical global COO is the ranks' slices in rank order).  Such a
+store feeds ``loader.DistNeighborLoader``, which routes the slices to their
+owners (``store/edge_exchange.py``); ``finalize`` refuses it, since no rank
+holds the global COO.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ class GraphStore:
 
     def __init__(self, *, device=None):
         self._edges: Dict[EdgeType, Tuple[np.ndarray, np.ndarray]] = {}
+        self._local: set = set()      # edge types put as this rank's slice
         self._num_nodes: Dict[str, int] = {}
         self._graph: Optional[SamplingGraph] = None
         self.device = resolve_device(device)
@@ -63,19 +67,45 @@ class GraphStore:
         self._num_nodes[st] = max(self._num_nodes.get(st, 0), int(num_nodes[0]))
         self._num_nodes[dt] = max(self._num_nodes.get(dt, 0), int(num_nodes[1]))
         self._edges[edge_type] = (src, dst)
+        self._local.discard(edge_type)
         self._graph = None
 
     def put_local_edge_index(self, edge_index, edge_type: EdgeType, layout: str = "coo",
                              num_nodes: Optional[Tuple[int, int]] = None):
-        raise NotImplementedError(
-            "rank-local edge shards come with the distributed loaders "
-            "(ROADMAP Queue 1 item 6)")
+        """This rank's slice ``edge_index = (src, dst)`` of ``edge_type``'s
+        edges (every rank of the default process group passes its own).
+        ``num_nodes`` must be the global (source, destination) node counts;
+        when omitted they are agreed as the largest id + 1 over the ranks
+        (one all-reduce, max, over the default process group on the store's
+        device: every rank calls it together)."""
+        if layout != "coo":
+            raise ValueError("only layout='coo' is supported")
+        src, dst = _host(edge_index[0]), _host(edge_index[1])
+        st, _, dt = edge_type
+        if num_nodes is None:
+            from cugraph_gnn_tpu_torch.parallel.mesh import create_store_mesh
+            from cugraph_gnn_tpu_torch.store.dist_array import all_reduce_np
+
+            num_nodes = tuple(int(v) for v in all_reduce_np(
+                [int(src.max(initial=-1)) + 1, int(dst.max(initial=-1)) + 1],
+                create_store_mesh(self.device), "max"))
+        self._num_nodes[st] = max(self._num_nodes.get(st, 0), int(num_nodes[0]))
+        self._num_nodes[dt] = max(self._num_nodes.get(dt, 0), int(num_nodes[1]))
+        self._edges[edge_type] = (src, dst)
+        self._local.add(edge_type)
+        self._graph = None
+
+    @property
+    def has_local_edges(self) -> bool:
+        """Whether any edge type holds this rank's slice only."""
+        return bool(self._local)
 
     def get_edge_index(self, edge_type: EdgeType, layout: str = "coo"):
         return self._edges[edge_type]
 
     def remove_edge_index(self, edge_type: EdgeType):
         self._edges.pop(edge_type, None)
+        self._local.discard(edge_type)
         self._graph = None
 
     def get_all_edge_attrs(self):
@@ -111,7 +141,13 @@ class GraphStore:
         raise KeyError(node_type)
 
     def finalize(self) -> "SamplingGraph":
-        """The reversed-CSR sampling graph, built at the first call."""
+        """The reversed-CSR sampling graph, built at the first call.  Raises
+        for a store of rank-local slices, which no one rank can build."""
+        if self.has_local_edges:
+            raise ValueError("this store holds rank-local edge slices "
+                             "(put_local_edge_index); a one-device sampling graph needs "
+                             "the global COO: use loader.DistNeighborLoader, which "
+                             "routes the slices to their owners")
         if self._graph is None:
             self._graph = SamplingGraph.build(self)
         return self._graph

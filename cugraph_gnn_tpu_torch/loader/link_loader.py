@@ -72,6 +72,22 @@ def draw_negatives(ps, n_neg: int, num_src: int, num_dst: int, neg: NegativeSamp
                                  draws=draws, generator=generator, device=device)
 
 
+def seed_layout_times(edge_label_time, sel, batch_size: int, neg, n_neg: int) -> np.ndarray:
+    """The seed layout's times for the positives ``sel``: each endpoint its
+    edge's time, binary negatives the batch's valid times cycled, triplet
+    negatives their positive's, pads the batch's largest."""
+    bt = edge_label_time[sel]
+    t = np.full((batch_size,), bt.max() if len(bt) else 0, bt.dtype)
+    t[:len(sel)] = bt
+    if neg is not None and neg.mode == "triplet":
+        neg_t = np.repeat(t, max(int(neg.amount), 1))[:n_neg]
+    elif len(bt):
+        neg_t = np.resize(bt, n_neg)
+    else:
+        neg_t = np.zeros((n_neg,), t.dtype)
+    return np.concatenate([t, t, neg_t, neg_t])
+
+
 @dataclasses.dataclass
 class LinkBatch:
     """One link-prediction batch."""
@@ -151,19 +167,7 @@ class LinkLoader:
                               device=self.device)
 
     def _seed_times(self, sel, n_neg: int) -> np.ndarray:
-        """The seed layout's times for the positives ``sel``: each endpoint
-        its edge's time, binary negatives the batch's valid times cycled,
-        triplet negatives their positive's, pads the batch's largest."""
-        bt = self.edge_label_time[sel]
-        t = np.full((self.batch_size,), bt.max() if len(bt) else 0, bt.dtype)
-        t[:len(sel)] = bt
-        if self.neg is not None and self.neg.mode == "triplet":
-            neg_t = np.repeat(t, max(int(self.neg.amount), 1))[:n_neg]
-        elif len(bt):
-            neg_t = np.resize(bt, n_neg)
-        else:
-            neg_t = np.zeros((n_neg,), t.dtype)
-        return np.concatenate([t, t, neg_t, neg_t])
+        return seed_layout_times(self.edge_label_time, sel, self.batch_size, self.neg, n_neg)
 
     def _epoch_order(self) -> np.ndarray:
         order = np.arange(len(self.pos_src))

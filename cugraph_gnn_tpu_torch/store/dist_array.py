@@ -14,9 +14,12 @@ two small tensors back to the host.  Only the actual rows cross (the TPU's
 ragged all-to-all semantics; the JAX package's CPU path pads every peer's
 slot to the whole batch).  Ids of -1 are not sent: their rows are ``fill``
 (gather) or dropped (scatter).  :class:`DistArray` holds one row-sharded
-array and runs these routines on it.  The bounded multi-round gather
-(``recv_cap``) and ``DistArray.from_file`` are not ported yet (ROADMAP
-Queue 1 items 6 and 7).
+array and runs these routines on it.  ``recv_cap`` bounds the gather's
+request buffer by a multi-round exchange (:func:`dist_gather_recv_cap`
+picks it: none up to world 8, as the JAX package does where its exchanges
+are actual-size).  ``EXCHANGES`` counts the collectives and host reads that
+these routines make.  ``DistArray.from_file`` is not ported yet (ROADMAP
+Queue 1 item 6, second half).
 
 Sums of rows keyed by ids (the scatter's "add", and the sharded SpMM's and
 attention's fallback edges in ``ops/dist_full_batch.py``) take a fixed
@@ -43,6 +46,40 @@ import torch.distributed as dist
 from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import PaddedCSR, csr_spmm
 from cugraph_gnn_tpu_torch.parallel.mesh import Mesh
 from cugraph_gnn_tpu_torch.store.partition import PartitionBook
+
+
+# collectives issued and host reads made by this module's exchanges (read
+# and reset by callers that report them)
+EXCHANGES = {"collectives": 0, "host_reads": 0}
+
+
+def _count(collectives: int = 0, host_reads: int = 0) -> None:
+    EXCHANGES["collectives"] += collectives
+    EXCHANGES["host_reads"] += host_reads
+
+
+def mesh_axis_size(mesh: Mesh, axis=None) -> int:
+    """The number of ranks along the mesh's axis (the port's meshes have
+    one).  A tuple of axes names JAX's hierarchical (node, device) mesh,
+    which is not ported yet (ROADMAP Queue 1 item 6, second half)."""
+    if isinstance(axis, (tuple, list)):
+        raise NotImplementedError("the hierarchical (node, device) mesh comes with "
+                                  "store/hierarchical.py (ROADMAP Queue 1 item 6, "
+                                  "second half)")
+    if axis is not None and axis != mesh.axis:
+        raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
+    return mesh.world
+
+
+def all_reduce_np(values, mesh: Mesh, op: str = "sum") -> np.ndarray:
+    """Elementwise ``op`` ("sum" or "max") of an int64 host array over the
+    mesh's ranks, back on the host (one collective, one host read); every
+    rank calls it together."""
+    t = torch.as_tensor(np.asarray(values, dtype=np.int64), device=mesh.device).clone()
+    dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
+                    group=mesh.group)
+    _count(collectives=1, host_reads=1)
+    return t.cpu().numpy()
 
 
 def put_global(host_array, mesh: Mesh) -> torch.Tensor:
@@ -104,6 +141,7 @@ def alltoallv(data: torch.Tensor, send_sizes: Sequence[int], recv_sizes: Sequenc
     out = data.new_empty((int(sum(recv_sizes)),) + tuple(data.shape[1:]))
     dist.all_to_all_single(out, data.contiguous(), list(recv_sizes), list(send_sizes),
                            group=mesh.group)
+    _count(collectives=1)
     return out
 
 
@@ -112,12 +150,20 @@ def _ragged_a2a(data: torch.Tensor, counts: torch.Tensor, mesh: Mesh):
     with the receive sizes (the peers' counts for this rank, one element
     from each) exchanged first and read to the host together with the send
     sizes.  Returns (received rows, send_sizes, recv_sizes)."""
+    send_sizes, recv_sizes = _exchange_sizes(counts, mesh)
+    out = alltoallv(data[:sum(send_sizes)], send_sizes, recv_sizes, mesh)
+    return out, send_sizes, recv_sizes
+
+
+def _exchange_sizes(counts: torch.Tensor, mesh: Mesh):
+    """(this rank's counts for each peer, each peer's count for this rank),
+    both as host lists: one one-element-per-peer exchange, one host read."""
     counts = counts.to(device=mesh.device, dtype=torch.int64)
     recv = torch.empty_like(counts)
     dist.all_to_all_single(recv, counts, group=mesh.group)
+    _count(collectives=1, host_reads=1)
     send_sizes, recv_sizes = torch.stack([counts, recv]).tolist()
-    out = alltoallv(data[:sum(send_sizes)], send_sizes, recv_sizes, mesh)
-    return out, send_sizes, recv_sizes
+    return send_sizes, recv_sizes
 
 
 def _owned_local(req_ids: torch.Tensor, book: PartitionBook, mesh: Mesh):
@@ -129,32 +175,95 @@ def _owned_local(req_ids: torch.Tensor, book: PartitionBook, mesh: Mesh):
     return ok, local
 
 
+def _read_owned(table: torch.Tensor, req: torch.Tensor, book: PartitionBook, mesh: Mesh,
+                fill, read):
+    """The rows of this rank's shard at requested global ids ``req``: ``fill``
+    where this rank holds no such row; through ``read`` where given."""
+    ok, local = _owned_local(req, book, mesh)
+    if read is not None:
+        return read(table, torch.where(ok, local, -1))
+    rows = table[torch.where(ok, local, 0)]
+    keep = ok.view((-1,) + (1,) * (table.dim() - 1))
+    return torch.where(keep, rows, torch.as_tensor(fill, dtype=rows.dtype, device=rows.device))
+
+
 def _dist_gather_shard(table: torch.Tensor, ids: torch.Tensor, *, book: PartitionBook,
-                       mesh: Mesh, fill=0, read=None) -> torch.Tensor:
+                       mesh: Mesh, fill=0, read=None,
+                       recv_cap: Optional[int] = None) -> torch.Tensor:
     """rows = global_table[ids], each rank with its own ``ids`` (B,) and its
     shard ``table`` (shard_size, ...).  Ids of -1, and ids that no rank
     holds, give ``fill`` rows.  Returns (B, ...) in the order of ``ids``.
 
     ``read(table, local)``, where given, reads the requested rows of the
     shard (``local``: offsets, -1 where this rank holds no row, which must
-    give a zero row) in place of indexing: the embedding lookup passes the
-    row-gather kernel.  It needs ``fill`` 0."""
+    give a zero row) in place of indexing: the loaders and the embedding
+    lookup pass ``ops/kernels/gather_kernel.py::read_rows``, the row-gather
+    kernel for float tables.  It needs ``fill`` 0.
+
+    ``recv_cap``: None receives every peer's requests in one exchange (at
+    most world * B ids); an int bounds each round's requests at an owner to
+    it, over as many rounds as the largest queue needs
+    (:func:`_dist_gather_shard_bounded`).  Both give the same rows."""
     if read is not None and fill != 0:
         raise ValueError("a read function gives zero rows: fill must be 0")
+    if recv_cap is not None:
+        return _dist_gather_shard_bounded(table, ids, book=book, mesh=mesh, fill=fill,
+                                          read=read, recv_cap=recv_cap)
     sorted_ids, perm, counts = _bucket_by_owner(ids, book)
     req, send_sizes, recv_sizes = _ragged_a2a(sorted_ids, counts, mesh)
     n_send = sum(send_sizes)
-    ok, local = _owned_local(req, book, mesh)
-    if read is not None:
-        rows = read(table, torch.where(ok, local, -1))
-    else:
-        rows = table[torch.where(ok, local, 0)]
-        keep = ok.view((-1,) + (1,) * (table.dim() - 1))
-        rows = torch.where(keep, rows, torch.as_tensor(fill, dtype=rows.dtype,
-                                                       device=rows.device))
+    rows = _read_owned(table, req, book, mesh, fill, read)
     back = alltoallv(rows, recv_sizes, send_sizes, mesh)
     out = table.new_full((ids.shape[0],) + tuple(table.shape[1:]), fill)
     out[perm[:n_send]] = back
+    return out
+
+
+def dist_gather_recv_cap(batch: int, world: int, policy="auto") -> Optional[int]:
+    """The receive capacity of the distributed gather: ``"flat"`` None (one
+    exchange), an int taken as it is, ``"auto"`` None up to world 8 and
+    beyond it max(2 * batch, 8 * world) rounded up to a multiple of the
+    world (each sender's quota a round at least 8 ids).  The JAX package's
+    ragged (TPU) branch: the port's exchanges are actual-size, so the one
+    exchange moves only the requested ids at any world size; its dense CPU
+    branch bounds from world 4, which the port never needs."""
+    if policy == "flat":
+        return None
+    if isinstance(policy, int) and not isinstance(policy, bool):
+        return policy
+    if policy != "auto":
+        raise ValueError(f"recv_cap policy must be 'auto', 'flat' or an int, got {policy!r}")
+    if world <= 8:
+        return None
+    cap = max(2 * batch, 8 * world)
+    return -(-cap // world) * world
+
+
+def _dist_gather_shard_bounded(table: torch.Tensor, ids: torch.Tensor, *,
+                               book: PartitionBook, mesh: Mesh, fill, read,
+                               recv_cap: int) -> torch.Tensor:
+    """:func:`_dist_gather_shard` in rounds: each round every rank sends at
+    most ``quota = recv_cap // world`` of its queued ids to each owner, so
+    no rank receives more than ``recv_cap`` ids a round.  The queues' sizes
+    are exchanged once, so each round's send and receive sizes are known on
+    the host; the number of rounds is agreed by one all-reduce (max), so
+    every rank makes the same collective calls."""
+    world = book.world_size
+    quota = max(int(recv_cap) // world, 1)
+    sorted_ids, perm, counts = _bucket_by_owner(ids, book)
+    send_total, recv_total = _exchange_sizes(counts, mesh)
+    starts = np.concatenate([[0], np.cumsum(send_total)[:-1]]).astype(np.int64)
+    rounds = int(all_reduce_np([-(-max(send_total, default=0) // quota)], mesh, "max")[0])
+    out = table.new_full((ids.shape[0],) + tuple(table.shape[1:]), fill)
+    for r in range(rounds):
+        send = [int(min(max(c - r * quota, 0), quota)) for c in send_total]
+        recv = [int(min(max(c - r * quota, 0), quota)) for c in recv_total]
+        pos = torch.as_tensor(np.concatenate(
+            [np.arange(s + r * quota, s + r * quota + n) for s, n in zip(starts, send)]
+            + [np.zeros(0, np.int64)]), device=ids.device)
+        req = alltoallv(sorted_ids[pos], send, recv, mesh)
+        rows = _read_owned(table, req, book, mesh, fill, read)
+        out[perm[pos]] = alltoallv(rows, recv, send, mesh)
     return out
 
 
@@ -253,8 +362,8 @@ def _dist_scatter_shard(table: torch.Tensor, ids: torch.Tensor, values: torch.Te
 
 class DistArray:
     """A row-sharded array over a mesh (the JAX package's ``DistArray``):
-    rank r holds rows [r * shard_size, (r + 1) * shard_size) of the padded
-    array in ``data``, on ``mesh.device``.  Every method that exchanges rows
+    rank r holds the book's rows [offsets[r], offsets[r+1]) in ``data``,
+    padded to ``shard_size`` rows, on ``mesh.device``.  Every method that exchanges rows
     runs on every rank together, each rank with its own ids, as the JAX
     methods run under ``shard_map``."""
 
@@ -281,8 +390,7 @@ class DistArray:
         if dtype is not None:
             host = host.to(dtype)
         book = book or PartitionBook.even(host.shape[0], mesh.world)
-        lo = min(mesh.rank * book.shard_size, book.total)
-        rows = host[lo:min(lo + book.shard_size, book.total)]
+        rows = host[int(book.offsets[mesh.rank]):int(book.offsets[mesh.rank + 1])]
         data = torch.zeros((book.shard_size, *host.shape[1:]), dtype=host.dtype,
                            device=mesh.device)
         data[:rows.shape[0]] = rows.to(mesh.device)
@@ -307,11 +415,14 @@ class DistArray:
             raise ValueError(f"rank {self.mesh.rank} holds its own shard, not rank {rank}'s")
         return self.data[:int(self.book.counts[rank])]
 
-    def gather(self, ids, fill=0) -> torch.Tensor:
+    def gather(self, ids, fill=0, recv_cap="auto") -> torch.Tensor:
         """rows = self[ids] for this rank's ``ids`` (B,), -1 giving ``fill``
-        rows, through the exchange of :func:`_dist_gather_shard`."""
+        rows, through the exchange of :func:`_dist_gather_shard`; ``recv_cap``
+        a policy of :func:`dist_gather_recv_cap`."""
         ids = torch.as_tensor(ids, device=self.mesh.device)
-        return _dist_gather_shard(self.data, ids, book=self.book, mesh=self.mesh, fill=fill)
+        cap = dist_gather_recv_cap(ids.shape[0], self.mesh.world, recv_cap)
+        return _dist_gather_shard(self.data, ids, book=self.book, mesh=self.mesh, fill=fill,
+                                  recv_cap=cap)
 
     def scatter(self, ids, values) -> None:
         """self[ids] = values for this rank's ``ids`` (-1 dropped)."""
@@ -336,4 +447,4 @@ class DistArray:
         else:
             shards = [torch.empty_like(self.data) for _ in range(self.mesh.world)]
             dist.all_gather(shards, self.data.contiguous(), group=self.mesh.group)
-        return torch.cat(shards)[:self.book.total].cpu()
+        return torch.cat([s[:int(c)] for s, c in zip(shards, self.book.counts)]).cpu()

@@ -10,7 +10,7 @@ world size may change between save and load.
 
 Only contiguous books (``store.partition.PartitionBook``) are ported: a
 rank-local load with another book raises until ``RoundRobinBook`` is ported
-(ROADMAP Queue 1 item 6).  ``utils/orbax_ckpt.py`` (model parameters) is not
+(ROADMAP Queue 1 item 6, second half).  ``utils/orbax_ckpt.py`` (model parameters) is not
 ported yet (Queue 1 item 7).
 """
 
@@ -81,7 +81,8 @@ def load_filelist(filelist: Sequence[str], dtype, row_size: int,
     if book is not None and rank is not None and not isinstance(book, PartitionBook):
         raise NotImplementedError(
             f"a rank-local load with a {type(book).__name__} is not ported yet "
-            f"(RoundRobinBook: ROADMAP Queue 1 item 6)")
+            f"(RoundRobinBook with the rank-local load_filelist: ROADMAP Queue 1 "
+            f"item 6, second half)")
     dtype = np.dtype(dtype)
     sizes = [os.path.getsize(f) // (dtype.itemsize * row_size) for f in filelist]
     total = sum(sizes)

@@ -16,7 +16,11 @@ CPU on the same key words and uniforms, and two runs bit for bit.  The hetero
 paths: the typed R-GCN block (samples and gathered rows bit-equal, three f32
 steps' losses within 1e-4), typed and deduplicated hetero loader batches, and
 ``RelationalFullBatch``'s per-relation SpMMs under full-batch R-GCN, each
-against the CPU.
+against the CPU.  The distributed loaders at world 1 over NCCL: batches
+bit-equal to the one-device loaders' on the same draws (and three steps'
+losses equal), the rank-local mode to the global one, and the card to the
+CPU (a gloo group of the one rank) for uniform, weighted and temporal
+sampling.
 
 Marked ``cuda``: each test asks the ``card`` fixture for a device and skips
 without one.  The file imports no JAX, so on the machine with the card it
@@ -1698,3 +1702,184 @@ def test_relational_full_batch_card_matches_cpu(card):
         assert bool(((a - b).abs() <= 1e-5 + 1e-5 * m).all())
     torch.testing.assert_close(out, out_c, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(gx, gx_c, rtol=1e-4, atol=1e-4)
+
+
+# -- the distributed loaders at world 1 over NCCL ------------------------------------
+
+class _RecordDraws:
+    """A one-device loader's sampler on CPU uniforms, kept with its levels."""
+
+    def __init__(self, inner, seed):
+        self.inner, self.fanouts = inner, inner.fanouts
+        self.gen, self.last = torch.Generator().manual_seed(seed), None
+
+    def sample(self, seeds, node_times=None, generator=None):
+        caps = self.inner.level_caps(seeds.shape[0])
+        u = [torch.rand((caps[h], k), generator=self.gen).to(seeds.device)
+             for h, k in enumerate(self.fanouts)]
+        batch = self.inner.sample(seeds, node_times, u=u)
+        self.last = (u, batch.levels)
+        return batch
+
+
+class _FrameDraws:
+    """A world-1 dist sampler on the recorded batch's draws at its valid
+    targets (the owner's rows at world 1)."""
+
+    def __init__(self, inner, record):
+        self.inner, self.record, self.fanouts = inner, record, inner.fanouts
+
+    def sample(self, seeds, node_times=None, generator=None):
+        u, levels = self.record.last
+        return self.inner.sample(seeds, node_times, u=[a[lv >= 0] for a, lv in zip(u, levels)])
+
+
+def _dist_stores(dev, rng_seed=9, n=3000, local=False):
+    rng = np.random.default_rng(rng_seed)
+    indptr, indices = _graph(rng, n=n)
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    gs, fs = GraphStore(device=dev), FeatureStore(device=dev)
+    put = gs.put_local_edge_index if local else gs.put_edge_index
+    put((indices, rows), ("n", "to", "n"), num_nodes=(n, n))
+    fs["x"] = rng.standard_normal((n, 24)).astype(np.float32)
+    fs["y"] = rng.integers(0, 5, n)
+    fs["w"] = rng.uniform(0.05, 1.0, len(rows)).astype(np.float32)
+    fs["t"] = rng.integers(0, 100, len(rows)).astype(np.int32)
+    return (fs, gs), np.stack([indices[::97], rows[::97]])
+
+
+def _samples_equal(a, b):
+    pairs = list(zip(a.levels + a.level_counts, b.levels + b.level_counts))
+    pairs += [(x, y) for ha, hb in zip(a.hops, b.hops) for x, y in zip(ha[:3], hb[:3])]
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in pairs)
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+def test_dist_loader_world1_matches_one_device(world1, dedup):
+    """``DistNeighborLoader`` at world 1 over NCCL against ``NeighborLoader``
+    on the same draws: samples, features and the valid seeds' labels bit for
+    bit (pads -1), 1 row-gather and 2 sampler launches a batch, and three
+    ``dist_train_step`` losses equal to the one-device step's."""
+    from torch.nn import functional as F
+
+    from cugraph_gnn_tpu_torch.loader import DistNeighborLoader
+    from cugraph_gnn_tpu_torch.models.zoo import GraphSAGE
+    from cugraph_gnn_tpu_torch.train_dist import dist_train_step
+
+    data, _ = _dist_stores(world1.device)
+    single = NeighborLoader(data, (10, 5), batch_size=256, shuffle=True, dedup=dedup)
+    dl = DistNeighborLoader(data, (10, 5), world1, batch_size=256, shuffle=True, dedup=dedup)
+    single.sampler = _RecordDraws(single.sampler, 3)
+    dl.sampler = _FrameDraws(dl.sampler, single.sampler)
+    models = []
+    for _ in range(2):
+        torch.manual_seed(0)
+        m = GraphSAGE(24, 32, 5, device=world1.device)
+        models.append((m, torch.optim.Adam(m.parameters(), lr=1e-3)))
+    (m1, o1), (m2, o2) = models
+    for _, bs, bd in zip(range(3), single, dl):
+        before = (gather_rows.launches, fused_uniform_sample.launches)
+        torch.cuda.synchronize()
+        valid = bs.seeds >= 0
+        assert _samples_equal(bs.sample, bd.sample)
+        assert torch.equal(_bits(bs.x), _bits(bd.x))
+        assert torch.equal(bs.y[valid], bd.y[valid]) and bool((bd.y[~valid] == -1).all())
+        o1.zero_grad(set_to_none=True)
+        ls = F.cross_entropy(m1(bs.x, bs.sample).float(), bs.y, reduction="none")
+        l1 = torch.where(valid, ls, 0).sum() / valid.sum().clamp(min=1)
+        l1.backward()
+        o1.step()
+        assert float(l1.detach()) == float(dist_train_step(m2, o2, bd, world1))
+        assert (gather_rows.launches, fused_uniform_sample.launches) == before
+    before = (gather_rows.launches, fused_uniform_sample.launches)
+    next(iter(DistNeighborLoader(data, (10, 5), world1, batch_size=256, dedup=dedup)))
+    torch.cuda.synchronize()
+    assert (gather_rows.launches, fused_uniform_sample.launches) == (before[0] + 1,
+                                                                       before[1] + 2)
+
+
+def test_dist_link_loader_world1_matches_one_device(world1):
+    """``DistLinkNeighborLoader`` at world 1 against ``LinkNeighborLoader``
+    on the same negatives and draws: seed layout, labels, samples and
+    features bit for bit."""
+    from cugraph_gnn_tpu_torch.loader import DistLinkNeighborLoader, LinkNeighborLoader
+
+    data, eli = _dist_stores(world1.device)
+    kw = dict(edge_label_index=eli, neg_sampling="binary", batch_size=64, shuffle=True)
+    single = LinkNeighborLoader(data, (10, 5), **kw)
+    dl = DistLinkNeighborLoader(data, (10, 5), world1, dedup=True, **kw)
+
+    def fixed_negatives():
+        calls = [0]
+
+        def negatives(ps, n):          # batch i's from a CPU generator seeded i
+            g = torch.Generator().manual_seed(calls[0])
+            calls[0] += 1
+            return tuple(torch.randint(0, 3000, (n,), generator=g, dtype=torch.int32)
+                         .to(ps.device) for _ in range(2))
+        return negatives
+
+    single._negatives, dl._negatives = fixed_negatives(), fixed_negatives()
+    single.sampler = _RecordDraws(single.sampler, 4)
+    dl.sampler = _FrameDraws(dl.sampler, single.sampler)
+    for _, bs, bd in zip(range(3), single, dl):
+        assert _samples_equal(bs.sample, bd.sample)
+        for name in ("seeds", "edge_label_index", "edge_label", "input_id"):
+            assert torch.equal(getattr(bs, name), getattr(bd, name)), name
+        assert torch.equal(_bits(bs.x), _bits(bd.x))
+
+
+def test_dist_rank_local_matches_global_world1(world1):
+    """The rank-local mode (the whole COO as rank 0's slice, routed over
+    NCCL) builds the global mode's shard, and its first batch is the global
+    mode's bit for bit (the same seed: the same draws)."""
+    from cugraph_gnn_tpu_torch.loader import DistNeighborLoader
+
+    kw = dict(batch_size=256, shuffle=True, dedup=True, weight_attr="w")
+    glob = DistNeighborLoader(_dist_stores(world1.device)[0], (10, 5), world1, **kw)
+    local = DistNeighborLoader(_dist_stores(world1.device, local=True)[0], (10, 5), world1,
+                               **kw)
+    for name in ("indptr", "indices", "weights"):
+        assert torch.equal(getattr(glob.graph, name), getattr(local.graph, name)), name
+    a, b = next(iter(glob)), next(iter(local))
+    assert _samples_equal(a.sample, b.sample)
+    assert torch.equal(_bits(a.x), _bits(b.x)) and torch.equal(a.y, b.y)
+
+
+@pytest.mark.parametrize("variant", ["uniform", "weighted", "temporal"])
+def test_dist_loader_card_matches_cpu(world1, variant):
+    """The same world-1 ``DistNeighborLoader`` on the card (NCCL) and on the
+    CPU (a gloo group of the one rank), on the same CPU draws: three
+    batches bit for bit."""
+    import torch.distributed as dist
+
+    from cugraph_gnn_tpu_torch.loader import DistNeighborLoader
+    from cugraph_gnn_tpu_torch.parallel.mesh import create_store_mesh
+    from cugraph_gnn_tpu_torch.sampler import dist_sampler as DS
+
+    cpu_mesh = create_store_mesh("cpu", group=dist.new_group([0], backend="gloo"))
+    vkw = {"uniform": {}, "weighted": dict(weight_attr="w"),
+           "temporal": dict(time_attr="t",
+                            input_time=np.random.default_rng(1).integers(0, 100, 3000))}[variant]
+    out = []
+    inner = DS.sample_owned
+    for mesh in (world1, cpu_mesh):
+        gen = torch.Generator().manual_seed(5)
+
+        def owned(g, local, k, *, req_time=None, gen=gen, **kw):
+            if g.weights is not None or (g.times is not None and req_time is not None):
+                kw["hash_key"] = torch.randint(0, 1 << 32, (2,), generator=gen)
+            else:
+                kw["u"] = torch.rand((local.shape[0], k), generator=gen).to(local.device)
+            return inner(g, local, k, req_time=req_time, **kw)
+
+        DS.sample_owned = owned
+        try:
+            ld = DistNeighborLoader(_dist_stores(mesh.device)[0], (10, 5), mesh, batch_size=128,
+                                    shuffle=True, dedup=True, **vkw)
+            out.append([b for _, b in zip(range(3), ld)])
+        finally:
+            DS.sample_owned = inner
+    for a, b in zip(*out):
+        assert _samples_equal(a.sample, b.sample)
+        assert torch.equal(_bits(a.x.cpu()), _bits(b.x)) and torch.equal(a.y.cpu(), b.y)

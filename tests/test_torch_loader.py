@@ -108,8 +108,12 @@ def test_graph_store_finalize_matches_jax():
     (_, jgs), (_, pgs) = (_stores(s, src, dst, x, y) for s in (True, False))
     for a, b in zip(pgs.finalize().homogeneous_csr(), jgs.finalize().homogeneous_csr()):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b)[:a.shape[0]])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        pgs.put_local_edge_index((src, dst), ET)
+    # a rank-local slice is the distributed loaders' (tests/test_torch_dist_loader.py):
+    # the one-device sampling graph refuses it
+    pgs.put_local_edge_index((src, dst), ET, num_nodes=(N, N))
+    assert pgs.has_local_edges
+    with pytest.raises(ValueError, match="rank-local"):
+        pgs.finalize()
 
 
 # -- FeatureStore and DistArray ------------------------------------------------
@@ -257,7 +261,8 @@ def test_loader_refuses_what_waits():
     """Weighted, temporal, disjoint, "auto" and hetero loading are ported
     (tests/test_torch_weighted.py, test_torch_temporal.py,
     test_torch_disjoint.py, test_torch_hetero_loader.py); rank-local edge
-    shards (the distributed loaders, ROADMAP Queue 1 item 6) still raise."""
+    shards are the distributed loaders' (tests/test_torch_dist_loader.py): a
+    one-device loader refuses them."""
     src, dst, x, y = _graph(5)
     data = _stores(False, src, dst, x, y)
     # typed input nodes on a one-type store: offset 0, the untyped batch
@@ -274,8 +279,9 @@ def test_loader_refuses_what_waits():
     gs.put_edge_index((dst, src), ("n", "from", "n"), num_nodes=(N, N))
     assert isinstance(NeighborLoader((data[0], gs), FANOUTS).sampler,
                       HeteroNeighborSampler)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        gs.put_local_edge_index((src, dst), ET)
+    gs.put_local_edge_index((src, dst), ET, num_nodes=(N, N))
+    with pytest.raises(ValueError, match="rank-local"):
+        NeighborLoader((data[0], gs), FANOUTS)
     # without the replay, the generator's draws: same seed, same batches
     a, b = (next(iter(NeighborLoader(data, FANOUTS, batch_size=BATCH, seed=1)))
             for _ in range(2))

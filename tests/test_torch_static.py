@@ -9,7 +9,8 @@
   launch no kernel; nor do the hetero paths (the typed R-GCN block, the hetero
   loaders, the typed link batch, full-batch R-GCN).
 - A gloo mesh refuses the card and the row-sharded step, at one rank on the
-  CPU, launches no kernel.
+  CPU, launches no kernel.  The distributed graph, sampler and loaders take
+  the card's mesh when given none, and raise without a card.
 """
 
 import ast
@@ -77,6 +78,8 @@ from cugraph_gnn_tpu_torch.models.convert import rgcn_from_flax
 from cugraph_gnn_tpu_torch.models.zoo import RGCN
 from cugraph_gnn_tpu_torch.ops.full_batch import RelationalFullBatch
 from cugraph_gnn_tpu_torch.sampler.hetero import hetero_multihop, hetero_multihop_batched
+from cugraph_gnn_tpu_torch.loader import DistLinkNeighborLoader, DistNeighborLoader, auto_mesh
+from cugraph_gnn_tpu_torch.sampler.dist_sampler import DistGraph, DistNeighborSampler
 
 PKG = pathlib.Path(cugraph_gnn_tpu_torch.__file__).parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cugraph_gnn_tpu"}
@@ -366,7 +369,24 @@ ENTRY_POINTS = {
     "create_gnn_model_rgcn": lambda: create_gnn_model("rgcn", in_feat_dim=4, class_count=3),
     "RelationalFullBatch": lambda: RelationalFullBatch(_INDICES, [0, 1], [0, 1], 2, 2,
                                                        reorder="none"),
+    # the distributed path: no mesh given means the card's
+    "DistGraph.from_global_csr": lambda: DistGraph.from_global_csr(_INDPTR, _INDICES),
+    "DistGraph.from_local_coo": lambda: DistGraph.from_local_coo([0], [1], 2),
+    "DistNeighborSampler.sample": lambda: DistNeighborSampler(
+        DistGraph.from_global_csr(_INDPTR, _INDICES), (1,)).sample([0]),
+    "DistNeighborLoader": lambda: DistNeighborLoader(_cpu_stores(), [1]),
+    "DistLinkNeighborLoader": lambda: DistLinkNeighborLoader(
+        _cpu_stores(), [1], edge_label_index=np.zeros((2, 3), np.int64)),
+    "auto_mesh": auto_mesh,
 }
+
+
+def _cpu_stores():
+    """Stores on the CPU (asked for), so that only the loader's own device
+    rule is left to raise."""
+    gs = GraphStore(device="cpu")
+    gs.put_edge_index(([0, 1], [1, 0]), ("n", "e", "n"))
+    return FeatureStore(device="cpu"), gs
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
