@@ -7,7 +7,9 @@ the full width of ``bench.py``'s configuration, directly and through the
 through ``LinkNeighborLoader``, GIN through the loader, weighted, temporal
 and disjoint sampling through both loaders, the distributed loaders and
 trainer at world 1 over NCCL, R-GCN at ogbn-mag width (the
-typed block, the hetero loaders and a typed link batch), and full-batch
+typed block, the hetero loaders and a typed link batch, and the typed
+distributed loaders at world 1 with the distributed trainer), the
+hierarchical gather on a 1 x 1 (node, device) mesh, and full-batch
 GraphSAGE, GCN, GIN, R-GCN and 4-head GAT over a banded graph at
 ogbn-products scale.
 
@@ -223,6 +225,47 @@ Phases (any failure raises and exits non-zero):
    and on the CPU (a gloo group of one rank) with the same CPU draws,
    bit-equal over three batches, and every temporal edge no newer than its
    target's propagated time.
+5y. (run after 5v, in the same world of 1) the hierarchical gather: 5t's
+   ``DistNeighborLoader`` (dedup on, 5b's stores) on a 1 x 1
+   ``create_hierarchical_mesh`` (its node and device subgroups over NCCL),
+   whose feature and label gathers take ``store/hierarchical.py``'s
+   two-level gather, the owner reading through row 1: 3 batches bit-equal
+   to the flat loader's on the same seed (samples, features, labels), 1
+   row-1 and 2 sampler launches a batch, no other kernel; then
+   ``HierarchicalDistArray.gather_with_stats`` of the last batch's deepest
+   level equal to its features, the cross-node count 0; the loader's feature
+   gather timed on both meshes, and row 1 at the owner's read (the level's
+   distinct ids) timed beside its plain version and ``index_select`` with
+   its byte bound.
+5w. (run after 5s, on 5p's mag graph and 5r's stores) the hetero dist
+   loader at full width, world 1 over NCCL: the typed ``DistNeighborLoader``
+   (512 paper seeds, fanouts 8/8, 8/8, 4/4, shuffled; every edge type
+   sharded by ``HeteroDistGraph.from_sampling_graph`` on one even book, the
+   features the stores' tables as one shard each) and ``train_dist.
+   dist_train_step`` with R-GCN (128 -> 256 -> 349, bf16, Adam 1e-3) in
+   ``train_hetero.RGCNEncoder``:
+   6 batches (2 warm-up), per batch the loss (finite), ms, nodes and slots
+   per level, the collectives and host reads of the loader and of the step,
+   peak memory; per batch 6 sampler launches (a hop samples every edge type
+   on the owner) and 3 row-gather launches (one per node type), no other
+   kernel.  Then 3 batches stage by stage (each hop's routing, each edge
+   type's sample on the owner, the return; each type's feature gather, the
+   labels, the step), and one more batch with rows 2 and 1 at its shapes.
+5x. the hetero dist link loader: ``DistLinkNeighborLoader`` with 5s's
+   author-writes-paper positives as a typed ``edge_label_index`` (binary,
+   rejecting true edges, batch 512), an R-GCN encoder 128 -> 256 -> 256 and
+   ``train_link.link_step``: 6 batches (2 warm-up), as 5w; one more batch
+   with rows 2 and 1 at its shapes.  Then the checks: world-1 hetero dist
+   batches against the typed ``NeighborLoader``'s (dedup) on the same draws
+   (the one-device uniforms at the valid targets), three batches: levels,
+   blocks, edge ids, each type's features and the valid seeds' labels
+   bit-equal, and three Adam steps' losses equal; 5x's batches against
+   ``LinkNeighborLoader``'s on the same negatives' candidates and draws
+   (seed layout, labels, features, ``link_step`` losses); on a 7,300-node
+   mag-shaped graph, uniform, weighted and temporal hetero dist batches on
+   the card (NCCL) and on the CPU (a gloo group of one rank) with the same
+   CPU draws, bit-equal over three batches, and every temporal edge no
+   newer than its target's propagated time.
 6. full-batch data: the banded graph of ``train_full`` (2,449,029 nodes, 12
    in-band sources within +-256 and 1 uniform source per node: 31,837,377
    edges) and its ``FullBatchGraph`` (reorder "none", R = 256) with the
@@ -357,8 +400,10 @@ Phases (any failure raises and exits non-zero):
     attention forward and backward.
 17. the ``kernels`` summary line (rows 1-14, then the probe, which the
     main path launches no time; rows 1 and 2 count the launches of phases
-    5, 5b, 5e, 5f, 5h, 5j, 5l-5n, 5q-5s and 5t-5u, split by path (the dist
-    paths' also timed at a dist batch's calls, beside their ``gap_ms_dist``) (row 1 also timed at
+    5, 5b, 5e, 5f, 5h, 5j, 5l-5n, 5q-5s, 5t-5u and 5w-5y, split by path (the
+    dist paths' also timed at a dist batch's calls, beside their
+    ``gap_ms_dist``; the hetero dist paths' at their own calls, beside
+    ``gap_ms_hetero_dist``; row 1 at 5y's owner read) (row 1 also timed at
     5e's two shapes, at 5h's and at each hetero path's; row 2 also at 5h's
     hops and at each hetero path's hop calls), row 4 those of 9b and 9c
     beside GIN's 'sum' calls and R-GCN's relation calls,
@@ -1740,15 +1785,16 @@ class _FrameDraws:
                                  u=[uh[lv >= 0] for uh, lv in zip(u, levels)])
 
 
-def _cpu_draws(seed):
-    """A stand-in for ``dist_sampler.sample_owned`` that draws each hop's
-    uniforms (or key words) from one CPU generator, so that the card's and
-    the CPU's samplers take the same draws."""
+def _cpu_draws(seed, module=None):
+    """A stand-in for ``sample_owned`` (of ``module``: default
+    ``dist_sampler``) that draws each hop's uniforms (or key words) from one
+    CPU generator, so that the card's and the CPU's samplers take the same
+    draws."""
     import torch
 
     from cugraph_gnn_tpu_torch.sampler import dist_sampler as DS
 
-    gen, inner = torch.Generator().manual_seed(seed), DS.sample_owned
+    gen, inner = torch.Generator().manual_seed(seed), (module or DS).sample_owned
 
     def sample_owned(graph, local, fanout, *, req_time=None, **kw):
         if graph.weights is not None or (graph.times is not None and req_time is not None):
@@ -2159,9 +2205,82 @@ def dist_paths(dev, emit, graph, small_cpu, counters, cuda_ms, hbm, gs):
             emit({"phase": "small_input_agreement_dist", "variant": variant, "batches": 3,
                   "equal": True})
         emit({"phase": "dist_temporal_check", "edges_checked": checked})
+
+        # -- 5y. the dist loader on a 1 x 1 hierarchical mesh ------------------
+        launches["hier_gather"], rows["hier_gather"] = hier_gather(
+            dev, emit, (fs, gs), mesh, counters, check_launches, cuda_ms, hbm)
     finally:
         D.finalize()
     return launches, rows
+
+
+def hier_gather(dev, emit, data, mesh, counters, check_launches, cuda_ms, hbm):
+    """Phase 5y (see the module docstring): ``DistNeighborLoader`` on a 1 x 1
+    hierarchical mesh against the flat loader, then its feature gather and
+    ``HierarchicalDistArray.gather_with_stats`` at a batch's level.  Returns
+    the hierarchical loader's launches and row 1's numbers at the owner's
+    read."""
+    import torch
+
+    from cugraph_gnn_tpu_torch import train as T
+    from cugraph_gnn_tpu_torch.loader import DistNeighborLoader
+    from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import (
+        gather_rows,
+        gather_rows_ref,
+        read_rows,
+    )
+    from cugraph_gnn_tpu_torch.parallel.mesh import create_hierarchical_mesh
+    from cugraph_gnn_tpu_torch.store.hierarchical import HierarchicalDistArray
+
+    batches = 3
+    hmesh = create_hierarchical_mesh(1, dev)
+    kw = dict(batch_size=T.BATCH, shuffle=True, dedup=True, seed=7)
+    flat_loader = DistNeighborLoader(data, T.FANOUTS, mesh, **kw)
+    flat = [b for _, b in zip(range(batches), flat_loader)]
+    loader = DistNeighborLoader(data, T.FANOUTS, hmesh, **kw)
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    hier = [b for _, b in zip(range(batches), loader)]
+    torch.cuda.synchronize()
+    got = check_launches("hierarchical dist loader", batches)
+    for i, (a, b) in enumerate(zip(flat, hier)):
+        if not _same_batches(a, b, ("seeds", "x", "y")):
+            raise AssertionError(f"hierarchical dist loader batch {i} differs from the flat "
+                                 f"loader's")
+    ids = hier[-1].sample.input_nodes
+    arr = HierarchicalDistArray(loader.features.data, loader.features.book, hmesh)
+    reads = []
+
+    def owner_read(t, local):
+        reads.append(local)
+        return read_rows(t, local)
+
+    rows_h, cross = arr.gather_with_stats(ids, read=owner_read)
+    if not _bits_equal(rows_h.cpu(), hier[-1].x.cpu()) or int(cross[0]):
+        raise AssertionError(f"HierarchicalDistArray.gather_with_stats differs from the "
+                             f"loader's features (cross-node count {int(cross[0])})")
+    table, local = arr.data, reads[0]
+    if not torch.equal(gather_rows(table, local).view(torch.int32),
+                       gather_rows_ref(table, local).view(torch.int32)):
+        raise AssertionError("row gather at the hierarchical owner read differs from the "
+                             "plain version")
+    f, n = table.shape[1], local.numel()
+    nbytes = 4 * n + 4 * f * n + 4 * f * n        # every id distinct: read once, write once
+    row = {"kernel": "gather_rows", "path": "hier_gather", "ids": ids.numel(),
+           "distinct": n, "out_dtype": "float32",
+           "ms": cuda_ms(lambda: gather_rows(table, local)),
+           "plain_ms": cuda_ms(lambda: gather_rows_ref(table, local)),
+           "library_ms": cuda_ms(lambda: torch.index_select(table, 0, local)),
+           "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3, "bit_equal": True}
+    emit(row)
+    emit({"phase": "hier_gather", "mesh": hmesh.shape, "backend": hmesh.backend,
+          "batches": batches, "batches_equal_flat": True, "ids": ids.numel(),
+          "valid": int((ids >= 0).sum()), "distinct": n, "cross_node_ids": int(cross[0]),
+          "launches": got,
+          "hier_ms": cuda_ms(lambda: loader.gather_features(ids)),
+          "flat_ms": cuda_ms(lambda: flat_loader.gather_features(ids))})
+    return got, row
 
 
 HETERO_LINK_EDGES = 196_608   # author-writes-paper positives of phase 5s
@@ -2169,7 +2288,9 @@ HETERO_LINK_EDGES = 196_608   # author-writes-paper positives of phase 5s
 HETERO_GATHER_ROWS = {"block": "gather_hetero_block",
                       "loader_typed": "gather_hetero_loader_typed",
                       "loader_dedup": "gather_hetero_loader_dedup",
-                      "link": "gather_hetero_link"}
+                      "link": "gather_hetero_link",
+                      "dist": "gather_hetero_dist",
+                      "dist_link": "gather_hetero_dist_link"}
 HETERO_SAMPLER_ROWS = {k: v.replace("gather", "sampler") for k, v in HETERO_GATHER_ROWS.items()}
 HETERO_SMALL = {"paper": 3000, "author": 4000, "field": 300}
 
@@ -2509,7 +2630,12 @@ def hetero_paths(dev, emit, counters, cuda_ms, hbm):
     emit({"phase": "hetero_link_launch_counts", "launches": launches["link"],
           "batches": batches, "batches_timed": len(ms), "ms_per_batch": sum(ms) / len(ms),
           "ms_min": min(ms), "ms_max": max(ms)})
-    del loader, model, opt, enc, batch, it, fs, gs, g
+    del loader, model, opt, enc, batch, it
+    dist_launches, dist_rows = hetero_dist_paths(dev, emit, fs, gs, store_names, counters,
+                                                 rgcn, at_extra_batch, cuda_ms, hbm)
+    launches.update(dist_launches)
+    rows.update(dist_rows)
+    del fs, gs, g
     torch.cuda.empty_cache()
 
     # -- small input, hetero: card against CPU --------------------------------------------
@@ -2587,6 +2713,346 @@ def hetero_paths(dev, emit, counters, cuda_ms, hbm):
                              f"by {loss_diff}")
     emit({"phase": "small_input_agreement_hetero", "paths": ["block", "typed", "dedup", "link"],
           "steps": 3, "equal": True, "max_loss_abs_diff": loss_diff, "tolerance": 1e-4})
+    return launches, rows
+
+
+class _HeteroRecordDraws:
+    """A one-device hetero loader's sampler whose uniforms come from a CPU
+    generator (seeded), kept with the batch's levels for
+    :class:`_HeteroFrameDraws`."""
+
+    def __init__(self, inner, seed):
+        import torch
+
+        self.inner, self.gen, self.last = inner, torch.Generator().manual_seed(seed), None
+
+    def sample(self, seeds, node_times=None, generator=None):
+        import torch
+
+        caps = self.inner.level_caps(seeds.shape[0])
+        u = [{n: torch.rand((caps[h], f[h]), generator=self.gen).to(seeds.device)
+              for n, f in self.inner.fanouts.items() if f is not None and f[h] > 0}
+             for h in range(self.inner.num_hops)]
+        batch = self.inner.sample(seeds, node_times, u=u)
+        self.last = (u, batch.levels)
+        return batch
+
+
+class _HeteroFrameDraws:
+    """A world-1 hetero dist sampler taking the draws of the one-device batch
+    just recorded: at world 1 a hop's frame is its level's valid targets."""
+
+    def __init__(self, inner, record):
+        self.inner, self.record = inner, record
+
+    def sample(self, seeds, node_times=None, generator=None):
+        u, levels = self.record.last
+        return self.inner.sample(seeds, node_times, u=[
+            {n: a[lv >= 0] for n, a in uh.items()} for uh, lv in zip(u, levels)])
+
+
+def _same_hetero(a, b, fields=("seeds",)) -> bool:
+    """Two hetero batches' levels, counts, blocks (by edge type), feature
+    dicts and ``fields`` bit for bit equal, on the host."""
+    import torch
+
+    def tensors(x):
+        yield from x.sample.levels + list(x.sample.level_counts)
+        for hop in x.sample.hops:
+            for n in sorted(hop):
+                yield from (t for t in hop[n] if t is not None)
+        for k in sorted(x.x):
+            yield x.x[k]
+        for f in fields:
+            yield getattr(x, f)
+
+    if [sorted(h) for h in a.sample.hops] != [sorted(h) for h in b.sample.hops] or \
+            sorted(a.x) != sorted(b.x):
+        return False
+    return all(_bits_equal(p.cpu(), q.cpu()) if p.is_floating_point()
+               else torch.equal(p.cpu(), q.cpu()) for p, q in zip(tensors(a), tensors(b)))
+
+
+def _check_hetero_times(sample, seed_time, times, bases) -> int:
+    """Every sampled edge of a hetero ``sample`` of an edge type with times
+    (``times``: name -> per-edge times in CSR order, ``bases``: name -> edge
+    base) is no newer than its target's propagated time; raises otherwise.
+    Returns the edges checked."""
+    import torch
+
+    from cugraph_gnn_tpu_torch.sampler.neighbor_sampler import propagate_times
+
+    st, checked = seed_time, 0
+    for h, hop in enumerate(sample.hops):
+        for n, blk in hop.items():
+            if n not in times:
+                continue
+            e = blk.edge_ids.long() - bases[n]
+            ok = blk.edge_ids >= 0
+            if bool((ok & (times[n][e.clamp(min=0)] > st[:, None])).any()):
+                raise AssertionError(f"hop {h} {n} sampled an edge newer than its target")
+            checked += int(ok.sum())
+        loc = torch.cat([b.neigh_local for b in hop.values()], dim=1)
+        st = propagate_times(st[None], loc[None], sample.levels[h + 1].shape[0])[0]
+    return checked
+
+
+def hetero_dist_paths(dev, emit, fs, gs, names, counters, rgcn, at_extra_batch, cuda_ms, hbm):
+    """Phases 5w and 5x (see the module docstring), on 5p's stores in a new
+    NCCL world of 1.  Returns each kernel's launches on the hetero dist
+    loader and link paths, and rows 1 and 2 timed at their shapes."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cugraph_gnn_tpu_torch import train_hetero as TH
+    from cugraph_gnn_tpu_torch import train_link as TL
+    from cugraph_gnn_tpu_torch.data import FeatureStore, GraphStore
+    from cugraph_gnn_tpu_torch.loader import (
+        DistLinkNeighborLoader,
+        DistNeighborLoader,
+        LinkNeighborLoader,
+        NeighborLoader,
+    )
+    from cugraph_gnn_tpu_torch.parallel.mesh import create_store_mesh
+    from cugraph_gnn_tpu_torch.sampler import hetero_dist as HD
+    from cugraph_gnn_tpu_torch.store import dist_array as DA
+    from cugraph_gnn_tpu_torch.train_dist import dist_train_step
+    from cugraph_gnn_tpu_torch.utils import distributed as D
+
+    per_batch = {fn.__name__: 0 for fn in counters}
+    per_batch.update(gather_rows=3, fused_uniform_sample=2 * len(names))
+    writes = ("author", "writes", "paper")
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def check_launches(what, batches):
+        got = {fn.__name__: fn.launches for fn in counters}
+        want = {k: v * batches for k, v in per_batch.items()}
+        if got != want:
+            raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
+        return got
+
+    def delta(before):
+        return {k: DA.EXCHANGES[k] - before[k] for k in before}
+
+    def run(what, loader, step, batches=6, warmup=2):
+        """``batches`` batches of ``loader`` through ``step`` (2 warm-up), as
+        5t: per batch the loss, times, exchanges, levels and memory."""
+        it = iter(loader)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        ms = []
+        for i in range(batches):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            before = dict(DA.EXCHANGES)
+            batch = next(it)
+            in_loader = delta(before)
+            loss = step(batch)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t1) * 1e3
+            if i >= warmup:
+                ms.append(dt)
+            loss = float(loss)
+            if not math.isfinite(loss):
+                raise AssertionError(f"non-finite {what} loss {loss} at batch {i}")
+            emit({"phase": f"{what}_train", "batch": i, "warmup": i < warmup, "loss": loss,
+                  "ms": dt, "x_types": sorted(batch.x),
+                  "sampled_edges": int(sum(b.mask.sum() for hop in batch.sample.hops
+                                           for b in hop.values())),
+                  "nodes_per_level": [int(c) for c in batch.sample.level_counts],
+                  "slots_per_level": [int(lv.numel()) for lv in batch.sample.levels],
+                  "loader_exchanges": in_loader,
+                  "step_exchanges": {k: v - in_loader[k] for k, v in delta(before).items()},
+                  "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        got = check_launches(what, batches)
+        emit({"phase": f"{what}_launch_counts", "launches": got, "batches": batches,
+              "batches_timed": len(ms), "ms_per_batch": sum(ms) / len(ms), "ms_min": min(ms),
+              "ms_max": max(ms)})
+        return it, got
+
+    stages = _Stages()
+
+    def watch(loader):
+        """Time each hop's routing, each edge type's sample on the owner and
+        the return, each type's feature gather and the labels; undo with the
+        returned function."""
+        hop = [-1]
+        by_graph = {id(dg): n for n, dg in loader.graph.graphs.items()}
+        saved = {k: getattr(HD, k) for k in DIST_STAGES}
+
+        def route(*a, **kw):
+            hop[0] = (hop[0] + 1) % len(TH.FANOUTS["paper__cites__paper"])
+            return stages.run(f"hop{hop[0]}_route", saved["route_to_owners"], *a, **kw)
+
+        HD.route_to_owners = route
+        HD.sample_owned = lambda g, *a, **kw: stages.run(
+            f"hop{hop[0]}_sample_{by_graph[id(g)]}", saved["sample_owned"], g, *a, **kw)
+        HD.route_back = lambda *a, **kw: stages.run(f"hop{hop[0]}_return",
+                                                    saved["route_back"], *a, **kw)
+        gather = loader.gather
+        by_arr = {id(a): nt for nt, a in loader.features.items()}
+        loader.gather = lambda arr, ids, fill=0, read=None: stages.run(
+            "labels" if read is None else f"feature_gather_{by_arr[id(arr)]}", gather, arr,
+            ids, fill, read)
+
+        def undo():
+            for k, fn in saved.items():
+                setattr(HD, k, fn)
+            del loader.gather
+        return undo
+
+    mesh = D.init(init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    launches, rows = {}, {}
+    try:
+        _require_nccl(mesh)
+        cpu_mesh = create_store_mesh("cpu", group=dist.new_group([0], backend="gloo"))
+
+        # -- 5w. the hetero dist loader at full width, world 1 over NCCL ---------
+        kw = dict(input_nodes=("paper", np.arange(TH.MAG_NODES["paper"])),
+                  batch_size=TH.BATCH, shuffle=True)
+        t0 = time.perf_counter()
+        loader = DistNeighborLoader((fs, gs), TH.FANOUTS, mesh, **kw)
+        torch.cuda.synchronize()
+        emit({"phase": "hetero_dist_setup", "setup_s": time.perf_counter() - t0,
+              "edge_id_bits": loader.graph.edge_id_bits,
+              "edge_bases": loader.graph.edge_base_by_etype,
+              "shard_edges": {n: int(g.indices.numel()) for n, g in loader.graph.graphs.items()},
+              "feature_types": sorted(loader.features), "label_offset": loader.label_offset})
+        model, opt = rgcn(TH.CLASSES)
+        enc = TH.RGCNEncoder(model, names, dtype=torch.bfloat16)
+        it, launches["dist"] = run("hetero_dist_loader", loader,
+                                   lambda b: dist_train_step(enc, opt, b, mesh))
+        undo = watch(loader)
+        try:
+            for _ in range(3):
+                batch = stages.run("batch", next, it)
+                stages.run("step", dist_train_step, enc, opt, batch, mesh)
+        finally:
+            undo()
+        emit({"phase": "hetero_dist_loader_stages", "batches": 3, **stages.take()})
+        rows["sampler_hetero_dist"], rows["gather_hetero_dist"] = at_extra_batch(
+            "hetero_dist", lambda: next(it))
+        with torch.no_grad():
+            logits = enc(batch.x, batch.sample)
+        if logits.shape != (TH.BATCH, TH.CLASSES) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"hetero dist logits {tuple(logits.shape)} not finite")
+        del loader, it, batch, logits, model, opt, enc
+
+        # -- 5x. the hetero dist link loader ---------------------------------------------
+        src_w, dst_w = gs.get_edge_index(writes)
+        pick = np.random.default_rng(13).choice(len(src_w), HETERO_LINK_EDGES, replace=False)
+        eli = (writes, np.stack([src_w[pick], dst_w[pick]]))
+        link_kw = dict(neg_sampling="binary", batch_size=TH.BATCH, shuffle=True,
+                       reject_true_edges=True)
+        loader = DistLinkNeighborLoader((fs, gs), TH.FANOUTS, mesh, edge_label_index=eli,
+                                        **link_kw)
+        model, opt = rgcn(TH.HIDDEN)
+        enc = TH.RGCNEncoder(model, names, dtype=torch.bfloat16)
+        it, launches["dist_link"] = run("hetero_dist_link", loader,
+                                        lambda b: TL.link_step(enc, opt, b))
+        rows["sampler_hetero_dist_link"], rows["gather_hetero_dist_link"] = at_extra_batch(
+            "hetero_dist_link", lambda: next(it))
+        del loader, it, model, opt, enc
+
+        # -- checks: world-1 hetero dist batches against the one-device loaders ------
+        single = NeighborLoader((fs, gs), TH.FANOUTS, dedup=True, **kw)
+        dl = DistNeighborLoader((fs, gs), TH.FANOUTS, mesh, **kw)
+        single.sampler = _HeteroRecordDraws(single.sampler, 31)
+        dl.sampler = _HeteroFrameDraws(dl.sampler, single.sampler)
+        (m1, o1), (m2, o2) = rgcn(TH.CLASSES), rgcn(TH.CLASSES)
+        for i, bs, bd in zip(range(3), single, dl):
+            valid = bs.seeds >= 0
+            if not (_same_hetero(bs, bd) and torch.equal(bs.y[valid], bd.y[valid])
+                    and bool((bd.y[~valid] == -1).all())):
+                raise AssertionError(f"world-1 hetero dist batch {i} differs from the "
+                                     f"one-device batch")
+            l1 = float(TH.loader_step(m1, o1, bs, names))
+            l2 = float(dist_train_step(TH.RGCNEncoder(m2, names, torch.bfloat16), o2, bd,
+                                       mesh))
+            if l1 != l2:
+                raise AssertionError(f"world-1 hetero dist step {i}: loss {l2}, one device {l1}")
+        emit({"phase": "hetero_dist_check_world1", "batches": 3, "batches_equal": True,
+              "losses_equal": True, "last_loss": l1})
+        pair = [LinkNeighborLoader((fs, gs), TH.FANOUTS, eli, **link_kw),
+                DistLinkNeighborLoader((fs, gs), TH.FANOUTS, mesh, edge_label_index=eli,
+                                       **link_kw)]
+        for ld in pair:
+            _fixed_negatives(ld, 32)
+        pair[0].sampler = _HeteroRecordDraws(pair[0].sampler, 33)
+        pair[1].sampler = _HeteroFrameDraws(pair[1].sampler, pair[0].sampler)
+        (m1, o1), (m2, o2) = rgcn(TH.HIDDEN), rgcn(TH.HIDDEN)
+        e1, e2 = (TH.RGCNEncoder(m, names, dtype=torch.bfloat16) for m in (m1, m2))
+        for i, bs, bd in zip(range(3), *pair):
+            if not _same_hetero(bs, bd, ("seeds", "edge_label_index", "edge_label")):
+                raise AssertionError(f"world-1 hetero dist link batch {i} differs from the "
+                                     f"one-device batch")
+            l1, l2 = float(TL.link_step(e1, o1, bs)), float(TL.link_step(e2, o2, bd))
+            if l1 != l2:
+                raise AssertionError(f"world-1 hetero dist link step {i}: loss {l2}, "
+                                     f"one device {l1}")
+        emit({"phase": "hetero_dist_check_world1_link", "batches": 3, "batches_equal": True,
+              "losses_equal": True})
+        del single, dl, pair, m1, m2, o1, o2, e1, e2
+
+        # small inputs: the card (NCCL) against the CPU (gloo), uniform, weighted
+        # and temporal, the same CPU draws; temporal edges no newer than targets
+        small = TH.make_synthetic_mag(3, "cpu", num_nodes=HETERO_SMALL, feat_dim=16, classes=5)
+        fs_c, gs_c = TH.mag_stores(small, "cpu")
+        rng = np.random.default_rng(34)
+        attrs = {}
+        for et in gs_c.edge_types:
+            n_e = len(gs_c.get_edge_index(et)[0])
+            attrs[et] = (rng.uniform(0.05, 1.0, n_e).astype(np.float32),
+                         rng.integers(0, T_RANGE, n_e).astype(np.int32))
+        it_s = rng.integers(0, T_RANGE, HETERO_SMALL["paper"])
+        checked = 0
+        for variant, vkw in (("uniform", {}), ("weighted", dict(weight_attr="w")),
+                             ("temporal", dict(time_attr="t", input_time=it_s))):
+            sides = {}
+            for where, m in (("cpu", cpu_mesh), ("card", mesh)):
+                gs_s, fs_s = GraphStore(device=m.device), FeatureStore(device=m.device)
+                for et in gs_c.edge_types:
+                    st_, _, dt_ = et
+                    gs_s.put_edge_index(gs_c.get_edge_index(et), et,
+                                        num_nodes=(gs_c.num_nodes(st_), gs_c.num_nodes(dt_)))
+                    key = "__".join(et)
+                    fs_s[(key, "w")], fs_s[(key, "t")] = attrs[et]
+                for nt in gs_c.node_types:
+                    fs_s[(nt, "x")] = fs_c.get_tensor(nt, "x")
+                fs_s[("paper", "y")] = fs_c.get_tensor("paper", "y")
+                ld = DistNeighborLoader((fs_s, gs_s), (4, 3), m, batch_size=64, shuffle=True,
+                                        input_nodes=("paper", np.arange(HETERO_SMALL["paper"])),
+                                        **vkw)
+                inner, HD.sample_owned = HD.sample_owned, _cpu_draws(35, HD)
+                try:
+                    sides[where] = [b for _, b in zip(range(3), ld)]
+                finally:
+                    HD.sample_owned = inner
+                if variant == "temporal":
+                    graph_s = gs_s.finalize()
+                    times = {"__".join(et): graph_s.edge_attr_to_csr_order(et, attrs[et][1])
+                             for et in graph_s.etypes}
+                    bases = {"__".join(et): graph_s.csr_by_etype[et][2] for et in graph_s.etypes}
+                    for b in sides[where]:
+                        iid = b.input_id.cpu().numpy()
+                        st = torch.as_tensor(np.where(iid >= 0, it_s[np.maximum(iid, 0)], 0),
+                                             device=m.device)
+                        checked += _check_hetero_times(b.sample, st, times, bases)
+            if not all(_same_hetero(a, b, ("seeds", "y"))
+                       for a, b in zip(sides["cpu"], sides["card"])):
+                raise AssertionError(f"small {variant} hetero dist loader: card and CPU differ")
+            emit({"phase": "small_input_agreement_hetero_dist", "variant": variant,
+                  "batches": 3, "equal": True})
+        if not checked:
+            raise AssertionError("the temporal hetero dist batches sampled no edge")
+        emit({"phase": "hetero_dist_temporal_check", "edges_checked": checked})
+    finally:
+        D.finalize()
     return launches, rows
 
 
@@ -4847,8 +5313,18 @@ def main() -> None:
                         + dl_launches["dist_local"]["gather_rows"])
         * (dl_rows["gather"]["ms"] - dl_rows["gather"]["bound_ms"])
         + dl_launches["dist_link"]["gather_rows"] * (link_rows["gather"]["ms"]
-                                                       - link_rows["gather"]["bound_ms"])})
+                                                       - link_rows["gather"]["bound_ms"])
+        # 5y: the hierarchical loader's owner reads
+        + dl_launches["hier_gather"]["gather_rows"] * (dl_rows["hier_gather"]["ms"]
+                                                       - dl_rows["hier_gather"]["bound_ms"]),
+        **{f"{k}_hier_gather": dl_rows["hier_gather"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms", "ids", "distinct")}})
     kernels[-1]["gap_ms"] += kernels[-1]["gap_ms_dist"]
+    # the hetero dist paths' share of the hetero gap above (5w, 5x)
+    kernels[-1]["gap_ms_hetero_dist"] = sum(
+        hetero_launches[k]["gather_rows"] * (hetero_rows[HETERO_GATHER_ROWS[k]]["ms"]
+                                             - hetero_rows[HETERO_GATHER_ROWS[k]]["bound_ms"])
+        for k in ("dist", "dist_link"))
     # the sampler's numbers are one block's two launches (hop 0 + hop 1); its
     # gap prices the block's launches at the block's hops and the loader's
     # at a loader batch's hops
@@ -4892,18 +5368,22 @@ def main() -> None:
            for r in HETERO_SAMPLER_ROWS.values()},
         **{f"{k}_{r}": sum(x[k] for x in hetero_rows[r]) for r in HETERO_SAMPLER_ROWS.values()
            for k in ("plain_ms", "bound_ms", "sector_floor_ms")},
-        # the dist paths (5t-5u): the owner's hops of a dist batch (the
-        # rank-local batches too), the dist link batches at 5h's hops
+        # the dist paths (5t-5u, 5y): the owner's hops of a dist batch (the
+        # rank-local and hierarchical batches too), the dist link batches at
+        # 5h's hops
         **{f"launches_{k}": v["fused_uniform_sample"] for k, v in dl_launches.items()},
         "ms_per_hop_dist_loader": [r["ms"] for r in dl_rows["sampler"]],
         "seeds_per_hop_dist_loader": [r["seeds"] for r in dl_rows["sampler"]],
         **{f"{k}_dist_loader": sum(r[k] for r in dl_rows["sampler"])
            for k in ("plain_ms", "bound_ms", "sector_floor_ms")},
-        "gap_ms_dist": sampler_gap(dl_launches["dist_loader"]["fused_uniform_sample"]
-                                   + dl_launches["dist_local"]["fused_uniform_sample"],
+        "gap_ms_dist": sampler_gap(sum(dl_launches[k]["fused_uniform_sample"]
+                                       for k in ("dist_loader", "dist_local", "hier_gather")),
                                    dl_rows["sampler"])
         + sampler_gap(dl_launches["dist_link"]["fused_uniform_sample"], link_rows["sampler"])})
     kernels[-1]["gap_ms"] += kernels[-1]["gap_ms_dist"]
+    kernels[-1]["gap_ms_hetero_dist"] = sum(
+        sampler_gap(hetero_launches[k]["fused_uniform_sample"],
+                    hetero_rows[HETERO_SAMPLER_ROWS[k]]) for k in ("dist", "dist_link"))
     kernels += fb_rows + gat_rows + dist_rows + [probe_row]
     emit({"phase": "wall", "seconds": time.perf_counter() - wall0})
     print(smi)

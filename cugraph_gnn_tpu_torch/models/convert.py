@@ -160,6 +160,32 @@ _FROM_FLAX = {"sage": graphsage_from_flax, "gcn": gcn_from_flax, "gat": gat_from
               "gin": gin_from_flax, "rgcn": rgcn_from_flax}
 
 
+def typed_sage_from_flax(params, ranges, model=None, *, device=None):
+    """A ``train_hetero_dist.TypedSAGE`` holding the weights of the example's
+    flax tree (``{'params': {'in_<type>': {'kernel', 'bias'}, 'out':
+    {'kernel', 'bias'}}}``); ``ranges``: node type -> (offset, count).
+    Copied into ``model`` when given, else into a new one on ``device``
+    (default: the card)."""
+    from cugraph_gnn_tpu_torch.train_hetero_dist import TypedSAGE
+
+    p = params["params"] if "params" in params else params
+    ins = {k[3:]: v for k, v in p.items() if k.startswith("in_")}
+    out_k = np.asarray(p["out"]["kernel"])
+    if model is None:
+        model = TypedSAGE({nt: np.asarray(v["kernel"]).shape[0] for nt, v in ins.items()},
+                          ranges, hidden=out_k.shape[0], classes=out_k.shape[1],
+                          device=device)
+    if set(ins) != set(model.inputs):
+        raise ValueError(f"the tree projects {sorted(ins)}, the model {sorted(model.inputs)}")
+    with torch.no_grad():
+        for nt, v in ins.items():
+            _copy(model.inputs[nt].weight, np.asarray(v["kernel"]).T)
+            _copy(model.inputs[nt].bias, np.asarray(v["bias"]))
+        _copy(model.out.weight, out_k.T)
+        _copy(model.out.bias, np.asarray(p["out"]["bias"]))
+    return model
+
+
 def model_from_flax(model_type: str, params, model=None, *, dtype=None, device=None):
     """The weights of a flax tree of the JAX builder's ``model_type``
     (sage / gcn / gat / gin / rgcn) in a port model (``model``, or a new one

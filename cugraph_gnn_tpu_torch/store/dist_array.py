@@ -18,8 +18,9 @@ array and runs these routines on it.  ``recv_cap`` bounds the gather's
 request buffer by a multi-round exchange (:func:`dist_gather_recv_cap`
 picks it: none up to world 8, as the JAX package does where its exchanges
 are actual-size).  ``EXCHANGES`` counts the collectives and host reads that
-these routines make.  ``DistArray.from_file`` is not ported yet (ROADMAP
-Queue 1 item 6, second half).
+these routines make.  A book may also be a ``RoundRobinBook``, whose padded
+layout puts id at ``owner * shard_size + local``; ``DistArray.from_file``
+reads only this rank's rows of a ``.npy`` or ``.pt`` file.
 
 Sums of rows keyed by ids (the scatter's "add", and the sharded SpMM's and
 attention's fallback edges in ``ops/dist_full_batch.py``) take a fixed
@@ -44,8 +45,8 @@ import torch
 import torch.distributed as dist
 
 from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import PaddedCSR, csr_spmm
-from cugraph_gnn_tpu_torch.parallel.mesh import Mesh
-from cugraph_gnn_tpu_torch.store.partition import PartitionBook
+from cugraph_gnn_tpu_torch.parallel.mesh import Mesh, axis_size
+from cugraph_gnn_tpu_torch.store.partition import PartitionBook, RoundRobinBook
 
 
 # collectives issued and host reads made by this module's exchanges (read
@@ -58,17 +59,11 @@ def _count(collectives: int = 0, host_reads: int = 0) -> None:
     EXCHANGES["host_reads"] += host_reads
 
 
-def mesh_axis_size(mesh: Mesh, axis=None) -> int:
-    """The number of ranks along the mesh's axis (the port's meshes have
-    one).  A tuple of axes names JAX's hierarchical (node, device) mesh,
-    which is not ported yet (ROADMAP Queue 1 item 6, second half)."""
-    if isinstance(axis, (tuple, list)):
-        raise NotImplementedError("the hierarchical (node, device) mesh comes with "
-                                  "store/hierarchical.py (ROADMAP Queue 1 item 6, "
-                                  "second half)")
-    if axis is not None and axis != mesh.axis:
-        raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
-    return mesh.world
+def mesh_axis_size(mesh, axis=None) -> int:
+    """The number of ranks along ``axis`` of ``mesh`` (default: all of them);
+    a tuple of axes, such as the hierarchical mesh's ("node", "device"),
+    gives the product of their sizes."""
+    return mesh.world if axis is None else axis_size(mesh, axis)
 
 
 def all_reduce_np(values, mesh: Mesh, op: str = "sum") -> np.ndarray:
@@ -372,29 +367,42 @@ class DistArray:
         self.book = book
         self.mesh = mesh
 
-    @staticmethod
-    def create(shape, dtype: torch.dtype, mesh: Mesh,
+    @classmethod
+    def create(cls, shape, dtype: torch.dtype, mesh: Mesh,
                book: Optional[PartitionBook] = None) -> "DistArray":
         """Zeros of global ``shape`` (rows first) in ``dtype``."""
         total, *feat = shape
         book = book or PartitionBook.even(total, mesh.world)
         data = torch.zeros((book.shard_size, *feat), dtype=dtype, device=mesh.device)
-        return DistArray(data, book, mesh)
+        return cls(data, book, mesh)
 
-    @staticmethod
-    def from_array(host_array, mesh: Mesh, book: Optional[PartitionBook] = None,
+    @classmethod
+    def from_array(cls, host_array, mesh: Mesh, book: Optional[PartitionBook] = None,
                    dtype: Optional[torch.dtype] = None) -> "DistArray":
         """This rank's shard of a whole (replicated) host array or tensor,
-        padded to ``world * shard_size`` rows."""
+        padded to ``world * shard_size`` rows (a ``RoundRobinBook`` takes
+        every world-th row)."""
         host = torch.as_tensor(host_array)
         if dtype is not None:
             host = host.to(dtype)
         book = book or PartitionBook.even(host.shape[0], mesh.world)
-        rows = host[int(book.offsets[mesh.rank]):int(book.offsets[mesh.rank + 1])]
-        data = torch.zeros((book.shard_size, *host.shape[1:]), dtype=host.dtype,
-                           device=mesh.device)
-        data[:rows.shape[0]] = rows.to(mesh.device)
-        return DistArray(data, book, mesh)
+        return cls(_shard_of(host, book, mesh), book, mesh)
+
+    @classmethod
+    def from_file(cls, path: str, mesh: Mesh, book: Optional[PartitionBook] = None,
+                  dtype: Optional[torch.dtype] = None) -> "DistArray":
+        """This rank's shard of the array in a ``.npy`` file (memory-mapped
+        by numpy) or a ``.pt`` file (a tensor, memory-mapped by
+        ``torch.load``): only this rank's rows are read, never the whole
+        array."""
+        if path.endswith(".npy"):
+            host = np.load(path, mmap_mode="r")
+        elif path.endswith(".pt"):
+            host = torch.load(path, mmap=True, weights_only=True)
+        else:
+            raise ValueError(f"unsupported file type {path!r} (expect .npy or .pt)")
+        book = book or PartitionBook.even(host.shape[0], mesh.world)
+        return cls(_shard_of(host, book, mesh, dtype), book, mesh)
 
     @property
     def shape(self):
@@ -447,4 +455,26 @@ class DistArray:
         else:
             shards = [torch.empty_like(self.data) for _ in range(self.mesh.world)]
             dist.all_gather(shards, self.data.contiguous(), group=self.mesh.group)
-        return torch.cat([s[:int(c)] for s, c in zip(shards, self.book.counts)]).cpu()
+        padded = torch.cat(shards).cpu()
+        gids = np.arange(self.book.total)
+        pos = (self.book.owner_of_np(gids).astype(np.int64) * self.book.shard_size
+               + self.book.local_offset_np(gids))
+        return padded[torch.as_tensor(pos)]
+
+
+def _shard_of(host, book, mesh: Mesh, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """This rank's rows of ``host`` (a tensor, or a numpy array that may be
+    memory-mapped: only the rows read are loaded) in local order, padded to
+    ``shard_size`` rows, on the mesh's device."""
+    r = mesh.rank
+    if isinstance(book, RoundRobinBook):
+        rows = host[r::book.world_size]
+    else:
+        rows = host[int(book.offsets[r]):int(book.offsets[r + 1])]
+    rows = torch.from_numpy(np.array(rows)) if isinstance(rows, np.ndarray) else rows
+    if dtype is not None:
+        rows = rows.to(dtype)
+    data = torch.zeros((book.shard_size, *rows.shape[1:]), dtype=rows.dtype,
+                       device=mesh.device)
+    data[:rows.shape[0]] = rows.to(mesh.device)
+    return data

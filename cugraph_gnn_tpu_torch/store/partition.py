@@ -16,8 +16,11 @@ shard_size`` rows.  Three constructors:
 The queries take torch tensors (on any device) or, in their ``_np`` forms,
 numpy arrays: a division by ``shard_size`` for an even book, a search over
 the offsets (side right, so an empty rank owns nothing) for the others.
-The round-robin book comes with the modules that need it (ROADMAP Queue 1,
-item 6, second half).
+
+:class:`RoundRobinBook` deals rows out in turn instead (owner = id % W,
+local = id // W, the reference's round-robin shard): its rows are not
+contiguous, so ``offsets`` is only the prefix of its per-rank counts, and
+the padded layout puts id at ``owner * shard_size + local``.
 """
 
 from __future__ import annotations
@@ -126,3 +129,52 @@ class PartitionBook:
     def local_offset_np(self, ids) -> np.ndarray:
         ids = np.asarray(ids)
         return ids - self.offsets[:-1][self.owner_of_np(ids)]
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundRobinBook:
+    """Round-robin row assignment: owner = id % world, local = id // world.
+
+    Has the ``PartitionBook`` surface that the exchanges use (``owner_of``,
+    ``local_offset``, ``to_padded``, ``counts``, ``shard_size``,
+    ``world_size`` and their ``_np`` forms); ``offsets`` is the prefix of
+    ``counts``, not a range of global ids."""
+
+    total: int
+    world_size: int
+
+    @property
+    def shard_size(self) -> int:
+        return even_shard_size(self.total, self.world_size)
+
+    @property
+    def padded_total(self) -> int:
+        return self.world_size * self.shard_size
+
+    @property
+    def counts(self) -> np.ndarray:
+        base, extra = divmod(self.total, self.world_size)
+        return base + (np.arange(self.world_size) < extra).astype(np.int64)
+
+    @property
+    def offsets(self) -> np.ndarray:
+        return np.concatenate([[0], np.cumsum(self.counts)]).astype(np.int64)
+
+    @property
+    def is_even(self) -> bool:
+        return False
+
+    def owner_of(self, ids: torch.Tensor) -> torch.Tensor:
+        return torch.remainder(ids, self.world_size)
+
+    def local_offset(self, ids: torch.Tensor, owner=None) -> torch.Tensor:
+        return torch.div(ids, self.world_size, rounding_mode="floor")
+
+    def to_padded(self, ids: torch.Tensor, owner=None) -> torch.Tensor:
+        return self.owner_of(ids) * self.shard_size + self.local_offset(ids)
+
+    def owner_of_np(self, ids) -> np.ndarray:
+        return np.asarray(ids) % self.world_size
+
+    def local_offset_np(self, ids) -> np.ndarray:
+        return np.asarray(ids) // self.world_size

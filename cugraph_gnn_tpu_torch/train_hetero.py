@@ -23,6 +23,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 from torch.nn import functional as F
 
 from cugraph_gnn_tpu_torch._device import resolve_device
@@ -239,14 +240,17 @@ def loader_step(model, optimizer, batch, etype_names, dtype=torch.bfloat16) -> t
     return loss.detach()
 
 
-class RGCNEncoder:
-    """An RGCN as the encoder of ``train_link.link_step`` on hetero link
-    batches: ``encoder(x_dict, sample)`` runs ``batch_call`` over the summed
-    per-type features (in ``dtype``), relations in ``etype_names`` order."""
+class RGCNEncoder(nn.Module):
+    """An RGCN as a model of hetero batches (``train_link.link_step``'s
+    encoder, ``train_dist.dist_train_step``'s model): ``encoder(x_dict,
+    sample)`` runs ``batch_call`` over the summed per-type features (in
+    ``dtype``), relations in ``etype_names`` order; its parameters are the
+    RGCN's."""
 
     def __init__(self, model, etype_names, dtype=None):
+        super().__init__()
         self.model, self.etype_names, self.dtype = model, list(etype_names), dtype
 
-    def __call__(self, x_dict, sample):
+    def forward(self, x_dict, sample):
         return self.model.batch_call(input_features(x_dict, self.dtype), sample,
                                      self.etype_names)

@@ -8,10 +8,10 @@ the files are byte for byte those of the JAX package, so each package loads
 the other's.  Loading re-partitions the rows to the reader's book, so the
 world size may change between save and load.
 
-Only contiguous books (``store.partition.PartitionBook``) are ported: a
-rank-local load with another book raises until ``RoundRobinBook`` is ported
-(ROADMAP Queue 1 item 6, second half).  ``utils/orbax_ckpt.py`` (model parameters) is not
-ported yet (Queue 1 item 7).
+A rank-local load takes a contiguous book (``store.partition.PartitionBook``:
+one range of rows) or any other, such as a ``RoundRobinBook``, whose rows it
+picks one by one.  ``utils/orbax_ckpt.py`` (model parameters) is not ported
+yet (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -77,16 +77,24 @@ def load_filelist(filelist: Sequence[str], dtype, row_size: int,
     """Rows of a logically concatenated list of binary files (memory-mapped):
     all of them, or with ``book`` and ``rank`` only that rank's.
     ``entry_stride``: the width of the rows returned, when wider than
-    ``row_size`` (zeros after the row)."""
-    if book is not None and rank is not None and not isinstance(book, PartitionBook):
-        raise NotImplementedError(
-            f"a rank-local load with a {type(book).__name__} is not ported yet "
-            f"(RoundRobinBook with the rank-local load_filelist: ROADMAP Queue 1 "
-            f"item 6, second half)")
+    ``row_size`` (zeros after the row).  A book whose rows are not one
+    range (a ``RoundRobinBook``) gives the rank's rows in local order."""
     dtype = np.dtype(dtype)
     sizes = [os.path.getsize(f) // (dtype.itemsize * row_size) for f in filelist]
     total = sum(sizes)
     out_w = entry_stride or row_size
+    if book is not None and rank is not None and not isinstance(book, PartitionBook):
+        gids = np.flatnonzero(book.owner_of_np(np.arange(total, dtype=np.int64)) == rank)
+        loc = book.local_offset_np(gids)
+        out = np.zeros((len(gids), out_w), dtype)
+        row0 = 0
+        for f, n in zip(filelist, sizes):
+            sel = (gids >= row0) & (gids < row0 + n)
+            if sel.any():
+                mm = np.memmap(f, dtype=dtype, mode="r", shape=(n, row_size))
+                out[loc[sel], :row_size] = mm[gids[sel] - row0]
+            row0 += n
+        return out
     if book is None or rank is None:
         lo, hi = 0, total
     else:

@@ -12,6 +12,10 @@ backend from the device (NCCL for the card, gloo for the CPU; see
     mesh = init(init_method="tcp://localhost:29500", rank=0, world_size=1)
     ...
     finalize()
+
+``get_global_mesh`` and ``get_hierarchical_mesh`` are the reference's global
+and (local-node, global) communicator pair: the flat mesh, and the (node,
+device) mesh with a node for every ``LOCAL_WORLD_SIZE`` ranks (one host).
 """
 
 from __future__ import annotations
@@ -23,7 +27,13 @@ import torch
 import torch.distributed as dist
 
 from cugraph_gnn_tpu_torch._device import resolve_device
-from cugraph_gnn_tpu_torch.parallel.mesh import BACKENDS, Mesh, create_store_mesh
+from cugraph_gnn_tpu_torch.parallel.mesh import (
+    BACKENDS,
+    HierarchicalMesh,
+    Mesh,
+    create_hierarchical_mesh,
+    create_store_mesh,
+)
 
 
 def _int_env(*names) -> Optional[int]:
@@ -68,3 +78,25 @@ def world_info():
     world = dist.get_world_size()
     return (dist.get_rank(), world, _int_env("LOCAL_RANK") or 0,
             _int_env("LOCAL_WORLD_SIZE") or world)
+
+
+def num_hosts() -> int:
+    """The nodes of the default group: its world size over
+    ``LOCAL_WORLD_SIZE`` (the ranks of one host, as ``torchrun`` sets it;
+    unset: one host)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    local = _int_env("LOCAL_WORLD_SIZE") or world
+    if local < 1 or world % local:
+        raise ValueError(f"LOCAL_WORLD_SIZE={local} does not divide the world of {world}")
+    return world // local
+
+
+def get_global_mesh(device=None) -> Mesh:
+    """The flat mesh of every rank (the reference's global communicator)."""
+    return create_store_mesh(device)
+
+
+def get_hierarchical_mesh(device=None) -> HierarchicalMesh:
+    """The (node = host, device = local rank) mesh of every rank; every rank
+    calls it together."""
+    return create_hierarchical_mesh(num_hosts(), device)

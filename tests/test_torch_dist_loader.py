@@ -15,7 +15,8 @@
   mode's batches bit for bit, an epoch of each; the bounded multi-round
   gather (a forced ``recv_cap``, through ``DistArray.gather`` and
   ``_dist_gather_shard`` with ``read_rows``) equal to the one exchange; ``GraphStore.finalize`` refuses a
-  rank-local store.
+  rank-local store; ``auto_mesh`` of two hosts is the (node, device) mesh,
+  and a store of two edge types loads through the hetero sampler.
 
 The JAX package is imported inside fixtures only: the spawned ranks import
 this file and run torch alone.
@@ -339,7 +340,8 @@ def test_train_dist_matches_example(got2, want):
 
 def _worker4(rank, world, store, out_dir):
     """World 4: an epoch of the global and the rank-local loader (weighted,
-    dedup), the bounded gather against the one exchange, the refusals."""
+    dedup), the bounded gather against the one exchange, the topology, a
+    hetero store."""
     from cugraph_gnn_tpu_torch.loader import DistNeighborLoader, auto_mesh
     from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import read_rows
     from cugraph_gnn_tpu_torch.store.dist_array import DistArray, _dist_gather_shard
@@ -372,22 +374,20 @@ def _worker4(rank, world, store, out_dir):
         res["capped"] = arr.gather(ids, fill=-3, recv_cap=5).numpy()
         res["capped_read"] = _dist_gather_shard(arr.data, ids, book=arr.book, mesh=mesh,
                                                 read=read_rows, recv_cap=13).numpy()
-        # auto_mesh: the flat mesh on one host; several hosts and hetero
-        # stores wait for the next slice
+        # auto_mesh: the flat mesh on one host, the (node, device) mesh of
+        # two hosts; a store of two edge types samples through the hetero
+        # sampler
         res["auto_world"] = np.array(auto_mesh("cpu").world)
         os.environ["LOCAL_WORLD_SIZE"] = "2"
         try:
-            auto_mesh("cpu")
-        except NotImplementedError as e:
-            res["hier_refused"] = np.array("hierarchical" in str(e))
+            res["hier_mesh"] = np.array(tuple(auto_mesh("cpu").shape.values()) == (2, 2))
         finally:
             del os.environ["LOCAL_WORLD_SIZE"]
         fs, gs = _port_stores()
         gs.put_edge_index((_data()[1], _data()[0]), ("n", "rev", "n"), num_nodes=(N, N))
-        try:
-            DistNeighborLoader((fs, gs), FANOUTS, mesh)
-        except NotImplementedError as e:
-            res["hetero_refused"] = np.array("hetero_dist" in str(e))
+        hetero = DistNeighborLoader((fs, gs), FANOUTS, mesh, batch_size=8)
+        res["hetero_sampled"] = np.array(
+            hetero.hetero and set(next(iter(hetero)).sample.hops[0]) == {"n__e__n", "n__rev__n"})
         np.savez(os.path.join(out_dir, f"out_{rank}.npz"), **res)
     finally:
         D.finalize()
@@ -404,7 +404,7 @@ def test_rank_local_mode_equals_global(got4):
     ``finalize`` refuses the rank-local store."""
     for res in got4:
         assert res["finalize_refused"]
-        assert res["auto_world"] == 4 and res["hier_refused"] and res["hetero_refused"]
+        assert res["auto_world"] == 4 and res["hier_mesh"] and res["hetero_sampled"]
         keys = [k for k in res if k.startswith("global/")]
         assert len(keys) > 20
         for k in keys:

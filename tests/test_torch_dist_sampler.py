@@ -362,13 +362,19 @@ def test_from_local_coo_equals_global(got):
 
 
 def test_mesh_axis_size():
-    """The port's meshes have one axis; JAX's hierarchical axis tuple waits
-    for its slice."""
+    """The flat mesh's one axis, and the hierarchical mesh's axes and their
+    tuple (the product); an axis the mesh lacks raises."""
+    from cugraph_gnn_tpu_torch.parallel.mesh import HierarchicalMesh
     from cugraph_gnn_tpu_torch.store.dist_array import mesh_axis_size
 
     mesh = _cpu_mesh(1, 4)
     assert mesh_axis_size(mesh) == mesh_axis_size(mesh, "store") == 4
     with pytest.raises(ValueError, match="axis"):
         mesh_axis_size(mesh, "node")
-    with pytest.raises(NotImplementedError, match="item 6, second half"):
+    with pytest.raises(ValueError, match="axis"):
         mesh_axis_size(mesh, ("node", "device"))
+    hm = HierarchicalMesh(group=None, rank=5, world=6, device=torch.device("cpu"),
+                          backend="gloo", num_nodes=3, devices_per_node=2,
+                          device_mesh=_cpu_mesh(1, 2), node_mesh=_cpu_mesh(2, 3))
+    assert mesh_axis_size(hm) == mesh_axis_size(hm, ("node", "device")) == 6
+    assert (mesh_axis_size(hm, "node"), mesh_axis_size(hm, "device")) == (3, 2)

@@ -255,8 +255,15 @@ def test_load_filelist_matches_jax(tmp_path):
         np.testing.assert_array_equal(
             ckpt.load_filelist(files, np.float32, 3, book, rank, stride),
             jckpt.load_filelist(files, np.float32, 3, jbook, rank, stride))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ckpt.load_filelist(files, np.float32, 3, RoundRobinBook(23, 4), 1)
+    # a round-robin book: every rank's rows, in local order, re-strided
+    from cugraph_gnn_tpu_torch.store.partition import RoundRobinBook as PortRoundRobinBook
+
+    for rank in range(4):
+        for stride in (None, 5):
+            np.testing.assert_array_equal(
+                ckpt.load_filelist(files, np.float32, 3, PortRoundRobinBook(23, 4), rank,
+                                   stride),
+                jckpt.load_filelist(files, np.float32, 3, RoundRobinBook(23, 4), rank, stride))
 
 
 def test_embedding_checkpoint_crosses_packages(tmp_path, mesh):

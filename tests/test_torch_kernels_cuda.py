@@ -20,7 +20,9 @@ against the CPU.  The distributed loaders at world 1 over NCCL: batches
 bit-equal to the one-device loaders' on the same draws (and three steps'
 losses equal), the rank-local mode to the global one, and the card to the
 CPU (a gloo group of the one rank) for uniform, weighted and temporal
-sampling.
+sampling; the same for the hetero dist loaders (typed, on a small mag-shaped
+graph, against the typed ``NeighborLoader`` and ``LinkNeighborLoader``), and
+the hierarchical gather on a 1 x 1 (node, device) mesh against the flat one.
 
 Marked ``cuda``: each test asks the ``card`` fixture for a device and skips
 without one.  The file imports no JAX, so on the machine with the card it
@@ -1883,3 +1885,212 @@ def test_dist_loader_card_matches_cpu(world1, variant):
     for a, b in zip(*out):
         assert _samples_equal(a.sample, b.sample)
         assert torch.equal(_bits(a.x.cpu()), _bits(b.x)) and torch.equal(a.y.cpu(), b.y)
+
+
+# -- the hetero dist loaders and the hierarchical gather at world 1 -----------------
+
+_MAG = {"paper": 2000, "author": 2500, "field": 200}
+
+
+def _mag_stores(dev, attrs=False):
+    """A small mag-shaped hetero graph's stores on ``dev`` (with an f32
+    weight and an int32 time on every edge type when ``attrs``)."""
+    from cugraph_gnn_tpu_torch import train_hetero as TH
+
+    g = TH.make_synthetic_mag(3, "cpu", num_nodes=_MAG, feat_dim=16, classes=5, deg_cap=50)
+    fs_c, gs_c = TH.mag_stores(g, "cpu")
+    gs, fs = GraphStore(device=dev), FeatureStore(device=dev)
+    rng = np.random.default_rng(6)
+    for et in gs_c.edge_types:
+        src, dst = gs_c.get_edge_index(et)
+        gs.put_edge_index((src, dst), et, num_nodes=(gs_c.num_nodes(et[0]),
+                                                     gs_c.num_nodes(et[2])))
+        if attrs:
+            fs[("__".join(et), "w")] = rng.uniform(0.05, 1.0, len(src)).astype(np.float32)
+            fs[("__".join(et), "t")] = rng.integers(0, 100, len(src)).astype(np.int32)
+    for nt in gs_c.node_types:
+        fs[(nt, "x")] = fs_c.get_tensor(nt, "x")
+    fs[("paper", "y")] = fs_c.get_tensor("paper", "y")
+    return fs, gs
+
+
+class _HeteroRecordDraws:
+    """A one-device hetero loader's sampler on CPU uniforms, kept with its
+    levels."""
+
+    def __init__(self, inner, seed):
+        self.inner, self.gen, self.last = inner, torch.Generator().manual_seed(seed), None
+
+    def sample(self, seeds, node_times=None, generator=None):
+        caps = self.inner.level_caps(seeds.shape[0])
+        u = [{n: torch.rand((caps[h], f[h]), generator=self.gen).to(seeds.device)
+              for n, f in self.inner.fanouts.items() if f is not None and f[h] > 0}
+             for h in range(self.inner.num_hops)]
+        batch = self.inner.sample(seeds, node_times, u=u)
+        self.last = (u, batch.levels)
+        return batch
+
+
+class _HeteroFrameDraws:
+    """A world-1 hetero dist sampler on the recorded draws at the valid
+    targets."""
+
+    def __init__(self, inner, record):
+        self.inner, self.record = inner, record
+
+    def sample(self, seeds, node_times=None, generator=None):
+        u, levels = self.record.last
+        return self.inner.sample(seeds, node_times, u=[
+            {n: a[lv >= 0] for n, a in uh.items()} for uh, lv in zip(u, levels)])
+
+
+def _hetero_equal(a, b):
+    """Hetero batches' samples (blocks by edge type) and feature dicts bit
+    for bit."""
+    if [sorted(h) for h in a.sample.hops] != [sorted(h) for h in b.sample.hops]:
+        return False
+    pairs = list(zip(a.sample.levels + list(a.sample.level_counts),
+                     b.sample.levels + list(b.sample.level_counts)))
+    pairs += [(x, y) for ha, hb in zip(a.sample.hops, b.sample.hops) for n in ha
+              for x, y in zip(ha[n][:3], hb[n][:3])]
+    pairs += [(_bits(a.x[k]), _bits(b.x[k])) for k in a.x] + [(a.seeds, b.seeds)]
+    return sorted(a.x) == sorted(b.x) and all(torch.equal(x.cpu(), y.cpu())
+                                              for x, y in pairs)
+
+
+def test_hetero_dist_loader_world1_matches_one_device(world1):
+    """The typed ``DistNeighborLoader`` at world 1 against the typed
+    ``NeighborLoader`` (dedup) on the same draws: samples, each type's
+    features and the valid seeds' labels bit for bit (pads -1), 3 row-gather
+    and 6 sampler launches a batch, and three R-GCN steps' losses equal."""
+    from cugraph_gnn_tpu_torch import train_hetero as TH
+    from cugraph_gnn_tpu_torch.loader import DistNeighborLoader
+    from cugraph_gnn_tpu_torch.models.zoo import RGCN
+    from cugraph_gnn_tpu_torch.train_dist import dist_train_step
+
+    fs, gs = _mag_stores(world1.device)
+    names = ["__".join(et) for et in gs.edge_types]
+    kw = dict(input_nodes=("paper", np.arange(_MAG["paper"])), batch_size=96, shuffle=True)
+    single = NeighborLoader((fs, gs), [4, 3], dedup=True, **kw)
+    dl = DistNeighborLoader((fs, gs), [4, 3], world1, **kw)
+    single.sampler = _HeteroRecordDraws(single.sampler, 7)
+    dl.sampler = _HeteroFrameDraws(dl.sampler, single.sampler)
+    models = []
+    for _ in range(2):
+        torch.manual_seed(0)
+        m = RGCN(16, num_relations=3, hidden_features=32, out_features=5, device=world1.device)
+        models.append((m, torch.optim.Adam(m.parameters(), lr=1e-3)))
+    (m1, o1), (m2, o2) = models
+    for _, bs, bd in zip(range(3), single, dl):
+        valid = bs.seeds >= 0
+        assert _hetero_equal(bs, bd)
+        assert torch.equal(bs.y[valid], bd.y[valid]) and bool((bd.y[~valid] == -1).all())
+        l1 = TH.loader_step(m1, o1, bs, names, dtype=torch.float32)
+        l2 = dist_train_step(TH.RGCNEncoder(m2, names, torch.float32), o2, bd, world1)
+        assert float(l1) == float(l2)
+    before = (gather_rows.launches, fused_uniform_sample.launches)
+    next(iter(DistNeighborLoader((fs, gs), [4, 3], world1, **kw)))
+    torch.cuda.synchronize()
+    assert (gather_rows.launches, fused_uniform_sample.launches) == (before[0] + 3,
+                                                                       before[1] + 6)
+
+
+def test_hetero_dist_link_loader_world1_matches_one_device(world1):
+    """``DistLinkNeighborLoader`` with a typed ``edge_label_index`` at world
+    1 against ``LinkNeighborLoader`` on the same negatives and draws: seed
+    layout, labels, samples and feature dicts bit for bit."""
+    from cugraph_gnn_tpu_torch.loader import DistLinkNeighborLoader, LinkNeighborLoader
+
+    fs, gs = _mag_stores(world1.device)
+    writes = ("author", "writes", "paper")
+    src, dst = gs.get_edge_index(writes)
+    eli = (writes, np.stack([src[::7], dst[::7]]))
+    kw = dict(neg_sampling="binary", batch_size=64, shuffle=True)
+    single = LinkNeighborLoader((fs, gs), [4, 3], eli, **kw)
+    dl = DistLinkNeighborLoader((fs, gs), [4, 3], world1, edge_label_index=eli, **kw)
+
+    def fixed_negatives(loader):
+        calls = [0]
+
+        def negatives(ps, n):          # batch i's from a CPU generator seeded i
+            g = torch.Generator().manual_seed(calls[0])
+            calls[0] += 1
+            return (torch.randint(0, loader.num_src, (n,), generator=g, dtype=torch.int32)
+                    .to(ps.device),
+                    torch.randint(0, loader.num_dst, (n,), generator=g, dtype=torch.int32)
+                    .to(ps.device))
+        return negatives
+
+    single._negatives, dl._negatives = fixed_negatives(single), fixed_negatives(dl)
+    single.sampler = _HeteroRecordDraws(single.sampler, 8)
+    dl.sampler = _HeteroFrameDraws(dl.sampler, single.sampler)
+    for _, bs, bd in zip(range(3), single, dl):
+        assert _hetero_equal(bs, bd)
+        for name in ("edge_label_index", "edge_label", "input_id"):
+            assert torch.equal(getattr(bs, name), getattr(bd, name)), name
+
+
+@pytest.mark.parametrize("variant", ["uniform", "weighted", "temporal"])
+def test_hetero_dist_loader_card_matches_cpu(world1, variant):
+    """The typed ``DistNeighborLoader`` on the card (NCCL) and on the CPU (a
+    gloo group of the one rank), on the same CPU draws: three batches bit
+    for bit."""
+    import torch.distributed as dist
+
+    from cugraph_gnn_tpu_torch.loader import DistNeighborLoader
+    from cugraph_gnn_tpu_torch.parallel.mesh import create_store_mesh
+    from cugraph_gnn_tpu_torch.sampler import hetero_dist as HD
+
+    cpu_mesh = create_store_mesh("cpu", group=dist.new_group([0], backend="gloo"))
+    vkw = {"uniform": {}, "weighted": dict(weight_attr="w"),
+           "temporal": dict(time_attr="t", input_time=np.random.default_rng(1).integers(
+               0, 100, _MAG["paper"]))}[variant]
+    out = []
+    inner = HD.sample_owned
+    for mesh in (world1, cpu_mesh):
+        gen = torch.Generator().manual_seed(5)
+
+        def owned(g, local, k, *, req_time=None, gen=gen, **kw):
+            if g.weights is not None or (g.times is not None and req_time is not None):
+                kw["hash_key"] = torch.randint(0, 1 << 32, (2,), generator=gen)
+            else:
+                kw["u"] = torch.rand((local.shape[0], k), generator=gen).to(local.device)
+            return inner(g, local, k, req_time=req_time, **kw)
+
+        HD.sample_owned = owned
+        try:
+            ld = DistNeighborLoader(_mag_stores(mesh.device, attrs=True), [4, 3], mesh,
+                                    input_nodes=("paper", np.arange(_MAG["paper"])),
+                                    batch_size=64, shuffle=True, **vkw)
+            out.append([b for _, b in zip(range(3), ld)])
+        finally:
+            HD.sample_owned = inner
+    for a, b in zip(*out):
+        assert _hetero_equal(a, b) and torch.equal(a.y.cpu(), b.y)
+
+
+def test_hier_gather_world1_matches_flat(world1):
+    """The two-level gather (``HierarchicalDistArray.gather_with_stats``)
+    on a 1 x 1 (node, device) mesh over NCCL: duplicates and -1 ids, through
+    ``read_rows``, bit-equal to the flat gather and to indexing; one
+    row-gather launch each, nothing crosses a node."""
+    from cugraph_gnn_tpu_torch.ops.kernels.gather_kernel import read_rows
+    from cugraph_gnn_tpu_torch.parallel.mesh import create_hierarchical_mesh
+    from cugraph_gnn_tpu_torch.store.dist_array import _dist_gather_shard
+    from cugraph_gnn_tpu_torch.store.hierarchical import HierarchicalDistArray
+    from cugraph_gnn_tpu_torch.store.partition import PartitionBook
+
+    hmesh = create_hierarchical_mesh(1)
+    assert hmesh.backend == "nccl" and hmesh.shape == {"node": 1, "device": 1}
+    g = torch.Generator().manual_seed(2)
+    table = torch.randn((5000, 40), generator=g).to(world1.device)
+    ids = torch.randint(-1, 5000, (20_000,), generator=g).to(world1.device)
+    book = PartitionBook.even(5000, 1)
+    before = gather_rows.launches
+    hier, cross = HierarchicalDistArray.from_array(table, hmesh).gather_with_stats(
+        ids, read=read_rows)
+    flat = _dist_gather_shard(table, ids, book=book, mesh=world1, read=read_rows)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 2 and int(cross[0]) == 0
+    want = torch.where((ids >= 0)[:, None], table[ids.clamp(min=0)], 0)
+    assert torch.equal(_bits(hier), _bits(flat)) and torch.equal(_bits(hier), _bits(want))

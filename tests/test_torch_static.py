@@ -10,7 +10,11 @@
   loaders, the typed link batch, full-batch R-GCN).
 - A gloo mesh refuses the card and the row-sharded step, at one rank on the
   CPU, launches no kernel.  The distributed graph, sampler and loaders take
-  the card's mesh when given none, and raise without a card.
+  the card's mesh when given none, and raise without a card; so do the
+  hetero ones, the hierarchical mesh and the hetero dist trainer's pieces.
+- The hetero dist path (the typed loader, R-GCN's step, the typed link
+  batch) and the hierarchical gather, at one gloo rank on the CPU, launch no
+  kernel.
 """
 
 import ast
@@ -80,6 +84,12 @@ from cugraph_gnn_tpu_torch.ops.full_batch import RelationalFullBatch
 from cugraph_gnn_tpu_torch.sampler.hetero import hetero_multihop, hetero_multihop_batched
 from cugraph_gnn_tpu_torch.loader import DistLinkNeighborLoader, DistNeighborLoader, auto_mesh
 from cugraph_gnn_tpu_torch.sampler.dist_sampler import DistGraph, DistNeighborSampler
+from cugraph_gnn_tpu_torch import train_hetero_dist as THD
+from cugraph_gnn_tpu_torch import train_dist as TD
+from cugraph_gnn_tpu_torch.models.convert import typed_sage_from_flax
+from cugraph_gnn_tpu_torch.parallel.mesh import create_hierarchical_mesh
+from cugraph_gnn_tpu_torch.sampler.hetero_dist import HeteroDistGraph
+from cugraph_gnn_tpu_torch.store.hierarchical import HierarchicalDistArray
 
 PKG = pathlib.Path(cugraph_gnn_tpu_torch.__file__).parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cugraph_gnn_tpu"}
@@ -378,7 +388,32 @@ ENTRY_POINTS = {
     "DistLinkNeighborLoader": lambda: DistLinkNeighborLoader(
         _cpu_stores(), [1], edge_label_index=np.zeros((2, 3), np.int64)),
     "auto_mesh": auto_mesh,
+    "HeteroDistGraph.from_sampling_graph": lambda: HeteroDistGraph.from_sampling_graph(
+        _cpu_hetero_stores()[1].finalize()),
+    "HeteroDistGraph.from_local_coo": lambda: HeteroDistGraph.from_local_coo(
+        {("n", "e", "n"): ([0], [1])}, 2),
+    "DistNeighborLoader_hetero": lambda: DistNeighborLoader(_cpu_hetero_stores(), [1]),
+    "DistLinkNeighborLoader_hetero": lambda: DistLinkNeighborLoader(
+        _cpu_hetero_stores(), [1], edge_label_index=(("a", "e", "b"), np.zeros((2, 1)))),
+    "create_hierarchical_mesh": lambda: create_hierarchical_mesh(1),
+    "get_global_mesh": D.get_global_mesh,
+    "get_hierarchical_mesh": D.get_hierarchical_mesh,
+    "TypedSAGE": lambda: THD.TypedSAGE({"a": 4}, {"a": (0, 2)}),
+    "typed_sage_from_flax": lambda: typed_sage_from_flax(_TYPED_TREE, {"a": (0, 2)}),
+    "click_stores": THD.click_stores,
 }
+_TYPED_TREE = {"params": {"in_a": {"kernel": np.zeros((4, 3), np.float32),
+                                   "bias": np.zeros(3, np.float32)},
+                          "out": {"kernel": np.zeros((3, 2), np.float32),
+                                  "bias": np.zeros(2, np.float32)}}}
+
+
+def _cpu_hetero_stores():
+    """Hetero stores on the CPU (asked for)."""
+    gs = GraphStore(device="cpu")
+    gs.put_edge_index(([0, 1], [1, 0]), ("a", "e", "b"))
+    gs.put_edge_index(([0, 1], [1, 1]), ("b", "r", "a"))
+    return FeatureStore(device="cpu"), gs
 
 
 def _cpu_stores():
@@ -472,3 +507,47 @@ def test_bwd_probe_is_card_only():
             attn_grad.onepass_bwd_probe(pair, x, *stats, g, phases=16)
     assert attn_grad.onepass_bwd_probe.launches == 0
     assert attn_grad.PROBE_ALL == 15
+
+
+@pytest.mark.parametrize("path", ["loader", "link"])
+def test_cpu_hetero_dist_path_leaves_launch_counters_at_zero(path, tmp_path):
+    """One gloo rank on the CPU: the typed DistNeighborLoader with R-GCN's
+    ``dist_train_step`` (or the typed DistLinkNeighborLoader), and the
+    hierarchical gather on a 1 x 1 mesh, take the plain versions (finite
+    losses, no launch)."""
+    mesh = D.init(init_method=f"file://{os.path.join(tmp_path, 'store')}", rank=0,
+                  world_size=1, device="cpu")
+    try:
+        counters = (gather_rows, fused_uniform_sample)
+        for fn in counters:
+            fn.launches = 0
+        g = TH.make_synthetic_mag(0, "cpu", num_nodes=SMALL_MAG, feat_dim=8, classes=3,
+                                  deg_cap=20)
+        fs, gs = TH.mag_stores(g, "cpu")
+        names = [n for n in map("__".join, gs.finalize().etypes)]
+        model = RGCN(8, num_relations=3, hidden_features=16,
+                     out_features=3 if path == "loader" else 16, device="cpu")
+        opt = torch.optim.Adam(model.parameters(), lr=TH.LR)
+        if path == "loader":
+            loader = DistNeighborLoader((fs, gs), TH.FANOUTS, mesh, batch_size=8,
+                                        input_nodes=("paper", np.arange(20)), shuffle=True)
+            for batch in loader:
+                assert sorted(batch.x) == ["author", "field", "paper"]
+                assert torch.isfinite(TD.dist_train_step(TH.RGCNEncoder(model, names), opt,
+                                                         batch, mesh))
+        else:
+            writes = ("author", "writes", "paper")
+            src, dst = gs.get_edge_index(writes)
+            loader = DistLinkNeighborLoader((fs, gs), [3, 2], mesh,
+                                            edge_label_index=(writes, np.stack([src[:20],
+                                                                                dst[:20]])),
+                                            neg_sampling="binary", batch_size=8)
+            enc = TH.RGCNEncoder(model, names)
+            assert all(torch.isfinite(link_step(enc, opt, b)) for b in loader)
+        arr = HierarchicalDistArray.from_array(g.feats, create_hierarchical_mesh(1, "cpu"))
+        ids = torch.tensor([3, -1, 3, 7])
+        rows, cross = arr.gather_with_stats(ids)
+        assert torch.equal(rows[[0, 2, 3]], g.feats[[3, 3, 7]]) and int(cross[0]) == 0
+        assert all(fn.launches == 0 for fn in counters)
+    finally:
+        D.finalize()
