@@ -9,9 +9,10 @@ and disjoint sampling through both loaders, the distributed loaders and
 trainer at world 1 over NCCL, R-GCN at ogbn-mag width (the
 typed block, the hetero loaders and a typed link batch, and the typed
 distributed loaders at world 1 with the distributed trainer), the
-hierarchical gather on a 1 x 1 (node, device) mesh, and full-batch
-GraphSAGE, GCN, GIN, R-GCN and 4-head GAT over a banded graph at
-ogbn-products scale.
+hierarchical gather on a 1 x 1 (node, device) mesh, the package surface
+(the doctor, the native IO, a profiler trace, the meter, DCP checkpoints),
+the OGB examples at ogbn-products width, and full-batch GraphSAGE, GCN,
+GIN, R-GCN and 4-head GAT over a banded graph at ogbn-products scale.
 
     python3 chip_smoke.py            # every phase, on one card
     python3 chip_smoke.py --probe    # phases 1, 2 and 11b alone
@@ -237,6 +238,38 @@ Phases (any failure raises and exits non-zero):
    gather timed on both meshes, and row 1 at the owner's read (the level's
    distinct ids) timed beside its plain version and ``index_select`` with
    its byte bound.
+5z. (run after 5y, on phase 5's graph and 5b's graph store) surface: the
+   doctor (``doctor.smoke_check()`` on the card: one row-2 launch, its ring
+   sample checked); the host library's ``degrees`` over the graph's
+   121,124,824 neighbor ids and ``load_filelist_bytes`` of a 256,435,456-byte
+   three-file list (written from the feature table's bytes) at offset 4,097
+   (not 4 KiB aligned) across both boundaries, with 8 threads and with
+   ``O_DIRECT``: each equal to its numpy version, timed (GB/s; the read is
+   warm: the files were just written); ``profiling.trace`` around three 5b
+   loader batches (dedup, batch 1024, fanouts 10/10, GraphSAGE 128 -> 256 ->
+   47 in bf16, Adam 1e-3), each in a ``profiling.annotate`` region: the trace
+   JSON names ``gather_rows_kernel`` 3 times and ``uniform_sample_groups`` /
+   ``uniform_sample_rows`` 6 times, and the regions; ``PerformanceMeter``
+   (2 warm-up, 10 timed) on the same step, beside 10 of its CUDA-event
+   times; every one of these batches exactly 1 row-1 and 2 row-2 launches.
+   Then ``utils/orbax_ckpt.py``'s DCP round trips at world 1 over NCCL:
+   ``save_dist_array`` / ``restore_dist_array`` of 5b's f32 ``x`` (2,449,029
+   x 128) as a ``DistArray``, and (run inside 5e, on its trained state)
+   ``save_embedding`` / ``restore_embedding`` of 5e's lazy-Adam
+   ``DistEmbedding`` (the table, m, v and t): seconds and GB/s each way,
+   every tensor restored bit-equal.
+5zz. (after 5z, the graph freed) examples at full width:
+   ``cugraph_gnn_tpu_torch/examples/ogbn_convert.py --synthetic 2449029
+   61859140 100 --parts 8`` (ogbn-products' node count, undirected edge
+   count and feature width) into a temporary directory, deleted
+   afterwards, then ``ogbn_train.py
+   --epochs 1 --hidden-dim 256 --neighbors 10,10 --batch-size 1024`` on it:
+   123,718,280 directed edges, F padded to 128, 1,435 train batches and 479
+   valid and 479 test batches, each 1 row-1 and 2 row-2 launches; the epoch
+   line, its train seconds and ms a batch, peak memory.  Then
+   ``node_classification.py --dataset synthetic --epochs 2`` at its defaults
+   (10,000 nodes, 100,000 edges, F = 100): 10 batches an epoch and 10 to
+   evaluate, launches as above.
 5w. (run after 5s, on 5p's mag graph and 5r's stores) the hetero dist
    loader at full width, world 1 over NCCL: the typed ``DistNeighborLoader``
    (512 paper seeds, fanouts 8/8, 8/8, 4/4, shuffled; every edge type
@@ -400,8 +433,8 @@ Phases (any failure raises and exits non-zero):
     attention forward and backward.
 17. the ``kernels`` summary line (rows 1-14, then the probe, which the
     main path launches no time; rows 1 and 2 count the launches of phases
-    5, 5b, 5e, 5f, 5h, 5j, 5l-5n, 5q-5s, 5t-5u and 5w-5y, split by path (the
-    dist paths' also timed at a dist batch's calls, beside their
+    5, 5b, 5e, 5f, 5h, 5j, 5l-5n, 5q-5s, 5t-5u, 5w-5y, 5z and 5zz, split by
+    path (the dist paths' also timed at a dist batch's calls, beside their
     ``gap_ms_dist``; the hetero dist paths' at their own calls, beside
     ``gap_ms_hetero_dist``; row 1 at 5y's owner read) (row 1 also timed at
     5e's two shapes, at 5h's and at each hetero path's; row 2 also at 5h's
@@ -425,6 +458,7 @@ the start (``t_s``).
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -464,20 +498,12 @@ H100_F32_OPS = 67e12   # H100 SXM float32 outside the tensor cores (data sheet)
 
 
 def _loader_step(model, opt, batch) -> "torch.Tensor":
-    """One Adam step on a loader batch: masked mean cross-entropy of the
-    valid seeds against the batch's labels.  Returns the loss (f32, on the
-    device)."""
-    import torch
-    from torch.nn import functional as F
+    """One Adam step on a loader batch, the examples' step: masked mean
+    cross-entropy of the valid seeds against the batch's labels.  Returns
+    the loss (f32, on the device)."""
+    from cugraph_gnn_tpu_torch.examples.common import loader_step
 
-    opt.zero_grad(set_to_none=True)
-    valid = batch.seeds >= 0
-    logits = model(batch.x, batch.sample).float()
-    ls = F.cross_entropy(logits, batch.y, reduction="none")
-    loss = torch.where(valid, ls, 0).sum() / valid.sum().clamp(min=1)
-    loss.backward()
-    opt.step()
-    return loss.detach()
+    return loader_step(model, opt, batch)
 
 
 def loader_path(dev, emit, graph, small_cpu, counters, cuda_ms, hbm):
@@ -992,6 +1018,8 @@ def embedding_paths(dev, emit, graph, small_cpu, counters, cuda_ms, hbm, gs):
               "untouched_rows_bit_equal": untouched_equal})
         if not untouched_equal:
             raise AssertionError("DistEmbedding changed rows that no step touched")
+        # phase 5z's checkpoint of this trained lazy-Adam embedding
+        checkpoint_round_trip(emit, "dist_embedding", demb, mesh)
         del demb, table, initial
         torch.cuda.empty_cache()
     finally:
@@ -2281,6 +2309,293 @@ def hier_gather(dev, emit, data, mesh, counters, check_launches, cuda_ms, hbm):
           "hier_ms": cuda_ms(lambda: loader.gather_features(ids)),
           "flat_ms": cuda_ms(lambda: flat_loader.gather_features(ids))})
     return got, row
+
+
+def _zeroed(counters) -> None:
+    for fn in counters:
+        fn.launches = 0
+
+
+def _counted(counters, want, what) -> dict:
+    """Each wrapper's launches since the last ``_zeroed``; raises unless
+    they are ``want`` (row 1 and row 2 by name) and nothing else."""
+    got = {fn.__name__: fn.launches for fn in counters}
+    expect = {**{name: 0 for name in got}, **want}
+    if got != expect:
+        raise AssertionError(f"{what}: kernel launches {got}, expected {expect}")
+    return got
+
+
+def _same_bytes(a, b) -> bool:
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def checkpoint_round_trip(emit, what, obj, mesh) -> dict:
+    """Phase 5z's checkpoints: ``utils/orbax_ckpt.py``'s DCP save and
+    restore of ``obj`` (a ``DistArray``, or a ``DistEmbedding`` with its
+    optimizer state) on ``mesh`` into a temporary directory, deleted
+    afterwards: seconds and GB/s each way; every restored tensor bit-equal."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cugraph_gnn_tpu_torch.utils import orbax_ckpt as O
+
+    emb = hasattr(obj, "table")
+    saved = ([obj.table.data] + [obj._state[k] for k in sorted(obj._state)] if emb
+             else [obj.data])
+    nbytes = sum(t.numel() * t.element_size() for t in saved)
+    root = tempfile.mkdtemp(prefix="dcp_")
+    try:
+        path = os.path.join(root, what)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (O.save_embedding if emb else O.save_dist_array)(path, obj)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = (O.restore_embedding if emb else O.restore_dist_array)(path, mesh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        files = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    finally:
+        shutil.rmtree(root)
+    got = ([back.table.data] + [back._state[k] for k in sorted(back._state)] if emb
+           else [back.data])
+    equal = len(got) == len(saved) and all(
+        a.device == b.device and _same_bytes(a, b) for a, b in zip(got, saved))
+    row = {"phase": "surface_checkpoint", "what": what, "world": mesh.world,
+           "backend": mesh.backend, "tensors": len(saved), "bytes": nbytes,
+           "file_bytes": files, "save_s": save_s, "restore_s": restore_s,
+           "save_gb_per_s": nbytes / save_s / 1e9, "restore_gb_per_s": nbytes / restore_s / 1e9,
+           "bit_equal": equal}
+    emit(row)
+    if not equal:
+        raise AssertionError(f"checkpoint of {what}: the restored tensors differ")
+    return row
+
+
+NATIVE_FILES = (97_000_003, 61_000_011, 98_435_442)   # ~256 MB in three files
+NATIVE_OFFSET = 4_097                                 # not 4 KiB aligned
+
+
+def surface(dev, emit, graph, gs, counters):
+    """Phase 5z (see the module docstring).  Returns rows 1 and 2's
+    launches on its paths (the doctor, the traced batches, the meter)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cugraph_gnn_tpu_torch import _native, doctor
+    from cugraph_gnn_tpu_torch import train as T
+    from cugraph_gnn_tpu_torch.data import FeatureStore
+    from cugraph_gnn_tpu_torch.loader import NeighborLoader
+    from cugraph_gnn_tpu_torch.models import GraphSAGE
+    from cugraph_gnn_tpu_torch.store.dist_array import DistArray
+    from cugraph_gnn_tpu_torch.store.partition import PartitionBook
+    from cugraph_gnn_tpu_torch.utils import distributed as D
+    from cugraph_gnn_tpu_torch.utils import profiling
+
+    launches = {}
+
+    # the doctor: the card, and the ring sample through row 2's kernel
+    _zeroed(counters)
+    report = doctor.smoke_check()
+    launches["doctor"] = _counted(counters, {"fused_uniform_sample": 1}, "doctor")
+    emit({"phase": "surface_doctor", **report})
+    if report["platform"] != "cuda" or report["sample_kernel_launches"] != 1:
+        raise AssertionError(f"the doctor's report {report}")
+
+    # the native host code: degrees over the graph's 121M neighbor ids, and a
+    # ~256 MB three-file list read back across its boundaries (warm: the
+    # files were just written)
+    if not _native.have_native():
+        raise AssertionError("the host library did not build")
+    ids = graph.indices.cpu().numpy()
+    t0 = time.perf_counter()
+    deg = _native.degrees(ids, graph.num_nodes)
+    deg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deg_np = _native.degrees_np(ids, graph.num_nodes)
+    deg_np_s = time.perf_counter() - t0
+    del ids
+    root = tempfile.mkdtemp(prefix="filelist_")
+    try:
+        raw = graph.feats.reshape(-1)[:sum(NATIVE_FILES) // 4 + 1].cpu().numpy().view(np.uint8)
+        paths, start = [], 0
+        for i, size in enumerate(NATIVE_FILES):
+            paths.append(os.path.join(root, f"part_{i}.bin"))
+            raw[start:start + size].tofile(paths[-1])
+            start += size
+        length = sum(NATIVE_FILES) - 2 * NATIVE_OFFSET
+        want = raw[NATIVE_OFFSET:NATIVE_OFFSET + length]
+        reads = {}
+        for name, fn in (("native", lambda: _native.load_filelist_bytes(
+                             paths, NATIVE_OFFSET, length)),
+                         ("native_direct", lambda: _native.load_filelist_bytes(
+                             paths, NATIVE_OFFSET, length, use_direct=True)),
+                         ("numpy", lambda: _native.load_filelist_bytes_np(
+                             paths, NATIVE_OFFSET, length))):
+            t0 = time.perf_counter()
+            got = fn()
+            dt = time.perf_counter() - t0
+            reads[name] = {"s": dt, "gb_per_s": length / dt / 1e9,
+                           "equal": bool(np.array_equal(got, want))}
+            del got
+    finally:
+        shutil.rmtree(root)
+    equal = bool(np.array_equal(deg, deg_np)) and all(r["equal"] for r in reads.values())
+    emit({"phase": "surface_native", "degrees_ids": int(graph.indices.numel()),
+          "degrees_s": deg_s, "degrees_numpy_s": deg_np_s, "files": list(NATIVE_FILES),
+          "offset": NATIVE_OFFSET, "bytes": length, "reads": reads, "cache": "warm",
+          "equal_to_numpy": equal})
+    if not equal:
+        raise AssertionError(f"native degrees or file-list reads differ from numpy: {reads}")
+
+    # the trace around three of 5b's loader batches (dedup, batch 1024,
+    # fanouts 10/10), each in an annotate region
+    fs = FeatureStore(device=dev)
+    fs["x"] = graph.feats
+    fs["y"] = graph.labels
+    torch.manual_seed(0)
+    model = GraphSAGE(T.FEAT_DIM, T.HIDDEN, T.CLASSES, num_layers=len(T.FANOUTS),
+                      dtype=torch.bfloat16, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    batches = iter(NeighborLoader((fs, gs), num_neighbors=T.FANOUTS, batch_size=T.BATCH,
+                                  shuffle=True, dedup=True))
+    _loader_step(model, opt, next(batches))        # warm-up, outside the counts
+    torch.cuda.synchronize()
+    _zeroed(counters)
+    root = tempfile.mkdtemp(prefix="trace_")
+    try:
+        t0 = time.perf_counter()
+        with profiling.trace(root) as tr:
+            for _ in range(3):
+                with profiling.annotate("loader-batch"):
+                    _loader_step(model, opt, next(batches))
+            torch.cuda.synchronize()
+        trace_s = time.perf_counter() - t0
+        trace_bytes = os.path.getsize(tr.path)
+        with open(tr.path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(root)
+    launches["trace"] = _counted(counters, {"gather_rows": 3, "fused_uniform_sample": 6},
+                                 "traced batches")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in e["name"] for e in kernels)
+             for k in ("gather_rows_kernel", "uniform_sample_groups", "uniform_sample_rows")}
+    regions = sum(e.get("name") == "loader-batch" for e in events)
+    device_us = sum(e.get("dur", 0) for e in kernels)
+    emit({"phase": "surface_trace", "batches": 3, "events": len(events),
+          "kernel_events": len(kernels), "kernel_us": device_us, "named": found,
+          "annotate_regions": regions, "trace_bytes": trace_bytes, "trace_s": trace_s})
+    if not (found["gather_rows_kernel"] == 3 and regions >= 3
+            and found["uniform_sample_groups"] + found["uniform_sample_rows"] == 6):
+        raise AssertionError(f"the trace names {found} and {regions} regions")
+
+    # the meter on 5b's step (a loader batch and its Adam step), beside the
+    # same step's CUDA-event times
+    meter = profiling.PerformanceMeter(warmup=2, iters=10)
+    _zeroed(counters)
+    meter_ms = meter.run(lambda acc: acc + _loader_step(model, opt, next(batches)),
+                         name="loader_step", items_per_iter=T.BATCH)
+    steps = meter.warmup + 1 + meter.iters + 1
+    ev = []
+    for _ in range(10):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        _loader_step(model, opt, next(batches))
+        b.record()
+        ev.append((a, b))
+    torch.cuda.synchronize()
+    event_ms = [a.elapsed_time(b) for a, b in ev]
+    steps += len(ev)
+    launches["meter"] = _counted(counters, {"gather_rows": steps,
+                                            "fused_uniform_sample": 2 * steps}, "meter")
+    emit({"phase": "surface_meter", "meter_ms": meter_ms, "meter": meter.metrics,
+          "event_ms_mean": sum(event_ms) / len(event_ms), "event_ms": event_ms,
+          "batches": steps})
+    if not (0 < meter_ms < 1e4):
+        raise AssertionError(f"the meter measured {meter_ms} ms")
+    del batches, model, opt
+
+    # the checkpoint of 5b's float32 x as a DistArray at world 1 over NCCL
+    mesh = D.init(init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        _require_nccl(mesh)
+        x = DistArray(graph.feats, PartitionBook.even(graph.num_nodes, 1), mesh)
+        checkpoint_round_trip(emit, "loader_x", x, mesh)
+    finally:
+        D.finalize()
+    return launches
+
+
+OGBN = ("2449029", "61859140", "100")   # ogbn-products: nodes, undirected edges, F
+
+
+def examples(dev, emit, counters):
+    """Phase 5zz (see the module docstring).  Returns rows 1 and 2's
+    launches on the two training scripts."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cugraph_gnn_tpu_torch.examples import node_classification, ogbn_convert, ogbn_train
+
+    launches = {}
+    root = tempfile.mkdtemp(prefix="ogbn_")
+    try:
+        t0 = time.perf_counter()
+        ogbn_convert.main(["--synthetic", *OGBN, "--parts", "8", "--out", root])
+        convert_s = time.perf_counter() - t0
+        _zeroed(counters)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = ogbn_train.main(["--dir", root, "--epochs", "1", "--hidden-dim", "256",
+                               "--neighbors", "10,10", "--batch-size", "1024"])
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root)
+    ep = out["epochs"][0]
+    n, e = int(OGBN[0]), int(OGBN[1])                # the 60 / 20 / 20 split's batches
+    train, evals = -(-int(0.6 * n) // 1024), (-(-(int(0.8 * n) - int(0.6 * n)) // 1024)
+                                              + -(-(n - int(0.8 * n)) // 1024))
+    calls = ep["batches"] + evals
+    launches["ogbn_train"] = _counted(counters, {"gather_rows": calls,
+                                                 "fused_uniform_sample": 2 * calls},
+                                      "ogbn_train")
+    emit({"phase": "examples_ogbn_train", "convert_s": convert_s, "wall_s": wall,
+          "nodes": out["num_nodes"], "directed_edges": out["edges"],
+          "feat_dim": out["feat_dim"], "train_batches": ep["batches"], "eval_batches": evals,
+          "loss": ep["loss"], "valid_acc": ep["valid_acc"], "test_acc": ep["test_acc"],
+          "train_epoch_s": ep["train_s"], "ms_per_train_batch": ep["train_s"] * 1e3 / ep["batches"],
+          "launches_per_batch": {k: v / calls for k, v in launches["ogbn_train"].items()},
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    if not (out["num_nodes"] == n and out["feat_dim"] == 128 and out["edges"] == 2 * e
+            and ep["batches"] == train and math.isfinite(ep["loss"])):
+        raise AssertionError(f"ogbn_train: {out}")
+
+    # the smaller run: node_classification at its defaults (10,000 nodes)
+    _zeroed(counters)
+    t0 = time.perf_counter()
+    out = node_classification.main(["--dataset", "synthetic", "--epochs", "2"])
+    wall = time.perf_counter() - t0
+    calls = 3 * out["batches"]                       # 2 epochs and the evaluation
+    launches["node_classification"] = _counted(
+        counters, {"gather_rows": calls, "fused_uniform_sample": 2 * calls},
+        "node_classification")
+    emit({"phase": "examples_node_classification", "wall_s": wall, "losses": out["losses"],
+          "train_accuracy": out["train_accuracy"], "batches_per_epoch": out["batches"]})
+    if not (out["batches"] == 10 and all(math.isfinite(v) for v in out["losses"])):
+        raise AssertionError(f"node_classification: {out}")
+    return launches
 
 
 HETERO_LINK_EDGES = 196_608   # author-writes-paper positives of phase 5s
@@ -5209,6 +5524,7 @@ def main() -> None:
                                           hbm, gs)
     variant_launches = sampling_variants(dev, emit, graph, small_cpu, counters, gs)
     dl_launches, dl_rows = dist_paths(dev, emit, graph, small_cpu, counters, cuda_ms, hbm, gs)
+    surface_launches = surface(dev, emit, graph, gs, counters)
     # the link path's training, triplet and evaluation batches; GIN's loader
     link_total = {name: sum(link_launches[k][name] for k in ("binary", "triplet", "eval"))
                   for name in ("gather_rows", "fused_uniform_sample")}
@@ -5220,6 +5536,12 @@ def main() -> None:
             v[name] for v in variant_launches.values()) + sum(
             v[name] for v in dl_launches.values())
     del graph, gs
+    torch.cuda.empty_cache()
+    example_launches = examples(dev, emit, counters)
+    # the doctor, the traced batches, the meter and the two training scripts
+    new_launches = {**surface_launches, **example_launches}
+    for name in ("gather_rows", "fused_uniform_sample"):
+        sampled_launches[name] += sum(v[name] for v in new_launches.values())
     torch.cuda.empty_cache()
     hetero_launches, hetero_rows = hetero_paths(dev, emit, counters, cuda_ms, hbm)
     for name in ("gather_rows", "fused_uniform_sample"):
@@ -5384,6 +5706,20 @@ def main() -> None:
     kernels[-1]["gap_ms_hetero_dist"] = sum(
         sampler_gap(hetero_launches[k]["fused_uniform_sample"],
                     hetero_rows[HETERO_SAMPLER_ROWS[k]]) for k in ("dist", "dist_link"))
+    # phases 5z and 5zz by path; the gap prices the traced and metered 5b
+    # batches and ogbn_train's batches (5b's shape without dedup) at the
+    # loader's shape; the doctor's 2-seed ring and node_classification's
+    # 10,000-node batches lie far below every timed shape and are not priced
+    by_name = {row["name"]: row for row in kernels}
+    for name, counter, per_launch in (
+            ("gather_rows", "gather_rows", a_row["ms"] - a_row["bound_ms"]),
+            ("uniform_sample", "fused_uniform_sample",
+             sum(r["ms"] - r["bound_ms"] for r in loader_b_rows) / len(loader_b_rows))):
+        row = by_name[name]
+        row.update({f"launches_{k}": v[counter] for k, v in new_launches.items()})
+        row["gap_ms_surface_examples"] = per_launch * sum(
+            new_launches[k][counter] for k in ("trace", "meter", "ogbn_train"))
+        row["gap_ms"] += row["gap_ms_surface_examples"]
     kernels += fb_rows + gat_rows + dist_rows + [probe_row]
     emit({"phase": "wall", "seconds": time.perf_counter() - wall0})
     print(smi)

@@ -9,3 +9,7 @@ PyTorch version beside its wrapper, which the wrapper runs for CPU tensors.
 Entry points run on the card unless the caller passes ``device="cpu"``, and
 raise when there is no card: the port never falls back to the CPU unasked.
 """
+
+from cugraph_gnn_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -1,30 +1,35 @@
 """ctypes binding for the repository's host C++ graph builders (``cpp/``).
 
-Counterpart of ``cugraph_gnn_tpu/native.py`` for what the full-batch path
-needs: the parallel counting-sort CSR build (``cpp/csr_builder.cpp``) and
-reverse Cuthill-McKee reordering (``cpp/reorder.cpp``).  The two sources are
+Counterpart of ``cugraph_gnn_tpu/native.py``: the parallel counting-sort
+CSR build and degree histogram (``cpp/csr_builder.cpp``), reverse
+Cuthill-McKee reordering (``cpp/reorder.cpp``) and the multithreaded read of
+a byte range of a file list (``cpp/file_loader.cpp``).  The sources are
 compiled with g++ (the flags of ``cpp/Makefile``) into
 ``cugraph_gnn_tpu_torch/_build/`` at first use, named by a digest of the
 sources and flags; ``cpp/``'s own tracked library is never rebuilt or loaded.
-Being the same C++, it gives the JAX package's CSR layouts and RCM orders.
+Being the same C++, it gives the JAX package's CSR layouts, degrees, RCM
+orders and bytes.
 
 Without a host compiler the NumPy versions below run instead, as they do in
-the JAX package; they also serve empty graphs.
+the JAX package; they also serve empty graphs.  A native file read that
+fails raises ``OSError`` (the JAX package retries it with plain reads).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
 from cugraph_gnn_tpu_torch import _build
 
 CPP_DIR = Path(__file__).resolve().parent.parent / "cpp"
-SOURCES = (CPP_DIR / "csr_builder.cpp", CPP_DIR / "reorder.cpp")
+SOURCES = (CPP_DIR / "csr_builder.cpp", CPP_DIR / "reorder.cpp",
+           CPP_DIR / "file_loader.cpp")
 FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
 
 _lock = threading.Lock()
@@ -50,6 +55,12 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.build_csr_i32.argtypes = [_I32, _I32, ctypes.c_int64, ctypes.c_int64,
                                       _I64, _I32, _I64]
         lib.build_csr_i32.restype = None
+        lib.degrees_i32.argtypes = [_I32, ctypes.c_int64, ctypes.c_int64, _I64]
+        lib.degrees_i32.restype = None
+        lib.load_filelist_range.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), _I64, ctypes.c_int32, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32]
+        lib.load_filelist_range.restype = ctypes.c_int
         lib.rcm_order_i32.argtypes = [_I64, _I32, ctypes.c_int64, _I32]
         lib.rcm_order_i32.restype = None
         lib.apply_order_csr_i32.argtypes = [_I64, _I32, _I32, ctypes.c_int64,
@@ -97,6 +108,59 @@ def build_csr_np(key, val, num_nodes: int):
     counts = np.bincount(key, minlength=num_nodes)
     indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
     return indptr, val[order], order.astype(np.int64)
+
+
+def degrees(key, num_nodes: int) -> np.ndarray:
+    """The int64 count of each node id in ``key`` (num_nodes,)."""
+    key = np.ascontiguousarray(key, np.int32)
+    lib = _load()
+    if lib is not None and len(key) > 0:
+        out = np.zeros(num_nodes, np.int64)
+        lib.degrees_i32(_i32ptr(key), len(key), num_nodes, _i64ptr(out))
+        return out
+    return degrees_np(key, num_nodes)
+
+
+def degrees_np(key, num_nodes: int) -> np.ndarray:
+    """NumPy version of :func:`degrees`."""
+    return np.bincount(np.asarray(key, np.int32), minlength=num_nodes).astype(np.int64)
+
+
+def load_filelist_bytes(paths: Sequence[str], range_off: int, range_len: int,
+                        num_threads: int = 8, use_direct: bool = False) -> np.ndarray:
+    """Bytes [range_off, range_off + range_len) of the files in ``paths``
+    read as one concatenation, as uint8: ``num_threads`` reader threads over
+    64 MiB spans, with ``O_DIRECT`` through an aligned staging buffer when
+    ``use_direct`` (plain reads where the file system refuses it)."""
+    lib = _load()
+    if lib is None:
+        return load_filelist_bytes_np(paths, range_off, range_len)
+    out = np.zeros(range_len, np.uint8)
+    sizes = np.array([os.path.getsize(p) for p in paths], np.int64)
+    names = (ctypes.c_char_p * len(paths))(*[os.fsencode(p) for p in paths])
+    rc = lib.load_filelist_range(names, _i64ptr(sizes), len(paths), range_off, range_len,
+                                 out.ctypes.data, num_threads, int(use_direct))
+    if rc != 0:
+        raise OSError(f"reading bytes [{range_off}, {range_off + range_len}) of {list(paths)} "
+                      "failed")
+    return out
+
+
+def load_filelist_bytes_np(paths: Sequence[str], range_off: int,
+                           range_len: int) -> np.ndarray:
+    """NumPy version of :func:`load_filelist_bytes`: one plain read a file."""
+    out = np.zeros(range_len, np.uint8)
+    file_start = 0
+    for p in paths:
+        size = os.path.getsize(p)
+        a = max(range_off, file_start)
+        b = min(range_off + range_len, file_start + size)
+        if a < b:
+            with open(p, "rb") as f:
+                f.seek(a - file_start)
+                out[a - range_off:b - range_off] = np.frombuffer(f.read(b - a), np.uint8)
+        file_start += size
+    return out
 
 
 def rcm_order(indptr, indices) -> np.ndarray:

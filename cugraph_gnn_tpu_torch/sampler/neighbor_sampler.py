@@ -30,10 +30,12 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from cugraph_gnn_tpu_torch._device import resolve_device
 from cugraph_gnn_tpu_torch.ops.sample import (
+    floyd_positions_np,
     masked_uniform_sample,
     uniform_sample,
     weighted_sample,
@@ -264,3 +266,22 @@ class NeighborSampler:
         return MultihopBatch(levels=levels, level_counts=counts,
                              hops=[HopBlock(*(a[0] for a in hop[:3])) for hop in hops],
                              seed_count=counts[0], static_layout=not self.dedup)
+
+
+def uniform_sample_np(u, indptr, indices, seeds, fanout: int):
+    """Host reference of one uniform hop (NumPy): the JAX function with its
+    (len(seeds), fanout) uniforms ``u`` passed in instead of drawn from a
+    key (JAX draws ``jax.random.uniform(key, (len(seeds), fanout))``).
+    Returns (neighbors, edge_ids), int64, -1 where a seed has fewer
+    neighbors or is -1."""
+    indptr = np.asarray(indptr)
+    indices = np.asarray(indices)
+    seeds = np.asarray(seeds)
+    valid = seeds >= 0
+    safe = np.where(valid, seeds, 0)
+    deg = np.where(valid, indptr[safe + 1] - indptr[safe], 0)
+    pos = floyd_positions_np(u, deg, fanout)
+    start = indptr[safe]
+    edge_ids = np.where(pos >= 0, start[:, None] + pos, -1)
+    neigh = np.where(pos >= 0, indices[np.clip(edge_ids, 0, None)], -1)
+    return neigh.astype(np.int64), edge_ids.astype(np.int64)

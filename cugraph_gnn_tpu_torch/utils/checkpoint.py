@@ -10,8 +10,9 @@ world size may change between save and load.
 
 A rank-local load takes a contiguous book (``store.partition.PartitionBook``:
 one range of rows) or any other, such as a ``RoundRobinBook``, whose rows it
-picks one by one.  ``utils/orbax_ckpt.py`` (model parameters) is not ported
-yet (ROADMAP Queue 1 item 7).
+picks one by one.  ``utils/orbax_ckpt.py`` is the other checkpoint of
+``DistArray`` and ``DistEmbedding`` state: sharded ``torch.distributed.checkpoint``
+files, restored at the saved world size only.
 """
 
 from __future__ import annotations

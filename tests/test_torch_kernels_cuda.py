@@ -23,6 +23,9 @@ CPU (a gloo group of the one rank) for uniform, weighted and temporal
 sampling; the same for the hetero dist loaders (typed, on a small mag-shaped
 graph, against the typed ``NeighborLoader`` and ``LinkNeighborLoader``), and
 the hierarchical gather on a 1 x 1 (node, device) mesh against the flat one.
+The doctor on the card (its ring sample one sampler launch), a profiler
+trace of a loader batch naming both kernels, and DCP checkpoints at world 1
+over NCCL restored bit for bit.
 
 Marked ``cuda``: each test asks the ``card`` fixture for a device and skips
 without one.  The file imports no JAX, so on the machine with the card it
@@ -2094,3 +2097,67 @@ def test_hier_gather_world1_matches_flat(world1):
     assert gather_rows.launches == before + 2 and int(cross[0]) == 0
     want = torch.where((ids >= 0)[:, None], table[ids.clamp(min=0)], 0)
     assert torch.equal(_bits(hier), _bits(flat)) and torch.equal(_bits(hier), _bits(want))
+
+
+# -- the doctor, the trace and the DCP checkpoints ------------------------------------------
+
+
+def test_doctor_on_card(card):
+    """``smoke_check()`` with no device: the card, the ring sample through
+    the fused sampler's kernel (one launch)."""
+    from cugraph_gnn_tpu_torch import doctor
+
+    before = fused_uniform_sample.launches
+    report = doctor.smoke_check()
+    assert report["platform"] == "cuda" and report["sample_op"] == "ok"
+    assert report["device_name"] == torch.cuda.get_device_name(0)
+    assert report["sample_kernel_launches"] == 1 == fused_uniform_sample.launches - before
+
+
+def test_trace_names_both_kernels(card, tmp_path):
+    """``profiling.trace`` around one loader batch records the row gather
+    and the sampler's kernels by name, and the ``annotate`` region."""
+    import json
+
+    from cugraph_gnn_tpu_torch.utils import profiling
+
+    g = torch.Generator().manual_seed(0)
+    n = 3000
+    gs = GraphStore(device=card)
+    gs.put_edge_index((torch.randint(0, n, (30_000,), generator=g).numpy(),
+                       torch.randint(0, n, (30_000,), generator=g).numpy()),
+                      ("n", "to", "n"), num_nodes=(n, n))
+    fs = FeatureStore(device=card)
+    fs["x"] = torch.randn((n, 64), generator=g)
+    loader = NeighborLoader((fs, gs), num_neighbors=[5, 5], batch_size=256, dedup=False)
+    next(iter(loader))                 # the kernels' first launch builds them
+    with profiling.trace(str(tmp_path)) as t:
+        with profiling.annotate("one-loader-batch"):
+            batch = next(iter(loader))
+            torch.cuda.synchronize()
+    assert batch.x.shape[1] == 64
+    names = " ".join(e.get("name", "") for e in json.load(open(t.path))["traceEvents"])
+    assert "gather_rows_kernel" in names and "one-loader-batch" in names
+    assert "uniform_sample_groups" in names or "uniform_sample_rows" in names
+
+
+def test_checkpoint_round_trip_world1(world1, tmp_path):
+    """DCP save and restore at world 1 over NCCL: a bf16 ``DistArray`` and
+    a trained lazy-Adam ``DistEmbedding``, bit for bit, on the card."""
+    from cugraph_gnn_tpu_torch.embedding import DistEmbedding
+    from cugraph_gnn_tpu_torch.store.dist_array import DistArray
+    from cugraph_gnn_tpu_torch.utils import orbax_ckpt
+
+    g = torch.Generator().manual_seed(1)
+    arr = DistArray.from_array(torch.randn((1001, 96), generator=g), world1,
+                               dtype=torch.bfloat16)
+    orbax_ckpt.save_dist_array(str(tmp_path / "arr"), arr)
+    back = orbax_ckpt.restore_dist_array(str(tmp_path / "arr"))
+    assert back.data.device == arr.data.device and torch.equal(_bits(back.data), _bits(arr.data))
+    emb = DistEmbedding.create(500, 32, world1, optimizer="lazy_adam")
+    emb.add_gradients(torch.arange(64) * 7 % 500, torch.full((64, 32), 0.1))
+    emb.apply_gradients(lr=0.01)
+    orbax_ckpt.save_embedding(str(tmp_path / "emb"), emb)
+    got = orbax_ckpt.restore_embedding(str(tmp_path / "emb"))
+    assert torch.equal(got.table.data, emb.table.data)
+    assert all(torch.equal(got._state[k], emb._state[k]) for k in emb._state)

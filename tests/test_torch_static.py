@@ -15,11 +15,16 @@
 - The hetero dist path (the typed loader, R-GCN's step, the typed link
   batch) and the hierarchical gather, at one gloo rank on the CPU, launch no
   kernel.
+- Every name that a subpackage exports is the port's own object; the doctor,
+  the meter, the example scripts and the checkpoint restores raise without
+  a card.
 """
 
 import ast
+import importlib
 import os
 import pathlib
+import types
 
 import numpy as np
 import pytest
@@ -90,6 +95,9 @@ from cugraph_gnn_tpu_torch.models.convert import typed_sage_from_flax
 from cugraph_gnn_tpu_torch.parallel.mesh import create_hierarchical_mesh
 from cugraph_gnn_tpu_torch.sampler.hetero_dist import HeteroDistGraph
 from cugraph_gnn_tpu_torch.store.hierarchical import HierarchicalDistArray
+from cugraph_gnn_tpu_torch import doctor
+from cugraph_gnn_tpu_torch.examples import node_classification, ogbn_train
+from cugraph_gnn_tpu_torch.utils import orbax_ckpt, profiling
 
 PKG = pathlib.Path(cugraph_gnn_tpu_torch.__file__).parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cugraph_gnn_tpu"}
@@ -317,6 +325,19 @@ _GIN_TREE = {"params": {"conv_0": {name: {"kernel": np.zeros((4, 3), np.float32)
 _RGCN_TREE = {"params": {"conv_0": {"lin_root": {"kernel": np.zeros((4, 3), np.float32),
                                                   "bias": np.zeros(3, np.float32)},
                                      "lin_rel_0": {"kernel": np.zeros((4, 3), np.float32)}}}}
+@pytest.mark.parametrize("sub", ["", ".ops", ".sampler", ".models", ".utils"],
+                         ids=lambda s: s or "root")
+def test_exports_are_port_objects(sub):
+    """Every name a subpackage exports is the port's own object (its module
+    is under the package, whose sources the test above holds free of JAX)."""
+    pkg = importlib.import_module(f"cugraph_gnn_tpu_torch{sub}")
+    for name in pkg.__all__:
+        obj = getattr(pkg, name)
+        home = obj.__name__ if isinstance(obj, types.ModuleType) else getattr(
+            obj, "__module__", pkg.__name__)
+        assert home.split(".")[0] == "cugraph_gnn_tpu_torch", (name, home)
+
+
 _INDPTR = np.array([0, 1, 2], np.int32)
 _INDICES = np.array([1, 0], np.int32)
 _CPU_CSR = (torch.as_tensor(_INDPTR), torch.as_tensor(_INDICES))
@@ -401,6 +422,13 @@ ENTRY_POINTS = {
     "TypedSAGE": lambda: THD.TypedSAGE({"a": 4}, {"a": (0, 2)}),
     "typed_sage_from_flax": lambda: typed_sage_from_flax(_TYPED_TREE, {"a": (0, 2)}),
     "click_stores": THD.click_stores,
+    # the doctor, the meter, the examples and the checkpoint restores
+    "smoke_check": doctor.smoke_check,
+    "PerformanceMeter": profiling.PerformanceMeter,
+    "ogbn_train.main": lambda: ogbn_train.main(["--dir", "no-such-dir"]),
+    "node_classification.main": lambda: node_classification.main(["--dataset", "synthetic"]),
+    "restore_dist_array": lambda: orbax_ckpt.restore_dist_array("no-such-dir"),
+    "restore_embedding": lambda: orbax_ckpt.restore_embedding("no-such-dir"),
 }
 _TYPED_TREE = {"params": {"in_a": {"kernel": np.zeros((4, 3), np.float32),
                                    "bias": np.zeros(3, np.float32)},
