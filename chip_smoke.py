@@ -11,8 +11,11 @@ typed block, the hetero loaders and a typed link batch, and the typed
 distributed loaders at world 1 with the distributed trainer), the
 hierarchical gather on a 1 x 1 (node, device) mesh, the package surface
 (the doctor, the native IO, a profiler trace, the meter, DCP checkpoints),
-the OGB examples at ogbn-products width, and full-batch GraphSAGE, GCN,
-GIN, R-GCN and 4-head GAT over a banded graph at ogbn-products scale.
+the OGB examples at ogbn-products width, the twelve other example scripts
+(and KG link classification, MovieLens, hetero link prediction, R-GCN
+hetero, fraud detection and xgb's encoder at their datasets' scale), and
+full-batch GraphSAGE, GCN, GIN, R-GCN and 4-head GAT over a banded graph at
+ogbn-products scale.
 
     python3 chip_smoke.py            # every phase, on one card
     python3 chip_smoke.py --probe    # phases 1, 2 and 11b alone
@@ -269,7 +272,37 @@ Phases (any failure raises and exits non-zero):
    line, its train seconds and ms a batch, peak memory.  Then
    ``node_classification.py --dataset synthetic --epochs 2`` at its defaults
    (10,000 nodes, 100,000 edges, F = 100): 10 batches an epoch and 10 to
-   evaluate, launches as above.
+   evaluate, launches as above.  Then the twelve other scripts' ``main`` at
+   the JAX scripts' defaults (``--epochs 1`` where the script has no
+   accuracy gate; stdout kept): fraud detection, cached embeddings, R-GCN
+   hetero, hetero link prediction (shared and ``--disjoint``), KG link
+   classification, MovieLens, multichip, hetero dist (8 epochs) and dist
+   full batch (60 epochs) over a world of one (NCCL), xgb (without
+   scikit-learn ``main`` must raise ``ImportError`` and its encoder and
+   export run alone), full batch (GCN, SAGE, R-GCN, GAT) and link
+   prediction on a karate-format stand-in (``karate_standin``, a
+   temporary file): each run's wall seconds, ms a
+   batch, losses (finite), accuracy or AUC, peak memory and launches, exactly
+   1 row-1 and 2 row-2 launches a homogeneous loader batch, a row-1 launch
+   per node type and a row-2 launch per hop and edge type a hetero batch
+   (none on MovieLens' key-based temporal hops), the cache's two reads, its
+   writebacks and one row-3 dedup a cached-embedding step; row 9 alone for
+   the dist full batch, row 4 alone for full-batch GCN, SAGE and R-GCN,
+   row 5 and the one backward family ``backward_design`` picks for GAT.
+   Last the new paths at full width, the scripts' own widths at their
+   datasets' scale, each graph freed before the next: ``fraud_detection``
+   ``main`` at Elliptic's 203,769 nodes (``--avg-degree 1 --feat-dim 165
+   --epochs 1``: ~140 train and 199 export batches, then the downstream
+   model the machine has), xgb's encoder and export at 203,769 nodes (its
+   ``main`` where scikit-learn imports), and through the scripts' functions
+   (2 warm-up and 5 timed steps each, per step its ms, loss, accuracy,
+   nodes and slots per level, launches and peak memory): KG link
+   classification at ogbl-wikikg2 (2,500,604 learned 256-wide entities,
+   535 relations, 16,109,182 triples), MovieLens at ML-25M (162,541 users,
+   62,423 movies, 25,000,095 ratings, both orientations timed), hetero link
+   prediction at ogbn-mag (736,389 papers, 1,134,649 authors, 7,145,660
+   writes, shared and disjoint) and R-GCN hetero at ogbn-mag (and 8,740
+   institutions).
 5w. (run after 5s, on 5p's mag graph and 5r's stores) the hetero dist
    loader at full width, world 1 over NCCL: the typed ``DistNeighborLoader``
    (512 paper seeds, fanouts 8/8, 8/8, 4/4, shuffled; every edge type
@@ -433,7 +466,8 @@ Phases (any failure raises and exits non-zero):
     attention forward and backward.
 17. the ``kernels`` summary line (rows 1-14, then the probe, which the
     main path launches no time; rows 1 and 2 count the launches of phases
-    5, 5b, 5e, 5f, 5h, 5j, 5l-5n, 5q-5s, 5t-5u, 5w-5y, 5z and 5zz, split by
+    5, 5b, 5e, 5f, 5h, 5j, 5l-5n, 5q-5s, 5t-5u, 5w-5y, 5z and 5zz (rows 3-6
+    and 9 also 5zz's, under ``launches_examples``), split by
     path (the dist paths' also timed at a dist batch's calls, beside their
     ``gap_ms_dist``; the hetero dist paths' at their own calls, beside
     ``gap_ms_hetero_dist``; row 1 at 5y's owner read) (row 1 also timed at
@@ -456,11 +490,13 @@ Every JSON line carries the card's name and power limit, and its seconds since
 the start (``t_s``).
 """
 
+import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -2595,6 +2631,398 @@ def examples(dev, emit, counters):
           "train_accuracy": out["train_accuracy"], "batches_per_epoch": out["batches"]})
     if not (out["batches"] == 10 and all(math.isfinite(v) for v in out["losses"])):
         raise AssertionError(f"node_classification: {out}")
+    return launches
+
+
+def _rows_launched(counters, rows, what) -> dict:
+    """Each wrapper's launches since the last ``_zeroed``; raises unless
+    exactly the wrappers named in ``rows`` launched (some times each)."""
+    got = {fn.__name__: fn.launches for fn in counters}
+    bad = {k: v for k, v in got.items() if (k in rows) != (v > 0)}
+    if bad or not rows:
+        raise AssertionError(f"{what}: kernel launches {got}, expected only {sorted(rows)}")
+    return got
+
+
+def _sampled(batches, gathers=1, sampler=2) -> dict:
+    """Rows 1 and 2's launches for ``batches`` loader batches."""
+    return {"gather_rows": gathers * batches, "fused_uniform_sample": sampler * batches}
+
+
+BWD_COUNTERS = ("onepass_bwd", "slab_attention_bwd", "slab_attention_bwd_mh")
+
+
+def _gat_rows(counters) -> set:
+    """Full-batch GAT's rows: the attention forward and the one backward
+    family that ``backward_design`` picked."""
+    bwd = [fn.__name__ for fn in counters if fn.__name__ in BWD_COUNTERS and fn.launches]
+    if len(bwd) != 1:
+        raise AssertionError(f"full-batch GAT launched the backwards {bwd}")
+    return {"slab_attention_spmm_mh", bwd[0]}
+
+
+@contextlib.contextmanager
+def karate_standin():
+    """A karate-club stand-in in a temporary file ("src dst weight" rows,
+    weight 1), read by the port's ``load_karate`` while the context is open,
+    then deleted: 34 nodes in the two groups that
+    ``examples/full_batch_training.py`` labels, each pair i < j an edge with
+    probability 0.35 inside a group and 0.02 across (``default_rng(0)``),
+    plus an edge to the next member of its own group for every node, so that
+    none is isolated and node 33 exists.  Yields the file's path."""
+    import numpy as np
+
+    from cugraph_gnn_tpu_torch.utils import datasets as DS
+
+    n = 34
+    group = np.zeros(n, bool)
+    group[[8, 9, 14, 15, 18, 20, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33]] = True
+    i, j = np.triu_indices(n, 1)
+    keep = np.random.default_rng(0).random(len(i)) < np.where(group[i] == group[j], 0.35, 0.02)
+    src, dst = [i[keep]], [j[keep]]
+    for g in (group, ~group):
+        members = np.nonzero(g)[0]
+        src.append(members)
+        dst.append(np.roll(members, -1))
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    key = np.unique(np.minimum(src, dst).astype(np.int64) * n + np.maximum(src, dst))
+    fd, path = tempfile.mkstemp(suffix="_karate.csv")
+    os.close(fd)
+    old = DS.KARATE_DEFAULT
+    try:
+        np.savetxt(path, np.stack([key // n, key % n, np.ones(len(key))], axis=1),
+                   fmt="%d %d %.1f")
+        DS.KARATE_DEFAULT = path
+        yield path
+    finally:
+        DS.KARATE_DEFAULT = old
+        os.remove(path)
+
+
+def example_scripts(dev, emit, counters):
+    """Phase 5zz, the twelve other scripts' ``main`` at the JAX scripts'
+    defaults (see the module docstring).  Returns each run's launches."""
+    import importlib.util
+    import io
+
+    import torch
+
+    from cugraph_gnn_tpu_torch.embedding.cached import HostManagedCache
+    from cugraph_gnn_tpu_torch.examples import (
+        cached_embedding_training as CE,
+        dist_full_batch_training as DFB,
+        fraud_detection as FD,
+        full_batch_training as FB,
+        hetero_dist_training as HDT,
+        hetero_link_pred as HL,
+        kg_link_class as KG,
+        link_prediction as LP,
+        movielens_rec as ML,
+        multichip_training as MC,
+        rgcn_hetero as RH,
+        xgb_downstream as XG,
+    )
+
+    have_sklearn = importlib.util.find_spec("sklearn") is not None
+    launches = {}
+
+    def run(what, fn, want=None, rows=(), batches=None, argv=None):
+        """``fn()`` (a script's main), timed, its stdout kept; launches
+        checked: exactly ``want(out)``, or only ``rows``.  ``batches(out)``:
+        every batch that launched; the ms a batch are of the training
+        batches (``out["train_batches"]`` where the script also sweeps, else
+        all), and of the export batches apart."""
+        _zeroed(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = (_counted(counters, want(out), what) if want is not None
+               else _rows_launched(counters, rows(counters) if callable(rows) else rows,
+                                   what))
+        losses = list(out.get("losses") or [])
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{what}: non-finite loss in {losses}")
+        n = batches(out) if batches is not None else None
+        n_train = out.get("train_batches", n)
+        emit({"phase": f"example_{what}", "argv": argv, "wall_s": wall, "batches": n,
+              "ms_per_train_batch": (out["train_s"] * 1e3 / n_train
+                                     if n_train and "train_s" in out else None),
+              **({"ms_per_export_batch": out["export_s"] * 1e3 / out["export_batches"]}
+                 if "export_s" in out else {}),
+              "losses_first_last": losses[:1] + losses[-1:],
+              **{k: out[k] for k in ("accs", "accuracy", "auc", "downstream", "hit_rate",
+                                     "world", "band_fraction", "test_acc") if k in out},
+              "launches": {k: v for k, v in got.items() if v},
+              "launches_per_batch": {k: v / n for k, v in got.items() if v} if n else None,
+              "lines": buf.getvalue().splitlines()[-3:],
+              "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        launches[what] = got
+        return out
+
+    def main_of(mod, argv):
+        return lambda: mod.main(argv)
+
+    one = ["--epochs", "1"]
+    run("fraud_detection", main_of(FD, one), argv=one,
+        want=lambda o: _sampled(o["train_batches"] + o["export_batches"]),
+        batches=lambda o: o["train_batches"] + o["export_batches"])
+
+    # each step: the lookup's and the update's cache reads, one more a writeback
+    wb = [0]
+    inner = HostManagedCache._writeback
+
+    def counted(self, s, w, ids):
+        wb[0] += int(len(ids) > 0)
+        return inner(self, s, w, ids)
+
+    HostManagedCache._writeback = counted
+    try:
+        run("cached_embedding_training", main_of(CE, one), argv=one,
+            want=lambda o: {"gather_rows": 2 * o["steps_per_epoch"] + wb[0],
+                            "fused_uniform_sample": 2 * o["steps_per_epoch"],
+                            "csr_spmm": o["steps_per_epoch"]},
+            batches=lambda o: o["steps_per_epoch"])
+    finally:
+        HostManagedCache._writeback = inner
+    # the typed loaders: a gather per node type, a sampler launch per hop and
+    # edge type (none on the temporal hops, which are key-based)
+    run("rgcn_hetero", main_of(RH, one), argv=one,
+        want=lambda o: _sampled(o["batches"], 3, 6), batches=lambda o: o["batches"])
+    for tag, extra in (("hetero_link_pred", []), ("hetero_link_pred_disjoint", ["--disjoint"])):
+        run(tag, main_of(HL, one + extra), argv=one + extra,
+            want=lambda o: _sampled(o["batches"], 2, 4), batches=lambda o: o["batches"])
+    run("kg_link_class", main_of(KG, one), argv=one, want=lambda o: _sampled(o["batches"]),
+        batches=lambda o: o["batches"])
+    run("movielens_rec", main_of(ML, one), argv=one, want=lambda o: _sampled(o["batches"], 2, 0),
+        batches=lambda o: o["batches"])
+    run("multichip_training", main_of(MC, one), argv=one,
+        want=lambda o: _sampled(len(o["losses"])), batches=lambda o: len(o["losses"]))
+    run("hetero_dist_training", main_of(HDT, []), argv=[],
+        want=lambda o: _sampled(len(o["losses"]), 2, 4), batches=lambda o: len(o["losses"]))
+    run("dist_full_batch_training", main_of(DFB, []), argv=[], rows={"slab_spmm_shard"})
+    if have_sklearn:
+        run("xgb_downstream", main_of(XG, one), argv=one,
+            want=lambda o: _sampled(o["train_batches"] + o["export_batches"]),
+            batches=lambda o: o["train_batches"] + o["export_batches"])
+    else:
+        try:
+            XG.main(one)
+        except ImportError as e:
+            emit({"phase": "example_xgb_downstream_main", "raised": f"ImportError: {e}",
+                  "trees_fit": False,
+                  "trees_not_fit_because": "scikit-learn is not installed"})
+        else:
+            raise AssertionError("xgb_downstream ran its trees without scikit-learn")
+        args = XG.parse_args(one)
+        stats = {}
+        run("xgb_downstream_embeddings",
+            lambda: (XG.make_embeddings(args, XG.split(args.num_nodes)[0], stats=stats),
+                     stats)[1], argv=one,
+            want=lambda o: _sampled(o["train_batches"] + o["export_batches"]),
+            batches=lambda o: o["train_batches"] + o["export_batches"])
+    with karate_standin():
+        for model in ("gcn", "sage", "rgcn"):
+            run(f"full_batch_training_{model}", main_of(FB, ["--model", model]),
+                argv=["--model", model], rows={"slab_spmm"})
+        # GAT: the attention forward and the backward that backward_design picks
+        run("full_batch_training_gat", main_of(FB, ["--model", "gat"]),
+            argv=["--model", "gat"], rows=_gat_rows)
+        run("link_prediction", main_of(LP, one), argv=one,
+            want=lambda o: _sampled(2 * o["batches"]), batches=lambda o: 2 * o["batches"])
+    return launches
+
+
+# the full-width runs of phase 5zz: each script's own widths at the scale of
+# the dataset it stands for
+ELLIPTIC = ["--num-nodes", "203769", "--avg-degree", "1", "--feat-dim", "165", "--epochs", "1"]
+WIKIKG2 = ["--num-entities", "2500604", "--num-relations", "535", "--num-edges", "16109182"]
+ML25M = ["--num-users", "162541", "--num-movies", "62423", "--num-ratings", "25000095"]
+MAG_LINK = ["--num-papers", "736389", "--num-authors", "1134649", "--num-writes", "7145660"]
+MAG_NODE = ["--num-papers", "736389", "--num-authors", "1134649", "--num-insts", "8740"]
+XGB_WIDTH = ["--num_nodes", "203769", "--epochs", "1"]
+WIDTH_STEPS = (2, 5)          # warm-up and timed steps
+
+
+def _levels(levels) -> dict:
+    return {"nodes_per_level": [int((lv >= 0).sum()) for lv in levels],
+            "slots_per_level": [int(lv.numel()) for lv in levels]}
+
+
+def _width_steps(emit, counters, what, it, step, per_batch, extra):
+    """Phase 5zz's full-width steps: WIDTH_STEPS warm-up and timed batches
+    of ``it`` through ``step`` (-> loss, accuracy or None), each timed
+    between synchronisations; per batch exactly ``per_batch`` launches."""
+    import torch
+
+    warmup, timed = WIDTH_STEPS
+    _zeroed(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, accs = [], [], []
+    t0 = time.perf_counter()
+    for i in range(warmup + timed):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        batch = next(it)
+        loss, acc = step(batch)
+        losses.append(float(loss))
+        accs.append(None if acc is None else float(acc))
+        dt = (time.perf_counter() - t1) * 1e3
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"{what}: non-finite loss {losses[-1]} at step {i}")
+        if i >= warmup:
+            ms.append(dt)
+    got = _counted(counters, {k: v * (warmup + timed) for k, v in per_batch.items()}, what)
+    emit({"phase": f"example_width_{what}", **extra, "warmup": warmup, "timed": timed,
+          "ms_per_step": sum(ms) / len(ms), "ms_min": min(ms), "ms_max": max(ms),
+          "losses": losses, "accs": accs, **_levels(batch.sample.levels),
+          "launches_per_batch": per_batch,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "steps_wall_s": time.perf_counter() - t0})
+    return got
+
+
+def example_paths(dev, emit, counters):
+    """Phase 5zz, the new paths at full width (see the module docstring).
+    Returns each run's launches."""
+    import importlib.util
+    import io
+
+    import torch
+
+    from cugraph_gnn_tpu_torch.examples import (
+        fraud_detection as FD,
+        hetero_link_pred as HL,
+        kg_link_class as KG,
+        movielens_rec as ML,
+        rgcn_hetero as RH,
+        xgb_downstream as XG,
+    )
+    from cugraph_gnn_tpu_torch.examples.common import loader_step
+    from cugraph_gnn_tpu_torch.loader import NeighborLoader
+
+    launches = {}
+
+    class Watched(NeighborLoader):
+        """The scripts' loader, keeping its last batch's levels."""
+        levels = None
+
+        def __iter__(self):
+            for b in super().__iter__():
+                Watched.levels = b.sample.levels
+                yield b
+
+    def stores(mod, argv):
+        t0 = time.perf_counter()
+        args = mod.parse_args(argv)
+        data = mod.make_data(args)
+        t1 = time.perf_counter()
+        fs, gs = mod.make_stores(data, dev)
+        gs.finalize()
+        torch.cuda.synchronize()
+        return args, data, fs, gs, {"data_s": t1 - t0, "stores_s": time.perf_counter() - t1}
+
+    def adam(model, args):
+        return torch.optim.Adam(model.parameters(), lr=args.lr)
+
+    # fraud detection at Elliptic's size: main (train epoch, export sweep,
+    # the downstream model this machine has)
+    for mod, what, argv in ((FD, "fraud_detection", ELLIPTIC), (XG, "xgb_downstream", XGB_WIDTH)):
+        _zeroed(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mod.NeighborLoader, buf, t0 = Watched, io.StringIO(), time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                if mod is FD or importlib.util.find_spec("sklearn") is not None:
+                    out, ran = mod.main(argv), "main"
+                else:          # no trees without scikit-learn: the encoder and the export
+                    args, out, ran = XG.parse_args(argv), {}, "make_embeddings"
+                    XG.make_embeddings(args, XG.split(args.num_nodes)[0], stats=out)
+        finally:
+            mod.NeighborLoader = NeighborLoader
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls = out["train_batches"] + out["export_batches"]
+        launches[f"width_{what}"] = _counted(counters, _sampled(calls), f"{what} at width")
+        losses = out["losses"]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{what} at width: non-finite loss in {losses}")
+        emit({"phase": f"example_width_{what}", "argv": argv, "ran": ran, "wall_s": wall,
+              "train_batches": out["train_batches"], "export_batches": out["export_batches"],
+              "ms_per_train_batch": out["train_s"] * 1e3 / out["train_batches"],
+              "ms_per_export_batch": out["export_s"] * 1e3 / out["export_batches"],
+              "losses_first_last": losses[:1] + losses[-1:],
+              **{k: out[k] for k in ("downstream", "downstream_s", "fit_s", "rf_with_gnn",
+                                     "gnn_only", "rf_only", "train_acc", "test_acc")
+                 if k in out},
+              **({"trees_fit": ran == "main"} if mod is XG else {}),
+              **({"trees_not_fit_because": "scikit-learn is not installed"}
+                 if ran == "make_embeddings" else {}),
+              "lines": buf.getvalue().splitlines()[-2:], **_levels(Watched.levels),
+              "launches_per_batch": {k: v / calls for k, v in
+                                     launches[f"width_{what}"].items() if v},
+              "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        Watched.levels = None
+        torch.cuda.empty_cache()
+
+    # ogbl-wikikg2: 2,500,604 learned entities, 535 relations, edgewise R-GCN
+    args, data, fs, gs, setup = stores(KG, WIKIKG2)
+    loader = KG.make_loader(fs, gs, data, [10, 10], args.batch_size)
+    rel_csr = gs.finalize().edge_attr_to_csr_order(KG.EDGE, data["rel"])
+    torch.manual_seed(0)
+    model = KG.KGEncoder(args.num_entities, args.hidden_dim, args.num_relations, 2, device=dev)
+    opt = adam(model, args)
+    launches["width_kg_link_class"] = _width_steps(
+        emit, counters, "kg_link_class", iter(loader),
+        lambda b: KG.train_step(model, opt, b, rel_csr), _sampled(1),
+        {**setup, "argv": WIKIKG2, "triples": len(data["src"]),
+         "table_bytes": model.node_emb.numel() * 4})
+    del args, data, fs, gs, loader, rel_csr, model, opt
+    torch.cuda.empty_cache()
+
+    # MovieLens-25M: temporal link prediction over both orientations
+    args, data, fs, gs, setup = stores(ML, ML25M)
+    loader = ML.make_loader(fs, gs, data, [10, 10], args.batch_size)
+    torch.manual_seed(0)
+    model = ML.make_model(gs, args.hidden_dim, 2, dev)
+    opt = adam(model, args)
+    launches["width_movielens_rec"] = _width_steps(
+        emit, counters, "movielens_rec", iter(loader), lambda b: ML.train_step(model, opt, b),
+        _sampled(1, 2, 0), {**setup, "argv": ML25M, "positives": int(data["eli"].shape[1])})
+    del args, data, fs, gs, loader, model, opt
+    torch.cuda.empty_cache()
+
+    # ogbn-mag author-writes-paper link prediction, shared and disjoint
+    args, data, fs, gs, setup = stores(HL, MAG_LINK)
+    for tag, disjoint in (("hetero_link_pred", False), ("hetero_link_pred_disjoint", True)):
+        loader = HL.make_loader(fs, gs, data, [10, 10], args.batch_size, disjoint)
+        torch.manual_seed(0)
+        model = HL.make_model(gs, args.hidden_dim, 2, dev)
+        opt = adam(model, args)
+        launches[f"width_{tag}"] = _width_steps(
+            emit, counters, tag, iter(loader), lambda b: HL.train_step(model, opt, b),
+            _sampled(1, 2, 4), {**setup, "argv": MAG_LINK + (["--disjoint"] if disjoint else [])})
+        del loader, model, opt
+        torch.cuda.empty_cache()
+    del args, data, fs, gs
+
+    # ogbn-mag papers, authors and institutions: typed R-GCN node classification
+    args, data, fs, gs, setup = stores(RH, MAG_NODE)
+    loader = RH.make_loader(fs, gs, args.num_papers, args.batch_size)
+    torch.manual_seed(0)
+    model = RH.make_model(gs, args.hidden_dim, dev)
+    opt = adam(model, args)
+    launches["width_rgcn_hetero"] = _width_steps(
+        emit, counters, "rgcn_hetero", iter(loader), lambda b: (loader_step(model, opt, b), None),
+        _sampled(1, 3, 6), {**setup, "argv": MAG_NODE, "batch_size": loader.batch_size})
+    del args, data, fs, gs, loader, model, opt
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -5538,8 +5966,10 @@ def main() -> None:
     del graph, gs
     torch.cuda.empty_cache()
     example_launches = examples(dev, emit, counters)
-    # the doctor, the traced batches, the meter and the two training scripts
-    new_launches = {**surface_launches, **example_launches}
+    script_launches = example_scripts(dev, emit, counters)
+    script_launches.update(example_paths(dev, emit, counters))
+    # the doctor, the traced batches, the meter and the fifteen scripts
+    new_launches = {**surface_launches, **example_launches, **script_launches}
     for name in ("gather_rows", "fused_uniform_sample"):
         sampled_launches[name] += sum(v[name] for v in new_launches.values())
     torch.cuda.empty_cache()
@@ -5709,7 +6139,9 @@ def main() -> None:
     # phases 5z and 5zz by path; the gap prices the traced and metered 5b
     # batches and ogbn_train's batches (5b's shape without dedup) at the
     # loader's shape; the doctor's 2-seed ring and node_classification's
-    # 10,000-node batches lie far below every timed shape and are not priced
+    # 10,000-node batches lie far below every timed shape and are not priced,
+    # nor are the twelve other scripts' runs (their tables, widths and
+    # graphs match no timed call)
     by_name = {row["name"]: row for row in kernels}
     for name, counter, per_launch in (
             ("gather_rows", "gather_rows", a_row["ms"] - a_row["bound_ms"]),
@@ -5721,6 +6153,21 @@ def main() -> None:
             new_launches[k][counter] for k in ("trace", "meter", "ogbn_train"))
         row["gap_ms"] += row["gap_ms_surface_examples"]
     kernels += fb_rows + gat_rows + dist_rows + [probe_row]
+    # the example scripts' launches of rows 3-14 (5zz): cached embeddings'
+    # dedup sums, the full-batch models on the karate stand-in, the
+    # distributed full batch at world 1
+    by_name = {row["name"]: row for row in kernels}
+    row_of = {"csr_spmm": "csr_spmm", "slab_spmm": "slab_spmm",
+              "slab_attention_spmm_mh": "slab_attention_fwd",
+              "onepass_bwd": "slab_attention_bwd_onepass",
+              "slab_attention_bwd": "slab_attention_bwd",
+              "slab_attention_bwd_mh": "slab_attention_bwd_mh",
+              **{v[2]: k for k, v in SHARD_ROWS.items()}}
+    for counter, name in row_of.items():
+        n = sum(v[counter] for v in script_launches.values())
+        if n:
+            by_name[name]["launches_examples"] = n
+            by_name[name]["launches"] += n
     emit({"phase": "wall", "seconds": time.perf_counter() - wall0})
     print(smi)
     print(json.dumps({"kernels": kernels}))

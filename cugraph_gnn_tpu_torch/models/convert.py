@@ -139,21 +139,27 @@ def rgcn_from_flax(params, model: Optional[RGCN] = None, *, device=None) -> RGCN
     _check_depth(model, convs)
     with torch.no_grad():
         for conv, p in zip(model.convs, convs):
-            rels = {_rel_index(n): n for n in p if n.startswith("lin_rel_")}
-            if max(rels, default=-1) >= len(conv.lin_rel):
-                raise ValueError(f"flax tree has relation {max(rels)}, model has "
-                                 f"{len(conv.lin_rel)} relations")
-            _copy(conv.lin_root.weight, np.asarray(p["lin_root"]["kernel"]).T)
-            if ("bias" in p["lin_root"]) != (conv.lin_root.bias is not None):
-                raise ValueError("the flax tree and the model disagree on lin_root's bias")
-            if conv.lin_root.bias is not None:
-                _copy(conv.lin_root.bias, np.asarray(p["lin_root"]["bias"]))
-            for r, lin in enumerate(conv.lin_rel):
-                if r in rels:
-                    _copy(lin.weight, np.asarray(p[rels[r]]["kernel"]).T)
-                else:
-                    lin.weight.zero_()
+            _copy_rgcn_conv(conv, p)
     return model
+
+
+def _copy_rgcn_conv(conv, p) -> None:
+    """One flax RGCNConv's tree into ``conv`` (under ``torch.no_grad``);
+    relations the tree lacks are zeroed."""
+    rels = {_rel_index(n): n for n in p if n.startswith("lin_rel_")}
+    if max(rels, default=-1) >= len(conv.lin_rel):
+        raise ValueError(f"flax tree has relation {max(rels)}, model has "
+                         f"{len(conv.lin_rel)} relations")
+    _copy(conv.lin_root.weight, np.asarray(p["lin_root"]["kernel"]).T)
+    if ("bias" in p["lin_root"]) != (conv.lin_root.bias is not None):
+        raise ValueError("the flax tree and the model disagree on lin_root's bias")
+    if conv.lin_root.bias is not None:
+        _copy(conv.lin_root.bias, np.asarray(p["lin_root"]["bias"]))
+    for r, lin in enumerate(conv.lin_rel):
+        if r in rels:
+            _copy(lin.weight, np.asarray(p[rels[r]]["kernel"]).T)
+        else:
+            lin.weight.zero_()
 
 
 _FROM_FLAX = {"sage": graphsage_from_flax, "gcn": gcn_from_flax, "gat": gat_from_flax,
@@ -183,6 +189,51 @@ def typed_sage_from_flax(params, ranges, model=None, *, device=None):
             _copy(model.inputs[nt].bias, np.asarray(v["bias"]))
         _copy(model.out.weight, out_k.T)
         _copy(model.out.bias, np.asarray(p["out"]["bias"]))
+    return model
+
+
+def fraud_encoder_from_flax(params, model_type: str, model=None, *, device=None):
+    """An ``examples/fraud_detection.py`` ``Encoder`` holding the weights of
+    the script's flax tree (``{'params': {'enc': <the builder's model_type
+    tree>, 'lin': {'kernel', 'bias'}}}``): ``enc`` through
+    :func:`model_from_flax`, ``lin`` the 2-logit head.  Copied into
+    ``model`` when given, else into a new one on ``device`` (default: the
+    card) whose widths are read from the tree."""
+    from cugraph_gnn_tpu_torch.examples.fraud_detection import Encoder
+
+    p = params["params"] if "params" in params else params
+    enc = {"params": p["enc"]}
+    lin = np.asarray(p["lin"]["kernel"])
+    if model is None:
+        model = Encoder(model_from_flax(model_type, enc, device=device), lin.shape[0],
+                        device=device)
+    else:
+        model_from_flax(model_type, enc, model.enc)
+    with torch.no_grad():
+        _copy(model.lin.weight, lin.T)
+        _copy(model.lin.bias, np.asarray(p["lin"]["bias"]))
+    return model
+
+
+def kg_encoder_from_flax(params, model=None, *, device=None):
+    """An ``examples/kg_link_class.py`` ``KGEncoder`` holding the weights of
+    the script's flax tree (``{'params': {'node_emb': (N, hidden),
+    'conv_<i>': <an RGCNConv tree>}}``), copied into ``model`` when given,
+    else into a new one on ``device`` (default: the card) whose sizes are
+    read from the tree."""
+    from cugraph_gnn_tpu_torch.examples.kg_link_class import KGEncoder
+
+    p = params["params"] if "params" in params else params
+    emb = np.asarray(p["node_emb"])
+    convs = [p[f"conv_{i}"] for i in range(len(p) - 1)]
+    if model is None:
+        rels = 1 + max(_rel_index(n) for c in convs for n in c if n.startswith("lin_rel_"))
+        model = KGEncoder(emb.shape[0], emb.shape[1], rels, len(convs), device=device)
+    _check_depth(model, convs)
+    with torch.no_grad():
+        _copy(model.node_emb, emb)
+        for conv, c in zip(model.convs, convs):
+            _copy_rgcn_conv(conv, c)
     return model
 
 

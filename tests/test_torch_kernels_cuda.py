@@ -25,7 +25,8 @@ graph, against the typed ``NeighborLoader`` and ``LinkNeighborLoader``), and
 the hierarchical gather on a 1 x 1 (node, device) mesh against the flat one.
 The doctor on the card (its ring sample one sampler launch), a profiler
 trace of a loader batch naming both kernels, and DCP checkpoints at world 1
-over NCCL restored bit for bit.
+over NCCL restored bit for bit.  Each example script's ``main`` at its small
+CPU-test argv (``torch_example_runs.TINY_ARGV``) on the card.
 
 Marked ``cuda``: each test asks the ``card`` fixture for a device and skips
 without one.  The file imports no JAX, so on the machine with the card it
@@ -37,6 +38,7 @@ runs without the repo's conftest (which configures JAX):
 import numpy as np
 import pytest
 import torch
+from torch_example_runs import TINY_ARGV, karate_file
 
 from cugraph_gnn_tpu_torch import _native
 from cugraph_gnn_tpu_torch.data import FeatureStore, GraphStore
@@ -2161,3 +2163,39 @@ def test_checkpoint_round_trip_world1(world1, tmp_path):
     got = orbax_ckpt.restore_embedding(str(tmp_path / "emb"))
     assert torch.equal(got.table.data, emb.table.data)
     assert all(torch.equal(got._state[k], emb._state[k]) for k in emb._state)
+
+
+# -- the example scripts ---------------------------------------------------------------------
+
+EXAMPLE_RUNS = sorted(TINY_ARGV) + ["hetero_link_pred_disjoint"]
+
+
+@pytest.mark.parametrize("name", EXAMPLE_RUNS)
+def test_example_main_on_card(card, name):
+    """Each example script's ``main`` at its small CPU test argv, given no
+    device: it runs on the card.  Without scikit-learn the fraud script's
+    logistic probe takes the forest's place and the xgb script raises
+    ``ImportError``; the scripts' own gates hold (the full-batch and
+    distributed accuracies, the hetero script's falling loss), the link
+    AUC is at least 0.75 and elsewhere the last loss is below the first."""
+    import importlib
+    import importlib.util
+
+    script = name.replace("_disjoint", "")
+    mod = importlib.import_module(f"cugraph_gnn_tpu_torch.examples.{script}")
+    argv = TINY_ARGV[script] + (["--disjoint"] if name != script else [])
+    have_sklearn = importlib.util.find_spec("sklearn") is not None
+    if script == "xgb_downstream" and not have_sklearn:
+        with pytest.raises(ImportError):
+            mod.main(argv)
+        return
+    with karate_file():
+        out = mod.main(argv)
+    if script == "fraud_detection":
+        assert out["downstream"] == ("random_forest" if have_sklearn else "logistic_probe")
+    if script == "link_prediction":
+        assert out["auc"] >= 0.75
+    if script in ("full_batch_training", "dist_full_batch_training"):
+        assert out["accuracy"] > (0.9 if script == "full_batch_training" else 0.8)
+    losses = out["losses"]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

@@ -17,7 +17,8 @@
   kernel.
 - Every name that a subpackage exports is the port's own object; the doctor,
   the meter, the example scripts and the checkpoint restores raise without
-  a card.
+  a card.  The example modules import scikit-learn only inside the
+  functions that fit a downstream model (fraud detection, xgb).
 """
 
 import ast
@@ -97,6 +98,20 @@ from cugraph_gnn_tpu_torch.sampler.hetero_dist import HeteroDistGraph
 from cugraph_gnn_tpu_torch.store.hierarchical import HierarchicalDistArray
 from cugraph_gnn_tpu_torch import doctor
 from cugraph_gnn_tpu_torch.examples import node_classification, ogbn_train
+from cugraph_gnn_tpu_torch.examples import (
+    cached_embedding_training,
+    dist_full_batch_training,
+    fraud_detection,
+    full_batch_training,
+    hetero_dist_training,
+    hetero_link_pred,
+    kg_link_class,
+    link_prediction,
+    movielens_rec,
+    multichip_training,
+    rgcn_hetero,
+    xgb_downstream,
+)
 from cugraph_gnn_tpu_torch.utils import orbax_ckpt, profiling
 
 PKG = pathlib.Path(cugraph_gnn_tpu_torch.__file__).parent
@@ -338,6 +353,22 @@ def test_exports_are_port_objects(sub):
         assert home.split(".")[0] == "cugraph_gnn_tpu_torch", (name, home)
 
 
+EXAMPLES = sorted((PKG / "examples").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.stem)
+def test_examples_import_sklearn_only_in_functions(path):
+    """scikit-learn, which the card's machine lacks, is imported only where a
+    downstream model is fitted, never when an example module is imported."""
+    tree = ast.parse(path.read_text())
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in top if isinstance(n, ast.ImportFrom) and n.level == 0]
+    assert not [m for m in names if m.split(".")[0] == "sklearn"]
+    inside = [m for m in _imported(path) if m.split(".")[0] == "sklearn"]
+    assert bool(inside) == (path.stem in ("fraud_detection", "xgb_downstream"))
+
+
 _INDPTR = np.array([0, 1, 2], np.int32)
 _INDICES = np.array([1, 0], np.int32)
 _CPU_CSR = (torch.as_tensor(_INDPTR), torch.as_tensor(_INDICES))
@@ -427,6 +458,10 @@ ENTRY_POINTS = {
     "PerformanceMeter": profiling.PerformanceMeter,
     "ogbn_train.main": lambda: ogbn_train.main(["--dir", "no-such-dir"]),
     "node_classification.main": lambda: node_classification.main(["--dataset", "synthetic"]),
+    **{f"{m.__name__.rsplit('.', 1)[1]}.main": (lambda m=m: m.main([])) for m in (
+        fraud_detection, cached_embedding_training, rgcn_hetero, hetero_link_pred,
+        kg_link_class, movielens_rec, multichip_training, hetero_dist_training,
+        dist_full_batch_training, xgb_downstream, full_batch_training, link_prediction)},
     "restore_dist_array": lambda: orbax_ckpt.restore_dist_array("no-such-dir"),
     "restore_embedding": lambda: orbax_ckpt.restore_embedding("no-such-dir"),
 }
