@@ -15,7 +15,8 @@ the OGB examples at ogbn-products width, the twelve other example scripts
 (and KG link classification, MovieLens, hetero link prediction, R-GCN
 hetero, fraud detection and xgb's encoder at their datasets' scale), and
 full-batch GraphSAGE, GCN, GIN, R-GCN and 4-head GAT over a banded graph at
-ogbn-products scale.
+ogbn-products scale, and the attention backward's bfloat16 compute mode and
+warp-per-node design there.
 
     python3 chip_smoke.py            # every phase, on one card
     python3 chip_smoke.py --probe    # phases 1, 2 and 11b alone
@@ -404,6 +405,23 @@ Phases (any failure raises and exits non-zero):
     traffic).  Then on the R = 512 pair's band CSR: every phase on, bit for
     bit rows 7 and 8's result; times of the kernel (256-row tiles) by pass.
     A few seconds; ``--probe`` runs it alone on phase 6's graph.
+11c. the attention backward's bfloat16 compute mode (rows 6-8) and its
+    warp-per-node design: a third pair of the graph at R = 768 (``t_ell``;
+    its 3R-row window does not fit the backward's shared memory, so
+    ``backward_design`` must give warp per node at both layers' widths, or
+    the phase fails; host seconds).  The path, counted from zero for each
+    run: ``differentiable_slab_attention_mh`` (H=4, F=64) and
+    ``differentiable_slab_attention`` (H=1, F=47), forward then backward
+    through autograd, with ``bwd_compute_dtype`` bfloat16 on the R = 256,
+    512 and 768 pairs and float32 on R = 768: finite outputs and gradients,
+    per run 2 forward launches and one backward launch a layer
+    (``onepass_bwd`` at R = 256, ``slab_attention_bwd`` /
+    ``slab_attention_bwd_mh`` beyond), no other kernel.  Then each call
+    against its plain version with the same ``compute_dtype`` (phase 11's
+    tolerance; the forward too at R = 768), twice bit for bit, a bfloat16
+    result unequal to the float32 one; CUDA-event times of kernel (the
+    bfloat16 mode beside the float32 mode on the same inputs) and plain
+    version, with the byte bound (both modes move the same bytes).
 12. small-input agreement, GAT: three f32 full-batch steps on the card and
     on the CPU from the same weights; losses within 1e-4.
 13. full-batch GAT train (``gat4h``: 4 heads of 64, then 47 classes, f32,
@@ -464,7 +482,9 @@ Phases (any failure raises and exits non-zero):
     Where a sharded call's time goes: GCN layer 1's forward SpMM (whole
     call, halo exchange, remote-row exchange, kernel) and GAT layer 0's
     attention forward and backward.
-17. the ``kernels`` summary line (rows 1-14, then the probe, which the
+17. the ``kernels`` summary line (rows 1-14, phase 11c's rows after row 8:
+    rows 6-8 in the bfloat16 mode and rows 7 and 8 on warp per node in both
+    modes, each counting its run's launches; then the probe, which the
     main path launches no time; rows 1 and 2 count the launches of phases
     5, 5b, 5e, 5f, 5h, 5j, 5l-5n, 5q-5s, 5t-5u, 5w-5y, 5z and 5zz (rows 3-6
     and 9 also 5zz's, under ``launches_examples``), split by
@@ -4427,12 +4447,6 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
     pairs = {256: fbg.attention_pair, 512: fbg512.attention_pair}
     torch.cuda.synchronize()
 
-    def nbytes(*ts):
-        return sum(t.numel() * t.element_size() for t in ts if t is not None)
-
-    def valid(t):
-        return int((t >= 0).sum())
-
     layers = {"layer0": (TF.HEADS, TF.HIDDEN // TF.HEADS), "layer1": (1, TF.CLASSES)}
     # the backward kernels each pair takes, decided by shape before any launch
     designs = {r: {layer: AG.backward_design(p, f) for layer, (_, f) in layers.items()}
@@ -4440,12 +4454,12 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
     emit({"phase": "attention_pairs", "full_batch_graph_512_s": graph512_s,
           "build_seconds": {r: f.build_seconds for r, f in ((256, fbg), (512, fbg512))},
           **{f"R{r}": {"band_fraction": p.fwd.band_fraction,
-                       "band_edges": valid(p.fwd.ell), "fallback_edges": valid(p.fwd.fb_src),
+                       "band_edges": _valid(p.fwd.ell), "fallback_edges": _valid(p.fwd.fb_src),
                        "ell_k": p.fwd.ell.shape[1],
                        "t_ell_k": None if p.t_ell is None else p.t_ell.shape[1],
-                       "t_ell_bytes": nbytes(p.t_ell),
-                       "t_ell_real_entries": None if p.t_ell is None else valid(p.t_ell),
-                       "band_csr_bytes": nbytes(p.t_rowptr, p.t_rows),
+                       "t_ell_bytes": _nbytes(p.t_ell),
+                       "t_ell_real_entries": None if p.t_ell is None else _valid(p.t_ell),
+                       "band_csr_bytes": _nbytes(p.t_rowptr, p.t_rows),
                        "band_csr_build_s": p.band_csr_seconds,
                        "backward_design": designs[r]}
              for r, p in pairs.items()}})
@@ -4477,16 +4491,11 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
     gen = torch.Generator(device=dev).manual_seed(11)
     for r_blk, pair in pairs.items():
         graph = pair.fwd
-        e_all = valid(graph.ell) + valid(graph.fb_src)
+        e_all = _valid(graph.ell) + _valid(graph.fb_src)
         # index bytes: the real entries of the ELLs (not their -1 padding)
-        graph_bytes = 4 * e_all + nbytes(graph.fb_rowptr)
+        graph_bytes = 4 * e_all + _nbytes(graph.fb_rowptr)
         for layer, (h, f) in layers.items():
-            # the transpose index the backward reads: the band CSR by source
-            # (window kernels) or t_ell's real entries, and the fallback CSR
             design, chunk, tile = designs[r_blk][layer]
-            t_bytes = (4 * valid(pair.fb_t_dst) + nbytes(pair.fb_t_rowptr)
-                       + (nbytes(pair.t_rowptr, pair.t_rows) if design == "windows"
-                          else 4 * valid(pair.t_ell)))
             x = torch.randn((n, h, f), generator=gen, device=dev)
             ad, as_ = (torch.randn((n, h), generator=gen, device=dev) for _ in range(2))
             g = torch.randn((n, h, f), generator=gen, device=dev)
@@ -4536,15 +4545,14 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
             hf = h * f
             rows_out = []
             if r_blk == 256:
-                fb_ = nbytes(x, ad, as_) + graph_bytes + 4 * n * hf + 8 * n * h
+                fb_ = _nbytes(x, ad, as_) + graph_bytes + 4 * n * hf + 8 * n * h
                 rows_out.append(("slab_attention_fwd", fb_, e_all * h * (2 * f + 5),
                                  lambda: slab_attention_spmm_mh(graph, x, ad, as_,
                                                                 return_stats=True),
                                  lambda: slab_attention_spmm_mh_ref(graph, x, ad, as_,
                                                                     return_stats=True)))
-            bb = (nbytes(x, g, ad, as_, m, s, t) + graph_bytes + t_bytes
-                  + 4 * n * hf + 8 * n * h)
-            rows_out.append((key, bb, e_all * h * (4 * f + 10),
+            bb, b_ops = _attn_bwd_cost(pair, design, h, f, (x, g, ad, as_, m, s, t))
+            rows_out.append((key, bb, b_ops,
                              lambda: AG.slab_attention_bwd_mh(pair, x, ad, as_, m, s, t, g),
                              lambda: AG.slab_attention_bwd_ref(pair, x, ad, as_, m, s, t, g)))
             for name, nb, ops, kern, plain in rows_out:
@@ -4563,6 +4571,10 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
 
     # -- 11b. the one-pass backward's phase probe (row 15) --------------------
     probe = attn_bwd_probe(dev, emit, cuda_ms, pairs[256], pairs[512])
+
+    # -- 11c. the backward's bfloat16 compute mode, and warp per node ---------
+    mode_rows, mode_fwd_launches = attn_bwd_modes(dev, emit, cuda_ms, counters, reused,
+                                                  pairs, check, bound)
 
     # -- 12. small input, GAT: card against CPU -------------------------------
     small = TF.make_synthetic_banded(3, "cpu", num_nodes=3000, deg=8, band=100,
@@ -4675,10 +4687,13 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
         "library_ms": None, "split_ms": probe}
 
     # rows 5 and 6: one R = 256 step's two calls added; rows 7 and 8: the
-    # R = 512 step's call of each
+    # R = 512 step's call of each; then phase 11c's rows
+    fwd_row = kernel_row("slab_attention_fwd", "cugraph_gnn_tpu/ops/pallas/slab_kernel.py:438",
+                         "slab_attention_spmm_mh")
+    fwd_row["launches_bwd_modes"] = mode_fwd_launches
+    fwd_row["launches"] += mode_fwd_launches
     return [
-        kernel_row("slab_attention_fwd", "cugraph_gnn_tpu/ops/pallas/slab_kernel.py:438",
-                   "slab_attention_spmm_mh"),
+        fwd_row,
         kernel_row("slab_attention_bwd_onepass",
                    "cugraph_gnn_tpu/ops/pallas/slab_attn_grad.py:333", "onepass_bwd"),
         kernel_row("slab_attention_bwd", "cugraph_gnn_tpu/ops/pallas/slab_attn_grad.py:507",
@@ -4686,7 +4701,207 @@ def gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused):
         kernel_row("slab_attention_bwd_mh",
                    "cugraph_gnn_tpu/ops/pallas/slab_attn_grad.py:689",
                    "slab_attention_bwd_mh"),
-    ], probe_row
+    ] + mode_rows, probe_row
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _valid(t):
+    return int((t >= 0).sum())
+
+
+def _attn_bwd_cost(pair, design, h, f, per_node):
+    """Bytes and operations of one backward call: the per-node inputs
+    ``per_node`` read once, the forward ELL's real entries (not its -1
+    padding) and the fallback ids and row pointer, the transpose index the
+    design reads (the band CSR by source for the window kernels, t_ell's
+    real entries for warp per node) and the fallback CSR by source, dx, dad
+    and das written once; about 4F + 10 operations an edge and head.  The
+    bfloat16 compute mode moves the same bytes."""
+    graph = pair.fwd
+    n = graph.num_rows
+    e_all = _valid(graph.ell) + _valid(graph.fb_src)
+    t_bytes = (4 * _valid(pair.fb_t_dst) + _nbytes(pair.fb_t_rowptr)
+               + (_nbytes(pair.t_rowptr, pair.t_rows) if design == "windows"
+                  else 4 * _valid(pair.t_ell)))
+    nb = (_nbytes(*per_node) + 4 * e_all + _nbytes(graph.fb_rowptr) + t_bytes
+          + 4 * n * h * f + 8 * n * h)
+    return nb, e_all * h * (4 * f + 10)
+
+
+# phase 11c's pair past the backward's window: warp per node from R = 527
+# on the H100, while the forward's window (4 quads a row) fits up to R = 1019
+WARP_PER_NODE_R = 768
+# phase 11c's kernels-line rows: (pair, compute dtype, heads > 1) -> name,
+# the TPU kernel it stands for, the wrapper that counts it
+_MODE_ROWS = {
+    (256, "bfloat16", True): ("slab_attention_bwd_onepass_bf16", 333, "onepass_bwd"),
+    (256, "bfloat16", False): ("slab_attention_bwd_onepass_bf16", 333, "onepass_bwd"),
+    (512, "bfloat16", False): ("slab_attention_bwd_bf16", 507, "slab_attention_bwd"),
+    (512, "bfloat16", True): ("slab_attention_bwd_mh_bf16", 689, "slab_attention_bwd_mh"),
+    (WARP_PER_NODE_R, "float32", False): ("slab_attention_bwd_warp_per_node", 507,
+                                          "slab_attention_bwd"),
+    (WARP_PER_NODE_R, "float32", True): ("slab_attention_bwd_mh_warp_per_node", 689,
+                                         "slab_attention_bwd_mh"),
+    (WARP_PER_NODE_R, "bfloat16", False): ("slab_attention_bwd_warp_per_node_bf16", 507,
+                                           "slab_attention_bwd"),
+    (WARP_PER_NODE_R, "bfloat16", True): ("slab_attention_bwd_mh_warp_per_node_bf16", 689,
+                                          "slab_attention_bwd_mh"),
+}
+
+
+def attn_bwd_modes(dev, emit, cuda_ms, counters, reused, pairs, check, bound):
+    """Phase 11c (see the module docstring).  Returns the kernels rows of the
+    backward's bfloat16 compute mode (rows 6-8) and of the warp-per-node
+    design (rows 7 and 8 past the window) and the forward launches of the
+    path's runs."""
+    import torch
+
+    from cugraph_gnn_tpu_torch import _native
+    from cugraph_gnn_tpu_torch import train_full as TF
+    from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as AG
+    from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import (
+        slab_attention_spmm_mh,
+        slab_attention_spmm_mh_ref,
+    )
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    n = reused["fbg"].num_nodes
+    layers = {"layer0": (TF.HEADS, TF.HIDDEN // TF.HEADS), "layer1": (1, TF.CLASSES)}
+    t0 = time.perf_counter()
+    indptr, indices, _ = _native.build_csr(reused["dst"], reused["src"], n)
+    pair_w = AG.build_attention_slab_pair(indptr, indices, block_rows=WARP_PER_NODE_R,
+                                          device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del indptr, indices
+    pairs = {**pairs, WARP_PER_NODE_R: pair_w}
+    designs = {r: {layer: AG.backward_design(p, f) for layer, (_, f) in layers.items()}
+               for r, p in pairs.items()}
+    emit({"phase": "attention_bwd_modes_pair", "block_rows": WARP_PER_NODE_R,
+          "host_s": build_s, "band_fraction": pair_w.fwd.band_fraction,
+          "band_edges": _valid(pair_w.fwd.ell), "fallback_edges": _valid(pair_w.fwd.fb_src),
+          "t_ell_k": pair_w.t_ell.shape[1], "t_ell_real_entries": _valid(pair_w.t_ell),
+          "backward_design": designs[WARP_PER_NODE_R]})
+    if any(d[0] != "warp_per_node" for d in designs[WARP_PER_NODE_R].values()):
+        raise AssertionError(f"R = {WARP_PER_NODE_R} must take warp per node: {designs}")
+
+    # the path: the differentiable attention (forward kernel, then the
+    # backward kernel with bwd_compute_dtype) at both layers' shapes, each
+    # run counted from zero
+    runs = [(256, "bfloat16"), (512, "bfloat16"), (WARP_PER_NODE_R, "bfloat16"),
+            (WARP_PER_NODE_R, "float32")]
+    gen = torch.Generator(device=dev).manual_seed(19)
+    launched, fwd_launches = {}, 0
+    for r_blk, mode in runs:
+        pair = pairs[r_blk]
+        want = {fn.__name__: 0 for fn in counters}
+        for fn in counters:
+            fn.launches = 0
+        for layer, (h, f) in layers.items():
+            shape = (n, h, f) if h > 1 else (n, f)
+            x = torch.randn(shape, generator=gen, device=dev).requires_grad_()
+            ad, as_ = (torch.randn(shape[:-1], generator=gen, device=dev).requires_grad_()
+                       for _ in range(2))
+            g = torch.randn(shape, generator=gen, device=dev)
+            make = (AG.differentiable_slab_attention_mh if h > 1
+                    else AG.differentiable_slab_attention)
+            out = make(pair, bwd_compute_dtype=dtypes[mode])(x, ad, as_)
+            (out * g).sum().backward()
+            torch.cuda.synchronize()
+            if out.shape != shape or not all(bool(torch.isfinite(a).all())
+                                             for a in (out, x.grad, ad.grad, as_.grad)):
+                raise AssertionError(f"R={r_blk} {layer} {mode}: output or gradients "
+                                     f"not finite")
+            want["slab_attention_spmm_mh"] += 1
+            want[_MODE_ROWS[(r_blk, mode, h > 1)][2]] += 1
+            del x, ad, as_, g, out
+        got = {fn.__name__: fn.launches for fn in counters}
+        emit({"phase": "attention_bwd_modes_launch_counts", "block_rows": r_blk,
+              "compute_dtype": mode, "launches": got, "expected": want})
+        if got != want:
+            raise AssertionError(f"R={r_blk} {mode}: kernel launches {got}, expected {want}")
+        launched[(r_blk, mode)] = got
+        fwd_launches += got["slab_attention_spmm_mh"]
+        torch.cuda.empty_cache()
+
+    # each call against its plain version with the same compute dtype (the
+    # forward at the new pair's shape too), then times beside the float32
+    # mode on the same inputs
+    timed, errs = {}, {}
+    for r_blk, mode in runs:
+        pair = pairs[r_blk]
+        cd = dtypes[mode]
+        for layer, (h, f) in layers.items():
+            name, line, counter = _MODE_ROWS[(r_blk, mode, h > 1)]
+            design, chunk, tile = designs[r_blk][layer]
+            what = f"R={r_blk} {layer} H={h} F={f} {mode}"
+            x, g = (torch.randn((n, h, f), generator=gen, device=dev) for _ in range(2))
+            ad, as_ = (torch.randn((n, h), generator=gen, device=dev) for _ in range(2))
+            out, m, s = slab_attention_spmm_mh(pair.fwd, x, ad, as_, return_stats=True)
+            if r_blk == WARP_PER_NODE_R and mode == "float32":
+                want, m_w, s_w = slab_attention_spmm_mh_ref(pair.fwd, x, ad, as_,
+                                                            return_stats=True)
+                e_f = check("slab_attention_fwd", out, want,
+                            slab_attention_spmm_mh_ref(pair.fwd, x.abs(), ad, as_), what)
+                if not torch.equal(m, m_w) or not torch.allclose(s, s_w, rtol=1e-5, atol=0):
+                    raise AssertionError(f"slab_attention_fwd {what}: stats differ")
+                emit({"phase": "attention_kernel_check", "kernel": "slab_attention_fwd",
+                      "case": what, "max_abs_err": e_f})
+                del want, m_w, s_w
+            t = (g * out).sum(-1)
+            del out
+            args = (pair, x, ad, as_, m, s, t, g)
+            got = AG.slab_attention_bwd_mh(*args, compute_dtype=cd)
+            ref = AG.slab_attention_bwd_ref(*args, compute_dtype=cd)
+            mag = AG.slab_attention_bwd_ref(pair, x.abs(), ad, as_, m, s, -t.abs(), g.abs())
+            err = max(check(name, a, b, c, f"{what} {nm}")
+                      for a, b, c, nm in zip(got, ref, mag, ("dx", "dad", "das")))
+            errs[name] = max(errs.get(name, 0.0), err)
+            del ref, mag
+            for a, b in zip(got, AG.slab_attention_bwd_mh(*args, compute_dtype=cd)):
+                _same_bits(name, a, b, what)
+            if mode == "bfloat16" and all(torch.equal(a, b) for a, b in
+                                          zip(got, AG.slab_attention_bwd_mh(*args))):
+                raise AssertionError(f"{name} {what}: the bfloat16 mode equals float32")
+            del got
+            nb, ops = _attn_bwd_cost(pair, design, h, f, (x, g, ad, as_, m, s, t))
+            b_ms, b_by = bound(nb, ops)
+            row = {"kernel": name, "block_rows": r_blk, "layer": layer, "heads": h, "f": f,
+                   "compute_dtype": mode, "design": design, "chunk_elements": chunk,
+                   "tile_rows": tile, "max_abs_err": err,
+                   "ms": cuda_ms(lambda: AG.slab_attention_bwd_mh(*args, compute_dtype=cd)),
+                   "plain_ms": cuda_ms(lambda: AG.slab_attention_bwd_ref(*args,
+                                                                         compute_dtype=cd),
+                                       iters=3, warmup=1),
+                   "library_ms": None, "bytes": nb, "operations": ops,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "tolerance": "1e-5 abs + 1e-5 x the terms' magnitude sum"}
+            if mode == "bfloat16":   # the float32 mode's time on the same inputs
+                row["ms_float32"] = cuda_ms(lambda: AG.slab_attention_bwd_mh(*args))
+            emit({"phase": "attention_bwd_modes_kernel", **row})
+            timed.setdefault(name, []).append(row)
+            del x, g, ad, as_, m, s, t, args
+            torch.cuda.empty_cache()
+    del pair_w, pairs
+    torch.cuda.empty_cache()
+
+    rows = []
+    for name, calls in timed.items():
+        r_blk, mode = calls[0]["block_rows"], calls[0]["compute_dtype"]
+        _, line, counter = _MODE_ROWS[(r_blk, mode, calls[0]["heads"] > 1)]
+        launches = launched[(r_blk, mode)][counter]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "cugraph_gnn_tpu_torch/csrc/slab_attn_bwd.cu",
+                     "replaces": f"cugraph_gnn_tpu/ops/pallas/slab_attn_grad.py:{line}",
+                     "compute_dtype": mode, "launches": launches, "max_abs_err": errs[name],
+                     **_summed(calls, launches),
+                     **({"ms_float32": sum(c["ms_float32"] for c in calls)}
+                        if mode == "bfloat16" else {}),
+                     "library_ms": None})
+    return rows, fwd_launches
 
 
 def _summed(rows, launches):

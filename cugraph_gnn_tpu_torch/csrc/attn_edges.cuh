@@ -7,6 +7,7 @@
 // flight.  Every lane of the warp takes part in every call.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -17,6 +18,12 @@ constexpr int kUnroll = 4;
 
 __device__ __forceinline__ float lrelu(float z, float slope) {
   return z >= 0.0f ? z : slope * z;
+}
+
+// v rounded to bfloat16 (to nearest even, like Tensor.to(torch.bfloat16)):
+// a band operand of compute_dtype bfloat16.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -13,6 +13,16 @@
 // (t_rows as halo-extended row ids, and t_ell rows where the pair has them)
 // and no fallback edges.
 //
+// With round_bf16 (the TPU kernels' compute_dtype bfloat16) the band edges'
+// products g[r] . x[c] and a_rc g[r] take g, x and a_rc rounded to bfloat16,
+// the MXU's operands there; w_rc, t and every sum stay float32, and so do the
+// fallback edges (the JAX package's segment sums take float32).  The window
+// kernels round a staged window slot once in shared memory (it serves band
+// edges only) and every other band operand where it is read (they run at
+// their register cap), so their float32 instances keep their code; the
+// warp-per-node kernels keep a rounded copy of the node's own row.  Only
+// the kernels with every phase on have this mode.
+//
 // Replaces, in one source, the three TPU backward kernels of
 // cugraph_gnn_tpu/ops/pallas/slab_attn_grad.py: _onepass_bwd (:333;
 // pallas_call :391 over _bwd_onepass_kernel :176, used with bit planes),
@@ -143,7 +153,16 @@ __device__ __forceinline__ void sink(const float v[kPer]) {
   for (int q = 0; q < kPer; ++q) asm volatile("" ::"f"(v[q]));
 }
 
-template <typename TX, int kPer, bool kExp, bool kDots>
+// kRound (compute_dtype bfloat16; with kExp and kDots only): the band edges'
+// products g . x (both kernels) and a g (the src kernels) take their
+// operands rounded to bfloat16, every sum and the fallback edges' products
+// stay float32.
+template <typename T, bool kRound>
+__device__ __forceinline__ float band_operand(float v) {
+  return kRound && std::is_same<T, float>::value ? attn::round_bf16(v) : v;
+}
+
+template <typename TX, int kPer, bool kExp, bool kDots, bool kRound = false>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dst_kernel(const TX* __restrict__ x, const float* __restrict__ g,
                     const float* __restrict__ as, const float4* __restrict__ st,
@@ -171,9 +190,14 @@ attn_bwd_dst_kernel(const TX* __restrict__ x, const float* __restrict__ g,
 #pragma unroll
       for (int q = 0; q < kPer; ++q) gv[q] = 0.0f;
       if (active) row_io::load_row<kPer>(g + rx * hf + j, gv);
+      float gb[kPer];      // g as the band's products take it
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) gb[q] = band_operand<float, kRound>(gv[q]);
       float d = 0.0f;      // this lane's part of sum_c w (g . x[c])
       float w_sum = 0.0f;  // sum_c w, the same in every lane of the head
-      auto visit = [&](const int32_t* cc) {
+      // band: std::true_type for the ELL's edges, false for the fallback's
+      auto visit = [&](const int32_t* cc, auto band) {
+        constexpr bool kR = kRound && decltype(band)::value;
         float w[kUnroll];
         float v[kUnroll][kPer];
 #pragma unroll
@@ -192,7 +216,8 @@ attn_bwd_dst_kernel(const TX* __restrict__ x, const float* __restrict__ g,
             if (active && kDots) {
               float dot = 0.0f;
 #pragma unroll
-              for (int q = 0; q < kPer; ++q) dot = fmaf(gv[q], v[u][q], dot);
+              for (int q = 0; q < kPer; ++q)
+                dot = fmaf(kR ? gb[q] : gv[q], band_operand<TX, kR>(v[u][q]), dot);
               d = fmaf(w[u], dot, d);
             } else if (active) {
               sink<kPer>(v[u]);
@@ -200,8 +225,10 @@ attn_bwd_dst_kernel(const TX* __restrict__ x, const float* __restrict__ g,
           }
         }
       };
-      attn::ell_edges(lane, ids, k_width, base, x_rows, visit);
-      attn::csr_edges(lane, fb_src, e0, e1, x_rows, visit);
+      auto visit_band = [&](const int32_t* cc) { visit(cc, std::true_type()); };
+      auto visit_fb = [&](const int32_t* cc) { visit(cc, std::false_type()); };
+      attn::ell_edges(lane, ids, k_width, base, x_rows, visit_band);
+      attn::csr_edges(lane, fb_src, e0, e1, x_rows, visit_fb);
       // the head's first lane carries -t * sum_c w once
       const float part = d - (active && j % f == 0 ? sr.w * w_sum : 0.0f);
       attn::add_head_sums(part, active, h, c0, kPer, f, heads, lane, dad + r * heads);
@@ -209,7 +236,7 @@ attn_bwd_dst_kernel(const TX* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-template <typename TX, int kPer, bool kExp, bool kDots>
+template <typename TX, int kPer, bool kExp, bool kDots, bool kRound = false>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_src_kernel(const TX* __restrict__ x, const float* __restrict__ g,
                     const float* __restrict__ as, const float4* __restrict__ st,
@@ -236,9 +263,14 @@ attn_bwd_src_kernel(const TX* __restrict__ x, const float* __restrict__ g,
 #pragma unroll
       for (int q = 0; q < kPer; ++q) xv[q] = acc[q] = 0.0f;
       if (active) row_io::load_row<kPer>(x + cx * hf + j, xv);
+      float xb[kPer];      // x as the band's products take it
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) xb[q] = band_operand<TX, kRound>(xv[q]);
       float d = 0.0f;      // this lane's part of sum_r w (g[r] . x)
       float wt_sum = 0.0f; // sum_r w t[r], the same in every lane of the head
-      auto visit = [&](const int32_t* rr) {
+      // band: std::true_type for t_ell's edges, false for the fallback's
+      auto visit = [&](const int32_t* rr, auto band) {
+        constexpr bool kR = kRound && decltype(band)::value;
         float4 sr[kUnroll];
         float v[kUnroll][kPer];
 #pragma unroll
@@ -257,19 +289,23 @@ attn_bwd_src_kernel(const TX* __restrict__ x, const float* __restrict__ g,
             if (active && !kDots) {
               sink<kPer>(v[u]);
             } else if (active) {
+              const float ab = band_operand<float, kR>(a);
               float dot = 0.0f;
 #pragma unroll
               for (int q = 0; q < kPer; ++q) {
-                dot = fmaf(v[u][q], xv[q], dot);
-                acc[q] = fmaf(a, v[u][q], acc[q]);
+                const float gq = band_operand<float, kR>(v[u][q]);
+                dot = fmaf(gq, kR ? xb[q] : xv[q], dot);
+                acc[q] = fmaf(ab, gq, acc[q]);
               }
               d = fmaf(w, dot, d);
             }
           }
         }
       };
-      attn::ell_edges(lane, t_ell + c * t_width, t_width, base, x_rows, visit);
-      attn::csr_edges(lane, fbt_dst, fbt_rowptr[c], fbt_rowptr[c + 1], x_rows, visit);
+      auto visit_band = [&](const int32_t* rr) { visit(rr, std::true_type()); };
+      auto visit_fb = [&](const int32_t* rr) { visit(rr, std::false_type()); };
+      attn::ell_edges(lane, t_ell + c * t_width, t_width, base, x_rows, visit_band);
+      attn::csr_edges(lane, fbt_dst, fbt_rowptr[c], fbt_rowptr[c + 1], x_rows, visit_fb);
       if (active) row_io::store_row<kPer>(dx + c * hf + j, acc);
       const float part = d - (active && j % f == 0 ? wt_sum : 0.0f);
       attn::add_head_sums(part, active, h, c0, kPer, f, heads, lane, das + c * heads);
@@ -410,6 +446,20 @@ __device__ __forceinline__ void load_team_chunk(const T* __restrict__ p, int s, 
   }
 }
 
+// kRound: the window slots in ``staged`` (a mask of the three), R rows of
+// kFC floats each, rounded to bfloat16 in place once they have arrived; the
+// window serves the band edges only.
+template <int kFC>
+__device__ __forceinline__ void round_slots(float* win, int staged, int R) {
+#pragma unroll 1
+  for (int slot = 0; slot < 3; ++slot) {
+    if (!(staged >> slot & 1)) continue;   // the same in every thread
+    float* w = win + (int64_t)slot * R * kFC;
+    for (int it = threadIdx.x; it < R * kFC; it += kBandThreads) w[it] = attn::round_bf16(w[it]);
+  }
+  __syncthreads();
+}
+
 // The 4 elements of window row idx's quad q.
 template <int kNQ>
 __device__ __forceinline__ float4 window_quad(const float* win, int idx, int q) {
@@ -433,7 +483,7 @@ __device__ __forceinline__ float team_sum(float v) {
 // fallback edges (read from global memory), one chunk of F at a time (the
 // dot parts added in chunk order in dad).  Team thread s holds the row's ids
 // s, s + kSub, ... and computes their weights, which the team shares.
-template <typename TX, int kNQT, bool kExp, bool kDots, bool kFar = false>
+template <typename TX, int kNQT, bool kExp, bool kDots, bool kFar = false, bool kRound = false>
 __global__ void __launch_bounds__(kBandThreads, 1) band_dst_kernel(BandArgs a) {
   constexpr int kNQ = kSub * kNQT, kFC = 4 * kNQ, kIds = kMaxIds / kSub;
   extern __shared__ __align__(16) float smem[];
@@ -463,6 +513,7 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_dst_kernel(BandArgs a) {
       const int rofs0 = kFar ? (int)((eb - 1) * a.ell_R - (b - 1) * R) : 0;
       const int bnd = kFar ? (int)((eb + 1) * a.ell_R - b * R) : 0;
       const int64_t col0 = h * a.f + (int64_t)k * kFC;
+      int staged = 0;   // the slots staged for this tile
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         const int64_t lb = b + i;
@@ -476,6 +527,7 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_dst_kernel(BandArgs a) {
           as_s[slot * R + it] = q >= 0 && q < a.x_rows ? __ldg(a.as + q * a.heads + h) : 0.0f;
         }
         tag[slot] = want;
+        if constexpr (kRound) staged |= 1 << slot;
       }
       // a row's ids, stats, g chunk and fallback range; the first row's are
       // in flight while the window arrives, each next row's while the row
@@ -508,6 +560,8 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_dst_kernel(BandArgs a) {
       load_row(cur, team);
       cp_async_wait_all();
       __syncthreads();   // the window is in shared memory
+      // bfloat16 x is exact in bfloat16 already
+      if constexpr (kRound && std::is_same<TX, float>::value) round_slots<kFC>(xs, staged, R);
       for (int i = team; i < R; i += kTeams) {
         const int64_t r = b * R + i;
         if (r >= a.n) break;   // the same in the whole team
@@ -548,11 +602,11 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_dst_kernel(BandArgs a) {
 #pragma unroll
             for (int j = 0; j < kNQT; ++j) {
               const float4 v = window_quad<kNQ>(xs, iu, kSub * j + s);
-              if (kDots) {
-                dot = fmaf(cur.gv[4 * j], v.x, dot);
-                dot = fmaf(cur.gv[4 * j + 1], v.y, dot);
-                dot = fmaf(cur.gv[4 * j + 2], v.z, dot);
-                dot = fmaf(cur.gv[4 * j + 3], v.w, dot);
+              if (kDots) {   // kRound: the window's x was rounded when staged
+                dot = fmaf(band_operand<float, kRound>(cur.gv[4 * j]), v.x, dot);
+                dot = fmaf(band_operand<float, kRound>(cur.gv[4 * j + 1]), v.y, dot);
+                dot = fmaf(band_operand<float, kRound>(cur.gv[4 * j + 2]), v.z, dot);
+                dot = fmaf(band_operand<float, kRound>(cur.gv[4 * j + 3]), v.w, dot);
               } else {
                 const float vv[4] = {v.x, v.y, v.z, v.w};
                 sink<4>(vv);
@@ -576,7 +630,9 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_dst_kernel(BandArgs a) {
               load_team_chunk<kNQT>(x + c * hf + col0, s, fcv, a.x_vec, xf);
               float dot = 0.0f;
 #pragma unroll
-              for (int q = 0; q < 4 * kNQT; ++q) dot = fmaf(cur.gv[q], xf[q], dot);
+              for (int q = 0; q < 4 * kNQT; ++q)
+                dot = fmaf(band_operand<float, kRound>(cur.gv[q]),
+                           band_operand<TX, kRound>(xf[q]), dot);
               d = fmaf(wu, dot, d);
             }
           }
@@ -630,7 +686,7 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_dst_kernel(BandArgs a) {
 // in-edges (global memory; a column with more than kLongFb of them is taken
 // by the whole CTA, its shares added in a fixed order).  Team thread s
 // reads in-edges s, s + kSub, ... and computes their weights.
-template <typename TX, int kNQT, bool kExp, bool kDots, bool kFar = false>
+template <typename TX, int kNQT, bool kExp, bool kDots, bool kFar = false, bool kRound = false>
 __global__ void __launch_bounds__(kBandThreads, 1) band_src_kernel(BandArgs a) {
   constexpr int kNQ = kSub * kNQT, kFC = 4 * kNQ;
   extern __shared__ __align__(16) float smem[];
@@ -657,6 +713,7 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_src_kernel(BandArgs a) {
       const int64_t base = (b - 1) * R + a.col_offset;
       const int b3 = (int)(b % 3);
       const int64_t col0 = h * a.f + (int64_t)k * kFC;
+      int staged = 0;   // the slots staged for this tile
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         const int64_t lb = b + i;
@@ -667,6 +724,7 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_src_kernel(BandArgs a) {
         stage_rows<kNQ, float>(gs, slot * R, a.g, q0, R, a.x_rows, hf, col0, fcv, a.g_vec);
         stage_stats(st_s, slot * R, a.st, q0, R, a.x_rows, a.heads, h);
         tag[slot] = want;
+        if constexpr (kRound) staged |= 1 << slot;
       }
       // a column's x chunk, alpha_src and in-edge ranges; the first
       // column's are in flight while the window arrives, each next
@@ -694,6 +752,7 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_src_kernel(BandArgs a) {
       load_col(cur, team);
       cp_async_wait_all();
       __syncthreads();   // the window is in shared memory
+      if constexpr (kRound) round_slots<kFC>(gs, staged, R);
       bool any_long = false;
       for (int i = team; i < R; i += kTeams) {
         const int64_t c = b * R + i;
@@ -708,14 +767,16 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_src_kernel(BandArgs a) {
         for (int q = 0; q < 4 * kNQT; ++q) acc[q] = 0.0f;
         float d = 0.0f, wt_sum = 0.0f;   // this thread's parts
         // an in-edge with weights (au, wu) and the team thread's part of its
-        // g chunk: dx += au g, d += wu (g . x)
-        auto add = [&](float au, float wu, const float* gq) {
+        // g chunk: dx += au g, d += wu (g . x); ``band`` std::true_type for
+        // a band edge (kRound: x rounded here, au and g by the caller)
+        auto add = [&](float au, float wu, const float* gq, auto band) {
+          constexpr bool kR = kRound && decltype(band)::value;
           float dot = 0.0f;
 #pragma unroll
           for (int q = 0; q < 4 * kNQT; ++q) {
             if (kDots) {
               acc[q] = fmaf(au, gq[q], acc[q]);
-              dot = fmaf(cur.xv[q], gq[q], dot);
+              dot = fmaf(band_operand<TX, kR>(cur.xv[q]), gq[q], dot);
             }
           }
           if (!kDots) sink<4 * kNQT>(gq);
@@ -751,7 +812,7 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_src_kernel(BandArgs a) {
               gq[4 * j + 2] = v.z;
               gq[4 * j + 3] = v.w;
             }
-            add(au, wu, gq);
+            add(band_operand<float, kRound>(au), wu, gq, std::true_type());
           }
           // kFar: the round's destinations past the window (rare), after
           // its window destinations: every team thread computes the weights
@@ -769,7 +830,11 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_src_kernel(BandArgs a) {
               if (s == 0) wt_sum = fmaf(wu, s4.w, wt_sum);
               float gq[4 * kNQT];
               load_team_chunk<kNQT>(a.g + r * hf + col0, s, fcv, a.g_vec, gq);
-              add(au, wu, gq);
+              if constexpr (kRound) {
+#pragma unroll
+                for (int q = 0; q < 4 * kNQT; ++q) gq[q] = attn::round_bf16(gq[q]);
+              }
+              add(band_operand<float, kRound>(au), wu, gq, std::true_type());
             }
           }
         }
@@ -792,7 +857,7 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_src_kernel(BandArgs a) {
             if (ru < 0) continue;
             float gq[4 * kNQT];
             load_team_chunk<kNQT>(a.g + (int64_t)ru * hf + col0, s, fcv, a.g_vec, gq);
-            add(au, wu, gq);
+            add(au, wu, gq, std::false_type());
           }
         }
         if (!kDots) sink<4 * kNQT>(cur.xv);
@@ -961,7 +1026,7 @@ constexpr int kDstPass = 1, kSrcPass = 2, kExpPhase = 4, kDotPhase = 8;
 constexpr int kAllPhases = kDstPass | kSrcPass | kExpPhase | kDotPhase;
 
 // The warp-per-node kernels: the whole backward over a pair's t_ell.
-template <typename TX, int kPer, bool kExp, bool kDots>
+template <typename TX, int kPer, bool kExp, bool kDots, bool kRound>
 int launch_passes(const Args& a, int phases, cudaStream_t stream) {
   int64_t blocks = (a.n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > (1 << 20)) blocks = 1 << 20;  // the node loops stride over the rest
@@ -970,7 +1035,7 @@ int launch_passes(const Args& a, int phases, cudaStream_t stream) {
   const float* as = static_cast<const float*>(a.as);
   const float4* st = static_cast<const float4*>(a.st);
   if (phases & kDstPass) {
-    attn_bwd_dst_kernel<TX, kPer, kExp, kDots><<<(unsigned)blocks, kThreads, 0, stream>>>(
+    attn_bwd_dst_kernel<TX, kPer, kExp, kDots, kRound><<<(unsigned)blocks, kThreads, 0, stream>>>(
         x, g, as, st, a.n, a.col_offset, a.x_rows, a.heads, a.f, a.slope,
         static_cast<const int32_t*>(a.ell),
         a.k_width, a.block_rows, static_cast<const int64_t*>(a.fb_rowptr),
@@ -979,7 +1044,7 @@ int launch_passes(const Args& a, int phases, cudaStream_t stream) {
     if (err != 0) return err;
   }
   if (phases & kSrcPass) {
-    attn_bwd_src_kernel<TX, kPer, kExp, kDots><<<(unsigned)blocks, kThreads, 0, stream>>>(
+    attn_bwd_src_kernel<TX, kPer, kExp, kDots, kRound><<<(unsigned)blocks, kThreads, 0, stream>>>(
         x, g, as, st, a.n, a.col_offset, a.x_rows, a.heads, a.f, a.slope,
         static_cast<const int32_t*>(a.t_ell),
         a.t_width, a.block_rows, static_cast<const int64_t*>(a.fbt_rowptr),
@@ -992,7 +1057,7 @@ int launch_passes(const Args& a, int phases, cudaStream_t stream) {
 // One band kernel (the src pass where kSrc, else the dst pass) over tiles
 // of ``tile`` rows, kNQT quads a team thread, so 32 kNQT elements a chunk;
 // kFar where tiles are shorter than the pair's blocks.
-template <typename TX, int kNQT, bool kSrc, bool kExp, bool kDots, bool kFar = false>
+template <typename TX, int kNQT, bool kSrc, bool kExp, bool kDots, bool kFar, bool kRound>
 int launch_band(const Args& a, int64_t tile, cudaStream_t stream) {
   constexpr int kFC = 4 * kSub * kNQT;
   const BandArgs b{a.x, static_cast<const float*>(a.g), static_cast<const float*>(a.as),
@@ -1016,9 +1081,9 @@ int launch_band(const Args& a, int64_t tile, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   void (*kernel)(BandArgs);
   if constexpr (kSrc)
-    kernel = band_src_kernel<TX, kNQT, kExp, kDots, kFar>;
+    kernel = band_src_kernel<TX, kNQT, kExp, kDots, kFar, kRound>;
   else
-    kernel = band_dst_kernel<TX, kNQT, kExp, kDots, kFar>;
+    kernel = band_dst_kernel<TX, kNQT, kExp, kDots, kFar, kRound>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int per_sm = 0;
   if (err == cudaSuccess)
@@ -1035,80 +1100,89 @@ int launch_band(const Args& a, int64_t tile, cudaStream_t stream) {
 
 template <typename TX, int kPer>
 struct OldPasses {
-  template <bool kExp, bool kDots>
+  template <bool kExp, bool kDots, bool kRound>
   static int run(const Args& a, int phases, cudaStream_t s) {
-    return launch_passes<TX, kPer, kExp, kDots>(a, phases, s);
+    return launch_passes<TX, kPer, kExp, kDots, kRound>(a, phases, s);
   }
 };
 
 template <typename TX, int kNQT, bool kSrc>
 struct BandPass {
   int64_t tile;
-  template <bool kExp, bool kDots>
+  template <bool kExp, bool kDots, bool kRound>
   int run(const Args& a, int, cudaStream_t s) const {
-    return launch_band<TX, kNQT, kSrc, kExp, kDots>(a, tile, s);
+    return launch_band<TX, kNQT, kSrc, kExp, kDots, false, kRound>(a, tile, s);
   }
 };
 
-// Calls l.run<kExp, kDots>(...) for the exp and dot phases in ``phases``.
-// The probe's variants exist for float32 x only; bfloat16 x runs every
-// phase.
+// Calls l.run<kExp, kDots, kRound>(...) for the exp and dot phases in
+// ``phases`` and the rounding flag.  The probe's variants exist for float32
+// x only; bfloat16 x and the rounding mode run every phase.
 template <typename TX, typename L>
-int by_phases(const L& l, const Args& a, int phases, cudaStream_t s) {
+int by_phases(const L& l, const Args& a, int phases, bool round, cudaStream_t s) {
   const bool e = phases & kExpPhase, d = phases & kDotPhase;
+  if (round) {
+    if (!e || !d) return (int)cudaErrorInvalidValue;
+    return l.template run<true, true, true>(a, phases, s);
+  }
   if constexpr (std::is_same<TX, float>::value) {
-    if (!e && !d) return l.template run<false, false>(a, phases, s);
-    if (!e) return l.template run<false, true>(a, phases, s);
-    if (!d) return l.template run<true, false>(a, phases, s);
+    if (!e && !d) return l.template run<false, false, false>(a, phases, s);
+    if (!e) return l.template run<false, true, false>(a, phases, s);
+    if (!d) return l.template run<true, false, false>(a, phases, s);
   } else {
     if (!e || !d) return (int)cudaErrorInvalidValue;
   }
-  return l.template run<true, true>(a, phases, s);
+  return l.template run<true, true, false>(a, phases, s);
 }
 
 template <typename TX>
-int launch_old(const Args& a, int phases, cudaStream_t stream) {
+int launch_old(const Args& a, int phases, bool round, cudaStream_t stream) {
   const bool vec = a.f % 4 == 0 && row_io::aligned(a.x, 4 * sizeof(TX)) &&
                    row_io::aligned(a.g, 16) && row_io::aligned(a.dx, 16);
-  return vec ? by_phases<TX>(OldPasses<TX, 4>(), a, phases, stream)
-             : by_phases<TX>(OldPasses<TX, 1>(), a, phases, stream);
+  return vec ? by_phases<TX>(OldPasses<TX, 4>(), a, phases, round, stream)
+             : by_phases<TX>(OldPasses<TX, 1>(), a, phases, round, stream);
 }
 
 // One band kernel (the band CSR by source, fallback edges included) by
 // ``plan``.  Tiles shorter than the pair's blocks (kFar) exist with every
 // phase on.
 template <typename TX, bool kSrc>
-int launch_pass(const Args& a, const Plan& plan, int phases, cudaStream_t stream) {
+int launch_pass(const Args& a, const Plan& plan, int phases, bool round, cudaStream_t stream) {
   if (plan.tile < a.block_rows) {
     if (!(phases & kExpPhase) || !(phases & kDotPhase)) return (int)cudaErrorInvalidValue;
-    return plan.nqt == 1 ? launch_band<TX, 1, kSrc, true, true, true>(a, plan.tile, stream)
-                         : launch_band<TX, 2, kSrc, true, true, true>(a, plan.tile, stream);
+    if (round)
+      return plan.nqt == 1
+                 ? launch_band<TX, 1, kSrc, true, true, true, true>(a, plan.tile, stream)
+                 : launch_band<TX, 2, kSrc, true, true, true, true>(a, plan.tile, stream);
+    return plan.nqt == 1 ? launch_band<TX, 1, kSrc, true, true, true, false>(a, plan.tile, stream)
+                         : launch_band<TX, 2, kSrc, true, true, true, false>(a, plan.tile, stream);
   }
-  return plan.nqt == 1 ? by_phases<TX>(BandPass<TX, 1, kSrc>{plan.tile}, a, phases, stream)
-                       : by_phases<TX>(BandPass<TX, 2, kSrc>{plan.tile}, a, phases, stream);
+  return plan.nqt == 1
+             ? by_phases<TX>(BandPass<TX, 1, kSrc>{plan.tile}, a, phases, round, stream)
+             : by_phases<TX>(BandPass<TX, 2, kSrc>{plan.tile}, a, phases, round, stream);
 }
 
 template <typename TX>
-int launch(const Args& a, int phases, cudaStream_t stream) {
+int launch(const Args& a, int phases, bool round, cudaStream_t stream) {
   Plan plan;
   // t_rows is null where the pair has no band edges (a shard of padding rows)
   const int err = choose_design(a.block_rows, a.f, a.t_rowptr != nullptr, a.t_ell != nullptr,
                                 &plan);
   if (err != 0) return err;
-  if (plan.design == kWarpPerNode) return launch_old<TX>(a, phases, stream);
+  if (plan.design == kWarpPerNode) return launch_old<TX>(a, phases, round, stream);
   if (plan.design != kWindows) return (int)cudaErrorInvalidValue;
   if (phases & kDstPass) {
-    const int e = launch_pass<TX, false>(a, plan, phases, stream);
+    const int e = launch_pass<TX, false>(a, plan, phases, round, stream);
     if (e != 0) return e;
   }
-  if (phases & kSrcPass) return launch_pass<TX, true>(a, plan, phases, stream);
+  if (phases & kSrcPass) return launch_pass<TX, true>(a, plan, phases, round, stream);
   return 0;
 }
 
-int run(const Args& a, int x_dtype, int phases, cudaStream_t stream) {
+int run(const Args& a, int x_dtype, int phases, bool round, cudaStream_t stream) {
   if (!row_io::aligned(a.st, 16)) return (int)cudaErrorInvalidValue;
-  if (x_dtype == 0) return launch<float>(a, phases, stream);
-  if (x_dtype == 1) return launch<__nv_bfloat16>(a, phases, stream);
+  if (x_dtype == 0) return launch<float>(a, phases, round, stream);
+  if (x_dtype == 1) return launch<__nv_bfloat16>(a, phases, round, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1126,7 +1200,9 @@ int run(const Args& a, int x_dtype, int phases, cudaStream_t stream) {
 // fallback edges by source.  Node i sits at row i + col_offset of the
 // per-node inputs (0 for a whole graph, x_rows = n; block_rows for a
 // shard's halo-extended inputs).  dx float32 (n, heads, f) is written; dad
-// and das float32 (n, heads) must hold zeros.  Returns cudaGetLastError()
+// and das float32 (n, heads) must hold zeros.  round_bf16 nonzero: the band
+// edges' products take g, x and a rounded to bfloat16 (compute_dtype
+// bfloat16; the fallback edges' stay float32).  Returns cudaGetLastError()
 // after the launches (0 on success).
 extern "C" int slab_attn_bwd(const void* x, int x_dtype, const void* g,
                              const void* alpha_src, const void* stats, int64_t n,
@@ -1136,12 +1212,12 @@ extern "C" int slab_attn_bwd(const void* x, int x_dtype, const void* g,
                              const void* fb_src, const void* t_ell, int64_t t_width,
                              const void* t_rowptr, const void* t_rows,
                              const void* fb_t_rowptr, const void* fb_t_dst, void* dx,
-                             void* dad, void* das, void* stream) {
+                             void* dad, void* das, void* stream, int round_bf16) {
   const Args a{x, g, alpha_src, stats, n, col_offset, x_rows, heads, f, slope, ell,
                k_width, block_rows,
                fb_rowptr, fb_src, t_ell, t_width, t_rowptr, t_rows, fb_t_rowptr,
                fb_t_dst, dx, dad, das};
-  return run(a, x_dtype, kAllPhases, static_cast<cudaStream_t>(stream));
+  return run(a, x_dtype, kAllPhases, round_bf16 != 0, static_cast<cudaStream_t>(stream));
 }
 
 // Which kernels slab_attn_bwd launches for a pair of ``block_rows`` rows a
@@ -1168,7 +1244,8 @@ extern "C" int slab_attn_bwd_design(int64_t block_rows, int64_t f, int has_band_
 // pass), 2 (the src pass), 4 (expf in the edge weights; without it the
 // exponent itself) and 8 (the per-edge dot and FMA work; without it the
 // loaded rows are only kept alive).  Memory traffic is the real kernels' in
-// every variant; phases 15 runs exactly slab_attn_bwd's code.  Outputs of
+// every variant; phases 15 runs exactly slab_attn_bwd's float32 code
+// (round_bf16 0).  Outputs of
 // a variant other than 15 are meaningless.
 extern "C" int slab_attn_bwd_probe(const void* x, int x_dtype, const void* g,
                                    const void* alpha_src, const void* stats, int64_t n,
@@ -1187,5 +1264,5 @@ extern "C" int slab_attn_bwd_probe(const void* x, int x_dtype, const void* g,
                fb_t_dst, dx, dad, das};
   if (phases < 0 || phases > kAllPhases)
     return (int)cudaErrorInvalidValue;
-  return run(a, x_dtype, phases, static_cast<cudaStream_t>(stream));
+  return run(a, x_dtype, phases, false, static_cast<cudaStream_t>(stream));
 }

@@ -81,9 +81,7 @@ constexpr int kThreads = 1024;
 constexpr int kKeepIds = 64;   // ELL slots whose scores a team keeps in registers
 constexpr int kFbStage = 1024;   // a block's fallback slots staged in shared memory
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+using attn::round_bf16;
 
 struct Args {
   const void* x;

@@ -229,6 +229,8 @@ class RGCN(nn.Module):
         return self._layers(x, lambda conv, i, h: conv.full(h, src, dst, edge_type,
                                                             num_nodes))
 
-    def full_graph(self, x, rfb):
-        """Full batch through a ``RelationalFullBatch``; x in its graph order."""
+    def full_graph(self, x, rfb, *, train: bool = False):
+        """Full batch through a ``RelationalFullBatch``; x in its graph order.
+        ``train`` changes nothing (R-GCN has no dropout), as in the JAX
+        package's ``RGCN.full_graph``."""
         return self._layers(x, lambda conv, i, h: conv.full_graph(h, rfb))

@@ -29,7 +29,12 @@ on one row shard of a graph (``ops/dist_full_batch.py``, the JAX package's
 sharded backwards): per-node inputs with an R-row halo on each side, the
 shard's band by source (halo-extended destination rows, and ``t_ell``
 rows where the pair has them), the fallback edges left to the caller; each
-counts its own launches.  The JAX package's
+counts its own launches.  The three whole-graph wrappers take
+``compute_dtype`` as the JAX package's kernels do: with bfloat16 the band
+edges' products g . x and a g take operands rounded to bfloat16 (the TPU
+kernels' MXU inputs) and every sum stays float32; the fallback edges and
+the shard wrappers stay float32, as the JAX package's segment sums and
+sharded backwards.  The JAX package's
 VMEM devices (G-stacking, margin planes, packed stat lanes) have no
 counterpart; ``MAX_PACKED_HEADS`` stays as the head-group size of
 ``FullBatchGraph.attention_spmm_mh`` and ``DistFullBatchGraph``'s.
@@ -66,11 +71,12 @@ MAX_PACKED_HEADS = 25
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # x, x dtype, g, alpha_src, stats, n, col_offset, x_rows, heads, f,
 # negative_slope, ell, k_width, block_rows, fb_rowptr, fb_src, t_ell, t_width,
-# t_rowptr, t_rows, fb_t_rowptr, fb_t_dst, dx, dad, das, stream
+# t_rowptr, t_rows, fb_t_rowptr, fb_t_dst, dx, dad, das, stream, then
+# round_bf16 (slab_attn_bwd) or phases (slab_attn_bwd_probe)
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _ARGTYPES = [_P, ctypes.c_int, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
              ctypes.c_float, _P, _I64, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
-             _P, _P, _P]
+             _P, _P, _P, ctypes.c_int]
 
 
 class AttnSlabPair(NamedTuple):
@@ -147,7 +153,8 @@ def build_attention_slab_pair(indptr, indices, *, block_rows: int = 256,
         pos = np.nonzero(cand)[0]
         pc = pos[np.argsort(cols[pos], kind="stable")]
         colc = cols[pc]
-        starts = np.concatenate([[0], np.nonzero(colc[1:] != colc[:-1])[0] + 1])
+        # (no candidates at all: no runs)
+        starts = np.concatenate([[0], np.nonzero(colc[1:] != colc[:-1])[0] + 1])[:len(pc)]
         run_start = np.zeros(len(pc), np.int64)
         run_start[starts] = starts
         run_start = np.maximum.accumulate(run_start)
@@ -213,39 +220,54 @@ def _check(pair: AttnSlabPair, x, stats, g, col_offset: int) -> None:
             raise ValueError(f"tensors on {a.device} and {x.device}")
 
 
+def _check_compute(compute_dtype) -> None:
+    if compute_dtype not in _FLOAT_CODES:
+        raise TypeError(f"compute_dtype must be float32 or bfloat16, got "
+                        f"{compute_dtype}")
+
+
 def _bwd_ref(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
-             negative_slope, col_offset):
+             negative_slope, col_offset, compute_dtype=torch.float32):
     """The kernel's two passes in plain PyTorch: dalpha_dst over each row's
     edges by destination (band ELL, fallback), dx and dalpha_src over each
     column's edges by source (``t_ell`` where the pair has it, else the band
-    CSR; then the fallback CSR)."""
+    CSR; then the fallback CSR).  With ``compute_dtype`` bfloat16 the band
+    edges' g, x and a are rounded to it before they are multiplied."""
     _check(pair, x, (alpha_dst, alpha_src, m, s, t), g, col_offset)
+    _check_compute(compute_dtype)
     graph = pair.fwd
     n = graph.num_rows
     x_rows, heads, f = x.shape
     ad, as_, m, t = (a.float() for a in (alpha_dst, alpha_src, m, t))
     s_safe = s.float().clamp(min=1e-16)
     x32, g32 = x.float(), g.float()
+
+    def cd(v):   # a band operand, as on the TPU's MXU
+        return v if compute_dtype == torch.float32 else v.to(compute_dtype).float()
+
+    xb, gb = cd(x32), cd(g32)
     dx = torch.zeros((n, heads, f), device=x.device)
     dad = torch.zeros((n, heads), device=x.device)
     das = torch.zeros((n, heads), device=x.device)
 
-    def edge(r, c, ok=None):
-        """a and de of the edges r <- c (rows of the per-node inputs)."""
+    def edge(r, c, ok=None, band=False):
+        """The weights of dx and de of the edges r <- c (rows of the
+        per-node inputs), and g[r] as dx takes it."""
         z = ad[r] + as_[c]
         a = torch.exp(lrelu(z, negative_slope) - m[r]) / s_safe[r]
         if ok is not None:
             a = torch.where(ok[:, None], a, 0)
+        xx, gg = (xb, gb) if band else (x32, g32)
         de = (a * torch.where(z >= 0, 1.0, negative_slope)
-              * ((g32[r] * x32[c]).sum(-1) - t[r]))
-        return a, de
+              * ((gg[r] * xx[c]).sum(-1) - t[r]))
+        return (cd(a) if band else a), de, gg[r]
 
-    def by_source(c, r):   # c: local columns, r: input rows; in chunks
+    def by_source(c, r, band):   # c: local columns, r: input rows; in chunks
         for e0 in range(0, c.numel(), _FB_CHUNK):
             cc, rr = c[e0:e0 + _FB_CHUNK], r[e0:e0 + _FB_CHUNK]
-            a, de = edge(rr, cc + col_offset)
+            a, de, gr = edge(rr, cc + col_offset, band=band)
             das.index_add_(0, cc, de)
-            dx.index_add_(0, cc, a[..., None] * g32[rr])
+            dx.index_add_(0, cc, a[..., None] * gr)
 
     def csr(rowptr, ids):
         cnt = (rowptr[1:n + 1] - rowptr[:n]).long()
@@ -254,7 +276,7 @@ def _bwd_ref(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
     own = torch.arange(n, device=x.device) + col_offset
     cols, ok = band_columns(graph, x_rows, col_offset)
     for k in range(cols.shape[1]):
-        dad += edge(own, cols[:, k], ok[:, k])[1]
+        dad += edge(own, cols[:, k], ok[:, k], band=True)[1]
     src, dst = fallback_edges(graph, x_rows)
     for e0 in range(0, src.numel(), _FB_CHUNK):
         d = dst[e0:e0 + _FB_CHUNK]
@@ -263,20 +285,23 @@ def _bwd_ref(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
     if pair.t_ell is not None:
         rows, ok = window_columns(pair.t_ell[:n], graph.block_rows, x_rows, col_offset)
         for k in range(rows.shape[1]):
-            a, de = edge(rows[:, k], own, ok[:, k])
+            a, de, gr = edge(rows[:, k], own, ok[:, k], band=True)
             das += de
-            dx += a[..., None] * g32[rows[:, k]]
+            dx += a[..., None] * gr
     else:
-        by_source(*csr(pair.t_rowptr, pair.t_rows))
-    by_source(*csr(pair.fb_t_rowptr, pair.fb_t_dst))
+        by_source(*csr(pair.t_rowptr, pair.t_rows), band=True)
+    by_source(*csr(pair.fb_t_rowptr, pair.fb_t_dst), band=False)
     return dx, dad, das
 
 
 def slab_attention_bwd_ref(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t,
-                           g, *, negative_slope: float = 0.2):
+                           g, *, negative_slope: float = 0.2,
+                           compute_dtype=torch.float32):
     """Plain PyTorch version of the backward kernel: (dx (N, H, F),
-    dalpha_dst (N, H), dalpha_src (N, H)), float32."""
-    return _bwd_ref(pair, x, alpha_dst, alpha_src, m, s, t, g, negative_slope, 0)
+    dalpha_dst (N, H), dalpha_src (N, H)), float32; ``compute_dtype`` as
+    :func:`onepass_bwd`'s."""
+    return _bwd_ref(pair, x, alpha_dst, alpha_src, m, s, t, g, negative_slope, 0,
+                    compute_dtype)
 
 
 def slab_attention_bwd_shard_ref(pair: AttnSlabPair, x_ext, alpha_dst, alpha_src, m,
@@ -289,9 +314,10 @@ def slab_attention_bwd_shard_ref(pair: AttnSlabPair, x_ext, alpha_dst, alpha_src
 
 
 def _launch(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
-            negative_slope: float, col_offset: int, phases: Optional[int] = None):
+            negative_slope: float, col_offset: int, phases: Optional[int] = None,
+            compute_dtype=torch.float32):
     """The backward kernel on the card: both passes, one C call (with
-    ``phases``, the probe entry ``slab_attn_bwd_probe``)."""
+    ``phases``, the probe entry ``slab_attn_bwd_probe``, float32 only)."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     x_rows, heads, f = x.shape
@@ -314,11 +340,11 @@ def _launch(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
         return None if a is None else a.data_ptr()
 
     if phases is None:
-        fn, extra = _build.function("slab_attn_bwd", _ARGTYPES), ()
+        fn = _build.function("slab_attn_bwd", _ARGTYPES)
+        last = int(compute_dtype == torch.bfloat16)
     else:
-        fn = _build.function("slab_attn_bwd", _ARGTYPES + [ctypes.c_int],
-                             symbol="slab_attn_bwd_probe")
-        extra = (int(phases),)
+        fn = _build.function("slab_attn_bwd", _ARGTYPES, symbol="slab_attn_bwd_probe")
+        last = int(phases)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(x.data_ptr(), _FLOAT_CODES[x.dtype], g.data_ptr(), as_.data_ptr(),
@@ -328,7 +354,7 @@ def _launch(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
                     ptr(pair.t_ell), 0 if pair.t_ell is None else pair.t_ell.shape[1],
                     ptr(pair.t_rowptr), ptr(pair.t_rows),
                     pair.fb_t_rowptr.data_ptr(), pair.fb_t_dst.data_ptr(),
-                    dx.data_ptr(), dad.data_ptr(), das.data_ptr(), stream, *extra)
+                    dx.data_ptr(), dad.data_ptr(), das.data_ptr(), stream, last)
     _build.check(status, "slab_attn_bwd" if phases is None else "slab_attn_bwd_probe")
     return dx, dad, das
 
@@ -363,15 +389,16 @@ def backward_design(pair: AttnSlabPair, f: int):
     return _DESIGNS[design.value], chunk.value, tile.value
 
 
-def _run(counter, pair, args, negative_slope, col_offset):
+def _run(counter, pair, args, negative_slope, col_offset, compute_dtype=torch.float32):
     """The plain version for CPU tensors, else the kernel, counted."""
     x = args[0]
     _check(pair, x, args[1:6], args[6], col_offset)
+    _check_compute(compute_dtype)
     if x.device.type == "cpu":
-        return _bwd_ref(pair, *args, negative_slope, col_offset)
+        return _bwd_ref(pair, *args, negative_slope, col_offset, compute_dtype)
     if pair.t_ell is None and pair.t_rows is None:
         raise ValueError("the pair has neither t_ell nor the band CSR by source")
-    out = _launch(pair, *args, negative_slope, col_offset)
+    out = _launch(pair, *args, negative_slope, col_offset, compute_dtype=compute_dtype)
     counter.launches += 1
     return out
 
@@ -382,58 +409,63 @@ def _squeeze_heads(res):
 
 
 def onepass_bwd(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g, *,
-                negative_slope: float = 0.2):
+                negative_slope: float = 0.2, compute_dtype=torch.float32):
     """Gradients for a pair with bit planes (no ``t_ell``): the source pass
     reads the host-built band CSR.  x/g (N, H, F); alpha_*/m/s/t (N, H).
     Returns float32 (dx, dalpha_dst, dalpha_src), fallback edges
-    included."""
+    included.  ``compute_dtype`` (float32 or bfloat16): the operands of the
+    band edges' products g . x and a g; sums stay float32."""
     if pair.t_ell is not None and x.device.type != "cpu":
         raise ValueError("the pair has t_ell, not the band CSR: use "
                          "slab_attention_bwd(_mh)")
     return _run(onepass_bwd, pair, (x, alpha_dst, alpha_src, m, s, t, g),
-                negative_slope, 0)
+                negative_slope, 0, compute_dtype)
 
 
 onepass_bwd.launches = 0
 
 
 def slab_attention_bwd(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t,
-                       g, *, negative_slope: float = 0.2):
+                       g, *, negative_slope: float = 0.2, compute_dtype=torch.float32):
     """Single-head gradients (dx (N, F), dalpha_dst (N,), dalpha_src (N,)),
-    float32, given the forward's stats (m, s) and t[r] = g[r] . out[r].
-    Pairs with bit planes go to :func:`onepass_bwd`, as in the JAX
-    package."""
+    float32, given the forward's stats (m, s) and t[r] = g[r] . out[r];
+    ``compute_dtype`` as :func:`onepass_bwd`'s.  Pairs with bit planes go to
+    :func:`onepass_bwd`, as in the JAX package."""
     args = (x[:, None], alpha_dst[:, None], alpha_src[:, None], m[:, None],
             s[:, None], t[:, None], g[:, None])
     if pair.t_ell is None:
-        return _squeeze_heads(onepass_bwd(pair, *args, negative_slope=negative_slope))
-    return _squeeze_heads(_run(slab_attention_bwd, pair, args, negative_slope, 0))
+        return _squeeze_heads(onepass_bwd(pair, *args, negative_slope=negative_slope,
+                                          compute_dtype=compute_dtype))
+    return _squeeze_heads(_run(slab_attention_bwd, pair, args, negative_slope, 0,
+                               compute_dtype))
 
 
 slab_attention_bwd.launches = 0
 
 
 def slab_attention_bwd_mh(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s,
-                          t, g, *, negative_slope: float = 0.2):
+                          t, g, *, negative_slope: float = 0.2,
+                          compute_dtype=torch.float32):
     """Multi-head gradients: x/g (N, H, F); alpha_*/m/s/t (N, H).  Returns
-    float32 (dx (N, H, F), dalpha_dst (N, H), dalpha_src (N, H)).
-    H <= MAX_PACKED_HEADS.  Pairs with bit planes go to
-    :func:`onepass_bwd`; H = 1 goes to :func:`slab_attention_bwd`."""
+    float32 (dx (N, H, F), dalpha_dst (N, H), dalpha_src (N, H));
+    ``compute_dtype`` as :func:`onepass_bwd`'s.  H <= MAX_PACKED_HEADS.
+    Pairs with bit planes go to :func:`onepass_bwd`; H = 1 goes to
+    :func:`slab_attention_bwd`."""
     heads = x.shape[1] if x.dim() == 3 else 0
     if heads > MAX_PACKED_HEADS:
         raise ValueError(f"slab_attention_bwd_mh supports "
                          f"<={MAX_PACKED_HEADS} heads, got {heads}")
     if pair.t_ell is None:
         return onepass_bwd(pair, x, alpha_dst, alpha_src, m, s, t, g,
-                           negative_slope=negative_slope)
+                           negative_slope=negative_slope, compute_dtype=compute_dtype)
     _check(pair, x, (alpha_dst, alpha_src, m, s, t), g, 0)
     if heads == 1:
         dx, dad, das = slab_attention_bwd(
             pair, x[:, 0], alpha_dst[:, 0], alpha_src[:, 0], m[:, 0], s[:, 0],
-            t[:, 0], g[:, 0], negative_slope=negative_slope)
+            t[:, 0], g[:, 0], negative_slope=negative_slope, compute_dtype=compute_dtype)
         return dx[:, None], dad[:, None], das[:, None]
     return _run(slab_attention_bwd_mh, pair, (x, alpha_dst, alpha_src, m, s, t, g),
-                negative_slope, 0)
+                negative_slope, 0, compute_dtype)
 
 
 slab_attention_bwd_mh.launches = 0
@@ -544,12 +576,13 @@ class _SlabAttention(torch.autograd.Function):
     alpha gradients in theirs, as the JAX package's custom VJP."""
 
     @staticmethod
-    def forward(ctx, x, alpha_dst, alpha_src, pair, negative_slope):
+    def forward(ctx, x, alpha_dst, alpha_src, pair, negative_slope, bwd_compute_dtype):
         out, m, s = slab_attention_spmm_mh(pair.fwd, x, alpha_dst, alpha_src,
                                            negative_slope=negative_slope,
                                            return_stats=True)
         ctx.save_for_backward(x, alpha_dst, alpha_src, out, m, s)
         ctx.pair, ctx.negative_slope = pair, negative_slope
+        ctx.bwd_compute_dtype = bwd_compute_dtype
         return out
 
     @staticmethod
@@ -558,26 +591,33 @@ class _SlabAttention(torch.autograd.Function):
         t = (g.float() * out).sum(-1)
         dx, dad, das = slab_attention_bwd_mh(
             ctx.pair, x, alpha_dst, alpha_src, m, s, t, g,
-            negative_slope=ctx.negative_slope)
+            negative_slope=ctx.negative_slope, compute_dtype=ctx.bwd_compute_dtype)
         return (dx.to(x.dtype), dad.to(alpha_dst.dtype), das.to(alpha_src.dtype),
-                None, None)
+                None, None, None)
 
 
 def differentiable_slab_attention_mh(pair: AttnSlabPair, *,
-                                     negative_slope: float = 0.2):
+                                     negative_slope: float = 0.2,
+                                     bwd_compute_dtype=torch.float32):
     """f(x (N, H, F), alpha_dst (N, H), alpha_src (N, H)) -> (N, H, F)
     float32, differentiable in all three; H <= MAX_PACKED_HEADS for the
-    backward."""
+    backward.  ``bwd_compute_dtype`` bfloat16 rounds the backward's band
+    operands (:func:`onepass_bwd`'s ``compute_dtype``); float32 is exact."""
+    _check_compute(bwd_compute_dtype)
+
     def f(x, alpha_dst, alpha_src):
-        return _SlabAttention.apply(x, alpha_dst, alpha_src, pair, negative_slope)
+        return _SlabAttention.apply(x, alpha_dst, alpha_src, pair, negative_slope,
+                                    bwd_compute_dtype)
     return f
 
 
 def differentiable_slab_attention(pair: AttnSlabPair, *,
-                                  negative_slope: float = 0.2):
+                                  negative_slope: float = 0.2,
+                                  bwd_compute_dtype=torch.float32):
     """f(x (N, F), alpha_dst (N,), alpha_src (N,)) -> (N, F) float32: the
     single-head case of :func:`differentiable_slab_attention_mh`."""
-    f_mh = differentiable_slab_attention_mh(pair, negative_slope=negative_slope)
+    f_mh = differentiable_slab_attention_mh(pair, negative_slope=negative_slope,
+                                            bwd_compute_dtype=bwd_compute_dtype)
 
     def f(x, alpha_dst, alpha_src):
         return f_mh(x[:, None], alpha_dst[:, None], alpha_src[:, None])[:, 0]

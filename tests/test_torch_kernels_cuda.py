@@ -965,23 +965,89 @@ def test_onepass_bwd_tiles_across_blocks(card, heads, f, x_dtype):
             assert torch.equal(_bits(a), _bits(b))
 
 
+def _bwd_modes_match_plain(pair, heads, f, x_dtype, card, seed):
+    """The backward kernel on ``pair`` in both compute modes against its
+    plain version with the same ``compute_dtype`` (stats from the plain
+    forward): within 1e-5 plus 1e-5 of the sums over every term's magnitude;
+    the wrapper's counter moves by one a call; two launches bit for bit
+    equal; the float32 mode (the default) equals an explicit float32 bit for
+    bit, and the bfloat16 mode differs from it."""
+    n = pair.fwd.num_rows
+    x, ad, as_, g = _attn_inputs(n, heads, f, x_dtype, card, seed=seed)
+    _, m, s = slab_attention_spmm_mh_ref(pair.fwd, x, ad, as_, return_stats=True)
+    t = torch.randn((n, heads), generator=torch.Generator(card).manual_seed(seed + 1),
+                    device=card)
+    args = (pair, x, ad, as_, m, s, t, g)
+    counter = (attn_grad.onepass_bwd if pair.t_ell is None else attn_grad.slab_attention_bwd
+               if heads == 1 else attn_grad.slab_attention_bwd_mh)
+    mag = attn_grad.slab_attention_bwd_ref(pair, x.float().abs(), ad, as_, m, s, -t.abs(),
+                                           g.abs())
+    res = {}
+    for compute in (torch.float32, torch.bfloat16):
+        before = counter.launches
+        got = attn_grad.slab_attention_bwd_mh(*args, compute_dtype=compute)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        want = attn_grad.slab_attention_bwd_ref(*args, compute_dtype=compute)
+        for a, b, c in zip(got, want, mag):
+            _assert_close_to(a, b, c)
+        for a, b in zip(got, attn_grad.slab_attention_bwd_mh(*args, compute_dtype=compute)):
+            assert torch.equal(_bits(a), _bits(b))
+        res[compute] = got
+    for a, b in zip(res[torch.float32], attn_grad.slab_attention_bwd_mh(*args)):
+        assert torch.equal(_bits(a), _bits(b))
+    assert not all(torch.equal(a, b) for a, b in zip(*res.values()))
+
+
 @pytest.mark.parametrize("heads,f", SHARD_ATTN_SHAPES)
 def test_t_ell_bwd_warp_per_node_past_the_window(card, heads, f):
     """At R = 1024 the window of 32-element chunks does not fit, so the t_ell
     pair takes the warp-per-node kernels; against the plain version (stats
-    from the plain forward, whose kernel's window does not fit either)."""
+    from the plain forward, whose kernel's window does not fit either), on
+    float32 and bfloat16 x, in both compute modes."""
     pair = _ends_pair(card, r_blk=1024, n=2500)
     assert attn_grad.backward_design(pair, f) == ("warp_per_node", 0, 0)
-    n = pair.fwd.num_rows
-    x, ad, as_, g = _attn_inputs(n, heads, f, torch.float32, card, seed=18)
+    for seed, x_dtype in ((18, torch.float32), (20, torch.bfloat16)):
+        _bwd_modes_match_plain(pair, heads, f, x_dtype, card, seed)
+
+
+@pytest.mark.parametrize("r_blk", [128, 256, 320, 512])
+@pytest.mark.parametrize("heads,f", SHARD_ATTN_SHAPES)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_bwd_windows_bf16_compute_matches_plain(card, r_blk, heads, f, x_dtype):
+    """The window kernels' bfloat16 compute mode (rows 6-8: the band edges'
+    products on g, x and a rounded to bfloat16): tiles of the pair's rows
+    at R = 128 and 256 (bit planes), 256-row tiles with band edges past the
+    window at R = 320 (bit planes) and 512 (t_ell), with clipped windows at
+    both graph ends; both compute modes as in the warp-per-node test."""
+    pair = _ends_pair(card, r_blk=r_blk, n=2600 if r_blk == 320 else 1100)
+    design, _, tile = attn_grad.backward_design(pair, f)
+    assert design == "windows" and tile == min(r_blk, 256)
+    _bwd_modes_match_plain(pair, heads, f, x_dtype, card, seed=30 + r_blk)
+
+
+@pytest.mark.parametrize("r_blk", [128, 512, 1024])
+def test_bwd_all_fallback_edges_unrounded(card, r_blk):
+    """A graph whose every edge is a fallback edge (all sources beyond
+    +-1024): the bfloat16 compute mode rounds nothing, so both modes give
+    the same result bit for bit, in both designs."""
+    n = 5000
+    rng = np.random.default_rng(r_blk)
+    dst = np.repeat(np.arange(n), 3)
+    src = (dst + rng.integers(1500, 2000, dst.shape[0])) % n
+    indptr, indices, _ = _native.build_csr(dst, src, n)
+    pair = attn_grad.build_attention_slab_pair(indptr, indices, block_rows=r_blk,
+                                               device=card)
+    assert not bool((pair.fwd.ell >= 0).any()) and pair.t_rows.numel() == 0
+    assert attn_grad.backward_design(pair, 64)[0] == (
+        "warp_per_node" if r_blk == 1024 else "windows")
+    x, ad, as_, g = _attn_inputs(n, 4, 64, torch.float32, card, seed=40)
     _, m, s = slab_attention_spmm_mh_ref(pair.fwd, x, ad, as_, return_stats=True)
-    t = torch.randn((n, heads), generator=torch.Generator(card).manual_seed(19), device=card)
+    t = torch.randn((n, 4), generator=torch.Generator(card).manual_seed(41), device=card)
     args = (pair, x, ad, as_, m, s, t, g)
-    got = attn_grad.slab_attention_bwd_mh(*args)
-    want = attn_grad.slab_attention_bwd_ref(*args)
-    mag = attn_grad.slab_attention_bwd_ref(pair, x.abs(), ad, as_, m, s, -t.abs(), g.abs())
-    for a, b, c in zip(got, want, mag):
-        _assert_close_to(a, b, c)
+    for a, b in zip(attn_grad.slab_attention_bwd_mh(*args),
+                    attn_grad.slab_attention_bwd_mh(*args, compute_dtype=torch.bfloat16)):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 @pytest.mark.parametrize("heads,f", SHARD_ATTN_SHAPES)

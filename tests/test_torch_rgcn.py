@@ -355,3 +355,23 @@ def test_rgcn_full_graph_matches_jax_and_full(full_case):
     close(outs[0], outs[1].numpy())
     for a, b in zip(grads[0], grads[1]):
         close(a, b.numpy())
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_rgcn_full_graph_train_keyword_matches_jax(full_case, train):
+    """``RGCN.full_graph(..., train=...)`` takes the JAX package's keyword
+    (R-GCN has no dropout, so it changes nothing in either): the output
+    matches JAX's ``full_graph`` with the same ``train``."""
+    c = full_case
+    rfb = RelationalFullBatch(c["src"], c["dst"], c["et"], R, N, block_rows=128, device="cpu")
+    model = rgcn_from_flax(c["params"], device="cpu")
+    with torch.no_grad():
+        out = rfb.to_input_order(model.full_graph(
+            rfb.to_graph_order(torch.as_tensor(c["x"])), rfb, train=train))
+    j = c["rfb_j"]
+    model_j = JaxRGCN(num_relations=R, hidden_features=HID, out_features=OUT)
+    want = jax.jit(lambda p, xx: j.to_input_order(model_j.apply(
+        p, j.to_graph_order(xx), j, train=train, method=JaxRGCN.full_graph)))(
+        c["params"], jnp.asarray(c["x"]))
+    close(out, np.asarray(want))
+    close(out, c["out"])
