@@ -434,30 +434,33 @@ Phases (any failure raises and exits non-zero):
 14. shard kernels at a 4-rank geometry, in this one process: a banded graph
     of 100,000 nodes (3 in-band and 1 uniform source each: ~1/4 fallback
     edges) split into 4 row shards as ``DistFullBatchGraph`` splits it
-    (R = 256 with bit planes, R = 512 with ``t_ell``); each shard's inputs
-    are the whole arrays' rows with an R-row halo on each side (zeros past
-    the ends), so the kernels run with nonzero offsets and real halos.
-    Every shard wrapper (rows 9-14: the whole SpMM on each shard's table of
-    halo and remote rows, 'mean' over the graph and 'sum' over its
-    transpose, and its band-only mode, at F = 128 bf16 and F = 256 f32; the
-    attention forward and backward at GAT's two layers' shapes) against its
-    plain version, and against the whole graph's single-graph kernel on the
-    shard's rows (the whole ``slab_spmm``; band edges only for the
-    band-only mode and the attention): within 1e-5 absolute plus 1e-5 of
-    the same sums over the terms' magnitudes, a bf16 output one bf16 ulp
-    more; the SpMM and each backward launched twice, bit for bit equal;
-    every shard reads remote rows; every shard's backward takes the window
-    kernels, or the phase fails.
+    (R = 256 with bit planes; R = 512 and 768 with ``t_ell``); each shard's
+    inputs are its tables, built from the whole arrays as the exchanges
+    build them: its rows, an R-row halo on each side (zeros past the ends)
+    and the remote rows its fallback edges read, so the kernels run with
+    nonzero offsets, real halos and remote rows.  Every shard wrapper (rows
+    9-14: the whole SpMM on each shard's table, 'mean' over the graph and
+    'sum' over its transpose, and its band-only mode, at F = 128 bf16 and
+    F = 256 f32; the whole attention forward over table A and backward over
+    tables A and B at GAT's two layers' shapes) against its plain version,
+    and against the whole graph's single-graph kernel on the shard's rows
+    (the whole ``slab_spmm`` and attention; band edges only for the
+    band-only mode): within 1e-5 absolute plus 1e-5 of the same sums over
+    the terms' magnitudes, a bf16 output one bf16 ulp more; the SpMM and
+    each attention call launched twice, bit for bit equal; every shard
+    reads remote rows (each attention table too); the backward takes the
+    window kernels at R = 256 and 512 and the warp-per-node kernels at R =
+    768, or the phase fails.
 15. row-sharded training at world size 1 over NCCL (``tcp://localhost``):
     ``DistFullBatchGraph`` of phase 6's graph (R = 256, then R = 512);
     GCN (bf16 activations) and ``gat4h``, 1 warm-up and 3 timed
     ``dist_full_batch_step``s each at R = 256 and GAT's at R = 512;
     finite losses; per step 3 launches of row 9 (the whole SpMM: band,
-    fallback, divide and cast) and none of the CSR kernel (GCN), and 1 of
-    row 13, 1 of row 10, 2 of row 11 and 10 of the CSR kernel (the
-    attention's fallback sums) (GAT, R = 256) or 1 each of rows 13, 10, 14
-    and 12 and 10 of the CSR kernel (R = 512), no other kernel; one step of each timed
-    stage by stage (GAT at both R).  Reproducibility: GCN and GAT each take one step twice
+    fallback, divide and cast) (GCN), and 1 of row 13, 1 of row 10 and 2 of
+    row 11 (GAT, R = 256) or 1 each of rows 13, 10, 14 and 12 (R = 512),
+    each attention call the whole function (band and fallback edges), no
+    other kernel (none of the CSR kernel); one step of each timed stage by
+    stage (GAT at both R).  Reproducibility: GCN and GAT each take one step twice
     from the same weights and inputs; losses and every gradient bit for bit
     equal (every sum of the sharded step has a fixed order).  Agreement:
     one float32 GCN step and one GAT step from the same
@@ -467,21 +470,18 @@ Phases (any failure raises and exits non-zero):
     the parameters after the step within 1e-4 where the gradient is at least
     1e-5 (Adam's first update, lr * g / (|g| + 1e-8), turns sum-order noise
     in a small g into up to lr).
-16. row 3 at the world-1 path's calls: every ``segment_add`` of one GAT
-    step (10; a GCN step makes none), on the plans, values (bf16 or f32)
-    and widths (1 to 256) the path builds, against ``csr_spmm_ref`` on the
-    same inputs (phase 7's tolerance), launched twice more bit for bit
-    equal, and timed beside ``index_add_``.  Rows 9-14 at the world-1
-    path's calls: each kernel against its plain version on the same inputs
-    (the tolerance of phase 14; row 9 on bf16 and f32 x) and launched twice,
-    bit for bit equal; then CUDA-event times of kernel, plain version and,
-    for row 9, ``torch.sparse.mm`` over the shard's whole CSR into its
-    table and the band-only mode's time, with the byte and operation counts
+16. rows 9-14 at the world-1 path's calls: each kernel against its plain
+    version on the same inputs (the tolerance of phase 14; row 9 on bf16
+    and f32 x) and launched twice, bit for bit equal (rows 10-14 also bit
+    for bit equal to the path's own call); then CUDA-event times of kernel,
+    plain version and, for row 9, ``torch.sparse.mm`` over the shard's
+    whole CSR into its table and the band-only mode's time, for rows 10-14
+    the whole call (halos, remote rows, launch) and its halo and remote-row
+    exchanges, with the byte and operation counts of the whole function
     that bound them (an ELL's bytes are its real entries, not its -1
-    padding).
-    Where a sharded call's time goes: GCN layer 1's forward SpMM (whole
-    call, halo exchange, remote-row exchange, kernel) and GAT layer 0's
-    attention forward and backward.
+    padding; the tables' parts and tails, both fallback CSRs).  Where a
+    sharded SpMM call's time goes: GCN layer 1's forward (whole call, halo
+    exchange, remote-row exchange, kernel).
 17. the ``kernels`` summary line (rows 1-14, phase 11c's rows after row 8:
     rows 6-8 in the bfloat16 mode and rows 7 and 8 on warp per node in both
     modes, each counting its run's launches; then the probe, which the
@@ -500,10 +500,9 @@ Phases (any failure raises and exits non-zero):
     rows 5-14 also carry their timed calls, the
     gap launches * (ms - bound) / calls and, for the backward rows, the
     design each layer took; row 9 also the band-only mode's time at the same
-    calls; row 3's launches and
-    numbers are the sharded path's (the GAT step's), phase 16's, beside
-    phase 7's one-card numbers under ``*_one_card``: the one-card path no
-    longer runs it; its embedding launches and phase 5g's numbers under
+    calls, rows 10-14 the whole calls' and their exchanges'; row 3's numbers
+    are phase 7's one-card fallback calls (no full-batch path launches it),
+    its embedding launches and phase 5g's numbers under
     ``launches_embedding`` and ``*_dedup``), and last the ``ok`` line.
 
 Every JSON line carries the card's name and power limit, and its seconds since
@@ -4984,16 +4983,16 @@ SHARD_ROWS = {
     "slab_attention_fwd_shard": ("slab_attn_fwd.cu",
                                  "cugraph_gnn_tpu/ops/dist_full_batch.py:585",
                                  "slab_attention_spmm_shard"),
-    "slab_attention_bwd_onepass_shard": ("slab_attn_bwd.cu",
+    "slab_attention_bwd_onepass_shard": ("slab_attn_bwd_shard.cu",
                                          "cugraph_gnn_tpu/ops/dist_full_batch.py:679",
                                          "onepass_bwd_shard"),
-    "slab_attention_bwd_shard": ("slab_attn_bwd.cu",
+    "slab_attention_bwd_shard": ("slab_attn_bwd_shard.cu",
                                  "cugraph_gnn_tpu/ops/dist_full_batch.py:818",
                                  "slab_attention_bwd_shard"),
     "slab_attention_fwd_mh_shard": ("slab_attn_fwd.cu",
                                     "cugraph_gnn_tpu/ops/dist_full_batch.py:974",
                                     "slab_attention_spmm_mh_shard"),
-    "slab_attention_bwd_mh_shard": ("slab_attn_bwd.cu",
+    "slab_attention_bwd_mh_shard": ("slab_attn_bwd_shard.cu",
                                     "cugraph_gnn_tpu/ops/dist_full_batch.py:1071",
                                     "slab_attention_bwd_mh_shard"),
 }
@@ -5152,49 +5151,56 @@ def shard_kernels(dev, emit, world=4, n=100_000):
     if not all(min(v) > 0 for v in tail_rows.values()):
         raise AssertionError(f"the 4-rank shards read no remote rows: {tail_rows}")
 
-    # rows 10-14: the attention pair at R = 256 (bit planes) and 512 (t_ell)
+    # rows 10-14: each shard's whole attention over its two tables (halo
+    # and remote rows taken from the whole arrays, packed as the exchanges
+    # pack them) at R = 256 (bit planes), 512 (t_ell, 256-row tiles) and 768
+    # (t_ell, warp per node): every backward design
     layers = {"layer0": (4, 64), "layer1": (1, 47)}
-    designs = {}
-    for r_blk in (256, 512):
+    want_design = {256: "windows", 512: "windows", WARP_PER_NODE_R: "warp_per_node"}
+    designs, remote = {}, {}
+    for r_blk in want_design:
         rs, n_pad = split(r_blk)
         pair = AG.build_attention_slab_pair(indptr, indices, block_rows=r_blk, device="cpu")
         whole = pair.to(dev)
-        none = torch.zeros(0, dtype=torch.int32, device=dev)
-        ptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-        band = whole._replace(fwd=whole.fwd._replace(fb_src=none, fb_dst=none, fb_rowptr=ptr),
-                              fb_t_rowptr=ptr, fb_t_dst=none)
-        shards = [DF.shard_attention_pair(pair, w, rs, n_pad, dev) for w in range(world)]
-        designs[r_blk] = {layer: AG.backward_design(shards[0], f)
+        shards = [DF.shard_attention_tables(pair, w, rs, n_pad, world, dev)
+                  for w in range(world)]
+        remote[r_blk] = [[len(ta), len(tb)] for _, ta, tb in shards]
+        designs[r_blk] = {layer: AG.backward_design(shards[0][0], f)
                           for layer, (_, f) in layers.items()}
-        if any(d != "windows" for d, *_ in designs[r_blk].values()):
-            raise AssertionError(f"R={r_blk} shards must take the window kernels: {designs}")
+        if any(d != want_design[r_blk] for d, *_ in designs[r_blk].values()):
+            raise AssertionError(f"R={r_blk} shards must take the {want_design[r_blk]} "
+                                 f"kernels: {designs}")
         for layer, (h, f) in layers.items():
             x, gg = pad(randn(n, h, f), n_pad), pad(randn(n, h, f), n_pad)
             ad, as_, t = (pad(randn(n, h), n_pad) for _ in range(3))
-            out_w, m_w, s_w = AK.slab_attention_spmm_mh(band.fwd, x[:n], ad[:n], as_[:n],
+            out_w, m_w, s_w = AK.slab_attention_spmm_mh(whole.fwd, x[:n], ad[:n], as_[:n],
                                                         return_stats=True)
-            m, s = pad(m_w, n_pad), pad(s_w, n_pad)
-            out_w = pad(out_w, n_pad)
             bwd_w = [pad(a, n_pad) for a in AG.slab_attention_bwd_mh(
-                band, x[:n], ad[:n], as_[:n], m_w, s_w, t[:n], gg[:n])]
+                whole, x[:n], ad[:n], as_[:n], m_w, s_w, t[:n], gg[:n])]
+            out_w, m, s = (pad(a, n_pad) for a in (out_w, m_w, s_w))
+            stats = AG.attention_stats(ad, m, s, t)
+            stats_mag = AG.attention_stats(ad, m, s, -t.abs())
             fwd_name = "slab_attention_fwd_shard" if h == 1 else "slab_attention_fwd_mh_shard"
             bwd_name = _bwd_row(r_blk, h)
-            for w, sp in enumerate(shards):
+            for w, (sp, tail_a, tail_b) in enumerate(shards):
                 own = slice(w * rs, (w + 1) * rs)
-
-                def ext(a, w=w):
-                    return DF.halo_rows(a, w, rs, r_blk)
-
                 what = f"R={r_blk} {layer} shard {w}"
-                args = [ext(x), ad[own], ext(as_)]
+                table_a, table_a_mag = (DF.halo_table(a, as_, w, rs, r_blk, tail_a)
+                                        for a in (x, x.abs()))
+                as_ext = DF.halo_rows(as_, w, rs, r_blk)
+                args = [table_a, ad[own], as_ext]
+                mag_args = [table_a_mag, ad[own], as_ext]
                 if h == 1:
                     fwd, ref = AK.slab_attention_spmm_shard, AK.slab_attention_spmm_shard_ref
-                    args = [a[:, 0] for a in args]
+                    args, mag_args = ([tb.squeeze_heads(), a[:, 0], e[:, 0]]
+                                      for tb, a, e in (args, mag_args))
                 else:
                     fwd, ref = AK.slab_attention_spmm_mh_shard, AK.slab_attention_spmm_mh_shard_ref
                 out, m_s, s_s = fwd(sp.fwd, *args, return_stats=True)
+                for a, b in zip((out, m_s, s_s), fwd(sp.fwd, *args, return_stats=True)):
+                    _same_bits(fwd_name, a, b, what)
                 want, m_r, s_r = ref(sp.fwd, *args, return_stats=True)
-                mag = ref(sp.fwd, args[0].abs(), *args[1:])
+                mag = ref(sp.fwd, *mag_args)
                 if h == 1:
                     out, want, mag = out[:, None], want[:, None], mag[:, None]
                     m_s, s_s, m_r, s_r = (a[:, None] for a in (m_s, s_s, m_r, s_r))
@@ -5206,23 +5212,36 @@ def shard_kernels(dev, emit, world=4, n=100_000):
                 _close(fwd_name, s_s, s_r, s_r, what + " s")
                 _close(fwd_name, s_s, s[own], s_r, what + " s vs the whole graph")
 
-                e = [ext(a) for a in (x, ad, as_, m, s, t, gg)]
-                got = AG.slab_attention_bwd_mh_shard(sp, *e)
-                for a, b in zip(got, AG.slab_attention_bwd_mh_shard(sp, *e)):
+                def stats_ext(st):
+                    ext = DF.halo_rows(st, w, rs, r_blk)
+                    ext[..., 2].clamp_(min=1e-16)   # zero halo rows past the ends
+                    return ext
+
+                args = (table_a, as_ext, DF.halo_table(gg, stats, w, rs, r_blk, tail_b),
+                        stats_ext(stats))
+                got = AG.slab_attention_bwd_mh_shard(sp, *args)
+                for a, b in zip(got, AG.slab_attention_bwd_mh_shard(sp, *args)):
                     _same_bits(bwd_name, a, b, what)
-                want = AG.slab_attention_bwd_shard_ref(sp, *e)
-                mag = AG.slab_attention_bwd_shard_ref(sp, e[0].abs(), *e[1:5], -e[5].abs(),
-                                                      e[6].abs())
+                want = AG.slab_attention_bwd_shard_ref(sp, *args)
+                mag = AG.slab_attention_bwd_shard_ref(
+                    sp, table_a_mag, as_ext,
+                    DF.halo_table(gg.abs(), stats_mag, w, rs, r_blk, tail_b),
+                    stats_ext(stats_mag))
                 for a, b, c, wh, nm in zip(got, want, mag, bwd_w, ("dx", "dad", "das")):
                     errs[bwd_name] = max(errs[bwd_name], _close(bwd_name, a, b, c,
                                                                f"{what} {nm}"))
                     vs_whole[bwd_name] = max(vs_whole[bwd_name], _close(
                         bwd_name, a, wh[own], c, f"{what} {nm} vs the whole graph"))
-        del whole, band, shards
+                del got, want, mag, args, table_a, table_a_mag
+            del x, gg, ad, as_, t, out_w, m, s, bwd_w, stats, stats_mag
+        del whole, shards
         torch.cuda.empty_cache()
+    if not all(min(min(r) for r in v) > 0 for v in remote.values()):
+        raise AssertionError(f"a 4-rank shard's tables read no remote rows: {remote}")
     emit({"phase": "shard_kernel_check", "world": world, "nodes": n,
           "edges": g.num_edges, "fallback_fraction": fb_fraction,
-          "remote_rows_per_shard": tail_rows, "band_only_shard": band_errs,
+          "remote_rows_per_shard": tail_rows,
+          "attention_remote_rows_per_shard_tables_a_b": remote, "band_only_shard": band_errs,
           "max_abs_err": errs, "max_abs_diff_from_whole_graph_kernel": vs_whole,
           "backward_design": designs, "seconds": time.perf_counter() - t0,
           "tolerance": "1e-5 abs + 1e-5 x the terms' magnitude sum"})
@@ -5245,6 +5264,7 @@ def _free_port() -> int:
 def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
     """Phases 15-16 (see the module docstring).  Returns the ``kernels``
     rows 9-14; ``errs`` is phase 14's max abs differences."""
+    import numpy as np
     import torch
     import torch.distributed as dist
     from torch.nn import functional as F
@@ -5259,8 +5279,6 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
         slab_spmm_shard,
         slab_spmm_shard_ref,
     )
-    from cugraph_gnn_tpu_torch.ops.kernels.spmm_kernel import csr_spmm, csr_spmm_ref
-    from cugraph_gnn_tpu_torch.store import dist_array as DA
     from cugraph_gnn_tpu_torch.utils import distributed as D
 
     mesh = D.init(init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
@@ -5345,9 +5363,8 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
         # -- 15. GCN (bf16), gat4h at R = 256 and R = 512 -------------------
         xb = x32.to(torch.bfloat16)
         # a SpMM is one launch of the shard kernel (band, fallback, divide,
-        # cast); the attention's fallback sums go through the CSR kernel
-        # (store/dist_array.py segment_add): two a forward call (out, s) and
-        # three a backward one (dx, dalpha_src, dalpha_dst's scatter-add)
+        # cast), an attention call, forward or backward, one of its shard
+        # entry (band and fallback edges over its tables): no CSR kernel
         model, opt = train(lambda: GCN(TF.FEAT_DIM, TF.HIDDEN, TF.CLASSES,
                                        dtype=torch.bfloat16, device=dev),
                            dfbg, xb, 4, {"slab_spmm_shard": 3}, "gcn")
@@ -5355,7 +5372,7 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
               "ms": _staged_step(model, opt, xb, dfbg, labels, F, valid=valid)})
         del model, opt
         gat_r256 = {"slab_attention_spmm_mh_shard": 1, "slab_attention_spmm_shard": 1,
-                    "onepass_bwd_shard": 2, "csr_spmm": 10}
+                    "onepass_bwd_shard": 2}
 
         def gat():
             return GAT(TF.FEAT_DIM, TF.HIDDEN, TF.CLASSES, heads=TF.HEADS, device=dev)
@@ -5375,8 +5392,7 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
         x512, labels512, valid512 = node_arrays(dfbg512)
         model, opt = train(gat, dfbg512, x512, 4,
                            {"slab_attention_spmm_mh_shard": 1, "slab_attention_spmm_shard": 1,
-                            "slab_attention_bwd_mh_shard": 1, "slab_attention_bwd_shard": 1,
-                            "csr_spmm": 10},
+                            "slab_attention_bwd_mh_shard": 1, "slab_attention_bwd_shard": 1},
                            "gat_R512")
         emit({"phase": "dist_full_batch_stages", "model": "gat", "graph": "R512",
               "ms": _staged_step(model, opt, x512, dfbg512, labels512, F, valid=valid512,
@@ -5417,72 +5433,6 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
 
         def nbytes(*ts):
             return sum(t.numel() * t.element_size() for t in ts if t is not None)
-
-        # row 3 at its world-1 calls: every segment_add of one GAT step (R =
-        # 256; a GCN step makes none), on the plans, values and widths the
-        # path builds, held against its plain version on the same inputs,
-        # launched twice more bit for bit, and timed beside index_add_
-        seg_rows = []
-        real_add = DA.segment_add
-
-        def held(out, plan, values):
-            base = out.clone()
-            got = real_add(out, plan, values)          # the path's own call
-            torch.cuda.synchronize()
-            flat = base.view(base.shape[0], -1)
-            vals = values.reshape(values.shape[0], flat.shape[1]).contiguous()
-            what = (f"world 1 {seg_tag} call {len(seg_rows)}: width {flat.shape[1]}, "
-                    f"{vals.dtype} into {flat.dtype}")
-            err = _check_sum("csr_spmm", got.view(flat.shape),
-                             csr_spmm_ref(plan, vals, out=flat.to(torch.float32, copy=True)),
-                             csr_spmm_ref(plan, vals.float().abs(), out=flat.float().abs()),
-                             what)
-            for _ in range(2):
-                _same_bits("csr_spmm", got, real_add(base.clone(), plan, values), what)
-            ok = (plan.rows >= 0) & (plan.cols >= 0) & (plan.cols < vals.shape[0])
-            idx, cols = plan.rows[ok].long(), plan.cols[ok].long()
-            terms = vals[cols].float()
-            if plan.weights is not None:
-                terms = terms * plan.weights[ok][:, None]
-            acc = flat.clone()
-            nv, width, el = int(cols.numel()), flat.shape[1], vals.element_size()
-            rows_with = int((plan.rowptr[1:] > plan.rowptr[:-1]).sum())
-            # accumulate mode: the row pointer, the slots' columns (and
-            # weights), each slot's value row once, and each output row that
-            # has slots read and written once
-            nb = (plan.rowptr.numel() * 8 + plan.cols.numel() * 4
-                  + (0 if plan.weights is None else plan.weights.numel() * 4)
-                  + nv * width * el + 2 * rows_with * width * flat.element_size())
-            b_ms, b_by = bound(nb, nv * width)
-            row = {"kernel": "csr_spmm", "path": "world 1", "step": seg_tag,
-                   "call": len(seg_rows), "width": width, "values": str(vals.dtype),
-                   "out": str(flat.dtype), "slots": nv, "rows_with_slots": rows_with,
-                   "max_abs_err": err,
-                   "ms": cuda_ms(lambda: csr_spmm(plan, vals, out=acc)),
-                   "plain_ms": cuda_ms(lambda: csr_spmm_ref(plan, vals, out=acc), iters=3,
-                                       warmup=1),
-                   "library_ms": cuda_ms(lambda: acc.index_add_(0, idx, terms)),
-                   "bytes": nb, "bound_ms": b_ms, "bound_by": b_by}
-            emit(row)
-            seg_rows.append(row)
-            del base, vals, terms, acc, idx, cols
-            return got
-
-        DF.segment_add = DA.segment_add = held
-        try:
-            for seg_tag, make, xr in (("gat", gat, x32),):
-                torch.manual_seed(0)
-                mdl = make()
-                TF.dist_full_batch_step(mdl, torch.optim.Adam(mdl.parameters(), lr=TF.LR),
-                                        xr, dfbg, labels, valid)
-                del mdl
-        finally:
-            DF.segment_add = DA.segment_add = real_add
-        torch.cuda.synchronize()
-        if [r["step"] for r in seg_rows] != ["gat"] * 10:
-            raise AssertionError(f"world-1 segment_add calls: "
-                                 f"{[(r['step'], r['width']) for r in seg_rows]}")
-        torch.cuda.empty_cache()
 
         timing = {k: [] for k in SHARD_ROWS}
         full_errs = {k: 0.0 for k in SHARD_ROWS}
@@ -5549,55 +5499,93 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
             timing["slab_spmm_shard"].append(row)
             del a_all, table, x_ext, parts, x, prev, nxt, f32
         layers = {"layer0": (TF.HEADS, TF.HIDDEN // TF.HEADS), "layer1": (1, TF.CLASSES)}
+        no_rows = np.zeros(0, np.int64)
         for r_blk, g in ((256, dfbg), (512, dfbg512)):
-            pair = g._attn_structs()["pair"]
+            st = g._attn_structs()
+            pair = st["pair"]
             rs = g.rows_per_rank
+            if st["route_a"] is not None or st["route_b"] is not None:
+                raise AssertionError("world 1 planned remote rows")
             e_band = int((pair.fwd.ell >= 0).sum())
+            e_fb = int(pair.fwd.fb_src.numel())
             for layer, (h, f) in layers.items():
-                # the band by source the kernel reads (a shard has no
-                # fallback): the band CSR (window kernels) or t_ell's real
-                # entries
+                # the band by source the kernel reads: the band CSR (window
+                # kernels) or t_ell's real entries
                 design, chunk, tile = AG.backward_design(pair, f)
                 t_bytes = (nbytes(pair.t_rowptr, pair.t_rows) if design == "windows"
                            else 4 * int((pair.t_ell >= 0).sum()))
                 x, gg = (torch.randn((rs, h, f), generator=gen, device=dev) for _ in range(2))
-                ad, as_, t = (torch.randn((rs, h), generator=gen, device=dev)
-                              for _ in range(3))
-                _, m, s = AK.slab_attention_spmm_mh_shard(
-                    pair.fwd, DF._halo_exchange(x, r_blk, mesh), ad,
-                    DF._halo_exchange(as_, r_blk, mesh), return_stats=True)
-                e = [DF._halo_exchange(a, r_blk, mesh) for a in (x, ad, as_, m, s, t, gg)]
+                ad, as_, t = (torch.randn((rs, h), generator=gen, device=dev) for _ in range(3))
+                # the path's calls, whole (halos, remote rows, launch), and
+                # their inputs as the path builds them at world 1 (zero
+                # halos, no remote rows)
+                out_p, m, s, _, _ = g._attn_fwd(x, ad, as_, 0.2)
+                grads_p = g._attn_bwd(*g._attn_fwd(x, ad, as_, 0.2)[3:], ad, m, s, t, gg, 0.2)
+                stats, stats_mag = (AG.attention_stats(ad, m, s, tt) for tt in (t, -t.abs()))
+                table_a, table_a_mag = (DF.halo_table(a, as_, 0, rs, r_blk, no_rows)
+                                        for a in (x, x.abs()))
+                table_b, table_b_mag = (DF.halo_table(a, sts, 0, rs, r_blk, no_rows)
+                                        for a, sts in ((gg, stats), (gg.abs(), stats_mag)))
+                as_ext = DF.halo_rows(as_, 0, rs, r_blk)
+                st_ext, st_mag = (DF.halo_rows(a, 0, rs, r_blk) for a in (stats, stats_mag))
+                for a in (st_ext, st_mag):
+                    a[..., 2].clamp_(min=1e-16)
+                as32, g32 = as_.float().contiguous(), gg.float().contiguous()
                 calls = []
                 if r_blk == 256:
-                    args = [e[0], ad, e[2]]
+                    args, mag_args = [table_a, ad, as_ext], [table_a_mag, ad, as_ext]
                     if h == 1:
                         name, fwd = "slab_attention_fwd_shard", AK.slab_attention_spmm_shard
                         ref = AK.slab_attention_spmm_shard_ref
-                        args = [a[:, 0] for a in args]
+                        args, mag_args = ([tb.squeeze_heads(), a[:, 0], e[:, 0]]
+                                          for tb, a, e in (args, mag_args))
                     else:
                         name, fwd = "slab_attention_fwd_mh_shard", AK.slab_attention_spmm_mh_shard
                         ref = AK.slab_attention_spmm_mh_shard_ref
-                    nb = nbytes(e[0], ad, e[2]) + 4 * e_band + rs * h * f * 4 + 8 * rs * h
-                    calls.append((name, nb, e_band * h * (2 * f + 5),
+                    # x's table (parts and tail) and the halo-extended
+                    # alpha_src once, the ELL's real entries, the fallback
+                    # row pointer and ids, alpha_dst; out, m and s written
+                    nb = (nbytes(*table_a[:3], table_a.tail.data, as_ext, ad) + 4 * e_band
+                          + nbytes(pair.fwd.fb_rowptr) + 4 * e_fb + rs * h * f * 4 + 8 * rs * h)
+                    calls.append((name, nb, (e_band + e_fb) * h * (2 * f + 5),
                                   lambda fwd=fwd, args=args: fwd(pair.fwd, *args,
                                                                  return_stats=True),
                                   lambda ref=ref, args=args: ref(pair.fwd, *args,
                                                                  return_stats=True),
-                                  lambda ref=ref, args=args: (ref(
-                                      pair.fwd, args[0].abs(), *args[1:]),)))
-                nb = nbytes(*e) + 4 * e_band + t_bytes + rs * h * f * 4 + 8 * rs * h
-                calls.append((_bwd_row(r_blk, h), nb, e_band * h * (4 * f + 10),
-                              lambda e=e: AG.slab_attention_bwd_mh_shard(pair, *e),
-                              lambda e=e: AG.slab_attention_bwd_shard_ref(pair, *e),
-                              lambda e=e: AG.slab_attention_bwd_shard_ref(
-                                  pair, e[0].abs(), *e[1:5], -e[5].abs(), e[6].abs())))
-                for name, nb, ops, kern, plain, mag in calls:
+                                  lambda ref=ref, args=mag_args: (ref(pair.fwd, *args),),
+                                  (out_p, m, s),
+                                  lambda: g._attn_fwd(x, ad, as_, 0.2)[:3],
+                                  lambda: DF._halo_pairs([x, as32], r_blk, mesh),
+                                  lambda: DF._gather_packed(as32, x.reshape(rs, -1),
+                                                            st["route_a"], mesh)))
+                args = (table_a, as_ext, table_b, st_ext)
+                # both tables (parts and tails), alpha_src's and the stats'
+                # halo-extended rows once, the ELL's real entries, the band
+                # by source, both fallback CSRs; dx, dad and das written
+                nb = (nbytes(*table_a[:3], table_a.tail.data, *table_b[:3], table_b.tail.data,
+                             as_ext, st_ext) + 4 * e_band + t_bytes
+                      + nbytes(pair.fwd.fb_rowptr, pair.fb_t_rowptr)
+                      + 4 * (e_fb + int(pair.fb_t_dst.numel())) + rs * h * f * 4 + 8 * rs * h)
+                calls.append((_bwd_row(r_blk, h), nb, (e_band + e_fb) * h * (4 * f + 10),
+                              lambda args=args: AG.slab_attention_bwd_mh_shard(pair, *args),
+                              lambda args=args: AG.slab_attention_bwd_shard_ref(pair, *args),
+                              lambda: AG.slab_attention_bwd_shard_ref(
+                                  pair, table_a_mag, as_ext, table_b_mag, st_mag),
+                              grads_p,
+                              lambda: g._attn_bwd(table_a, as_ext, ad, m, s, t, gg, 0.2),
+                              lambda: DF._halo_pairs([g32, stats], r_blk, mesh),
+                              lambda: DF._gather_packed(stats.reshape(rs, -1),
+                                                        g32.reshape(rs, -1), st["route_b"],
+                                                        mesh)))
+                for name, nb, ops, kern, plain, mag, path_out, whole, halos, tail in calls:
                     # the kernel against its plain version on these inputs:
-                    # out (fwd; m equal, s within 1e-5) or dx, dad, das
+                    # out (fwd; m equal, s within 1e-5) or dx, dad, das;
+                    # twice bit for bit, and bit for bit the path's call
                     what = f"world 1 R={r_blk} {layer}"
                     got, want, mags = kern(), plain(), mag()
-                    for a, b in zip(got, kern()):
+                    for a, b, c in zip(got, kern(), path_out):
                         _same_bits(name, a, b, what)
+                        _same_bits(name, a, c.reshape(a.shape), what + " (the path's call)")
                     for i, (a, b) in enumerate(zip(got, want)):
                         if i < len(mags):
                             full_errs[name] = max(full_errs[name],
@@ -5611,14 +5599,19 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
                     b_ms, b_by = bound(nb, ops)
                     row = {"kernel": name, "block_rows": r_blk, "layer": layer, "heads": h,
                            "f": f, "dtype": "float32", "band_edges": e_band,
+                           "fallback_edges": e_fb, "remote_rows": 0,
                            **({"design": design, "chunk_elements": chunk, "tile_rows": tile}
                               if "bwd" in name else {}),
-                           "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                           "ms": cuda_ms(kern), "whole_ms": cuda_ms(whole),
+                           "halo_exchange_ms": cuda_ms(halos),
+                           "remote_exchange_ms": cuda_ms(tail),
+                           "plain_ms": cuda_ms(plain, iters=3, warmup=1),
                            "library_ms": None, "bytes": nb, "operations": ops,
                            "bound_ms": b_ms, "bound_by": b_by}
                     emit(row)
                     timing[name].append(row)
-                del x, gg, ad, as_, t, m, s, e
+                del (x, gg, ad, as_, t, m, s, out_p, grads_p, stats, stats_mag, table_a,
+                     table_a_mag, table_b, table_b_mag, as_ext, st_ext, st_mag, calls, args)
                 torch.cuda.empty_cache()
 
         emit({"phase": "shard_kernel_check", "world": 1, "nodes": n,
@@ -5626,9 +5619,9 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
               "tolerance": "1e-5 abs + 1e-5 x the terms' magnitude sum; m equal, "
                            "s within 1e-5"})
 
-        # where a sharded call's time goes, beside its kernel: GCN layer 1's
-        # forward SpMM (bf16, F = 256) and GAT layer 0's attention (f32, H =
-        # 4, F = 64) at R = 256
+        # where a sharded SpMM call's time goes, beside its kernel: GCN layer
+        # 1's forward (bf16, F = 256) at R = 256 (the attention rows above
+        # carry theirs)
         st = dfbg._spmm[False]
         xb = xs[256].to(torch.bfloat16)
         prev, nxt = DF._halo_pair(xb, TF.BLOCK_ROWS, mesh)
@@ -5641,32 +5634,7 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
                   lambda: DF._dist_gather_planned(xb, st.route, mesh=mesh))),
               "kernel_ms": cuda_ms(lambda: slab_spmm_shard(st.band, xb, prev, nxt, empty, "sum",
                                                            torch.float32))})
-        del prev, nxt, empty
-        a_st = dfbg._attn_structs()
-        rs = dfbg.rows_per_rank
-        x, gg = (torch.randn((rs, 4, 64), generator=gen, device=dev) for _ in range(2))
-        ad, as_, t = (torch.randn((rs, 4), generator=gen, device=dev) for _ in range(3))
-        _, m, s = dfbg._attn_fwd(x, ad, as_, 0.2)
-        src, dst = a_st["fb_by_dst"]
-        xa = torch.cat([x.reshape(rs, -1), as_], 1)
-        emit({"phase": "dist_call_breakdown", "call": "gat layer0 attention forward",
-              "whole_ms": cuda_ms(lambda: dfbg._attn_fwd(x, ad, as_, 0.2)),
-              "halo_exchange_ms": cuda_ms(lambda: (DF._halo_exchange(x, TF.BLOCK_ROWS, mesh),
-                                                   DF._halo_exchange(as_, TF.BLOCK_ROWS, mesh))),
-              "fallback_gather_ms": cuda_ms(lambda: DF._dist_gather_shard(
-                  xa, src, book=dfbg._book, mesh=mesh))})
-        src, dst = a_st["fb_by_src"]
-        gq = torch.cat([gg.reshape(rs, -1), ad, m, s, t], 1)
-        de = torch.randn((src.numel(), 4), generator=gen, device=dev)
-        emit({"phase": "dist_call_breakdown", "call": "gat layer0 attention backward",
-              "whole_ms": cuda_ms(lambda: dfbg._attn_bwd(x, ad, as_, m, s, t, gg, 0.2)),
-              "halo_exchange_ms": cuda_ms(lambda: [DF._halo_exchange(a, TF.BLOCK_ROWS, mesh)
-                                                   for a in (gq, x)]),
-              "fallback_gather_ms": cuda_ms(lambda: DF._dist_gather_shard(
-                  gq, dst, book=dfbg._book, mesh=mesh)),
-              "fallback_scatter_add_ms": cuda_ms(lambda: DF._dist_scatter_add(
-                  ad, de, a_st["plan_dad"], mesh=mesh))})
-        del x, gg, ad, as_, t, m, s, xa, gq, de, dfbg512
+        del prev, nxt, empty, dfbg512
         torch.cuda.empty_cache()
 
         # agreement: one float32 step each through the single-device graph
@@ -5737,26 +5705,21 @@ def dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, errs):
                **_summed(rows, totals[counter]),
                "library_ms": (None if rows[0]["library_ms"] is None
                               else sum(r["library_ms"] for r in rows))}
-        if "band_only_ms" in rows[0]:
-            out["band_only_ms"] = sum(r["band_only_ms"] for r in rows)
+        for key in ("band_only_ms", "whole_ms", "halo_exchange_ms", "remote_exchange_ms"):
+            if key in rows[0]:
+                out[key] = sum(r[key] for r in rows)
         return out
 
     # row 9: one GCN step's three calls added (the whole function; beside it
-    # the band-only mode's time);
-    # rows 10 and 13: the R = 256 step's call each; row 11: its two calls;
-    # rows 12 and 14: the R = 512 step's call each.  Also the CSR kernel's
-    # launches on this path and its numbers at one GAT step's calls, added.
-    csr = {"launches": totals["csr_spmm"], "calls": len(seg_rows),
-           "max_abs_err": max(r["max_abs_err"] for r in seg_rows),
-           **{k: sum(r[k] for r in seg_rows)
-              for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-           "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in seg_rows)
-           else "operations"}
+    # the band-only mode's time); rows 10 and 13: the R = 256 step's call
+    # each; row 11: its two calls; rows 12 and 14: the R = 512 step's call
+    # each (each the launch over the tables; beside it the whole call's time
+    # and its halo and remote-row exchanges')
     return [kernel_row(name) for name in ("slab_spmm_shard", "slab_attention_fwd_shard",
                                           "slab_attention_bwd_onepass_shard",
                                           "slab_attention_bwd_shard",
                                           "slab_attention_fwd_mh_shard",
-                                          "slab_attention_bwd_mh_shard")], csr
+                                          "slab_attention_bwd_mh_shard")]
 
 
 def _staged_step(model, opt, x, fbg, labels, F, method="spmm", label="spmm", valid=None):
@@ -5914,7 +5877,8 @@ def main() -> None:
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build(["gather_rows", "uniform_sample", "slab_spmm", "slab_spmm_shard",
-                          "csr_spmm", "slab_attn_fwd", "slab_attn_bwd"])
+                          "csr_spmm", "slab_attn_fwd", "slab_attn_bwd",
+                          "slab_attn_bwd_shard"])
     wall = time.perf_counter() - t0
     for name, b in built.items():
         print(f"build {name}: {b.seconds:.1f} s -> {b.path.name}")
@@ -6195,26 +6159,14 @@ def main() -> None:
     reused, fb_rows = full_batch(dev, emit, cuda_ms, hbm, counters)
     gat_rows, probe_row = gat_full_batch(dev, emit, cuda_ms, hbm, counters, reused)
     shard_errs = shard_kernels(dev, emit)
-    dist_rows, sharded_csr = dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused,
-                                             shard_errs)
+    dist_rows = dist_full_batch(dev, emit, cuda_ms, hbm, counters, reused, shard_errs)
     del reused
-    # row 3: the one-card path no longer launches it (row 4's kernel takes
-    # the fallback); the sharded path sums its fallback edges with it, so its
-    # numbers are those of the world-1 calls, and the one-card fallback
-    # calls of phase 7 (checked, accumulate mode too) stand beside them
-    csr_row = fb_rows[1]
-    one_card = {f"{k}_one_card": csr_row[k] for k in ("launches", "max_abs_err", "ms",
-                                                       "plain_ms", "bound_ms", "library_ms")}
-    csr_row.update(**one_card, launches_sharded=sharded_csr["launches"],
-                   on_one_card_path=csr_row["launches"] > 0,
-                   on_sharded_path=sharded_csr["launches"] > 0,
-                   calls_timed_sharded=sharded_csr["calls"],
-                   **{k: sharded_csr[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                   "library_ms")},
-                   launches=csr_row["launches"] + sharded_csr["launches"],
-                   max_abs_err=max(csr_row["max_abs_err"], sharded_csr["max_abs_err"]))
-    # and the embeddings' dedup sums (phases 5e, 5g): one launch a
+    # row 3: no full-batch path launches it (rows 4 and 9 and the attention
+    # kernels take the fallback edges); its numbers are the one-card
+    # fallback calls of phase 7 (checked, accumulate mode too), beside the
+    # embeddings' dedup sums (phases 5e, 5g): one launch a
     # CachedHostEmbedding step, two a DistEmbedding step
+    csr_row = fb_rows[1]
     dd = emb_rows["dedup"]
     emb_csr = sum(v["csr_spmm"] for v in emb_launches.values())
     csr_row.update(launches_embedding=emb_csr, launches=csr_row["launches"] + emb_csr,

@@ -5,6 +5,9 @@
 // the empty slots at the end and the columns are broadcast with shuffles,
 // kUnroll at a time, so that the caller can keep that many row loads in
 // flight.  Every lane of the warp takes part in every call.
+//
+// A row shard's table (Parts) is read where its parts lie: the halo-extended
+// rows in three parts of one row type and the remote rows in a packed tail.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,6 +18,45 @@ namespace attn {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kUnroll = 4;
+
+// A row shard's table of per-node rows in parts (the shard kernels' kParts
+// instances): rows [0, lo) in prev, [lo, hi) in own, [hi, band) in next,
+// each ``stride`` elements a row (the shard's rows with the R rows before
+// and after it: lo = R, hi = n + R, band = n + 2R); rows [band, rows) in a
+// tail of remote rows, ``tail_stride`` bytes apart, each a float32 head (the
+// node's scalars: alpha_src, or the four stats a head) at byte 0 and the
+// row's elements at byte ``tail_off`` (both 16-byte aligned).
+struct Parts {
+  const void* prev;
+  const void* own;
+  const void* next;
+  const unsigned char* tail;
+  int64_t lo, hi, band, rows, tail_stride, tail_off;
+};
+
+// Row q of a table in parts (0 <= q < rows).
+template <typename T>
+__device__ __forceinline__ const T* part_row(const Parts& p, int64_t q, int64_t stride) {
+  if (q >= p.band) return reinterpret_cast<const T*>(p.tail + (q - p.band) * p.tail_stride + p.tail_off);
+  const void* base = q < p.lo ? p.prev : q < p.hi ? p.own : p.next;
+  const int64_t q0 = q < p.lo ? 0 : q < p.hi ? p.lo : p.hi;
+  return static_cast<const T*>(base) + (q - q0) * stride;
+}
+
+// The float32 head of tail row q (band <= q < rows).
+__device__ __forceinline__ const float* tail_head(const Parts& p, int64_t q) {
+  return reinterpret_cast<const float*>(p.tail + (q - p.band) * p.tail_stride);
+}
+
+// Whether every part's rows of a table in parts start at multiples of
+// ``bytes`` (at most 16): the parts' pointers and row strides, the tail's
+// offset.
+inline bool parts_aligned(const Parts& p, int64_t stride_bytes, int64_t bytes) {
+  const auto at = [&](const void* q) { return reinterpret_cast<uintptr_t>(q) % bytes == 0; };
+  return stride_bytes % bytes == 0 && at(p.prev) && at(p.own) && at(p.next) &&
+         (p.rows == p.band ||
+          (at(p.tail) && p.tail_stride % bytes == 0 && p.tail_off % bytes == 0));
+}
 
 __device__ __forceinline__ float lrelu(float z, float slope) {
   return z >= 0.0f ? z : slope * z;

@@ -156,11 +156,12 @@ __device__ __forceinline__ int window_index(int j, int R, int b3) {
 // cp.async where ``vec``, 4-byte cp.async for float32 rows that are not
 // 16-byte aligned, plain loads for such bfloat16 rows; zeros past fcv and for
 // rows outside [0, x_rows).  The caller waits (cp_async_wait_all) and
-// synchronises before reading.
-template <int kNQ, int kThreads, typename T>
-__device__ __forceinline__ void stage_rows(uint4* win, int idx0, const T* __restrict__ src,
-                                           int64_t q0, int R, int64_t x_rows, int64_t stride,
-                                           int64_t col0, int fcv, bool vec) {
+// synchronises before reading.  stage_rows_at takes each input row's
+// pointer from row_at(qr) (a table in parts); stage_rows reads one array.
+template <int kNQ, int kThreads, typename T, typename RowAt>
+__device__ __forceinline__ void stage_rows_at(uint4* win, int idx0, const RowAt& row_at,
+                                              int64_t q0, int R, int64_t x_rows, int64_t col0,
+                                              int fcv, bool vec) {
   constexpr int kE = Quad<T>::kElems;
   for (int it = threadIdx.x; it < R * kNQ; it += kThreads) {
     const int row = it / kNQ, q = it % kNQ, e = q * kE;
@@ -170,7 +171,7 @@ __device__ __forceinline__ void stage_rows(uint4* win, int idx0, const T* __rest
       *d = make_uint4(0u, 0u, 0u, 0u);
       continue;
     }
-    const T* p = src + qr * stride + col0;
+    const T* p = row_at(qr) + col0;
     if (vec && e + kE <= fcv) {
       cp_async16(d, p + e);
     } else if (sizeof(T) == 4) {
@@ -184,6 +185,14 @@ __device__ __forceinline__ void stage_rows(uint4* win, int idx0, const T* __rest
       *d = load_quad(p, e, fcv, false);
     }
   }
+}
+
+template <int kNQ, int kThreads, typename T>
+__device__ __forceinline__ void stage_rows(uint4* win, int idx0, const T* __restrict__ src,
+                                           int64_t q0, int R, int64_t x_rows, int64_t stride,
+                                           int64_t col0, int fcv, bool vec) {
+  stage_rows_at<kNQ, kThreads, T>(win, idx0, [&](int64_t qr) { return src + qr * stride; },
+                                  q0, R, x_rows, col0, fcv, vec);
 }
 
 // Team helpers: a team of kT threads (a power of two <= 32, aligned in its

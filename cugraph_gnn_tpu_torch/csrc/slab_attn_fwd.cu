@@ -15,10 +15,13 @@
 //
 // Replaces cugraph_gnn_tpu/ops/pallas/slab_kernel.py::slab_attention_spmm_mh
 // (:438; pallas_call :503 over _slab_attn_fwd_kernel :386; H = 1 through
-// slab_attention_spmm :546) and, with the shard offset, the per-shard
-// forwards of cugraph_gnn_tpu/ops/dist_full_batch.py (_attn_fwd_sharded :585,
-// pallas_call :628; _attn_fwd_sharded_mh :974, :1019), whose fallback edges
-// stay outside the kernel.  The TPU kernel builds the (R, 3R) adjacency of a
+// slab_attention_spmm :546) and, in the shard entry slab_attn_fwd_shard
+// (one row shard's whole forward over its table of halo and remote rows,
+// the kParts instances), the whole sharded forwards of
+// cugraph_gnn_tpu/ops/dist_full_batch.py: _attn_fwd_sharded (:585;
+// pallas_call :628, then the fallback edges' distributed gather, segment
+// sums and log-sum-exp merge, :642-669) and _attn_fwd_sharded_mh (:974;
+// :1019, then :1035-1061).  The TPU kernel builds the (R, 3R) adjacency of a
 // row block, takes each head's masked row softmax over the window on the VPU
 // and multiplies it with the block's 3R-row window of x on the MXU, G blocks
 // stacked in VMEM; the fallback edges join afterwards through segment ops
@@ -32,7 +35,8 @@
 // entries, the fallback ids and row pointer once, the alphas once, and write
 // out, m and s once: at n = 2,449,029, H*F = 256 float32 and 2.76M fallback
 // edges that is ~5.4 GB, ~1.6 ms at 3.35 TB/s (chip_smoke.py computes the
-// exact count for its inputs).  The arithmetic is one exp per edge and head
+// exact count for its inputs); a world-1 shard's call the same, its table's
+// parts and tail read once.  The arithmetic is one exp per edge and head
 // and one FMA per element and edge (~17 GFLOP), far below the card's rate.
 // A warp per row, the first design, re-read each band edge's source row from
 // the L2 (32.6 GB a call at that shape) and had every lane recompute each
@@ -65,6 +69,10 @@
 //   while the current row is summed.
 // - No atomics: every sum has a fixed order, so two launches agree bit for
 //   bit.
+// - A row shard's table in parts (attn::Parts: its rows, the R rows before
+//   and after them, the packed remote rows with their alpha_src) is read
+//   where it lies, no copy of x: each window row from the part that holds
+//   it, a fallback slot's row and alpha_src from its id.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -98,6 +106,7 @@ struct Args {
   float *out, *m, *s;
   int n_chunks;
   bool x_vec, out_vec;   // 16-byte aligned rows of x; of out
+  attn::Parts xp;        // kParts: x as a shard's table (x unused; x_rows its band)
 };
 
 // Shared memory: the window ([3R][kNQ] quads), its alpha_src ([3R]), four
@@ -115,7 +124,7 @@ __device__ __forceinline__ float team_max(float v) {
   return v;
 }
 
-template <typename TX, bool kRound, int kNQ>
+template <typename TX, bool kRound, int kNQ, bool kParts>
 __global__ void __launch_bounds__(kThreads, 1) attn_fwd_kernel(Args a) {
   constexpr int kE = Quad<TX>::kElems;   // elements a quad
   constexpr int kT = kNQ;                // threads a row, one quad each
@@ -137,6 +146,19 @@ __global__ void __launch_bounds__(kThreads, 1) attn_fwd_kernel(Args a) {
   const TX* x = static_cast<const TX*>(a.x);
   const int s = threadIdx.x % kT, team = threadIdx.x / kT;
   const int64_t hf = a.heads * a.f;
+  // kParts: x rows from their part of the shard's table, a tail row's
+  // alpha_src from its head; fallback ids may name any row of the table
+  auto x_row = [&](int64_t c) -> const TX* {
+    if constexpr (kParts) return attn::part_row<TX>(a.xp, c, hf);
+    else return x + c * hf;
+  };
+  auto as_of = [&](int64_t c, int64_t h) -> float {
+    if constexpr (kParts) {
+      if (c >= a.xp.band) return __ldg(attn::tail_head(a.xp, c) + h);
+    }
+    return __ldg(a.as + c * a.heads + h);
+  };
+  const int64_t fb_rows = kParts ? a.xp.rows : a.x_rows;
   const int64_t n_blocks = (a.n + R - 1) / R;
   const int64_t tiles = n_blocks * a.heads * a.n_chunks;
   const int64_t p0 = tiles * blockIdx.x / gridDim.x, p1 = tiles * (blockIdx.x + 1) / gridDim.x;
@@ -156,8 +178,12 @@ __global__ void __launch_bounds__(kThreads, 1) attn_fwd_kernel(Args a) {
       const int64_t want = hk * (n_blocks + 2) + lb;
       if (tag[slot] == want) continue;   // the same in every thread
       const int64_t q0 = (lb - 1) * R + a.col_offset;
-      row_io::stage_rows<kNQ, kThreads, TX>(win, slot * R, x, q0, R, a.x_rows, hf, col0, fcv,
-                                             a.x_vec);
+      if constexpr (kParts)
+        row_io::stage_rows_at<kNQ, kThreads, TX>(win, slot * R, x_row, q0, R, a.x_rows, col0,
+                                                  fcv, a.x_vec);
+      else
+        row_io::stage_rows<kNQ, kThreads, TX>(win, slot * R, x, q0, R, a.x_rows, hf, col0, fcv,
+                                               a.x_vec);
       for (int it = threadIdx.x; it < R; it += kThreads) {
         const int64_t q = q0 + it;
         as_s[slot * R + it] = q >= 0 && q < a.x_rows ? __ldg(a.as + q * a.heads + h) : 0.0f;
@@ -189,9 +215,9 @@ __global__ void __launch_bounds__(kThreads, 1) attn_fwd_kernel(Args a) {
       const int cnt = fp1_s[R - 1] - fpb < kFbStage ? fp1_s[R - 1] - fpb : kFbStage;
       for (int e = threadIdx.x; e < cnt; e += kThreads) {
         const int32_t c = a.fb_src[fpb + e];
-        const bool ok = c >= 0 && c < a.x_rows;
+        const bool ok = c >= 0 && c < fb_rows;
         fbc_s[e] = ok ? c : -1;
-        fba_s[e] = ok ? __ldg(a.as + (int64_t)c * a.heads + h) : 0.0f;
+        fba_s[e] = ok ? as_of(c, h) : 0.0f;
       }
     }
     // fallback slot e's source (-1: none) and its alpha_src
@@ -201,8 +227,8 @@ __global__ void __launch_bounds__(kThreads, 1) attn_fwd_kernel(Args a) {
         asc = fba_s[e - fpb];
       } else {
         c = a.fb_src[e];
-        if (c >= a.x_rows) c = -1;
-        asc = c >= 0 ? __ldg(a.as + (int64_t)c * a.heads + h) : 0.0f;
+        if (c >= fb_rows) c = -1;
+        asc = c >= 0 ? as_of(c, h) : 0.0f;
       }
     };
 
@@ -221,7 +247,7 @@ __global__ void __launch_bounds__(kThreads, 1) attn_fwd_kernel(Args a) {
         int32_t c;
         float asc;
         fb_slot(fp0_s[i], c, asc);
-        if (c >= 0) w.fq = row_io::load_quad(x + (int64_t)c * hf + col0, e_q, fcv, a.x_vec);
+        if (c >= 0) w.fq = row_io::load_quad(x_row(c) + col0, e_q, fcv, a.x_vec);
       }
     };
 
@@ -331,7 +357,7 @@ __global__ void __launch_bounds__(kThreads, 1) attn_fwd_kernel(Args a) {
           ssum += pu;
           const uint4 q4 = e0 == fp0 && u == 0
                                ? cur.fq
-                               : row_io::load_quad(x + (int64_t)cu * hf + col0, e_q, fcv, a.x_vec);
+                               : row_io::load_quad(x_row(cu) + col0, e_q, fcv, a.x_vec);
           float v[kE];
           row_io::unpack(q4, v);
 #pragma unroll
@@ -361,14 +387,14 @@ __global__ void __launch_bounds__(kThreads, 1) attn_fwd_kernel(Args a) {
   }
 }
 
-template <typename TX, bool kRound, int kNQ>
+template <typename TX, bool kRound, int kNQ, bool kParts>
 int launch_nq(Args a, cudaStream_t stream) {
   constexpr int kE = Quad<TX>::kElems;
   const size_t smem = smem_bytes(a.R, kNQ);
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  void (*kernel)(Args) = attn_fwd_kernel<TX, kRound, kNQ>;
+  void (*kernel)(Args) = attn_fwd_kernel<TX, kRound, kNQ, kParts>;
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
@@ -386,7 +412,7 @@ int launch_nq(Args a, cudaStream_t stream) {
 // kNQ quads a window row: as few as cover one head's F (at least 4), at
 // most 16, and fewer where the window would not fit (a larger R): a head
 // wider than that runs in column chunks, each taking the softmax anew.
-template <typename TX, bool kRound>
+template <typename TX, bool kRound, bool kParts = false>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr int kE = Quad<TX>::kElems;
   int device = 0, smem_max = 0;
@@ -398,9 +424,9 @@ int launch(const Args& a, cudaStream_t stream) {
   int nq = 16;
   while (nq > 4 && (nq / 2 >= quads || smem_bytes(a.R, nq) > (size_t)smem_max)) nq /= 2;
   if (smem_bytes(a.R, nq) > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  if (nq == 16) return launch_nq<TX, kRound, 16>(a, stream);
-  if (nq == 8) return launch_nq<TX, kRound, 8>(a, stream);
-  return launch_nq<TX, kRound, 4>(a, stream);
+  if (nq == 16) return launch_nq<TX, kRound, 16, kParts>(a, stream);
+  if (nq == 8) return launch_nq<TX, kRound, 8, kParts>(a, stream);
+  return launch_nq<TX, kRound, 4, kParts>(a, stream);
 }
 
 }  // namespace
@@ -432,5 +458,42 @@ extern "C" int slab_attn_fwd(const void* x, int x_dtype, const void* alpha_dst,
   if (x_dtype == 0) return round_bf16 ? launch<float, true>(a, st) : launch<float, false>(a, st);
   if (x_dtype == 1)
     return round_bf16 ? launch<__nv_bfloat16, true>(a, st) : launch<__nv_bfloat16, false>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// One row shard's whole attention forward over its table X_A = [x_prev | x |
+// x_next | tail] (see attn::Parts): x (n, heads, f), x_prev and x_next
+// (block_rows, heads, f) in x_dtype (0 = float32, 1 = bfloat16); the tail's
+// tail_rows rows tail_stride bytes apart, each alpha_src's heads float32 at
+// byte 0 and the row's heads * f elements of x_dtype at byte tail_off (both
+// multiples of 16; tail null when empty); alpha_src float32 (n + 2 block_rows,
+// heads) the halo-extended rows' (zeros past the graph's ends); alpha_dst,
+// m, s float32 (n, heads); the band ELL as slab_attn_fwd's, its ids
+// window-local to the halo-extended rows; fb_rowptr int64 (n + 1) over
+// fb_src int32 ids into X_A (ops/dist_full_batch.py::plan_fallback_table);
+// out float32 (n, heads, f).  float32 products (no bfloat16 rounding).
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int slab_attn_fwd_shard(const void* x, const void* x_prev, const void* x_next,
+                                   const void* tail, int64_t tail_rows, int64_t tail_stride,
+                                   int64_t tail_off, int x_dtype, const void* alpha_dst,
+                                   const void* alpha_src, int64_t n, int64_t heads, int64_t f,
+                                   const void* ell, const void* ell_len, int64_t k_width,
+                                   int64_t block_rows, const void* fb_rowptr,
+                                   const void* fb_src, float slope, void* out, void* m,
+                                   void* s, void* stream) {
+  const int64_t r = block_rows;
+  Args a{x, static_cast<const float*>(alpha_dst), static_cast<const float*>(alpha_src), n, r,
+         n + 2 * r, heads, f, static_cast<const int32_t*>(ell),
+         static_cast<const int32_t*>(ell_len), k_width, (int)block_rows,
+         static_cast<const int64_t*>(fb_rowptr), static_cast<const int32_t*>(fb_src), slope,
+         static_cast<float*>(out), static_cast<float*>(m), static_cast<float*>(s), 1, false,
+         false, attn::Parts{x_prev, x, x_next, static_cast<const unsigned char*>(tail), r,
+                            n + r, n + 2 * r, n + 2 * r + tail_rows, tail_stride, tail_off}};
+  const size_t xs = x_dtype == 0 ? 4 : 2;
+  a.x_vec = (f * xs) % 16 == 0 && attn::parts_aligned(a.xp, heads * f * xs, 16);
+  a.out_vec = f % 4 == 0 && row_io::aligned(out, 16);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0) return launch<float, false, true>(a, st);
+  if (x_dtype == 1) return launch<__nv_bfloat16, false, true>(a, st);
   return (int)cudaErrorInvalidValue;
 }

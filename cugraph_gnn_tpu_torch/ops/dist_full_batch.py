@@ -20,19 +20,28 @@ read back to the host) and runs the whole function, band, fallback, 'mean'
 and cast, in one launch (``slab_spmm_shard``), as on one card.  In the
 balanced plan the band kernel runs alone and the fallback rows, fetched by
 the store's distributed gather, return to their owners by a distributed
-scatter-add.  The attention's fallback edges stay outside its kernels, as
-in the JAX package, summed in a fixed order (``segment_add``: the CSR SpMM
-kernel over a destination-sorted plan built once per graph), so that two
-runs of a step agree bit for bit.
+scatter-add.  The attention plans its fallback edges the same way, once per
+graph, into two tables: by destination into table A of x (the forward and
+the backward's destination pass; each remote row packed with its
+alpha_src) and by source into table B of g (the backward's source pass;
+each remote row packed with its stats).  A forward call is the halo
+exchange, at world > 1 one all-to-all of table A's remote rows, and one
+launch over the band and the fallback in one softmax; a backward call the
+halo exchange of g and the stats, one all-to-all of table B's remote rows
+and one call of the shard backward, which sums each gradient, dalpha_dst
+too, on its owner (the JAX package instead gathers the fallback rows, merges
+them by log-sum-exp and returns dalpha_dst by a scatter-add).  Every sum
+has a fixed order, so two runs of a step agree bit for bit.
 
 Gradients: d/dx (A x) = A^T g, and the transpose of a banded graph is banded
 with the same bandwidth, so ``spmm``'s backward is the same sharded routine
-over the transposed structures.  The attention's backward halo-exchanges g
-and the per-node stats (alpha_dst, m, s, t, alpha_src) as well as x, and
-reads, per rank, the band edges by source with halo-extended destination
-rows (the pair's ``t_ell`` rows, or a slice of its band CSR by source), so
-dx, dalpha_dst and dalpha_src come out for the rank's own rows and no
-reverse halo is needed.  The JAX package's one-pass backward instead sums
+over the transposed structures.  The attention's backward reuses the
+forward's table A (its halos, remote rows and alpha_src, kept in the
+autograd context), halo-exchanges g and the per-node stats (alpha_dst, m,
+s, t), and reads, per rank, the band edges by source with halo-extended
+destination rows (the pair's ``t_ell`` rows, or a slice of its band CSR by
+source), so dx, dalpha_dst and dalpha_src come out for the rank's own rows
+and no reverse halo is needed.  The JAX package's one-pass backward instead sums
 margin planes and returns them with ``_halo_reduce``: the same function.
 Collectives in a backward run in the same order on every rank because every
 rank runs the same autograd graph.
@@ -54,7 +63,9 @@ import torch.distributed as dist
 from cugraph_gnn_tpu_torch import _native
 from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as AG
 from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import (
-    lrelu,
+    PackedRows,
+    ShardTable,
+    pack_rows,
     slab_attention_spmm_mh_shard,
     slab_attention_spmm_shard,
 )
@@ -73,11 +84,10 @@ from cugraph_gnn_tpu_torch.store.dist_array import (
     _dist_gather_planned,
     _dist_gather_shard,
     _dist_scatter_add,
+    alltoallv,
     gather_plan,
     put_global,
     scatter_add_plan,
-    segment_add,
-    segment_plan,
 )
 from cugraph_gnn_tpu_torch.store.partition import PartitionBook
 
@@ -167,21 +177,29 @@ def _p2p(mesh: Mesh, sends, recvs) -> None:
             req.wait()
 
 
-def _halo_pair(x_local: torch.Tensor, r_blk: int, mesh: Mesh):
-    """(previous rank's last R rows, next rank's first R rows) of x; the end
-    ranks get zeros for the missing side."""
+def _halo_pairs(tensors, r_blk: int, mesh: Mesh):
+    """[(previous rank's last R rows, next rank's first R rows)] of each of
+    ``tensors`` (this rank's rows), in one batch of sends and receives; the
+    end ranks get zeros for the missing side."""
     w, world = mesh.rank, mesh.world
-    prev = x_local.new_zeros((r_blk,) + tuple(x_local.shape[1:]))
-    nxt = torch.zeros_like(prev)
-    sends, recvs = [], []
-    if w + 1 < world:
-        sends.append((x_local[-r_blk:].contiguous(), w + 1))
-        recvs.append((nxt, w + 1))
-    if w > 0:
-        sends.append((x_local[:r_blk].contiguous(), w - 1))
-        recvs.append((prev, w - 1))
+    pairs, sends, recvs = [], [], []
+    for x_local in tensors:
+        prev = x_local.new_zeros((r_blk,) + tuple(x_local.shape[1:]))
+        nxt = torch.zeros_like(prev)
+        if w + 1 < world:
+            sends.append((x_local[-r_blk:].contiguous(), w + 1))
+            recvs.append((nxt, w + 1))
+        if w > 0:
+            sends.append((x_local[:r_blk].contiguous(), w - 1))
+            recvs.append((prev, w - 1))
+        pairs.append((prev, nxt))
     _p2p(mesh, sends, recvs)
-    return prev, nxt
+    return pairs
+
+
+def _halo_pair(x_local: torch.Tensor, r_blk: int, mesh: Mesh):
+    """(previous rank's last R rows, next rank's first R rows) of x."""
+    return _halo_pairs([x_local], r_blk, mesh)[0]
 
 
 def _halo_exchange(x_local: torch.Tensor, r_blk: int, mesh: Mesh) -> torch.Tensor:
@@ -223,6 +241,18 @@ def halo_rows(x: torch.Tensor, w: int, rs: int, r_blk: int) -> torch.Tensor:
     if b > a:
         out[a - lo:b - lo] = x[a:b]
     return out
+
+
+def halo_table(a: torch.Tensor, head: torch.Tensor, w: int, rs: int, r_blk: int,
+               tail) -> ShardTable:
+    """Rank w's table of a whole (padded) node array ``a``, as its halo
+    exchange and the planned exchange of its remote rows ``tail`` (global
+    rows) build it, each remote row packed with its row of ``head`` (one
+    row a node, float32 scalars)."""
+    ext = halo_rows(a, w, rs, r_blk)
+    tail = torch.as_tensor(tail, dtype=torch.int64, device=a.device)
+    return ShardTable(a[w * rs:(w + 1) * rs], ext[:r_blk], ext[-r_blk:],
+                      pack_rows(head.reshape(head.shape[0], -1)[tail], a[tail]))
 
 
 def _padded(a: np.ndarray, rows: int, fill) -> np.ndarray:
@@ -348,6 +378,72 @@ def shard_table_graph(slab: SlabGraph, w: int, rs: int, n_pad: int, world: int, 
     return with_table(band, table, deg, device), table.tail
 
 
+def _rank_part(planned, rank: int, world: int):
+    """Rank ``rank``'s slice of planned fallback arrays ((world * cap,)
+    each), without its -1 padding (host arrays)."""
+    cap = len(planned[0]) // world
+    sl = slice(rank * cap, (rank + 1) * cap)
+    keep = (planned[0][sl] >= 0) & (planned[1][sl] >= 0)
+    return tuple(a[sl][keep] for a in planned)
+
+
+def _attention_tables(fb_src, fb_dst, *, rank: int, rows_per_rank: int, world: int,
+                      block_rows: int):
+    """Rank ``rank``'s two attention tables from a whole graph's fallback
+    edges (host arrays, global ids): A, the edges bucketed by destination
+    rank into rows of x (sources: the forward and the backward's destination
+    pass), and B, the edges bucketed by source rank into rows of g
+    (destinations: the backward's source pass), planned by
+    :func:`plan_fallback_table` with sources and destinations swapped."""
+    rs = rows_per_rank
+    src, dst = _rank_part(_bucket_fallback(fb_src, fb_dst, rs, world), rank, world)
+    table_a = plan_fallback_table(src, dst, rank=rank, rows_per_rank=rs, block_rows=block_rows)
+    src, dst = _rank_part(_bucket_fallback(fb_src, fb_dst, rs, world, bucket_by="src",
+                                           localize="src"), rank, world)
+    table_b = plan_fallback_table(dst, src, rank=rank, rows_per_rank=rs, block_rows=block_rows)
+    return table_a, table_b
+
+
+def with_attention_tables(shard: AG.AttnSlabPair, table_a: FallbackTable,
+                          table_b: FallbackTable, device) -> AG.AttnSlabPair:
+    """A shard's attention pair (:func:`shard_attention_pair`) with its
+    fallback edges planned into its tables: by destination into table A
+    (``fwd.fb_rowptr``/``fb_src``, ``fb_dst`` the local rows) and by source
+    into table B (``fb_t_rowptr``/``fb_t_dst``): the input of the shard
+    kernels."""
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    fwd = shard.fwd._replace(fb_src=t(table_a.x_ids), fb_dst=t(table_a.dst),
+                             fb_rowptr=t(table_a.rowptr))
+    return shard._replace(fwd=fwd, fb_t_rowptr=t(table_b.rowptr), fb_t_dst=t(table_b.x_ids))
+
+
+def shard_attention_tables(pair: AG.AttnSlabPair, w: int, rs: int, n_pad: int, world: int,
+                           device):
+    """Rank w's input of the shard attention kernels for a whole graph's
+    host pair, with no process group, as ``DistFullBatchGraph`` builds it:
+    (the shard's pair with its tables, table A's tail (global source rows),
+    table B's tail (global destination rows))."""
+    table_a, table_b = _attention_tables(pair.fwd.fb_src.cpu().numpy(),
+                                         pair.fwd.fb_dst.cpu().numpy(), rank=w,
+                                         rows_per_rank=rs, world=world,
+                                         block_rows=pair.fwd.block_rows)
+    shard = shard_attention_pair(pair, w, rs, n_pad, device)
+    return with_attention_tables(shard, table_a, table_b, device), table_a.tail, table_b.tail
+
+
+def _gather_packed(head: torch.Tensor, body: torch.Tensor, route: Optional[GatherPlan],
+                   mesh: Mesh) -> PackedRows:
+    """The packed rows (``head`` (rs, h) float32 beside ``body`` (rs, ...))
+    of a table's tail along its planned route: one all-to-all of packed rows
+    (none at world 1 or without fallback edges: an empty tail)."""
+    if route is None:
+        return pack_rows(head[:0], body[:0])
+    sent = pack_rows(head[route.send_rows], body[route.send_rows])
+    return sent._replace(data=alltoallv(sent.data, route.send_sizes, route.recv_sizes, mesh))
+
+
 class _ShardSpmm(NamedTuple):
     """One orientation's SpMM structures on this rank: the shard's band
     (with, bucketed, its fallback CSR into the table and its degrees), the
@@ -418,22 +514,26 @@ class _DistSpmm(torch.autograd.Function):
 
 
 class _DistAttention(torch.autograd.Function):
-    """Forward: the sharded fused attention, keeping its stats.  Backward:
-    t = sum(g * out, -1), then the sharded backward; gradients in their
-    inputs' dtypes."""
+    """Forward: the sharded fused attention, keeping its stats and its table
+    A (halos, remote rows, halo-extended alpha_src), so that the backward
+    exchanges no row of x again.  Backward: t = sum(g * out, -1), then the
+    sharded backward; gradients in their inputs' dtypes."""
 
     @staticmethod
     def forward(ctx, x, alpha_dst, alpha_src, graph, negative_slope):
-        out, m, s = graph._attn_fwd(x, alpha_dst, alpha_src, negative_slope)
-        ctx.save_for_backward(x, alpha_dst, alpha_src, out, m, s)
+        out, m, s, table_a, as_ext = graph._attn_fwd(x, alpha_dst, alpha_src, negative_slope)
+        ctx.save_for_backward(x, alpha_dst, alpha_src, out, m, s, table_a.prev, table_a.next,
+                              table_a.tail.data, as_ext)
+        ctx.tail = table_a.tail._replace(data=None)
         ctx.graph, ctx.negative_slope = graph, negative_slope
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, alpha_dst, alpha_src, out, m, s = ctx.saved_tensors
+        x, alpha_dst, alpha_src, out, m, s, prev, nxt, tail, as_ext = ctx.saved_tensors
+        table_a = ShardTable(x.contiguous(), prev, nxt, ctx.tail._replace(data=tail))
         t = (g.float() * out).sum(-1)
-        dx, dad, das = ctx.graph._attn_bwd(x, alpha_dst, alpha_src, m, s, t, g,
+        dx, dad, das = ctx.graph._attn_bwd(table_a, as_ext, alpha_dst, m, s, t, g,
                                            ctx.negative_slope)
         return (dx.to(x.dtype), dad.to(alpha_dst.dtype), das.to(alpha_src.dtype),
                 None, None)
@@ -519,12 +619,8 @@ class DistFullBatchGraph:
     # -- placement ---------------------------------------------------------
 
     def _local_np(self, *arrays):
-        """This rank's slice of planned fallback arrays ((world * cap,)
-        each), without its -1 padding (host arrays)."""
-        cap = len(arrays[0]) // self._world
-        sl = slice(self.mesh.rank * cap, (self.mesh.rank + 1) * cap)
-        keep = (arrays[0][sl] >= 0) & (arrays[1][sl] >= 0)
-        return tuple(a[sl][keep] for a in arrays)
+        """This rank's :func:`_rank_part` of planned fallback arrays."""
+        return _rank_part(arrays, self.mesh.rank, self._world)
 
     def _local_edges(self, *arrays) -> Tuple[torch.Tensor, ...]:
         """:meth:`_local_np` on this rank's device (ids int64)."""
@@ -647,115 +743,81 @@ class DistFullBatchGraph:
     # -- fused attention -----------------------------------------------------
 
     def _attn_structs(self):
-        """The attention pair of the graph-order CSR, this rank's part of it
-        and its fallback edges bucketed by destination (forward, dalpha_dst)
-        and by source (dx, dalpha_src), with the orders of their sums (and
-        of dalpha_dst's scatter-add); built at first use."""
+        """The attention pair of the graph-order CSR and this rank's part of
+        it with its fallback edges planned into its two tables (by
+        destination into table A, by source into table B), and, at world >
+        1, the routes of the tables' remote rows; built at first use (every
+        rank together)."""
         if self._attn is None:
             t0 = time.perf_counter()
             pair = AG.build_attention_slab_pair(self._indptr_g, self._indices_g,
                                                 block_rows=self._r_blk,
                                                 max_k=self._max_k, device="cpu")
             fb_s, fb_d = pair.fwd.fb_src.numpy(), pair.fwd.fb_dst.numpy()
-            by_dst = _bucket_fallback(fb_s, fb_d, self._rs, self._world)
-            by_src = _bucket_fallback(fb_s, fb_d, self._rs, self._world, bucket_by="src",
-                                      localize="src")
-            fb_by_dst, fb_by_src = self._local_edges(*by_dst), self._local_edges(*by_src)
-            self._attn = dict(
-                pair=shard_attention_pair(pair, self.mesh.rank, self._rs, self._n_pad,
-                                          self.mesh.device),
-                fb_by_dst=fb_by_dst, fb_by_src=fb_by_src,
-                plan_by_dst=segment_plan(fb_by_dst[1], self._rs),
-                plan_by_src=segment_plan(fb_by_src[0], self._rs),
-                plan_dad=scatter_add_plan(fb_by_src[1], self._rs, book=self._book,
-                                          mesh=self.mesh),
-                has_fb=len(by_dst[0]) > 0)
+            rank, dev = self.mesh.rank, self.mesh.device
+            table_a, table_b = _attention_tables(fb_s, fb_d, rank=rank, rows_per_rank=self._rs,
+                                                 world=self._world, block_rows=self._r_blk)
+            routes = [None, None]
+            # the same on every rank: whether the graph has fallback edges
+            if self._world > 1 and bool(((fb_s >= 0) & (fb_d >= 0)).any()):
+                routes = [gather_plan(torch.as_tensor(t.tail, device=dev), book=self._book,
+                                      mesh=self.mesh) for t in (table_a, table_b)]
+            shard = shard_attention_pair(pair, rank, self._rs, self._n_pad, dev)
+            self._attn = dict(pair=with_attention_tables(shard, table_a, table_b, dev),
+                              route_a=routes[0], route_b=routes[1])
             self.build_seconds["attention_pair"] = time.perf_counter() - t0
         return self._attn
 
     def _attn_fwd(self, x, alpha_dst, alpha_src, negative_slope):
-        """(out (rs, H, F), m, s (rs, H)), float32: the band through the
-        shard kernel over halo-extended x and alpha_src (H = 1: the
-        single-head wrapper), the fallback edges by a log-sum-exp merge
-        (their sums in a fixed order)."""
+        """(out (rs, H, F), m, s (rs, H)) float32, and the call's table A
+        and halo-extended alpha_src: the halo exchange of x and alpha_src,
+        at world > 1 one all-to-all of table A's remote rows (x beside
+        alpha_src), then one launch of the shard forward (band and fallback
+        edges in one softmax; H = 1: the single-head wrapper)."""
         st = self._attn_structs()
         graph = st["pair"].fwd
-        rs, heads, fh = x.shape
-        x_ext = _halo_exchange(x.contiguous(), self._r_blk, self.mesh)
-        as_ext = _halo_exchange(alpha_src.float().contiguous(), self._r_blk, self.mesh)
+        rs, heads, _ = x.shape
+        x = x.contiguous()
+        as32 = alpha_src.float().contiguous()
+        (prev, nxt), (as_prev, as_next) = _halo_pairs([x, as32], self._r_blk, self.mesh)
+        as_ext = torch.cat([as_prev, as32, as_next])
+        table = ShardTable(x, prev, nxt, _gather_packed(as32, x.reshape(rs, -1),
+                                                        st["route_a"], self.mesh))
         ad = alpha_dst.float()
         kw = dict(negative_slope=negative_slope, return_stats=True)
         if heads == 1:
             out, m, s = (a[:, None] for a in slab_attention_spmm_shard(
-                graph, x_ext[:, 0], ad[:, 0], as_ext[:, 0], **kw))
+                graph, table.squeeze_heads(), ad[:, 0], as_ext[:, 0], **kw))
         else:
-            out, m, s = slab_attention_spmm_mh_shard(graph, x_ext, ad, as_ext, **kw)
-        if not st["has_fb"]:
-            return out, m, s
-        src, dst = st["fb_by_dst"]                  # global sources, local rows
-        hf = heads * fh
-        xa = _dist_gather_shard(torch.cat([x.reshape(rs, hf).float(), alpha_src.float()], 1),
-                                src, book=self._book, mesh=self.mesh, fill=0)
-        x_fb, as_fb = xa[:, :hf].reshape(-1, heads, fh), xa[:, hf:]
-        e = lrelu(ad[dst] + as_fb, negative_slope)
-        m_f = torch.full((rs, heads), -torch.inf, device=x.device).scatter_reduce(
-            0, dst[:, None].expand(-1, heads), e, "amax")
-        m_f = torch.where(torch.isfinite(m_f), m_f, 0)
-        p = torch.exp(e - m_f[dst])
-        plan = st["plan_by_dst"]
-        u_f = segment_add(torch.zeros_like(out), plan, p[..., None] * x_fb)
-        s_f = segment_add(torch.zeros_like(s), plan, p)
-        m_all = torch.maximum(m, m_f)
-        # a row without band (fallback) edges has s = 0 and takes no share
-        wb = torch.where(s > 0, torch.exp(m - m_all), 0)
-        wf = torch.where(s_f > 0, torch.exp(m_f - m_all), 0)
-        s_all = s * wb + s_f * wf
-        u = out * (s * wb)[..., None] + u_f * wf[..., None]   # the kernel's out is u_b / s
-        return u / s_all.clamp(min=1e-16)[..., None], m_all, s_all
+            out, m, s = slab_attention_spmm_mh_shard(graph, table, ad, as_ext, **kw)
+        return out, m, s, table, as_ext
 
-    def _attn_bwd(self, x, alpha_dst, alpha_src, m, s, t, g, negative_slope):
-        """(dx (rs, H, F), dalpha_dst, dalpha_src (rs, H)), float32: the
-        band through the shard backward kernel over halo-extended x, g and
-        stats; the fallback edges by source, their destinations' g and
-        stats by the distributed gather, dalpha_dst returned by a
-        distributed scatter-add; every sum in a fixed order."""
+    def _attn_bwd(self, table_a, as_ext, alpha_dst, m, s, t, g, negative_slope):
+        """(dx (rs, H, F), dalpha_dst, dalpha_src (rs, H)) float32 from the
+        forward's table A and halo-extended alpha_src: the halo exchange of
+        g and the stats, at world > 1 one all-to-all of table B's remote rows
+        (g beside the stats), then one call of the shard backward (band and
+        fallback edges, every gradient summed on its owner)."""
         st = self._attn_structs()
         pair = st["pair"]
-        rs, heads, fh = x.shape
-        r_blk, mesh = self._r_blk, self.mesh
-        s_safe = s.clamp(min=1e-16)
-        stats = torch.cat([alpha_dst.float(), m, s_safe, t, alpha_src.float()], 1)
-        st_ext = _halo_exchange(stats, r_blk, mesh)
-        # the end ranks' zero halo rows: keep s positive
-        st_ext[:, 2 * heads:3 * heads].clamp_(min=1e-16)
-        ad_e, m_e, s_e, t_e, as_e = st_ext.split(heads, 1)
-        x_ext = _halo_exchange(x.contiguous(), r_blk, mesh)
-        g_ext = _halo_exchange(g.float().contiguous(), r_blk, mesh)
+        rs, heads, _ = table_a.own.shape
+        r_blk = self._r_blk
+        g32 = g.float().contiguous()
+        # the stats written in place between their halos: no copy of the rows
+        stats_ext = g32.new_empty((rs + 2 * r_blk, heads, 4))
+        stats = AG.attention_stats(alpha_dst, m, s, t, out=stats_ext[r_blk:r_blk + rs])
+        (g_prev, g_next), (st_prev, st_next) = _halo_pairs([g32, stats], r_blk, self.mesh)
+        for rows, halo in ((slice(0, r_blk), st_prev), (slice(r_blk + rs, None), st_next)):
+            stats_ext[rows] = halo
+            stats_ext[rows, :, 2].clamp_(min=1e-16)   # the end ranks' zero halo rows
+        table_b = ShardTable(g32, g_prev, g_next, _gather_packed(
+            stats.reshape(rs, -1), g32.reshape(rs, -1), st["route_b"], self.mesh))
         if heads == 1:
-            dx, dad, das = (a[:, None] for a in AG.slab_attention_bwd_shard(
-                pair, x_ext[:, 0], ad_e[:, 0], as_e[:, 0], m_e[:, 0], s_e[:, 0],
-                t_e[:, 0], g_ext[:, 0], negative_slope=negative_slope))
-        else:
-            dx, dad, das = AG.slab_attention_bwd_mh_shard(
-                pair, x_ext, ad_e, as_e, m_e, s_e, t_e, g_ext, negative_slope=negative_slope)
-        if not st["has_fb"]:
-            return dx, dad, das
-        src, dst = st["fb_by_src"]                  # local sources, global rows
-        hf = heads * fh
-        gq = _dist_gather_shard(
-            torch.cat([g.reshape(rs, hf).float(), alpha_dst.float(), m, s_safe, t], 1),
-            dst, book=self._book, mesh=mesh, fill=0)
-        g_d = gq[:, :hf].reshape(-1, heads, fh)
-        ad_d, m_d, s_d, t_d = gq[:, hf:].split(heads, 1)
-        z = ad_d + alpha_src.float()[src]
-        a_e = torch.exp(lrelu(z, negative_slope) - m_d) / s_d.clamp(min=1e-16)
-        de = (a_e * ((g_d * x.float()[src]).sum(-1) - t_d)
-              * torch.where(z >= 0, 1.0, negative_slope))
-        plan = st["plan_by_src"]
-        dx = segment_add(dx.contiguous(), plan, a_e[..., None] * g_d)
-        das = segment_add(das.contiguous(), plan, de)
-        dad = _dist_scatter_add(dad.contiguous(), de, st["plan_dad"], mesh=mesh)
-        return dx, dad, das
+            return tuple(a[:, None] for a in AG.slab_attention_bwd_shard(
+                pair, table_a.squeeze_heads(), as_ext[:, 0], table_b.squeeze_heads(),
+                stats_ext[:, 0], negative_slope=negative_slope))
+        return AG.slab_attention_bwd_mh_shard(pair, table_a, as_ext, table_b, stats_ext,
+                                              negative_slope=negative_slope)
 
     def attention_spmm(self, x, alpha_dst, alpha_src, *, negative_slope: float = 0.2):
         """Single-head fused attention aggregate: x (rs, F), alpha_* (rs,)

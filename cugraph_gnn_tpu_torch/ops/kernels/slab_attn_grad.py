@@ -24,17 +24,17 @@ launches: ``onepass_bwd`` (pairs with bit planes), ``slab_attention_bwd``
 (H = 1, pairs with ``t_ell``) and ``slab_attention_bwd_mh`` (H > 1, pairs
 with ``t_ell``; H = 1 goes to ``slab_attention_bwd``).  CPU tensors run
 ``slab_attention_bwd_ref``, which walks ``t_ell`` where the pair has it (the
-TPU kernels' walk).  Their ``_shard`` twins run the same kernel
-on one row shard of a graph (``ops/dist_full_batch.py``, the JAX package's
-sharded backwards): per-node inputs with an R-row halo on each side, the
-shard's band by source (halo-extended destination rows, and ``t_ell``
-rows where the pair has them), the fallback edges left to the caller; each
-counts its own launches.  The three whole-graph wrappers take
-``compute_dtype`` as the JAX package's kernels do: with bfloat16 the band
-edges' products g . x and a g take operands rounded to bfloat16 (the TPU
-kernels' MXU inputs) and every sum stays float32; the fallback edges and
-the shard wrappers stay float32, as the JAX package's segment sums and
-sharded backwards.  The JAX package's
+TPU kernels' walk).  Their ``_shard`` twins compute one row shard's
+whole backward (``ops/dist_full_batch.py``, the JAX package's sharded
+backwards) in one call of ``csrc/slab_attn_bwd_shard.cu``, the same
+kernels over the shard's two tables of halo and remote rows (table A of x,
+table B of g, see "one row shard" below): band and fallback edges, every
+gradient summed on its owner; each counts its own launches.  The three
+whole-graph wrappers take ``compute_dtype`` as the JAX package's kernels
+do: with bfloat16 the band edges' products g . x and a g take operands
+rounded to bfloat16 (the TPU kernels' MXU inputs) and every sum stays
+float32; the fallback edges and the shard wrappers stay float32, as the
+JAX package's segment sums and sharded backwards.  The JAX package's
 VMEM devices (G-stacking, margin planes, packed stat lanes) have no
 counterpart; ``MAX_PACKED_HEADS`` stays as the head-group size of
 ``FullBatchGraph.attention_spmm_mh`` and ``DistFullBatchGraph``'s.
@@ -53,6 +53,8 @@ from cugraph_gnn_tpu_torch import _build, _native
 from cugraph_gnn_tpu_torch._device import resolve_device
 from cugraph_gnn_tpu_torch.ops.kernels.slab_attn_kernel import (
     _FB_CHUNK,
+    ShardTable,
+    _check_table,
     band_columns,
     fallback_edges,
     lrelu,
@@ -199,16 +201,14 @@ def build_attention_slab_pair(indptr, indices, *, block_rows: int = 256,
                         band_csr_seconds=band_csr_s)
 
 
-def _check(pair: AttnSlabPair, x, stats, g, col_offset: int) -> None:
+def _check(pair: AttnSlabPair, x, stats, g) -> None:
     if x.dim() != 3 or x.dtype not in _FLOAT_CODES:
         raise TypeError(f"x must be (N, H, F) float32 or bfloat16, got "
                         f"{tuple(x.shape)} {x.dtype}")
     x_rows, heads, f = x.shape
     n = pair.fwd.num_rows
-    if x_rows != n + 2 * col_offset:
-        raise ValueError(f"x has {x_rows} rows, the graph {n}"
-                         + (f" plus a {col_offset}-row halo on each side"
-                            if col_offset else ""))
+    if x_rows != n:
+        raise ValueError(f"x has {x_rows} rows, the graph {n}")
     if tuple(g.shape) != (x_rows, heads, f):
         raise ValueError(f"g must be {(x_rows, heads, f)}, got {tuple(g.shape)}")
     for a in stats:
@@ -227,17 +227,32 @@ def _check_compute(compute_dtype) -> None:
 
 
 def _bwd_ref(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
-             negative_slope, col_offset, compute_dtype=torch.float32):
+             negative_slope, compute_dtype=torch.float32):
     """The kernel's two passes in plain PyTorch: dalpha_dst over each row's
     edges by destination (band ELL, fallback), dx and dalpha_src over each
     column's edges by source (``t_ell`` where the pair has it, else the band
     CSR; then the fallback CSR).  With ``compute_dtype`` bfloat16 the band
     edges' g, x and a are rounded to it before they are multiplied."""
-    _check(pair, x, (alpha_dst, alpha_src, m, s, t), g, col_offset)
+    _check(pair, x, (alpha_dst, alpha_src, m, s, t), g)
     _check_compute(compute_dtype)
+    return _bwd_sums(pair, (x, alpha_src), (alpha_dst, m, s, t, g), negative_slope, 0,
+                     compute_dtype)
+
+
+def _bwd_sums(pair: AttnSlabPair, src_side, dst_side, negative_slope, col_offset,
+              compute_dtype=torch.float32):
+    """:func:`_bwd_ref`'s sums with the per-node inputs in two tables: an
+    edge r <- c reads x and alpha_src at c's row of ``src_side`` (x,
+    alpha_src) and alpha_dst, m, s, t and g at r's row of ``dst_side``; the
+    band's rows are the first n + 2 col_offset of each (node i at row i +
+    col_offset), the fallback edges' sources name rows of ``src_side`` and
+    their destinations by source (``fb_t_dst``) rows of ``dst_side``."""
     graph = pair.fwd
     n = graph.num_rows
-    x_rows, heads, f = x.shape
+    x, alpha_src = src_side
+    alpha_dst, m, s, t, g = dst_side
+    heads, f = x.shape[1:]
+    band_rows = n + 2 * col_offset
     ad, as_, m, t = (a.float() for a in (alpha_dst, alpha_src, m, t))
     s_safe = s.float().clamp(min=1e-16)
     x32, g32 = x.float(), g.float()
@@ -251,8 +266,8 @@ def _bwd_ref(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
     das = torch.zeros((n, heads), device=x.device)
 
     def edge(r, c, ok=None, band=False):
-        """The weights of dx and de of the edges r <- c (rows of the
-        per-node inputs), and g[r] as dx takes it."""
+        """The weights of dx and de of the edges r <- c (r a row of
+        ``dst_side``, c of ``src_side``), and g[r] as dx takes it."""
         z = ad[r] + as_[c]
         a = torch.exp(lrelu(z, negative_slope) - m[r]) / s_safe[r]
         if ok is not None:
@@ -262,35 +277,38 @@ def _bwd_ref(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
               * ((gg[r] * xx[c]).sum(-1) - t[r]))
         return (cd(a) if band else a), de, gg[r]
 
-    def by_source(c, r, band):   # c: local columns, r: input rows; in chunks
+    def by_source(c, r, band):   # c: local columns, r: dst_side rows; in chunks
         for e0 in range(0, c.numel(), _FB_CHUNK):
             cc, rr = c[e0:e0 + _FB_CHUNK], r[e0:e0 + _FB_CHUNK]
             a, de, gr = edge(rr, cc + col_offset, band=band)
             das.index_add_(0, cc, de)
             dx.index_add_(0, cc, a[..., None] * gr)
 
-    def csr(rowptr, ids):
+    def csr(rowptr, ids, rows):
         cnt = (rowptr[1:n + 1] - rowptr[:n]).long()
-        return torch.repeat_interleave(torch.arange(n, device=x.device), cnt), ids.long()
+        ids = ids.long()
+        c = torch.repeat_interleave(torch.arange(n, device=x.device), cnt)
+        ok = (ids >= 0) & (ids < rows)
+        return c[ok], ids[ok]
 
     own = torch.arange(n, device=x.device) + col_offset
-    cols, ok = band_columns(graph, x_rows, col_offset)
+    cols, ok = band_columns(graph, band_rows, col_offset)
     for k in range(cols.shape[1]):
         dad += edge(own, cols[:, k], ok[:, k], band=True)[1]
-    src, dst = fallback_edges(graph, x_rows)
+    src, dst = fallback_edges(graph, x.shape[0])
     for e0 in range(0, src.numel(), _FB_CHUNK):
         d = dst[e0:e0 + _FB_CHUNK]
         dad.index_add_(0, d, edge(d + col_offset, src[e0:e0 + _FB_CHUNK])[1])
 
     if pair.t_ell is not None:
-        rows, ok = window_columns(pair.t_ell[:n], graph.block_rows, x_rows, col_offset)
+        rows, ok = window_columns(pair.t_ell[:n], graph.block_rows, band_rows, col_offset)
         for k in range(rows.shape[1]):
             a, de, gr = edge(rows[:, k], own, ok[:, k], band=True)
             das += de
             dx += a[..., None] * gr
     else:
-        by_source(*csr(pair.t_rowptr, pair.t_rows), band=True)
-    by_source(*csr(pair.fb_t_rowptr, pair.fb_t_dst), band=False)
+        by_source(*csr(pair.t_rowptr, pair.t_rows, band_rows), band=True)
+    by_source(*csr(pair.fb_t_rowptr, pair.fb_t_dst, g.shape[0]), band=False)
     return dx, dad, das
 
 
@@ -300,21 +318,11 @@ def slab_attention_bwd_ref(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t,
     """Plain PyTorch version of the backward kernel: (dx (N, H, F),
     dalpha_dst (N, H), dalpha_src (N, H)), float32; ``compute_dtype`` as
     :func:`onepass_bwd`'s."""
-    return _bwd_ref(pair, x, alpha_dst, alpha_src, m, s, t, g, negative_slope, 0,
-                    compute_dtype)
-
-
-def slab_attention_bwd_shard_ref(pair: AttnSlabPair, x_ext, alpha_dst, alpha_src, m,
-                                 s, t, g_ext, *, negative_slope: float = 0.2):
-    """Plain PyTorch version of the shard backward (:func:`onepass_bwd_shard`,
-    :func:`slab_attention_bwd_mh_shard`): the same function over one row
-    shard's pair, every per-node input with its R-row halo on each side."""
-    return _bwd_ref(pair, x_ext, alpha_dst, alpha_src, m, s, t, g_ext, negative_slope,
-                    pair.fwd.block_rows)
+    return _bwd_ref(pair, x, alpha_dst, alpha_src, m, s, t, g, negative_slope, compute_dtype)
 
 
 def _launch(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
-            negative_slope: float, col_offset: int, phases: Optional[int] = None,
+            negative_slope: float, phases: Optional[int] = None,
             compute_dtype=torch.float32):
     """The backward kernel on the card: both passes, one C call (with
     ``phases``, the probe entry ``slab_attn_bwd_probe``, float32 only)."""
@@ -348,7 +356,7 @@ def _launch(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(x.data_ptr(), _FLOAT_CODES[x.dtype], g.data_ptr(), as_.data_ptr(),
-                    stats.data_ptr(), n, col_offset, x_rows, heads, f,
+                    stats.data_ptr(), n, 0, x_rows, heads, f,
                     float(negative_slope), graph.ell.data_ptr(), graph.ell.shape[1],
                     graph.block_rows, graph.fb_rowptr.data_ptr(), graph.fb_src.data_ptr(),
                     ptr(pair.t_ell), 0 if pair.t_ell is None else pair.t_ell.shape[1],
@@ -389,16 +397,16 @@ def backward_design(pair: AttnSlabPair, f: int):
     return _DESIGNS[design.value], chunk.value, tile.value
 
 
-def _run(counter, pair, args, negative_slope, col_offset, compute_dtype=torch.float32):
+def _run(counter, pair, args, negative_slope, compute_dtype=torch.float32):
     """The plain version for CPU tensors, else the kernel, counted."""
     x = args[0]
-    _check(pair, x, args[1:6], args[6], col_offset)
+    _check(pair, x, args[1:6], args[6])
     _check_compute(compute_dtype)
     if x.device.type == "cpu":
-        return _bwd_ref(pair, *args, negative_slope, col_offset, compute_dtype)
+        return _bwd_ref(pair, *args, negative_slope, compute_dtype)
     if pair.t_ell is None and pair.t_rows is None:
         raise ValueError("the pair has neither t_ell nor the band CSR by source")
-    out = _launch(pair, *args, negative_slope, col_offset, compute_dtype=compute_dtype)
+    out = _launch(pair, *args, negative_slope, compute_dtype=compute_dtype)
     counter.launches += 1
     return out
 
@@ -419,7 +427,7 @@ def onepass_bwd(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g, *,
         raise ValueError("the pair has t_ell, not the band CSR: use "
                          "slab_attention_bwd(_mh)")
     return _run(onepass_bwd, pair, (x, alpha_dst, alpha_src, m, s, t, g),
-                negative_slope, 0, compute_dtype)
+                negative_slope, compute_dtype)
 
 
 onepass_bwd.launches = 0
@@ -436,7 +444,7 @@ def slab_attention_bwd(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t,
     if pair.t_ell is None:
         return _squeeze_heads(onepass_bwd(pair, *args, negative_slope=negative_slope,
                                           compute_dtype=compute_dtype))
-    return _squeeze_heads(_run(slab_attention_bwd, pair, args, negative_slope, 0,
+    return _squeeze_heads(_run(slab_attention_bwd, pair, args, negative_slope,
                                compute_dtype))
 
 
@@ -458,14 +466,14 @@ def slab_attention_bwd_mh(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s,
     if pair.t_ell is None:
         return onepass_bwd(pair, x, alpha_dst, alpha_src, m, s, t, g,
                            negative_slope=negative_slope, compute_dtype=compute_dtype)
-    _check(pair, x, (alpha_dst, alpha_src, m, s, t), g, 0)
+    _check(pair, x, (alpha_dst, alpha_src, m, s, t), g)
     if heads == 1:
         dx, dad, das = slab_attention_bwd(
             pair, x[:, 0], alpha_dst[:, 0], alpha_src[:, 0], m[:, 0], s[:, 0],
             t[:, 0], g[:, 0], negative_slope=negative_slope, compute_dtype=compute_dtype)
         return dx[:, None], dad[:, None], das[:, None]
     return _run(slab_attention_bwd_mh, pair, (x, alpha_dst, alpha_src, m, s, t, g),
-                negative_slope, 0, compute_dtype)
+                negative_slope, compute_dtype)
 
 
 slab_attention_bwd_mh.launches = 0
@@ -490,13 +498,12 @@ def onepass_bwd_probe(pair: AttnSlabPair, x, alpha_dst, alpha_src, m, s, t, g, *
     the pair's block rows, such as R = 512's, take only a pass alone with
     both other phases on).  CUDA tensors only; counts
     ``onepass_bwd_probe.launches``."""
-    _check(pair, x, (alpha_dst, alpha_src, m, s, t), g, 0)
+    _check(pair, x, (alpha_dst, alpha_src, m, s, t), g)
     if not 0 <= phases <= PROBE_ALL:
         raise ValueError(f"phases must be a mask within {PROBE_ALL}, got {phases}")
     if pair.t_ell is not None or pair.t_rows is None:
         raise ValueError("the probe takes a pair with the band CSR by source")
-    out = _launch(pair, x, alpha_dst, alpha_src, m, s, t, g, negative_slope, 0,
-                  phases=phases)
+    out = _launch(pair, x, alpha_dst, alpha_src, m, s, t, g, negative_slope, phases=phases)
     onepass_bwd_probe.launches += 1
     return out
 
@@ -505,66 +512,195 @@ onepass_bwd_probe.launches = 0
 
 
 # -- one row shard -----------------------------------------------------------
-# The same kernel with col_offset R over a shard's pair (``ops/dist_full_batch.py``):
-# the rs rows of the shard's band by destination (forward ELL) and by source
-# (the band CSR by source with halo-extended destination rows, and ``t_ell``
-# rows where the pair has them), no fallback edges (the caller adds theirs); every per-node input
-# (x, g, alpha_*, m, s, t) holds rs + 2R rows, the shard's with the R rows
-# before and after it; the gradients cover the rs rows.
+# One row shard's whole backward (``ops/dist_full_batch.py``) in one call of
+# ``csrc/slab_attn_bwd_shard.cu`` (its two passes): the shard's pair holds
+# its rs rows of the band by destination (forward ELL) and by source (the
+# band CSR by source with halo-extended destination rows, and ``t_ell`` rows
+# where the pair has them) and its fallback edges planned into its two
+# tables: by destination into table A (``fwd.fb_rowptr``/``fb_src``: ids of
+# source rows of x) and by source into table B (``fb_t_rowptr``/``fb_t_dst``:
+# ids of destination rows of g).  Table A is a ``ShardTable`` of x whose tail
+# carries alpha_src (H float32 a row), table B one of g (float32) whose tail
+# carries the stats (4 H float32 a row, :func:`attention_stats`'s layout);
+# ``alpha_src_ext`` (rs + 2R, H) and ``stats_ext`` (rs + 2R, H, 4) hold the
+# halo-extended rows' scalars.  The gradients cover the rs rows.
+
+# x, x_prev, x_next, tail A, its rows, stride and offset, x dtype,
+# alpha_src, g, g_prev, g_next, tail B, its rows, stride and offset, stats,
+# n, heads, f, negative_slope, ell, k_width, block_rows, fb_rowptr, fb_src,
+# t_ell, t_width, t_rowptr, t_rows, fb_t_rowptr, fb_t_dst, dx, dad, das,
+# stream (slab_attn_bwd_shard)
+_SHARD_ARGTYPES = ([_P] * 4 + [_I64] * 3 + [ctypes.c_int] + [_P] * 5 + [_I64] * 3 + [_P]
+                   + [_I64] * 3 + [ctypes.c_float, _P, _I64, _I64, _P, _P, _P, _I64]
+                   + [_P] * 8)
 
 
-def onepass_bwd_shard(pair: AttnSlabPair, x_ext, alpha_dst, alpha_src, m, s, t,
-                      g_ext, *, negative_slope: float = 0.2):
-    """:func:`onepass_bwd` on one row shard's pair (bit planes: the band CSR
-    by source); counts ``onepass_bwd_shard.launches``."""
-    if pair.t_ell is not None and x_ext.device.type != "cpu":
+def attention_stats(alpha_dst, m, s, t, out=None):
+    """(rows, H, 4) float32 (alpha_dst, m, max(s, 1e-16), t): the per-node
+    stats as the backward kernels read them (written into ``out``, a
+    contiguous (rows, H, 4) float32 tensor, where given)."""
+    parts = [alpha_dst.float(), m.float(), s.float().clamp(min=1e-16), t.float()]
+    if out is None:
+        return torch.stack(parts, dim=-1)
+    return torch.stack(parts, dim=-1, out=out)
+
+
+def _check_shard(pair: AttnSlabPair, table_a: ShardTable, alpha_src_ext,
+                 table_b: ShardTable, stats_ext) -> None:
+    x, g = table_a.own, table_b.own
+    if x.dim() != 3 or x.dtype not in _FLOAT_CODES:
+        raise TypeError(f"x must be (rs, H, F) float32 or bfloat16, got "
+                        f"{tuple(x.shape)} {x.dtype}")
+    rs, heads, _ = x.shape
+    r_blk = pair.fwd.block_rows
+    if rs != pair.fwd.num_rows:
+        raise ValueError(f"x has {rs} rows, the shard {pair.fwd.num_rows}")
+    if tuple(g.shape) != tuple(x.shape) or g.dtype != torch.float32:
+        raise ValueError(f"g must be {tuple(x.shape)} float32, got {tuple(g.shape)} {g.dtype}")
+    _check_table(table_a, r_blk, heads, heads)
+    _check_table(table_b, r_blk, heads, 4 * heads)
+    for name, a, shape in (("alpha_src_ext", alpha_src_ext, (rs + 2 * r_blk, heads)),
+                           ("stats_ext", stats_ext, (rs + 2 * r_blk, heads, 4))):
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(a.shape)}")
+    for a in (g, alpha_src_ext, stats_ext, pair.fwd.ell):
+        if a.device != x.device:
+            raise ValueError(f"tensors on {a.device} and {x.device}")
+
+
+def _bwd_shard_ref(pair: AttnSlabPair, table_a, alpha_src_ext, table_b, stats_ext,
+                   negative_slope):
+    x_all, as_tail = table_a.whole()
+    g_all, st_tail = table_b.whole()
+    heads = x_all.shape[1]
+    stats = torch.cat([stats_ext.float(), st_tail.reshape(-1, heads, 4)])
+    return _bwd_sums(pair, (x_all, torch.cat([alpha_src_ext.float(), as_tail])),
+                     (*stats.unbind(-1), g_all), negative_slope, pair.fwd.block_rows)
+
+
+def _bwd_shard_launch(pair: AttnSlabPair, table_a, alpha_src_ext, table_b, stats_ext,
+                      negative_slope):
+    """The shard entry on the card (inputs already checked): both tables'
+    parts read in place."""
+    x = table_a.own
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if pair.t_ell is None and pair.t_rows is None:
+        raise ValueError("the pair has neither t_ell nor the band CSR by source")
+    parts = (*table_a[:3], table_a.tail.data, *table_b[:3], table_b.tail.data)
+    if not all(t.is_contiguous() for t in parts):
+        raise ValueError("the tables' parts must be contiguous")
+    n, heads, f = x.shape
+    r_blk = pair.fwd.block_rows
+    if n + 2 * r_blk + max(table_a.tail.data.shape[0], table_b.tail.data.shape[0]) >= 2**31:
+        raise ValueError("the tables' rows do not fit int32 ids")
+    as_ = alpha_src_ext.float().contiguous()
+    st = stats_ext.float().contiguous()
+    dx = torch.empty((n, heads, f), dtype=torch.float32, device=x.device)
+    dad = torch.zeros((n, heads), dtype=torch.float32, device=x.device)
+    das = torch.zeros((n, heads), dtype=torch.float32, device=x.device)
+    if not n or not heads * f:
+        return dx.zero_(), dad, das
+
+    def ptr(a):
+        return None if a is None or not a.numel() else a.data_ptr()
+
+    graph = pair.fwd
+    ta, tb = table_a.tail, table_b.tail
+    fn = _build.function("slab_attn_bwd_shard", _SHARD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(x.data_ptr(), table_a.prev.data_ptr(), table_a.next.data_ptr(),
+                    ptr(ta.data), ta.data.shape[0], ta.data.shape[1], ta.offset,
+                    _FLOAT_CODES[x.dtype], as_.data_ptr(), table_b.own.data_ptr(),
+                    table_b.prev.data_ptr(), table_b.next.data_ptr(), ptr(tb.data),
+                    tb.data.shape[0], tb.data.shape[1], tb.offset, st.data_ptr(), n, heads, f,
+                    float(negative_slope), graph.ell.data_ptr(), graph.ell.shape[1], r_blk,
+                    graph.fb_rowptr.data_ptr(), ptr(graph.fb_src),
+                    None if pair.t_ell is None else pair.t_ell.data_ptr(),
+                    0 if pair.t_ell is None else pair.t_ell.shape[1],
+                    None if pair.t_rowptr is None else pair.t_rowptr.data_ptr(),
+                    ptr(pair.t_rows), pair.fb_t_rowptr.data_ptr(), ptr(pair.fb_t_dst),
+                    dx.data_ptr(), dad.data_ptr(), das.data_ptr(), stream)
+    _build.check(status, "slab_attn_bwd_shard")
+    return dx, dad, das
+
+
+def _run_shard(counter, pair, table_a, alpha_src_ext, table_b, stats_ext, negative_slope):
+    """The plain version for CPU tensors, else the shard entry, counted."""
+    _check_shard(pair, table_a, alpha_src_ext, table_b, stats_ext)
+    args = (pair, table_a, alpha_src_ext, table_b, stats_ext, negative_slope)
+    if table_a.own.device.type == "cpu":
+        return _bwd_shard_ref(*args)
+    out = _bwd_shard_launch(*args)
+    counter.launches += 1
+    return out
+
+
+def slab_attention_bwd_shard_ref(pair: AttnSlabPair, table_a: ShardTable, alpha_src_ext,
+                                 table_b: ShardTable, stats_ext, *,
+                                 negative_slope: float = 0.2):
+    """Plain PyTorch version of the shard backward (every shard wrapper,
+    (rs, H, F) parts): builds both tables' rows, then the plain backward's
+    sums over them."""
+    _check_shard(pair, table_a, alpha_src_ext, table_b, stats_ext)
+    return _bwd_shard_ref(pair, table_a, alpha_src_ext, table_b, stats_ext, negative_slope)
+
+
+def onepass_bwd_shard(pair: AttnSlabPair, table_a: ShardTable, alpha_src_ext,
+                      table_b: ShardTable, stats_ext, *, negative_slope: float = 0.2):
+    """One row shard's whole backward for a pair with bit planes (the band
+    CSR by source): (dx (rs, H, F), dalpha_dst, dalpha_src (rs, H)), float32,
+    from (rs, H, F) tables; counts ``onepass_bwd_shard.launches``."""
+    if pair.t_ell is not None and table_a.own.device.type != "cpu":
         raise ValueError("the pair has t_ell, not the band CSR: use "
                          "slab_attention_bwd(_mh)_shard")
-    return _run(onepass_bwd_shard, pair, (x_ext, alpha_dst, alpha_src, m, s, t, g_ext),
-                negative_slope, pair.fwd.block_rows)
+    return _run_shard(onepass_bwd_shard, pair, table_a, alpha_src_ext, table_b, stats_ext,
+                      negative_slope)
 
 
 onepass_bwd_shard.launches = 0
 
 
-def slab_attention_bwd_shard(pair: AttnSlabPair, x_ext, alpha_dst, alpha_src, m, s,
-                             t, g_ext, *, negative_slope: float = 0.2):
-    """:func:`slab_attention_bwd` on one row shard's pair: x_ext/g_ext
-    (rs + 2R, F), the rest (rs + 2R,); returns (dx (rs, F), dalpha_dst (rs,),
-    dalpha_src (rs,)).  Pairs with bit planes go to :func:`onepass_bwd_shard`;
-    counts ``slab_attention_bwd_shard.launches``."""
-    args = (x_ext[:, None], alpha_dst[:, None], alpha_src[:, None], m[:, None],
-            s[:, None], t[:, None], g_ext[:, None])
+def slab_attention_bwd_shard(pair: AttnSlabPair, table_a: ShardTable, alpha_src_ext,
+                             table_b: ShardTable, stats_ext, *, negative_slope: float = 0.2):
+    """The single-head shard backward: tables of (rs, F) parts (tails packed
+    with 1 and 4 head values), alpha_src_ext (rs + 2R,), stats_ext (rs + 2R,
+    4); returns (dx (rs, F), dalpha_dst (rs,), dalpha_src (rs,)).  Pairs with
+    bit planes go to :func:`onepass_bwd_shard`; counts
+    ``slab_attention_bwd_shard.launches``."""
+    args = (table_a.unsqueeze_heads(), alpha_src_ext[:, None], table_b.unsqueeze_heads(),
+            stats_ext[:, None])
     if pair.t_ell is None:
-        return _squeeze_heads(onepass_bwd_shard(pair, *args,
-                                                negative_slope=negative_slope))
-    return _squeeze_heads(_run(slab_attention_bwd_shard, pair, args, negative_slope,
-                               pair.fwd.block_rows))
+        return _squeeze_heads(onepass_bwd_shard(pair, *args, negative_slope=negative_slope))
+    return _squeeze_heads(_run_shard(slab_attention_bwd_shard, pair, *args, negative_slope))
 
 
 slab_attention_bwd_shard.launches = 0
 
 
-def slab_attention_bwd_mh_shard(pair: AttnSlabPair, x_ext, alpha_dst, alpha_src, m,
-                                s, t, g_ext, *, negative_slope: float = 0.2):
-    """:func:`slab_attention_bwd_mh` on one row shard's pair; pairs with bit
-    planes go to :func:`onepass_bwd_shard`, H = 1 to
+def slab_attention_bwd_mh_shard(pair: AttnSlabPair, table_a: ShardTable, alpha_src_ext,
+                                table_b: ShardTable, stats_ext, *,
+                                negative_slope: float = 0.2):
+    """One row shard's whole multi-head backward from (rs, H, F) tables;
+    pairs with bit planes go to :func:`onepass_bwd_shard`, H = 1 to
     :func:`slab_attention_bwd_shard`; counts
     ``slab_attention_bwd_mh_shard.launches``."""
-    heads = x_ext.shape[1] if x_ext.dim() == 3 else 0
+    x = table_a.own
+    heads = x.shape[1] if x.dim() == 3 else 0
     if heads > MAX_PACKED_HEADS:
         raise ValueError(f"slab_attention_bwd_mh_shard supports "
                          f"<={MAX_PACKED_HEADS} heads, got {heads}")
-    args = (x_ext, alpha_dst, alpha_src, m, s, t, g_ext)
+    args = (pair, table_a, alpha_src_ext, table_b, stats_ext)
     if pair.t_ell is None:
-        return onepass_bwd_shard(pair, *args, negative_slope=negative_slope)
-    _check(pair, x_ext, args[1:6], g_ext, pair.fwd.block_rows)
+        return onepass_bwd_shard(*args, negative_slope=negative_slope)
+    _check_shard(*args)
     if heads == 1:
-        res = slab_attention_bwd_shard(pair, *(a[:, 0] for a in args),
+        res = slab_attention_bwd_shard(pair, table_a.squeeze_heads(), alpha_src_ext[:, 0],
+                                       table_b.squeeze_heads(), stats_ext[:, 0],
                                        negative_slope=negative_slope)
         return tuple(a[:, None] for a in res)
-    return _run(slab_attention_bwd_mh_shard, pair, args, negative_slope,
-                pair.fwd.block_rows)
+    return _run_shard(slab_attention_bwd_mh_shard, *args, negative_slope)
 
 
 slab_attention_bwd_mh_shard.launches = 0

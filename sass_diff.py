@@ -11,9 +11,12 @@ OTHER's library is "same" where this checkout's library holds a kernel of
 the same mangled name (but for the hash of its source's anonymous
 namespace), or of that name with one more trailing ``false``
 template argument (a flag added since, switched off), whose SASS is
-identical line for line.  Prints one JSON line a source (the kernels that
-are the same, differ or are missing, and this checkout's new kernels) and
-exits 1 if any of OTHER's kernels differs or is missing.
+identical line for line (blanks and branch labels normalised); a
+kernel with no such name is "same" where a kernel here has its SASS line
+for line (one whose signature gained trailing parameters).  Prints one
+JSON line a source (the kernels that are the same, differ or are missing,
+and this checkout's new kernels) and exits 1 if any of OTHER's kernels
+differs or is missing.
 """
 
 import json
@@ -38,7 +41,10 @@ def cuobjdump() -> str:
 
 
 def kernels(lib: str) -> dict:
-    """Mangled kernel name -> its SASS lines."""
+    """Mangled kernel name -> its SASS lines, runs of blanks made one and
+    branch labels renumbered in their order in the kernel (cuobjdump pads
+    every line to the library's longest and numbers labels across the whole
+    library, so a kernel added or changed elsewhere shifts both)."""
     out = subprocess.run([cuobjdump(), "-sass", lib], capture_output=True, text=True,
                          check=True).stdout
     funcs, name = {}, None
@@ -48,14 +54,18 @@ def kernels(lib: str) -> dict:
             name = m.group(1)
             funcs[name] = []
         elif name is not None:
-            funcs[name].append(line.strip())
+            funcs[name].append(" ".join(line.split()))
+    for name, lines in funcs.items():
+        labels = {}
+        funcs[name] = [re.sub(r"\.L_x_\d+", lambda l: labels.setdefault(
+            l.group(0), f".L_{len(labels)}"), line) for line in lines]
     return funcs
 
 
 def plain(name: str) -> str:
     """The name without the hash that nvcc gives a source's anonymous
     namespace (it follows the source's text)."""
-    return re.sub(r"_GLOBAL__N__[0-9a-f]{8}_", "_GLOBAL__N__", name)
+    return re.sub(r"(_GLOBAL__N__(?:\d+_\w+?_cu_)?)[0-9a-f]{8}", r"\1", name)
 
 
 def without_last_false(name: str) -> str:
@@ -83,11 +93,13 @@ def main() -> None:
     for name in names:
         new, old = ({plain(k): v for k, v in kernels(lib[name]).items()} for lib in libs)
         twin = {without_last_false(k): k for k in new}
+        body = {tuple(v): k for k, v in new.items()}
         res = {"source": name, "same": [], "differ": [], "missing": []}
+        matched = set()
         for k, sass in old.items():
-            n = k if k in new else twin.get(k)
+            n = k if k in new else twin.get(k, body.get(tuple(sass)))
+            matched.add(n)
             res["missing" if n is None else "same" if new[n] == sass else "differ"].append(k)
-        matched = {k if k in new else twin.get(k) for k in old}
         res["new"] = sorted(set(new) - matched)
         bad |= bool(res["differ"] or res["missing"])
         print(json.dumps({**{k: len(v) if k == "same" else v for k, v in res.items()},

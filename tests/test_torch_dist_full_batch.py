@@ -9,7 +9,11 @@ chained GCN and GAT training steps against the optax steps.  The SpMM's
 bucketed fallback plan (each rank's table of halo and remote rows) is held
 by a numpy test of its plan at worlds 1, 2 and 4, and its plain version
 (``slab_spmm_shard_ref``, which the gloo worlds run) against the JAX
-``spmm`` on each rank's table as the exchanges built it.
+``spmm`` on each rank's table as the exchanges built it.  The attention's
+two tables (A by destination, B by source) are held by a numpy test of
+their plans at worlds 1, 2 and 4, and the shard attention's plain
+versions, forward and backward, on each rank's tables against the whole
+graph's plain versions.
 
 Each world is spawned once (a module fixture) and runs every case; each rank
 computes its rows and rank 0 saves the gathered results.  Each JAX reference
@@ -435,3 +439,134 @@ def test_training_steps_match_optax(got, want, name):
             np.testing.assert_allclose(res[f"{name}_param/convs.{i}.{key}"], theirs, rtol=0,
                                        atol=1e-5, err_msg=key)
     assert not res["launches"].any()
+
+
+def _attention_pair(r_blk):
+    """The attention pair of graph 'a' (host tensors)."""
+    from cugraph_gnn_tpu_torch import _native
+    from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as AG
+
+    src, dst = _graphs()["a"]
+    indptr, indices, _ = _native.build_csr(dst, src, N)
+    return AG.build_attention_slab_pair(indptr, indices, block_rows=r_blk, device="cpu")
+
+
+def _split(r_blk, world):
+    """(rows per rank, padded rows) of a ``world``-rank split of N nodes."""
+    nb = -(-(-(-N // r_blk)) // world) * world
+    return nb // world * r_blk, nb * r_blk
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_plan_attention_tables(world):
+    """Both attention tables of each rank, no process group: table A (the
+    fallback edges by destination rank) reads, through the table, each
+    edge's global source, table B (by source rank) each edge's global
+    destination; every fallback edge is in one rank's A and one rank's B;
+    each remote row is in its tail once, none in the halo-extended rows; a
+    row's slots keep the bucketed order; both tails are empty at world 1."""
+    from cugraph_gnn_tpu_torch.ops import dist_full_batch as DF
+
+    pair = _attention_pair(R_BITS)
+    fb_s, fb_d = pair.fwd.fb_src.numpy(), pair.fwd.fb_dst.numpy()
+    ok = (fb_s >= 0) & (fb_d >= 0)
+    edges = sorted(zip(fb_s[ok].tolist(), fb_d[ok].tolist()))
+    rs, n_pad = _split(R_BITS, world)
+    ext = rs + 2 * R_BITS
+    seen = {"a": [], "b": []}
+    for w in range(world):
+        lo = w * rs - R_BITS
+        tables = DF._attention_tables(fb_s, fb_d, rank=w, rows_per_rank=rs, world=world,
+                                      block_rows=R_BITS)
+        for key, t, local_is in zip("ab", tables, ("dst", "src")):
+            # the edges this rank plans, in the bucketed order (fallback order)
+            mine = ok & ((fb_d if local_is == "dst" else fb_s) // rs == w)
+            local = (fb_d if local_is == "dst" else fb_s)[mine] - w * rs
+            other = (fb_s if local_is == "dst" else fb_d)[mine]
+            order = np.argsort(local, kind="stable")
+            np.testing.assert_array_equal(t.dst, local[order])
+            np.testing.assert_array_equal(t.rowptr, np.searchsorted(local[order],
+                                                                    np.arange(rs + 1)))
+            assert (t.x_ids >= 0).all() and (t.x_ids < ext + len(t.tail)).all()
+            remote = np.append(t.tail, -1)[np.where(t.x_ids < ext, len(t.tail), t.x_ids - ext)]
+            read = np.where(t.x_ids < ext, t.x_ids.astype(np.int64) + lo, remote)
+            np.testing.assert_array_equal(read, other[order])
+            assert (np.diff(t.tail) > 0).all()
+            assert not ((t.tail >= lo) & (t.tail < lo + ext)).any()
+            assert set(t.tail) == set(other[(other < lo) | (other >= lo + ext)])
+            if world == 1:
+                assert len(t.tail) == 0
+            glob = t.dst.astype(np.int64) + w * rs
+            seen[key] += (list(zip(read.tolist(), glob.tolist())) if key == "a"
+                          else list(zip(glob.tolist(), read.tolist())))
+        sp, tail_a, tail_b = DF.shard_attention_tables(pair, w, rs, n_pad, world, "cpu")
+        np.testing.assert_array_equal(tail_a, tables[0].tail)
+        np.testing.assert_array_equal(tail_b, tables[1].tail)
+        np.testing.assert_array_equal(sp.fwd.fb_src.numpy(), tables[0].x_ids)
+        np.testing.assert_array_equal(sp.fwd.fb_rowptr.numpy(), tables[0].rowptr)
+        np.testing.assert_array_equal(sp.fb_t_dst.numpy(), tables[1].x_ids)
+        np.testing.assert_array_equal(sp.fb_t_rowptr.numpy(), tables[1].rowptr)
+    assert sorted(seen["a"]) == edges and sorted(seen["b"]) == edges
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case", ATTN_CASES[:-1])
+def test_attention_shard_plain_matches_whole(case, world):
+    """The shard forward's and backward's plain versions (``*_shard_ref``, as
+    the gloo worlds run them; H = 1 through the single-head wrappers) on
+    each rank's tables built with no process group (halos and remote rows
+    from the whole arrays, packed as the exchanges pack them) against the
+    whole graph's ``slab_attention_spmm_mh_ref`` (within 1e-5, m equal) and
+    ``slab_attention_bwd_ref`` (within 1e-4) on the rank's rows."""
+    from cugraph_gnn_tpu_torch.ops import dist_full_batch as DF
+    from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_grad as AG
+    from cugraph_gnn_tpu_torch.ops.kernels import slab_attn_kernel as AK
+
+    r_blk = _graph_kw(case)["block_rows"]
+    pair = _attention_pair(r_blk)
+    inp = _inputs()
+    x, ad, as_, g = (torch.as_tensor(inp[k]) for k in ("x3", "ad3", "as3", "g3"))
+    heads = 1 if case.startswith("h1") else H
+    x, ad, as_, g = x[:, :heads], ad[:, :heads], as_[:, :heads], g[:, :heads]
+    t = torch.as_tensor(np.random.default_rng(9).standard_normal((N, heads)), dtype=torch.float32)
+    out_w, m_w, s_w = AK.slab_attention_spmm_mh_ref(pair.fwd, x, ad, as_, return_stats=True)
+    grads_w = AG.slab_attention_bwd_ref(pair, x, ad, as_, m_w, s_w, t, g)
+    rs, n_pad = _split(r_blk, world)
+
+    def pad(a):
+        return torch.cat([a, a.new_zeros((n_pad - N,) + tuple(a.shape[1:]))])
+
+    x_p, ad_p, as_p, g_p = (pad(a) for a in (x, ad, as_, g))
+    stats_p = AG.attention_stats(pad(ad), pad(m_w), pad(s_w), pad(t))
+    remote = 0
+    for w in range(world):
+        sp, tail_a, tail_b = DF.shard_attention_tables(pair, w, rs, n_pad, world, "cpu")
+        remote += bool(len(tail_a)) and bool(len(tail_b))
+        own = slice(w * rs, (w + 1) * rs)
+        rows = slice(0, max(min(N - w * rs, rs), 0))
+        whole = slice(w * rs, w * rs + rows.stop)
+        table_a = DF.halo_table(x_p, as_p, w, rs, r_blk, tail_a)
+        table_b = DF.halo_table(g_p, stats_p, w, rs, r_blk, tail_b)
+        as_ext = DF.halo_rows(as_p, w, rs, r_blk)
+        stats_ext = DF.halo_rows(stats_p, w, rs, r_blk)
+        stats_ext[..., 2].clamp_(min=1e-16)
+        if heads == 1:
+            out, m, s = (a[:, None] for a in AK.slab_attention_spmm_shard(
+                sp.fwd, table_a.squeeze_heads(), ad_p[own, 0], as_ext[:, 0],
+                return_stats=True))
+            grads = [a[:, None] for a in AG.slab_attention_bwd_shard(
+                sp, table_a.squeeze_heads(), as_ext[:, 0], table_b.squeeze_heads(),
+                stats_ext[:, 0])]
+        else:
+            out, m, s = AK.slab_attention_spmm_mh_shard_ref(sp.fwd, table_a, ad_p[own], as_ext,
+                                                            return_stats=True)
+            grads = AG.slab_attention_bwd_shard_ref(sp, table_a, as_ext, table_b, stats_ext)
+        np.testing.assert_allclose(out[rows], out_w[whole], rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(m[rows], m_w[whole])
+        np.testing.assert_allclose(s[rows], s_w[whole], rtol=1e-5, atol=1e-5)
+        for name, a, b in zip(("dx", "dad", "das"), grads, grads_w):
+            np.testing.assert_allclose(a[rows], b[whole], rtol=1e-4, atol=1e-4, err_msg=name)
+            assert not a[rows.stop:].any()
+    # at R = 128 the ranks read remote rows through both tables (at R = 512
+    # every rank's halo-extended rows cover the 600 nodes)
+    assert remote >= (1 if r_blk == R_BITS else 0)

@@ -668,49 +668,65 @@ def test_slab_spmm_shard_world1(world1):
         assert torch.equal(_bits(got), _bits(again))
 
 
-def _band_only(pair):
-    """The pair without its fallback edges: the whole graph's band."""
-    n = pair.fwd.num_rows
-    dev = pair.fwd.ell.device
-    none = torch.zeros(0, dtype=torch.int32, device=dev)
-    ptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-    return pair._replace(fwd=pair.fwd._replace(fb_src=none, fb_dst=none, fb_rowptr=ptr),
-                         fb_t_rowptr=ptr, fb_t_dst=none)
-
-
 SHARD_ATTN_SHAPES = [(4, 64), (1, 47)]
+
+
+def _shard_bwd_args(pair, rank, rs, n_pad, per_node):
+    """Rank ``rank``'s inputs of the shard backward from whole padded
+    (x, alpha_dst, alpha_src, m, s, t, g) (n_pad rows): (the shard's pair
+    with its tables, table A, alpha_src_ext, table B, stats_ext), and the
+    same with |x|, |g| and -|t| for the sums over the terms' magnitudes."""
+    r_blk = pair.fwd.block_rows
+    shard, tail_a, tail_b = DF.shard_attention_tables(pair, rank, rs, n_pad, WORLD,
+                                                      pair.fwd.ell.device)
+    x, ad, as_, m, s, t, g = per_node
+
+    def args(x, t, g):
+        stats = attn_grad.attention_stats(ad, m, s, t)
+        st_ext = DF.halo_rows(stats, rank, rs, r_blk)
+        st_ext[..., 2].clamp_(min=1e-16)   # zero halo rows past the graph's ends
+        return (DF.halo_table(x, as_, rank, rs, r_blk, tail_a),
+                DF.halo_rows(as_, rank, rs, r_blk),
+                DF.halo_table(g, stats, rank, rs, r_blk, tail_b), st_ext)
+
+    return shard, args(x, t, g), args(x.float().abs(), -t.abs(), g.abs())
 
 
 @pytest.mark.parametrize("r_blk", [128, 512])
 @pytest.mark.parametrize("heads,f", SHARD_ATTN_SHAPES)
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 def test_slab_attention_fwd_shard_matches_plain(card, r_blk, heads, f, x_dtype):
-    """Each shard of a 4-rank split: the forward over the shard's band
-    (``slab_attention_spmm_shard`` at H = 1, ``_mh_shard`` above) within 1e-5
-    plus 1e-5 of the aggregate over |x| of its plain version (m equal, s
-    within 1e-5) and of the whole graph's band-only forward on the shard's
-    rows; two launches bit for bit equal."""
+    """Each shard of a 4-rank split: the whole forward over the shard's
+    table A (band and fallback edges in one softmax, remote rows from the
+    packed tail; ``slab_attention_spmm_shard`` at H = 1, ``_mh_shard``
+    above) within 1e-5 plus 1e-5 of the aggregate over |x| of its plain
+    version (m equal, s within 1e-5) and of the whole graph's forward on the
+    shard's rows; one launch a call, two launches bit for bit equal; some
+    shard reads remote rows."""
     pair = _attention_pair(r_blk, card)
     n = pair.fwd.num_rows
     rs, n_pad = _split(n, r_blk)
     x, ad, as_, _ = (_pad(a, n_pad) for a in _attn_inputs(n, heads, f, x_dtype, card))
-    whole = slab_attention_spmm_mh(_band_only(pair).fwd, x[:n], ad[:n], as_[:n],
-                                   return_stats=True)
+    whole = slab_attention_spmm_mh(pair.fwd, x[:n], ad[:n], as_[:n], return_stats=True)
     whole = [_pad(a, n_pad) for a in whole]
+    remote = 0
     for rank in range(WORLD):
-        shard = DF.shard_attention_pair(pair, rank, rs, n_pad, card).fwd
+        shard, tail_a, _ = DF.shard_attention_tables(pair, rank, rs, n_pad, WORLD, card)
+        remote += len(tail_a)
         rows = slice(rank * rs, (rank + 1) * rs)
-        args = [DF.halo_rows(x, rank, rs, r_blk), ad[rows], DF.halo_rows(as_, rank, rs, r_blk)]
+        tables = [DF.halo_table(a, as_, rank, rs, r_blk, tail_a) for a in (x, x.float().abs())]
+        as_ext = DF.halo_rows(as_, rank, rs, r_blk)
+        args, mag_args = [[t, ad[rows], as_ext] for t in tables]
         if heads == 1:
             fn, ref = attn_fwd.slab_attention_spmm_shard, attn_fwd.slab_attention_spmm_shard_ref
-            args = [a[:, 0] for a in args]
+            args, mag_args = [[t.squeeze_heads(), a[:, 0], e[:, 0]] for t, a, e in (args, mag_args)]
         else:
             fn, ref = (attn_fwd.slab_attention_spmm_mh_shard,
                        attn_fwd.slab_attention_spmm_mh_shard_ref)
         before = fn.launches
-        out, m, s = fn(shard, *args, return_stats=True)
-        want, m_want, s_want = ref(shard, *args, return_stats=True)
-        mag = ref(shard, args[0].float().abs(), *args[1:])
+        out, m, s = fn(shard.fwd, *args, return_stats=True)
+        want, m_want, s_want = ref(shard.fwd, *args, return_stats=True)
+        mag = ref(shard.fwd, *mag_args)
         torch.cuda.synchronize()
         assert fn.launches == before + 1
         if heads == 1:
@@ -722,51 +738,51 @@ def test_slab_attention_fwd_shard_matches_plain(card, r_blk, heads, f, x_dtype):
         _assert_close_to(out, whole[0][rows], mag)
         assert torch.equal(m, whole[1][rows])
         torch.testing.assert_close(s, whole[2][rows], rtol=1e-5, atol=0)
-        again = fn(shard, *args, return_stats=True)
+        again = fn(shard.fwd, *args, return_stats=True)
         if heads == 1:
             again = [a[:, None] for a in again]
         for a, b in zip((out, m, s), again):
             assert torch.equal(_bits(a), _bits(b))
+    assert remote > 0
 
 
 @pytest.mark.parametrize("r_blk", [128, 512])
 @pytest.mark.parametrize("heads,f", SHARD_ATTN_SHAPES)
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 def test_slab_attention_bwd_shard_matches_plain(card, r_blk, heads, f, x_dtype):
-    """Each shard of a 4-rank split: the backward over the shard's band by
-    destination and by source (R = 128: the band CSR with halo-extended
-    rows, ``onepass_bwd_shard``; R = 512: t_ell, ``slab_attention_bwd_shard``
-    at H = 1, ``_mh_shard`` above) within 1e-5 plus 1e-5 of the sums with
-    |x|, |g|, -|t| of its plain version and of the whole graph's band-only
-    backward on the shard's rows."""
+    """Each shard of a 4-rank split: the whole backward over the shard's
+    tables (band and fallback edges by destination over table A, by source
+    over table B, remote rows from the packed tails; R = 128: the band CSR,
+    ``onepass_bwd_shard``; R = 512: t_ell, ``slab_attention_bwd_shard`` at
+    H = 1, ``_mh_shard`` above) within 1e-5 plus 1e-5 of the sums with |x|,
+    |g|, -|t| of its plain version and of the whole graph's backward on the
+    shard's rows; one launch a call, two launches bit for bit equal."""
     pair = _attention_pair(r_blk, card)
     n = pair.fwd.num_rows
     rs, n_pad = _split(n, r_blk)
     x, ad, as_, g = _attn_inputs(n, heads, f, x_dtype, card, seed=1)
-    band = _band_only(pair)
-    _, m, s = slab_attention_spmm_mh(band.fwd, x, ad, as_, return_stats=True)
+    _, m, s = slab_attention_spmm_mh(pair.fwd, x, ad, as_, return_stats=True)
     t = torch.randn((n, heads), generator=torch.Generator(card).manual_seed(2), device=card)
     whole = [_pad(a, n_pad) for a in attn_grad.slab_attention_bwd_mh(
-        band, x, ad, as_, m, s, t, g)]
+        pair, x, ad, as_, m, s, t, g)]
     per_node = [_pad(a, n_pad) for a in (x, ad, as_, m, s, t, g)]
-    per_node[4][n:] = 1e-16      # padded rows, as the halo exchange leaves them
     counter = (attn_grad.onepass_bwd_shard if r_blk == 128 else
                attn_grad.slab_attention_bwd_shard if heads == 1 else
                attn_grad.slab_attention_bwd_mh_shard)
     for rank in range(WORLD):
-        shard = DF.shard_attention_pair(pair, rank, rs, n_pad, card)
-        ext = [DF.halo_rows(a, rank, rs, r_blk) for a in per_node]
+        shard, args, mag_args = _shard_bwd_args(pair, rank, rs, n_pad, per_node)
         before = counter.launches
-        got = attn_grad.slab_attention_bwd_mh_shard(shard, *ext)
-        want = attn_grad.slab_attention_bwd_shard_ref(shard, *ext)
-        mag = attn_grad.slab_attention_bwd_shard_ref(
-            shard, ext[0].float().abs(), *ext[1:5], -ext[5].abs(), ext[6].abs())
+        got = attn_grad.slab_attention_bwd_mh_shard(shard, *args)
+        want = attn_grad.slab_attention_bwd_shard_ref(shard, *args)
+        mag = attn_grad.slab_attention_bwd_shard_ref(shard, *mag_args)
         torch.cuda.synchronize()
         assert counter.launches == before + 1
         rows = slice(rank * rs, (rank + 1) * rs)
         for a, b, c, w in zip(got, want, mag, whole):
             _assert_close_to(a, b, c)
             _assert_close_to(a, w[rows], c)
+        for a, b in zip(got, attn_grad.slab_attention_bwd_mh_shard(shard, *args)):
+            assert torch.equal(_bits(a), _bits(b))
 
 
 # -- the CSR SpMM's sized groups and split long rows, the one-pass backward's
@@ -861,8 +877,8 @@ def test_onepass_bwd_windows_repeat_and_probe(card, heads, f, x_dtype):
 
 
 def test_onepass_bwd_shard_repeat(card):
-    """The shard kernel (col_offset = R, real halos) twice on the same
-    inputs: bit for bit equal."""
+    """The shard backward (its tables: real halos and remote rows) twice on
+    the same inputs: bit for bit equal."""
     pair = _attention_pair(128, card)
     n = pair.fwd.num_rows
     rs, n_pad = _split(n, 128)
@@ -870,11 +886,9 @@ def test_onepass_bwd_shard_repeat(card):
     _, m, s = slab_attention_spmm_mh(pair.fwd, x, ad, as_, return_stats=True)
     t = torch.randn((n, 4), generator=torch.Generator(card).manual_seed(9), device=card)
     per_node = [_pad(a, n_pad) for a in (x, ad, as_, m, s, t, g)]
-    per_node[4][n:] = 1e-16
-    shard = DF.shard_attention_pair(pair, 1, rs, n_pad, card)
-    ext = [DF.halo_rows(a, 1, rs, 128) for a in per_node]
-    for a, b in zip(attn_grad.onepass_bwd_shard(shard, *ext),
-                    attn_grad.onepass_bwd_shard(shard, *ext)):
+    shard, args, _ = _shard_bwd_args(pair, 1, rs, n_pad, per_node)
+    for a, b in zip(attn_grad.onepass_bwd_shard(shard, *args),
+                    attn_grad.onepass_bwd_shard(shard, *args)):
         assert torch.equal(_bits(a), _bits(b))
 
 
@@ -945,23 +959,19 @@ def test_onepass_bwd_tiles_across_blocks(card, heads, f, x_dtype):
         assert torch.equal(_bits(a), _bits(b))
     rs, n_pad = _split(n, r_blk)
     assert rs == 3 * r_blk
-    _, m, s = slab_attention_spmm_mh(_band_only(pair).fwd, x, ad, as_, return_stats=True)
     per_node = [_pad(a, n_pad) for a in (x, ad, as_, m, s, t, g)]
-    per_node[4][n:] = 1e-16      # padded rows, as the halo exchange leaves them
     for rank in range(WORLD):
-        shard = DF.shard_attention_pair(pair, rank, rs, n_pad, card)
+        shard, args, mag_args = _shard_bwd_args(pair, rank, rs, n_pad, per_node)
         assert (shard.t_rows.numel() == 0) == (rank == WORLD - 1)
-        ext = [DF.halo_rows(a, rank, rs, r_blk) for a in per_node]
         before = attn_grad.onepass_bwd_shard.launches
-        got = attn_grad.onepass_bwd_shard(shard, *ext)
+        got = attn_grad.onepass_bwd_shard(shard, *args)
         torch.cuda.synchronize()
         assert attn_grad.onepass_bwd_shard.launches == before + 1
-        want = attn_grad.slab_attention_bwd_shard_ref(shard, *ext)
-        mag = attn_grad.slab_attention_bwd_shard_ref(
-            shard, ext[0].float().abs(), *ext[1:5], -ext[5].abs(), ext[6].abs())
+        want = attn_grad.slab_attention_bwd_shard_ref(shard, *args)
+        mag = attn_grad.slab_attention_bwd_shard_ref(shard, *mag_args)
         for a, b, c in zip(got, want, mag):
             _assert_close_to(a, b, c)
-        for a, b in zip(got, attn_grad.onepass_bwd_shard(shard, *ext)):
+        for a, b in zip(got, attn_grad.onepass_bwd_shard(shard, *args)):
             assert torch.equal(_bits(a), _bits(b))
 
 

@@ -507,21 +507,33 @@ def test_shard_wrappers_refuse_other_devices():
     shard = DF.shard_slab(DF._padded(slab.ell.numpy(), 128, -1), None, 0, 128, 128, "meta")
     with pytest.raises(ValueError, match="no kernel"):
         slab_spmm_band_shard(shard, torch.empty((384, 8), device="meta"))
+
+    def table(r_blk, heads, head_values):
+        """A ShardTable of (R, heads, 4) parts on the meta device, no tail."""
+        tail = attn_fwd.pack_rows(torch.empty((0, head_values), device="meta"),
+                                  torch.empty((0, heads, 4), device="meta"))
+        return attn_fwd.ShardTable(*(torch.empty((r_blk, heads, 4), device="meta")
+                                     for _ in range(3)), tail)
+
     for r_blk in (128, 512):
         pair = attn_grad.build_attention_slab_pair(indptr, indices, block_rows=r_blk,
                                                    device="cpu")
         sp = DF.shard_attention_pair(pair, 0, r_blk, r_blk, "meta")
         ext = 3 * r_blk
-        x3, s2 = torch.empty((ext, 2, 4), device="meta"), torch.empty((ext, 2), device="meta")
+        s2, st = torch.empty((ext, 2), device="meta"), torch.empty((ext, 2, 4), device="meta")
         ad = torch.empty((r_blk, 2), device="meta")
         with pytest.raises(ValueError, match="no kernel"):
-            attn_fwd.slab_attention_spmm_mh_shard(sp.fwd, x3, ad, s2)
+            attn_fwd.slab_attention_spmm_mh_shard(sp.fwd, table(r_blk, 2, 2), ad, s2)
         with pytest.raises(ValueError, match="no kernel"):
-            attn_fwd.slab_attention_spmm_shard(sp.fwd, x3[:, 0], ad[:, 0], s2[:, 0])
+            attn_fwd.slab_attention_spmm_shard(sp.fwd, table(r_blk, 1, 1).squeeze_heads(),
+                                               ad[:, 0], s2[:, 0])
         with pytest.raises(ValueError, match="no kernel"):
-            attn_grad.slab_attention_bwd_mh_shard(sp, x3, s2, s2, s2, s2, s2, x3)
+            attn_grad.slab_attention_bwd_mh_shard(sp, table(r_blk, 2, 2), s2,
+                                                  table(r_blk, 2, 8), st)
         with pytest.raises(ValueError, match="no kernel"):
-            attn_grad.slab_attention_bwd_shard(sp, x3[:, 0], *(s2[:, 0],) * 5, x3[:, 0])
+            attn_grad.slab_attention_bwd_shard(sp, table(r_blk, 1, 1).squeeze_heads(),
+                                               s2[:, 0], table(r_blk, 1, 4).squeeze_heads(),
+                                               st[:, 0])
 
 
 @pytest.mark.parametrize("model_cls,block_rows", [(GCN, 128), (GAT, 128), (GAT, 512)])
